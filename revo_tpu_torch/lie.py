@@ -1,0 +1,222 @@
+"""SO(3) / SE(3) maps on torch tensors (counterpart of revo_tpu/lie.py).
+
+The subset the per-frame tracking step needs: exp/log of SO(3) and SE(3),
+compose, inverse, (R, t) <-> 4x4 and the TUM quaternion pair.  Same formulas,
+small-angle Taylor branches and near-pi log branch as the JAX module, in
+float32.  Tangent convention ``xi = [upsilon, omega]`` (Sophus, se3.hpp:723).
+
+3x3 products are plain float32 ``matmul``s: ``chip_smoke.py`` pins
+``torch.backends.cuda.matmul.allow_tf32 = False`` so the card never rounds
+them to TF32 (the JAX side measured reduced-precision pose products doubling
+ATE, revo_tpu/lie.py:23-31).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-8
+
+
+def _eye_like(x: torch.Tensor, batch_shape) -> torch.Tensor:
+    return torch.eye(3, dtype=x.dtype, device=x.device).expand(*batch_shape, 3, 3)
+
+
+def hat_so3(omega: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of a 3-vector."""
+    wx, wy, wz = omega[..., 0], omega[..., 1], omega[..., 2]
+    zeros = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([zeros, -wz, wy], dim=-1),
+            torch.stack([wz, zeros, -wx], dim=-1),
+            torch.stack([-wy, wx, zeros], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def exp_so3(omega: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula with Taylor fallback (so3.hpp ``SO3::exp``)."""
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta = torch.sqrt(theta_sq)
+    small = theta_sq < _EPS
+    theta_safe = torch.where(small, torch.ones_like(theta), theta)
+    a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta_safe) / theta_safe)
+    b = torch.where(
+        small,
+        0.5 - theta_sq / 24.0,
+        (1.0 - torch.cos(theta_safe)) / (theta_safe * theta_safe),
+    )
+    W = hat_so3(omega)
+    W2 = W @ W
+    eye = _eye_like(omega, W.shape[:-2])
+    return eye + a[..., None, None] * W + b[..., None, None] * W2
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation-matrix logarithm, stable near 0 (Taylor) and near pi (axis
+    from the diagonal of (R + I) / 2)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    skew = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    sin_theta = 0.5 * torch.linalg.vector_norm(skew, dim=-1)
+    theta = torch.atan2(sin_theta, cos_theta)
+    theta_sq = theta * theta
+    near_zero = theta_sq < _EPS
+    near_pi = (math.pi - theta) < 1e-3
+
+    sin_safe = torch.where(sin_theta == 0, torch.ones_like(sin_theta), sin_theta)
+    factor = torch.where(
+        near_zero, 0.5 + theta_sq / 12.0, theta / (2.0 * sin_safe)
+    )
+    omega_generic = factor[..., None] * skew
+
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    RI = (R + torch.eye(3, dtype=R.dtype, device=R.device)) * 0.5
+    col = torch.gather(
+        RI, -1, k[..., None, None].expand(*k.shape, 3, 1)
+    )[..., 0]
+    col_norm = torch.linalg.vector_norm(col, dim=-1, keepdim=True)
+    col_safe = col / torch.where(col_norm == 0, torch.ones_like(col_norm), col_norm)
+    sign = torch.where(
+        torch.sum(col_safe * skew, dim=-1, keepdim=True) < 0, -1.0, 1.0
+    )
+    omega_pi = theta[..., None] * col_safe * sign
+    return torch.where(near_pi[..., None], omega_pi, omega_generic)
+
+
+def _so3_left_jacobian_terms(omega: torch.Tensor):
+    """Coefficients (b, c) of V = I + b W + c W^2 (se3.hpp:741-766)."""
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta = torch.sqrt(theta_sq)
+    small = theta_sq < _EPS
+    theta_safe = torch.where(small, torch.ones_like(theta), theta)
+    b = torch.where(
+        small,
+        0.5 - theta_sq / 24.0,
+        (1.0 - torch.cos(theta_safe)) / (theta_safe * theta_safe),
+    )
+    c = torch.where(
+        small,
+        1.0 / 6.0 - theta_sq / 120.0,
+        (theta_safe - torch.sin(theta_safe))
+        / (theta_safe * theta_safe * theta_safe),
+    )
+    return b, c
+
+
+def exp_se3(xi: torch.Tensor):
+    """SE(3) exponential: xi = [upsilon, omega] -> (R, t = V upsilon)."""
+    upsilon = xi[..., :3]
+    omega = xi[..., 3:]
+    R = exp_so3(omega)
+    b, c = _so3_left_jacobian_terms(omega)
+    W = hat_so3(omega)
+    W2 = W @ W
+    eye = _eye_like(xi, W.shape[:-2])
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    t = (V @ upsilon[..., None])[..., 0]
+    return R, t
+
+
+def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """SE(3) logarithm (se3.hpp ``SE3::log``)."""
+    omega = log_so3(R)
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    small = theta_sq < _EPS
+    theta_safe = torch.where(small, torch.ones_like(theta_sq), torch.sqrt(theta_sq))
+    half = theta_safe * 0.5
+    e = torch.where(
+        small,
+        1.0 / 12.0 + theta_sq / 720.0,
+        (1.0 - half * torch.cos(half) / torch.sin(half)) / theta_sq,
+    )
+    W = hat_so3(omega)
+    W2 = W @ W
+    eye = _eye_like(R, W.shape[:-2])
+    Vinv = eye - 0.5 * W + e[..., None, None] * W2
+    upsilon = (Vinv @ t[..., None])[..., 0]
+    return torch.cat([upsilon, omega], dim=-1)
+
+
+def compose(R1, t1, R2, t2):
+    """(R1, t1) * (R2, t2): first apply 2, then 1."""
+    return R1 @ R2, (R1 @ t2[..., None])[..., 0] + t1
+
+
+def inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def matrix_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """4x4 homogeneous matrix from (R, t)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    T = torch.zeros(*batch, 4, 4, dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def rt_from_matrix(T: torch.Tensor):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def quaternion_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (x, y, z, w), TUM pose-file order, by
+    the largest of the four Shepperd candidates; canonical sign w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], dim=-1)
+    qx0 = torch.stack(
+        [1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], dim=-1
+    )
+    qy0 = torch.stack(
+        [m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21, m02 - m20], dim=-1
+    )
+    qz0 = torch.stack(
+        [m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22, m10 - m01], dim=-1
+    )
+    cands = torch.stack([qw0, qx0, qy0, qz0], dim=-2)  # (..., 4, 4)
+    scores = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+         1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    best = torch.argmax(scores, dim=-1)
+    q = torch.gather(
+        cands, -2, best[..., None, None].expand(*best.shape, 1, 4)
+    )[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def matrix_from_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (x, y, z, w) -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n == 0, torch.zeros_like(n), 2.0 / n)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -1,0 +1,44 @@
+"""Bilinear sampling of the dt-only quad table (counterpart of
+revo_tpu/ops/interp.py::bilinear_sample_dtquad, non-lane path).
+
+Coordinates are floored like the reference's int cast
+(optimizer.h:173-185); callers mask lanes outside 1 < u < W-2, 1 < v < H-2
+(optimizer.cpp:100), and indices are clamped here only to stay in memory.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def bilinear_sample_dtquad(
+    quad: torch.Tensor, u: torch.Tensor, v: torch.Tensor, h: int, w: int
+) -> torch.Tensor:
+    """(H*W, 4) dt taps sampled at (u, v) (N,) -> (N, 3) (gx, gy, dt).
+
+    dt is the reference's 4-tap bilinear formula; gx, gy are the analytic
+    derivatives of that bilinear surface, negated to the keyframe
+    structure's sign convention (imgpyramidrgbd.cpp:267-274):
+        gx = -(dy (i11 - i10) + (1 - dy)(i01 - i00))
+        gy = -(dx (i11 - i01) + (1 - dx)(i10 - i00))
+    """
+    fu, fv = torch.floor(u), torch.floor(v)
+    dx = (u - fu)[:, None]
+    dy = (v - fv)[:, None]
+    # Clamp in float first: the int cast of a huge or NaN coordinate is
+    # undefined, and such lanes are masked by the caller anyway.
+    ix = torch.nan_to_num(fu, nan=0.0).clamp(0, w - 2).to(torch.int64)
+    iy = torch.nan_to_num(fv, nan=0.0).clamp(0, h - 2).to(torch.int64)
+    q = quad[iy * w + ix]
+    if q.dtype != u.dtype:
+        q = q.to(u.dtype)  # bf16 storage upcasts after the gather
+    i00, i01, i10, i11 = q[:, 0:1], q[:, 1:2], q[:, 2:3], q[:, 3:4]
+    dxdy = dx * dy
+    dt_s = (
+        dxdy * i11
+        + (dy - dxdy) * i10
+        + (dx - dxdy) * i01
+        + (1.0 - dx - dy + dxdy) * i00
+    )
+    gx = -(dy * (i11 - i10) + (1.0 - dy) * (i01 - i00))
+    gy = -(dx * (i11 - i01) + (1.0 - dx) * (i10 - i00))
+    return torch.cat([gx, gy, dt_s], dim=-1)
