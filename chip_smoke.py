@@ -2,10 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives revo_tpu_torch's per-frame tracking step end to end at full width:
-one 640x480 RGB-D sequence (8 frames, TUM fr1 intrinsics, 3 levels, default
-SystemConfig), keyframe from frame 0, frames 1..7 tracked in a chain, with
-solver "lm" and then "gn_fixed".  Phases, one line each:
+Drives revo_tpu_torch end to end at full width (640x480, TUM fr1
+intrinsics, 3 levels, default SystemConfig): the per-frame tracking step on
+an 8-frame chain (keyframe from frame 0, frames 1..7 tracked, solver "lm"
+and then "gn_fixed"), then the VO system loop: VOSystem.run, vo_scan and
+capacity calibration on a fast 20-frame pan (4 cm + ~1 deg per frame, so
+histogram voting promotes keyframes) followed by one teleport frame back at
+frame 0's pose with the motion prior poisoned (so the jump gate fires and
+the keyframe ring relocalizes).  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
@@ -20,9 +24,25 @@ solver "lm" and then "gn_fixed".  Phases, one line each:
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
 6. times     CUDA-event times per stage and per kernel against its plain
-             version at the level-0 shape.
+             version at the level-0 shape, and per frame of VOSystem and
+             vo_scan;
+7. vo        VOSystem.run on the card over pan + teleport: at least one
+             promotion and one relocalization, never lost; per-frame flags
+             equal to the same run on the CPU (plain versions), poses within
+             1e-4 m / 1e-4 rad of it; ATE under 1.5x the JAX package's CPU
+             ATE on this sequence; the TUM file run() writes reads back to
+             the same poses;
+8. scan      vo_scan on the card over the pan: promotion flags equal to
+             phase 7's, poses within 5e-4 of them; vo_scan_batched at B=2
+             (the pan and a second seed) equal lane by lane to vo_scan;
+9. autotune  calibrate_capacities at margin 0.65 on the first 2 frames, on
+             the card and on the CPU: equal capacities.
 
-Any failed phase raises and the exit code is nonzero.  The second-to-last
+Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 6.  Launch counts are set
+to 0 just before each main path (phases 5, 7, 8, 9)
+and read just after; every kernel of the path must have launched.  The
+kernel JSON's ``launches`` sum those four runs.  Any failed phase raises
+and the exit code is nonzero.  The second-to-last
 lines are the kernel JSON and the card's name and power limit; the last line
 is the JSON result.  Without a CUDA device it exits nonzero and prints no
 result.
@@ -35,6 +55,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,6 +64,18 @@ N_FRAMES = 8
 ATE_LIMIT_M = 2e-3
 POSE_TOL = 1e-4  # metres and radians, card against CPU
 K3_RTOL = 1e-5  # of the largest entry of each output
+N_PAN = 20  # pan frames; the teleport frame follows
+PAN_STEP = (0.04, 0.0, 0.005, 0.0, 0.017, 0.0)  # tests/test_system.py:47-73
+# The JAX package's ATE on pan + teleport, VOSystem on the CPU (PERF.md
+# section 2), times 1.5.
+JAX_CPU_ATE_M = 0.001134469790991418
+VO_ATE_LIMIT_M = 1.5 * JAX_CPU_ATE_M
+# TUM file read back against the run: translations have 9 decimals; the
+# rotation goes through a float32 quaternion, which also drops the pose
+# products' drift from orthonormal (~2e-6 rad on a 160x120 rehearsal).
+TUM_TOL_M, TUM_TOL_RAD = 1e-6, 1e-5
+SCAN_TOL = 5e-4  # vo_scan against VOSystem (tests/test_batch.py:35-48)
+CAPACITY_MARGIN = 0.65  # the JAX bench's operating point
 
 
 def _phase(name, **fields):
@@ -116,6 +149,88 @@ def _rot_angle(Ra, Rb) -> float:
     return math.atan2(s, (np.trace(D) - 1.0) / 2.0)
 
 
+def _max_pose_diff(a, b):
+    """(max translation difference m, max rotation angle rad) of two
+    (N, 4, 4) pose stacks."""
+    dt = float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())
+    return dt, max(_rot_angle(x[:3, :3], y[:3, :3]) for x, y in zip(a, b))
+
+
+def pan_sequence(n: int):
+    """World poses of tests/test_system.py's fast lateral pan (n frames from
+    the identity), then the teleport frame at frame 0's pose: (n + 1, 4, 4)."""
+    import torch
+
+    from revo_tpu_torch import lie
+
+    step = lie.matrix_from_rt(*lie.exp_se3(torch.tensor(PAN_STEP))).numpy()
+    T = np.eye(4, dtype=np.float32)
+    traj = []
+    for _ in range(n):
+        traj.append(T.copy())
+        T = T @ step
+    return np.stack(traj + [traj[0]])
+
+
+def poison_motion_prior(vo, to_tensor) -> None:
+    """tests/test_relocalization.py:24-31: a stale constant-velocity prior
+    that sends plain tracking of the teleport frame astray."""
+    vo.T_nm1_n = np.eye(4, dtype=np.float32)
+    vo.T_nm1_n[:3, 3] = [1.5, 1.0, -0.8]
+    vo.R = to_tensor(vo.T_nm1_n[:3, :3].copy())
+    vo.t = to_tensor(vo.T_nm1_n[:3, 3].copy())
+
+
+def counters(vo) -> np.ndarray:
+    return np.array([vo.n_keyframes, vo.n_relocalized, vo.n_tracking_lost])
+
+
+def run_teleport(vo, grays, depths, pose_file, to_tensor):
+    """vo.run over the pan with the motion prior poisoned just before the
+    last (teleport) frame.  Returns (poses, per-frame (promoted,
+    relocalized, lost) counter increments (N, 3), report)."""
+    marks = []
+
+    def frames():
+        for i, (g, d) in enumerate(zip(grays, depths)):
+            if i == len(grays) - 1:
+                poison_motion_prior(vo, to_tensor)
+            marks.append(counters(vo))
+            yield g, d, i / 30.0
+
+    poses, _, report = vo.run(frames(), pose_file=pose_file)
+    marks.append(counters(vo))
+    return poses, np.diff(np.stack(marks), axis=0), report
+
+
+def _sensor_frames(rendered, cfg):
+    """Rendered frames as a TUM sensor delivers them: uint8 gray and uint16
+    depth scaled by DEPTH_SCALE_FACTOR."""
+    grays = [g.astype(np.uint8) for g, _, _, _ in rendered]
+    depths = [
+        (d * cfg.dataset.depth_scale_factor).astype(np.uint16) for _, d, _, _ in rendered
+    ]
+    return grays, depths, np.stack([T for _, _, T, _ in rendered]).astype(np.float64)
+
+
+def _path_launches(counters_, fn):
+    """Run one main path with every launch count set to 0 just before it;
+    returns (its result, the counts just after)."""
+    import torch
+
+    for c in counters_:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters_}
+
+
+def _require_launched(phase, launches, names):
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        raise RuntimeError(f"{phase}: kernels of the path never launched: {missing} ({launches})")
+
+
 def main() -> int:
     import torch
 
@@ -150,33 +265,32 @@ def main() -> int:
            library=os.path.relpath(lib.path))
 
     # -- 3. frames -----------------------------------------------------------
+    # One process pool renders the 8-frame chain, the pan + teleport, and
+    # the second sequence of phase 8's batch.
     cfg = SystemConfig()
     cam = cfg.camera
     scene = SyntheticScene()
     t0 = time.perf_counter()
-    traj = scene.trajectory(N_FRAMES, seed=0)
+    trajs = [scene.trajectory(N_FRAMES, seed=0), pan_sequence(N_PAN),
+             scene.trajectory(N_PAN, seed=1)]
     rendered = render_trajectory_parallel(
-        scene, cam, traj, seed=0, workers=min(N_FRAMES, max(os.cpu_count() - 1, 1))
+        scene, cam, np.concatenate(trajs), seed=0, workers=max(os.cpu_count() - 1, 1)
     )
-    grays = [g.astype(np.uint8) for g, _, _, _ in rendered]
-    depths = [
-        (d * cfg.dataset.depth_scale_factor).astype(np.uint16) for _, d, _, _ in rendered
-    ]
-    gt = np.stack([T for _, _, T, _ in rendered]).astype(np.float64)
-    _phase("frames", n=N_FRAMES, shape=list(grays[0].shape),
+    grays, depths, gt = _sensor_frames(rendered[:N_FRAMES], cfg)
+    pan = _sensor_frames(rendered[N_FRAMES:N_FRAMES + N_PAN + 1], cfg)
+    second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:], cfg)
+    _phase("frames", n=len(rendered), shape=list(grays[0].shape),
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
-    counters = (K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce)
-    for c in counters:
-        c.launches = 0
-    gpu = {}
-    for name in ("lm", "gn_fixed"):
-        gpu[name] = _run_chain(grays, depths, _with_solver(cfg, name), dev)
-    torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    counters_ = (K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce)
+    all_kernels = [c.__name__ for c in counters_]
+    gpu, launches = _path_launches(counters_, lambda: {
+        name: _run_chain(grays, depths, _with_solver(cfg, name), dev)
+        for name in ("lm", "gn_fixed")
+    })
+    _require_launched("main", launches, all_kernels)
+    launch_total = dict(launches)
 
     summary = {"launches": launches}
     for name in ("lm", "gn_fixed"):
@@ -248,6 +362,113 @@ def main() -> int:
            k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL)
     _phase("main", **summary)
 
+    from revo_tpu_torch.autotune import calibrate_capacities
+    from revo_tpu_torch.io.tum import read_tum_trajectory
+    from revo_tpu_torch.parallel import batch
+    from revo_tpu_torch.system import VOSystem
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launch_total[k] += v
+
+    # -- 7. vo: VOSystem.run over the pan + teleport -------------------------
+    p_grays, p_depths, p_gt = pan
+    with tempfile.TemporaryDirectory() as tmp:
+        pose_file = os.path.join(tmp, "poses.txt")
+
+        def card_vo():
+            vo = VOSystem(cfg, device=dev)
+            return vo, run_teleport(vo, p_grays, p_depths, pose_file,
+                                    lambda a: torch.from_numpy(a).to(dev))
+
+        (vo_card, (poses_c, flags_c, report_c)), launches = _path_launches(counters_, card_vo)
+        _require_launched("vo", launches, all_kernels)
+        add_launches(launches)
+        _, file_poses = read_tum_trajectory(pose_file)
+    vo_cpu = VOSystem(cfg, device="cpu")
+    poses_h, flags_h, _ = run_teleport(vo_cpu, p_grays, p_depths, None, torch.from_numpy)
+    vo_dt, vo_dr = _max_pose_diff(poses_c, poses_h)
+    vo_ate = absolute_trajectory_error(poses_c, p_gt).rmse
+    file_dt, file_dr = _max_pose_diff(file_poses, poses_c)
+    vo_summary = {
+        "frames": report_c.frames_tracked, "keyframes": report_c.keyframes,
+        "relocalized": vo_card.n_relocalized, "lost": report_c.tracking_lost,
+        "promoted_at": (np.flatnonzero(flags_c[1:, 0] > 0) + 1).tolist(),
+        "relocalized_at": np.flatnonzero(flags_c[:, 1] > 0).tolist(),
+        "latency_ms_p50": report_c.latency_ms_p50, "latency_ms_p95": report_c.latency_ms_p95,
+        "latency_ms_p99": report_c.latency_ms_p99,
+        "mean_tracking_ms": report_c.mean_tracking_time_ms,
+        "mean_keyframe_ms": report_c.mean_dt_time_ms,
+        "ate_m": vo_ate, "ate_limit_m": VO_ATE_LIMIT_M, "vs_cpu_m": vo_dt, "vs_cpu_rad": vo_dr,
+        "tum_file_vs_run_m": file_dt, "tum_file_vs_run_rad": file_dr,
+        "launches": launches, "smi": smi,
+    }
+    if not (flags_c[1:, 0].sum() >= 1 and flags_c[:, 1].sum() >= 1 and flags_c[:, 2].sum() == 0):
+        raise RuntimeError(f"vo: want >= 1 promotion, >= 1 relocalization, 0 lost: {vo_summary}")
+    if not np.array_equal(flags_c, flags_h):
+        raise RuntimeError(f"vo: card flags {flags_c.tolist()} != CPU flags {flags_h.tolist()}")
+    if not (vo_dt <= POSE_TOL and vo_dr <= POSE_TOL and np.isfinite(poses_c).all()):
+        raise RuntimeError(f"vo: card poses differ from CPU by {vo_dt} m, {vo_dr} rad")
+    if not vo_ate < VO_ATE_LIMIT_M:
+        raise RuntimeError(f"vo: ATE {vo_ate} m >= {VO_ATE_LIMIT_M} m")
+    if not (file_poses.shape == poses_c.shape and file_dt <= TUM_TOL_M and file_dr <= TUM_TOL_RAD):
+        raise RuntimeError(f"vo: TUM file reads back {file_dt} m, {file_dr} rad off the run")
+    _phase("vo", **vo_summary)
+
+    # -- 8. scan: vo_scan over the pan, and B=2 batched ----------------------
+    def stack(frames_):
+        return torch.from_numpy(np.stack(frames_[:N_PAN])).to(dev)
+
+    g_pan, d_pan = stack(p_grays), stack(p_depths)
+    g_two, d_two = stack(second[0]), stack(second[1])
+
+    def card_scan():
+        scan = batch.vo_scan(g_pan, d_pan, cfg)
+        two = batch.vo_scan(g_two, d_two, cfg)[0]
+        lanes = batch.vo_scan_batched(torch.stack([g_pan, g_two]), torch.stack([d_pan, d_two]), cfg)
+        return scan, two, lanes
+
+    ((poses_s, outs_s, _), poses_two, lanes), launches = _path_launches(counters_, card_scan)
+    _require_launched("scan", launches, all_kernels)
+    add_launches(launches)
+    poses_s = poses_s.cpu().numpy().astype(np.float64)
+    promoted_s = outs_s.promoted.cpu().numpy()
+    sc_dt, sc_dr = _max_pose_diff(poses_s, poses_c[:N_PAN])
+    scan_summary = {
+        "frames": N_PAN, "promoted_at": np.flatnonzero(promoted_s).tolist(),
+        "relocalized": int(outs_s.relocalized.sum()), "lost": int(outs_s.lost.sum()),
+        "vs_vosystem_m": sc_dt, "vs_vosystem_rad": sc_dr, "tol": SCAN_TOL,
+        "ate_m": absolute_trajectory_error(poses_s, p_gt[:N_PAN]).rmse,
+        "ate_second_m": absolute_trajectory_error(
+            poses_two.cpu().numpy().astype(np.float64), second[2]).rmse,
+        "launches": launches, "smi": smi,
+    }
+    want_promoted = flags_c[:N_PAN, 0] > 0
+    want_promoted[0] = False  # frame 0 is the first keyframe, not a promotion
+    if not (np.array_equal(promoted_s, want_promoted) and scan_summary["relocalized"] == 0
+            and scan_summary["lost"] == 0):
+        raise RuntimeError(f"scan: flags differ from VOSystem's: {scan_summary}")
+    if not (sc_dt <= SCAN_TOL and sc_dr <= SCAN_TOL):
+        raise RuntimeError(f"scan: poses differ from VOSystem by {sc_dt} m, {sc_dr} rad")
+    if not (lanes.shape == (2, N_PAN, 4, 4) and torch.equal(lanes[0], outs_s.T_w)
+            and torch.equal(lanes[1], poses_two)):
+        raise RuntimeError("scan: vo_scan_batched lanes differ from vo_scan")
+    _phase("scan", **scan_summary)
+
+    # -- 9. autotune: capacities from the first 2 frames ---------------------
+    def calibrate(device):
+        return calibrate_capacities(cfg, p_grays[:2], p_depths[:2], margin=CAPACITY_MARGIN,
+                                    device=device).pyramid.edge_capacity
+
+    caps_card, launches = _path_launches(counters_, lambda: calibrate(dev))
+    _require_launched("autotune", launches, ["canny_nms", "canny_hysteresis"])
+    add_launches(launches)
+    caps_cpu = calibrate("cpu")
+    if caps_card != caps_cpu:
+        raise RuntimeError(f"autotune: card capacities {caps_card} != CPU {caps_cpu}")
+    _phase("autotune", margin=CAPACITY_MARGIN, edge_capacity=list(caps_card),
+           launches=launches)
+
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")
     from revo_tpu_torch import frontend, tracker
@@ -273,6 +494,20 @@ def main() -> int:
 
         stage_ms[f"track_frames_{name}"] = _time_ms(chain, 3, warmup=1) / (N_FRAMES - 1)
 
+    # The VO loops over the pan, warmed up by phases 7 and 8.
+    timed = {}
+
+    def vo_pan():
+        timed["vo"] = VOSystem(cfg, device=dev)
+        timed["vo"].run(zip(p_grays[:N_PAN], p_depths[:N_PAN], np.arange(N_PAN) / 30.0))
+
+    stage_ms["process_frame"] = _time_ms(vo_pan, 1, warmup=0) / N_PAN
+    rep = timed["vo"].report()
+    stage_ms["process_frame_p50_p95_p99"] = [
+        rep.latency_ms_p50, rep.latency_ms_p95, rep.latency_ms_p99]
+    stage_ms["vo_scan_frame"] = _time_ms(
+        lambda: batch.vo_scan(g_pan, d_pan, cfg), 1, warmup=0) / N_PAN
+
     gp0 = _reflect_pad(frames_lm[1].levels[0].gray[None], 1, 1).contiguous()
     c0, s0 = K12.canny_nms_ref(gp0, lo, hi)
     terms0 = solver.residual_terms(
@@ -297,7 +532,7 @@ def main() -> int:
         ms_k2, ms_p2 = _time_ms(fk, 50), _time_ms(fp, 50)
         rows.append({
             "name": name, "route": "cuda", "source": f"revo_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launch_total[name],
             "max_abs_err": err, "ms": min(ms_k, ms_k2), "plain_ms": min(ms_p, ms_p2),
         })
     _phase("times", smi=smi, stage_ms_per_frame=stage_ms,

@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
-REVO has no weights: its state is the configuration and the keyframe.  These
-helpers read JAX-side objects by attribute only, with array leaves already
-converted by ``np.asarray``, so this module imports neither jax nor
-revo_tpu.
+REVO has no weights: its state is the configuration, the keyframe and the
+VO loop's rings.  These helpers read JAX-side objects by attribute only,
+with array leaves already converted by ``np.asarray``, so this module
+imports neither jax nor revo_tpu.  Ring fill counts and loop flags become
+Python ints and bools, as the port keeps them.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from revo_tpu_torch import config as C
 from revo_tpu_torch.frontend import Frame, FrameLevel, Keyframe
 from revo_tpu_torch.ops.backproject import EdgeCloud
+from revo_tpu_torch.parallel.batch import ScanVOState
+from revo_tpu_torch.tracker import KeyframeRing, PastFrames
 
 _SECTIONS = {
     "camera": C.CameraConfig,
@@ -79,4 +82,41 @@ def keyframe_from_numpy(tree, device="cpu") -> Keyframe:
         quads=tuple(_tensor(q, device) for q in tree.quads),
         frame=frame_from_numpy(tree.frame, device),
         T_w_k=_tensor(tree.T_w_k, device),
+    )
+
+
+def past_from_numpy(tree, device="cpu") -> PastFrames:
+    """A JAX ``PastFrames`` with numpy leaves -> the port's PastFrames."""
+    return PastFrames(
+        points=_tensor(tree.points, device),
+        valid=_tensor(tree.valid, device),
+        poses=_tensor(tree.poses, device),
+        n=int(tree.n),
+    )
+
+
+def ring_from_numpy(tree, device="cpu") -> KeyframeRing:
+    """A JAX ``KeyframeRing`` with numpy leaves -> the port's KeyframeRing."""
+    return KeyframeRing(
+        structs=tuple(_tensor(s, device) for s in tree.structs),
+        quads=tuple(_tensor(q, device) for q in tree.quads),
+        T_w_k=_tensor(tree.T_w_k, device),
+        n=int(tree.n),
+    )
+
+
+def scan_state_from_numpy(tree, device="cpu") -> ScanVOState:
+    """A JAX ``ScanVOState`` with numpy leaves -> the port's ScanVOState."""
+    return ScanVOState(
+        kf=keyframe_from_numpy(tree.kf, device),
+        prev=frame_from_numpy(tree.prev, device),
+        prev_T_w=_tensor(tree.prev_T_w, device),
+        past=past_from_numpy(tree.past, device),
+        past_voting=past_from_numpy(tree.past_voting, device),
+        R=_tensor(tree.R, device),
+        t=_tensor(tree.t, device),
+        T_nm1_n=_tensor(tree.T_nm1_n, device),
+        just_added_kf=bool(tree.just_added_kf),
+        n_keyframes=int(tree.n_keyframes),
+        kf_ring=None if tree.kf_ring is None else ring_from_numpy(tree.kf_ring, device),
     )

@@ -1,8 +1,9 @@
-"""Absolute trajectory error (numpy copy of revo_tpu/eval/ate.py).
+"""ATE / RPE (numpy copy of revo_tpu/eval/ate.py).
 
-Rigidly align the estimated to the ground-truth translations (Horn,
+ATE: rigidly align the estimated to the ground-truth translations (Horn,
 rotation + translation, no scale) and report the translational RMSE, as TUM
-evaluate_ate.py does.
+evaluate_ate.py does.  RPE: per-pair relative-motion error over a fixed
+frame delta, translational and rotational RMSE (TUM evaluate_rpe.py).
 """
 from __future__ import annotations
 
@@ -46,4 +47,30 @@ def absolute_trajectory_error(est_poses: np.ndarray, gt_poses: np.ndarray) -> AT
         median=float(np.median(err)),
         max=float(err.max()),
         aligned_est=aligned,
+    )
+
+
+class RPEResult(NamedTuple):
+    trans_rmse: float
+    rot_rmse_deg: float
+
+
+def relative_pose_error(
+    est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1
+) -> RPEResult:
+    """RPE over frame pairs (i, i+delta): error of the relative motion
+    E = (Q_i^-1 Q_{i+d})^-1 (P_i^-1 P_{i+d})."""
+    terrs, rerrs = [], []
+    for i in range(len(est_poses) - delta):
+        dq = np.linalg.inv(gt_poses[i]) @ gt_poses[i + delta]
+        dp = np.linalg.inv(est_poses[i]) @ est_poses[i + delta]
+        e = np.linalg.inv(dq) @ dp
+        terrs.append(np.linalg.norm(e[:3, 3]))
+        cos_a = np.clip((np.trace(e[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+        rerrs.append(np.degrees(np.arccos(cos_a)))
+    terrs = np.array(terrs)
+    rerrs = np.array(rerrs)
+    return RPEResult(
+        trans_rmse=float(np.sqrt((terrs ** 2).mean())),
+        rot_rmse_deg=float(np.sqrt((rerrs ** 2).mean())),
     )

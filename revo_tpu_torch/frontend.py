@@ -49,26 +49,32 @@ class Keyframe(NamedTuple):
     T_w_k: torch.Tensor  # (4, 4) keyframe-to-world
 
 
-def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig) -> Frame:
-    """Full pyramid from full-resolution gray and depth, on their device.
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """OpenCV BGR(A)2GRAY weights (imgpyramidrgbd.cpp:53) on RGB channel
+    order: Y = 0.299 R + 0.587 G + 0.114 B, rounded to uint8 levels."""
+    r, g, b = (rgb[..., c].to(torch.float32) for c in range(3))
+    return torch.round(0.299 * r + 0.587 * g + 0.114 * b)
+
+
+def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig):
+    """The pyramid's edge maps, level by level from full resolution: yields
+    (gray, depth, edges_orig, edges) per level, edges after fill-in.
 
     Takes uint8 or float32 gray, and uint16 raw depth (scaled by
     1 / depth_scale_factor, iowrapperRGBD.cpp:326-327) or float32 metres;
     conversion happens on the device."""
     if cfg.pyramid.undistort:
-        raise NotImplementedError("undistortion is not ported yet")
-    gray = gray.to(torch.float32)
+        raise NotImplementedError(
+            "undistortion (PyramidConfig.undistort) is not ported yet: ROADMAP P11"
+        )
+    g = gray.to(torch.float32)
     if depth.dtype == torch.uint16:
-        depth = depth.to(torch.float32) * (1.0 / cfg.dataset.depth_scale_factor)
+        d = depth.to(torch.float32) * (1.0 / cfg.dataset.depth_scale_factor)
     else:
-        depth = depth.to(torch.float32)
+        d = depth.to(torch.float32)
     pyr = cfg.pyramid
-    cams = cfg.camera_pyramid()
-    levels = []
-    g, d = gray, depth
     prev_edges = None
     for lvl in range(pyr.n_levels):
-        cam = cams[lvl]
         canny_in = gaussian_blur(g) if pyr.gaussian_before_canny else g
         edges = canny(canny_in, pyr.canny_threshold1, pyr.canny_threshold2)
         edges_orig = edges
@@ -80,6 +86,21 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig) -> F
             )
             sparse = occupancy < torch.full_like(occupancy, pyr.n_percentage)
             edges = torch.where(sparse, filled, edges)
+        yield g, d, edges_orig, edges
+        prev_edges = edges
+        if lvl + 1 < pyr.n_levels:
+            g = pyr_down(g)
+            d = subsample_depth_with_holes(d)
+
+
+def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig) -> Frame:
+    """Full pyramid from full-resolution gray and depth, on their device
+    (input dtypes as ``edge_levels`` takes them)."""
+    pyr = cfg.pyramid
+    cams = cfg.camera_pyramid()
+    levels = []
+    for lvl, (g, d, edges_orig, edges) in enumerate(edge_levels(gray, depth, cfg)):
+        cam = cams[lvl]
         cloud = backproject_edges(
             edges, d, cam.fx, cam.fy, cam.cx, cam.cy,
             pyr.depth_min, pyr.depth_max, pyr.edge_capacity[lvl],
@@ -87,11 +108,7 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig) -> F
         levels.append(
             FrameLevel(gray=g, depth=d, edges=edges, edges_orig=edges_orig, cloud=cloud)
         )
-        prev_edges = edges
-        if lvl + 1 < pyr.n_levels:
-            g = pyr_down(g)
-            d = subsample_depth_with_holes(d)
-    return Frame(levels=tuple(levels), timestamp=gray[0, 0] * 0)
+    return Frame(levels=tuple(levels), timestamp=torch.zeros((), device=gray.device))
 
 
 def make_keyframe(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
@@ -100,3 +117,21 @@ def make_keyframe(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyfr
         quad_structure(s, cfg.tracker.optimizer.quad_form) for s in structs
     )
     return Keyframe(structs=structs, quads=quads, frame=frame, T_w_k=T_w_k)
+
+
+def prune_keyframe(kf: Keyframe) -> Keyframe:
+    """Shrink a keyframe for retention: the per-level gray / depth / edge
+    images, which tracking never reads from a stored keyframe, become (1, 1)
+    placeholders; structs, quads, clouds and the pose stay
+    (revo_tpu/frontend.py::prune_keyframe, prepareKfForStorage in
+    imgpyramidrgbd.h:156-169)."""
+    levels = tuple(
+        lv._replace(
+            gray=lv.gray.new_zeros((1, 1)),
+            depth=lv.depth.new_zeros((1, 1)),
+            edges=lv.edges.new_zeros((1, 1)),
+            edges_orig=lv.edges_orig.new_zeros((1, 1)),
+        )
+        for lv in kf.frame.levels
+    )
+    return kf._replace(frame=kf.frame._replace(levels=levels))

@@ -106,6 +106,15 @@ def library() -> KernelLibrary:
     return KernelLibrary(lib, path, built, seconds)
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device on a machine
+    without one.  Nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is available")
+    return device
+
+
 def launch(name: str, *args) -> None:
     """Launch exported function ``name`` on the current stream of the
     device its tensor arguments live on; raise on a nonzero launch status."""

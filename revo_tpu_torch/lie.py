@@ -1,7 +1,8 @@
 """SO(3) / SE(3) maps on torch tensors (counterpart of revo_tpu/lie.py).
 
-The subset the per-frame tracking step needs: exp/log of SO(3) and SE(3),
-compose, inverse, (R, t) <-> 4x4 and the TUM quaternion pair.  Same formulas,
+The subset the port needs: exp/log of SO(3) and SE(3), compose, inverse,
+(R, t) <-> 4x4, the TUM quaternion pair, and 4x4 products and inverses that
+round as jitted XLA on the CPU does (``matmul_fma``, ``inv_lu``).  Same formulas,
 small-angle Taylor branches and near-pi log branch as the JAX module, in
 float32.  Tangent convention ``xi = [upsilon, omega]`` (Sophus, se3.hpp:723).
 
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+import scipy.linalg
 import torch
 
 _EPS = 1e-8
@@ -171,6 +174,32 @@ def matrix_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def rt_from_matrix(T: torch.Tensor):
     return T[..., :3, :3], T[..., :3, 3]
+
+
+def matmul_fma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """float32 ``A @ B`` for small matrices, rounded as XLA's CPU dot rounds
+    it inside ``jit``: each entry is the first product, then one fused
+    multiply-add per further term in order.  Each FMA is taken in float64
+    (the product of two float32 values is exact there), so the result is
+    the same on every device and never passes through cuBLAS or TF32."""
+    acc = (A[..., :, 0:1].double() * B[..., 0:1, :].double()).float()
+    for k in range(1, A.shape[-1]):
+        acc = (
+            A[..., :, k:k + 1].double() * B[..., k:k + 1, :].double() + acc.double()
+        ).float()
+    return acc
+
+
+def inv_lu(T: torch.Tensor) -> torch.Tensor:
+    """float32 inverse of a small square matrix by LU with partial pivoting
+    and two triangular solves (LAPACK getrf + getrs through scipy), on the
+    host: the algorithm and rounding of ``jnp.linalg.inv`` on the CPU.
+    Returns a tensor on ``T``'s device."""
+    a = T.detach().cpu().numpy().astype(np.float32)
+    inv = scipy.linalg.lu_solve(
+        scipy.linalg.lu_factor(a), np.eye(a.shape[-1], dtype=np.float32)
+    )
+    return torch.from_numpy(inv.astype(np.float32)).to(T.device)
 
 
 def quaternion_from_matrix(R: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,25 @@
-"""Coarse-to-fine SE(3) frame-to-keyframe tracking (counterpart of
-revo_tpu/tracker.py::track_frames).
+"""Coarse-to-fine SE(3) tracking and keyframe selection (counterpart of
+revo_tpu/tracker.py).
 
 TrackerNew::trackFrames (tracker.cpp:294-353): check the initial pose
 against identity, then solve each pyramid level from PYR_MIN_LVL (coarse)
 down to PYR_MAX_LVL (fine), each level starting from the previous one's
-pose.
+pose.  Around it: per-frame capacity bucketing, the past-frame ring and the
+IROS17 histogram-voting keyframe test (assessTrackingQuality,
+tracker.cpp:118-201), and the ring of recent keyframes that relocalization
+searches.
+
+The rings' fill counts ``n`` are Python ints: the loops that drive them read
+them on the host anyway, and a host count keeps every push free of device
+syncs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from revo_tpu_torch import solver
+from revo_tpu_torch import lie, solver
 from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.frontend import Frame, Keyframe
 
@@ -62,3 +69,240 @@ def track_frames(
     bad_f = torch.clamp(info.bad, min=1).to(torch.float32)
     new_kf = (good_f / bad_f) < cfg.tracker.good_bad_ratio_new_kf
     return TrackResult(R=R, t=t, error=err, good=info.good, bad=info.bad, new_kf=new_kf)
+
+
+# -- capacity bucketing --------------------------------------------------------
+
+
+def slice_cloud_frame(frame: Frame, buckets) -> Frame:
+    """Slice each level's edge cloud to ``buckets[lvl]`` lanes.  Valid points
+    fill the first ``count`` lanes, so whenever count <= bucket only
+    invalid padding goes."""
+    levels = tuple(
+        lv._replace(
+            cloud=lv.cloud._replace(points=lv.cloud.points[:b], valid=lv.cloud.valid[:b])
+        )
+        for lv, b in zip(frame.levels, buckets)
+    )
+    return frame._replace(levels=levels)
+
+
+_BUCKET_RATIOS = (0.5, 0.625, 0.75, 0.875, 1.0)
+
+
+def pick_buckets(counts, capacities, ratios=_BUCKET_RATIOS, quantum=256):
+    """Per-frame lane counts: one shared fill ratio (the max over levels,
+    quantized to ``ratios``), multiples of ``quantum`` capped at each
+    level's capacity.  A frame that overflows keeps full capacity."""
+    fill = max((c / cap) for c, cap in zip(counts, capacities)) if capacities else 1.0
+    ratio = next((r for r in ratios if fill <= r), 1.0)
+    return tuple(
+        min(int(cap), max(quantum, -(-int(cap * ratio) // quantum) * quantum))
+        for cap in capacities
+    )
+
+
+def track_frames_bucketed(
+    kf: Keyframe, frame: Frame, R0, t0, cfg: SystemConfig
+) -> TrackResult:
+    """track_frames on the frame's clouds sliced to the smallest bucket that
+    holds their points (one host read of the per-level counts).  The port
+    compiles nothing per shape, so this is only the slice; results match
+    track_frames to reduction order while no level overflows."""
+    counts = [int(lv.cloud.count) for lv in frame.levels]
+    caps = [lv.cloud.points.shape[0] for lv in frame.levels]
+    return track_frames(kf, slice_cloud_frame(frame, pick_buckets(counts, caps)), R0, t0, cfg)
+
+
+# -- past-frame ring and histogram voting --------------------------------------
+
+
+class PastFrames(NamedTuple):
+    """Ring of K frames' histogram-level edge clouds and world poses
+    (TrackerNew::mPastPcl / mPastWorldPoses, tracker.h:92-94).
+
+    The system keeps two: a rolling ring of the newest K frames, and the
+    frozen voting set, the K frames before the last promotion (or the first
+    K frames before any), which revo_tpu/tracker.py::PastFrames explains.
+    Slot 0 is the oldest; ``n`` counts the filled slots (<= K).
+    """
+
+    points: torch.Tensor  # (K, P, 3) camera-frame points at histogram level
+    valid: torch.Tensor  # (K, P) bool
+    poses: torch.Tensor  # (K, 4, 4) world poses T_w_cam
+    n: int
+
+
+def empty_past(k: int, capacity: int, device) -> PastFrames:
+    return PastFrames(
+        points=torch.zeros((k, capacity, 3), dtype=torch.float32, device=device),
+        valid=torch.zeros((k, capacity), dtype=torch.bool, device=device),
+        poses=torch.eye(4, dtype=torch.float32, device=device).repeat(k, 1, 1),
+        n=0,
+    )
+
+
+def push_past(past: PastFrames, points, valid, pose_w) -> PastFrames:
+    """addOldPclAndPose with the trim folded in (tracker.cpp:209-223,
+    248-257): append at slot ``n`` until full, then drop the oldest and
+    append at slot K-1; ``n`` saturates at K."""
+    k = past.points.shape[0]
+
+    def put(arr, new):
+        new = new.to(arr.dtype)
+        if past.n >= k:
+            return torch.cat([arr[1:], new[None]])
+        out = arr.clone()
+        out[past.n] = new
+        return out
+
+    return PastFrames(
+        points=put(past.points, points),
+        valid=put(past.valid, valid),
+        poses=put(past.poses, pose_w),
+        n=min(past.n + 1, k),
+    )
+
+
+def counting_map(past: PastFrames, est_pose_w: torch.Tensor, cfg: SystemConfig) -> torch.Tensor:
+    """The IROS17 counting map M = sum_i M_i, (H, W) int32 at the histogram
+    level: M_i marks the pixels that past slot i's edge points project to
+    under the estimated pose (binary per slot; inactive slots mark nothing).
+
+    The projection rounds as jitted XLA on the CPU does, because floor(u)
+    decides the pixel: LU inverse of the estimated pose, FMA-chain 4x4 and
+    point products (``lie.inv_lu``, ``lie.matmul_fma``), and
+    ``u = x / z * fx + cx`` as one FMA (``solver._scale_shift``)."""
+    cam = cfg.camera_pyramid()[cfg.tracker.histogram_level]
+    h, w = cam.height, cam.width
+    dev = past.points.device
+    inv_est = lie.inv_lu(est_pose_w)
+    m = torch.zeros(h * w, dtype=torch.int32, device=dev)
+    for slot in range(past.n):
+        T = lie.matmul_fma(inv_est, past.poses[slot])  # past cam -> current cam
+        wxp = lie.matmul_fma(past.points[slot], T[:3, :3].T) + T[:3, 3]
+        pz = torch.where(wxp[:, 2] == 0, 1e-12, wxp[:, 2])
+        u = solver._scale_shift(wxp[:, 0] / pz, cam.fx, cam.cx)
+        v = solver._scale_shift(wxp[:, 1] / pz, cam.fy, cam.cy)
+        inb = (u >= 0) & (v >= 0) & (u < w) & (v < h) & past.valid[slot]
+        lin = torch.floor(v[inb]).to(torch.int64) * w + torch.floor(u[inb]).to(torch.int64)
+        m_i = torch.zeros(h * w, dtype=torch.int32, device=dev)
+        m_i[lin] = 1
+        m += m_i
+    return m.reshape(h, w)
+
+
+def assess_tracking_quality(
+    past: PastFrames, est_pose_w: torch.Tensor, frame: Frame, cfg: SystemConfig
+) -> torch.Tensor:
+    """IROS17 histogram voting (assessTrackingQuality, tracker.cpp:118-201):
+    histogram the counting map over the current frame's original edges with
+    valid depth, and call for a new keyframe when the weighted overlap
+    falls below the zero-overlap count.  Only once K past frames exist
+    (histogram.size() < 4 guard, tracker.cpp:184).  Returns a () bool
+    tensor on the frame's device."""
+    trk = cfg.tracker
+    lvl = trk.histogram_level
+    k = past.points.shape[0]
+    depth = frame.levels[lvl].depth
+    if past.n < k:
+        return torch.zeros((), dtype=torch.bool, device=depth.device)
+    m = counting_map(past, est_pose_w, cfg).reshape(-1)
+    valid_depth = (
+        torch.isfinite(depth) & (depth > cfg.pyramid.depth_min) & (depth < cfg.pyramid.depth_max)
+    )
+    mask = (valid_depth & frame.levels[lvl].edges_orig).reshape(-1)
+    # Exact integer counts, the role of JAX's one-hot contraction.
+    overlaps = torch.bincount(m[mask].to(torch.int64), minlength=k + 1).to(torch.float32)
+    weights = torch.tensor(trk.hist_weights[: k + 1], dtype=torch.float32, device=depth.device)
+    return torch.sum(overlaps[1:] * weights[1:]) < overlaps[0]
+
+
+# -- relocalization ring --------------------------------------------------------
+
+
+class KeyframeRing(NamedTuple):
+    """Ring of recent keyframes' tracking state (DT structs, quad tables,
+    world poses) that relocalization searches.  Slot 0 is the NEWEST;
+    ``n`` counts the active slots."""
+
+    structs: Tuple[torch.Tensor, ...]  # per level (K, H, W, 3)
+    quads: Tuple[torch.Tensor, ...]  # per level (K, H*W, 4)
+    T_w_k: torch.Tensor  # (K, 4, 4) keyframe-to-world poses
+    n: int
+
+
+def _tile(x: torch.Tensor, k: int) -> torch.Tensor:
+    return x[None].repeat(k, *([1] * x.dim()))
+
+
+def ring_from_keyframe(kf: Keyframe, k: int) -> KeyframeRing:
+    """Initial ring: slot 0 holds ``kf``; the other slots are inactive
+    copies of it."""
+    return KeyframeRing(
+        structs=tuple(_tile(s, k) for s in kf.structs),
+        quads=tuple(_tile(q, k) for q in kf.quads),
+        T_w_k=_tile(kf.T_w_k.to(torch.float32), k),
+        n=1,
+    )
+
+
+def push_ring(ring: KeyframeRing, kf: Keyframe, T_w_k: torch.Tensor) -> KeyframeRing:
+    """Push a newly promoted keyframe into slot 0; the oldest falls off."""
+
+    def push(arr, new):
+        return torch.cat([new.to(arr.dtype)[None], arr[:-1]])
+
+    return KeyframeRing(
+        structs=tuple(push(a, s) for a, s in zip(ring.structs, kf.structs)),
+        quads=tuple(push(a, q) for a, q in zip(ring.quads, kf.quads)),
+        T_w_k=push(ring.T_w_k, T_w_k),
+        n=min(ring.n + 1, ring.T_w_k.shape[0]),
+    )
+
+
+def ring_keyframe(ring: KeyframeRing, slot: int, frame: Frame) -> Keyframe:
+    """Ring slot ``slot`` as a Keyframe.  The ring keeps no images, so
+    ``frame`` stands in for its own; tracking never reads ``kf.frame``."""
+    return Keyframe(
+        structs=tuple(s[slot] for s in ring.structs),
+        quads=tuple(q[slot] for q in ring.quads),
+        frame=frame,
+        T_w_k=ring.T_w_k[slot],
+    )
+
+
+def track_ring(ring: KeyframeRing, frame: Frame, cfg: SystemConfig) -> TrackResult:
+    """Track ``frame`` from identity against every active ring keyframe,
+    newest first, through track_frames.  Returns the per-slot results
+    stacked along a leading slot axis.  Inactive slots are never selected,
+    so they are not tracked: their rows hold error inf and good 0."""
+    dev = ring.T_w_k.device
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    izero = torch.zeros((), dtype=torch.int32, device=dev)
+    inactive = TrackResult(
+        R=eye, t=zero, error=torch.full((), float("inf"), device=dev),
+        good=izero, bad=izero, new_kf=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+    results = []
+    for slot in range(ring.T_w_k.shape[0]):
+        if slot >= ring.n:
+            results.append(inactive)
+            continue
+        results.append(track_frames(ring_keyframe(ring, slot, frame), frame, eye, zero, cfg))
+    return TrackResult(*(torch.stack(field) for field in zip(*results)))
+
+
+def select_reloc_candidate(res_all: TrackResult, ring_n: int, cfg: SystemConfig):
+    """Best relocalization candidate: an active slot that passes the lost
+    thresholds (reloc_error_threshold / reloc_min_good), lowest error, ties
+    to the newest (argmin's first occurrence on the newest-first order).
+    Returns (found () bool, idx () int64, the selected TrackResult)."""
+    trk = cfg.tracker
+    err = res_all.error
+    active = torch.arange(err.shape[0], device=err.device) < ring_n
+    bad = (err > trk.reloc_error_threshold) | (res_all.good < trk.reloc_min_good) | ~active
+    score = torch.where(bad, float("inf"), err)
+    idx = torch.argmin(score)
+    found = torch.isfinite(score[idx])
+    return found, idx, TrackResult(*(f[idx] for f in res_all))

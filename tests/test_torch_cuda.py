@@ -8,7 +8,8 @@ card is:
 
 Tolerances: bit-equal for K1/K2 masks and the front end's edges/clouds;
 K3 within rtol 1e-4 / atol 1e-5 of each output's largest entry (reduction
-order), and bit-identical from run to run (fixed order, no atomics).
+order), and bit-identical from run to run (fixed order, no atomics);
+VOSystem on the card: the CPU run's per-frame flags, poses within 1e-4.
 """
 import dataclasses
 
@@ -111,3 +112,36 @@ def test_build_frame_on_card_matches_cpu(cuda):
         assert torch.equal(a.cloud.valid.cpu(), b.cloud.valid)
         assert int(a.cloud.count) == int(b.cloud.count)
         torch.testing.assert_close(a.cloud.points.cpu(), b.cloud.points, rtol=1e-6, atol=0)
+
+
+def test_vosystem_pan_on_card_matches_cpu(cuda):
+    """VOSystem over a 160x120 fast pan (4 cm + ~1 deg per frame, the motion
+    of tests/test_system.py) on the card: the same promotion /
+    relocalization / lost flags as on the CPU, poses within 1e-4."""
+    from revo_tpu_torch import lie, system
+
+    cam = CameraConfig(fx=150.0, fy=150.0, cx=80.0, cy=60.0, width=160, height=120)
+    cfg = SystemConfig(camera=cam, pyramid=dataclasses.replace(
+        SystemConfig().pyramid, edge_capacity=(4096, 2048, 1024)))
+    step = lie.matrix_from_rt(*lie.exp_se3(
+        torch.tensor([0.04, 0.0, 0.005, 0.0, 0.017, 0.0]))).numpy()
+    T = np.eye(4, dtype=np.float32)
+    frames = []
+    for i in range(20):
+        frames.append((*render_frame(SyntheticScene(), cam, T), i / 30.0))
+        T = T @ step
+    runs = []
+    for device in (cuda, "cpu"):
+        vo = system.VOSystem(cfg, device=device)
+        poses, flags = [], []
+        for g, d, ts in frames:
+            before = (vo.n_keyframes, vo.n_relocalized, vo.n_tracking_lost)
+            poses.append(vo.process_frame(g, d, ts))
+            flags.append((vo.n_keyframes - before[0], vo.n_relocalized - before[1],
+                          vo.n_tracking_lost - before[2]))
+        runs.append((np.stack(poses), flags))
+    (p_card, f_card), (p_cpu, f_cpu) = runs
+    assert f_card == f_cpu
+    assert sum(f[0] for f in f_card[1:]) >= 1  # the pan promotes
+    np.testing.assert_allclose(p_card[:, :3, 3], p_cpu[:, :3, 3], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(p_card[:, :3, :3], p_cpu[:, :3, :3], rtol=0, atol=1e-4)

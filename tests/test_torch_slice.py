@@ -236,11 +236,20 @@ def test_renderer_and_ate_match_jax(seq):
 
 
 def test_import_loads_no_jax():
+    """Every port module imports with jax and revo_tpu blocked, and loads
+    neither."""
     code = (
         "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'revo_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import revo_tpu_torch, revo_tpu_torch.frontend, revo_tpu_torch.tracker\n"
         "import revo_tpu_torch.convert, revo_tpu_torch.kernels\n"
         "import revo_tpu_torch.io.synthetic, revo_tpu_torch.eval\n"
+        "import revo_tpu_torch.system, revo_tpu_torch.parallel.batch\n"
+        "import revo_tpu_torch.autotune, revo_tpu_torch.io.tum, revo_tpu_torch.run\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'revo_tpu' or m.startswith('revo_tpu.'))\n"
         "print(bad)\n"
