@@ -16,15 +16,28 @@ the keyframe ring relocalizes).  Phases, one line each:
 3. frames    render the synthetic sequence (numpy, worker processes);
 4. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at main-path shapes: K1 + K2 bit-equal on the 3 pyramid levels
-             of the 8 frames at B=1 and B=8; K3 on every level's residual
-             inputs at identity and at the tracked pose, within 1e-5 of the
-             largest entry of each output;
+             of the 8 frames at B=1 and B=8, K2 in both its forms (bit-packed
+             in shared memory, the one these shapes take, and byte masks in
+             global memory), also on a serpentine where the H+W cap binds and
+             at a width that is no multiple of 32; K3 on every level's
+             residual inputs at identity and at the tracked pose, within 1e-5
+             of the largest entry of each output; fused K3 (residual_lgsx,
+             what the solver launches) on 3 levels x {identity, tracked, a
+             pose that throws most points out of the image} x {dt4bf, dt4}:
+             good and bad counts equal, floats within 1e-5 of the largest
+             entry, a second launch bit-identical, and no host sync;
 5. main      the main path on the card with launch counts reset just before
              it; every kernel must have launched, outputs finite, poses
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
 6. times     CUDA-event times per stage and per kernel against its plain
-             version at the level-0 shape, and per frame of VOSystem and
+             version at the level-0 shape, beside the kernel's bound (bytes
+             over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
+             larger), its device time alone (launches queued behind a spin
+             kernel, CUDA events) and the launch floor (K1 on a 16x16
+             image), the kernels torch launches per evaluation and per
+             tracked frame (torch.profiler) beside the hand-written
+             kernels' launch counts, and ms per frame of VOSystem and
              vo_scan;
 7. vo        VOSystem.run on the card over pan + teleport: at least one
              promotion and one relocalization, never lost; per-frame flags
@@ -40,8 +53,11 @@ the keyframe ring relocalizes).  Phases, one line each:
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 6.  Launch counts are set
 to 0 just before each main path (phases 5, 7, 8, 9)
-and read just after; every kernel of the path must have launched.  The
-kernel JSON's ``launches`` sum those four runs.  Any failed phase raises
+and read just after; every kernel of the path must have launched (K1, K2
+and the fused K3; the unfused K3 ``lgsx_reduce`` is the TPU kernel's own
+contract, which the solver no longer calls, so its count there is 0 and
+the kernel JSON lists it under ``kernels_off_path``).  The kernel JSON's
+``launches`` sum those four runs.  Any failed phase raises
 and the exit code is nonzero.  The second-to-last
 lines are the kernel JSON and the card's name and power limit; the last line
 is the JSON result.  Without a CUDA device it exits nonzero and prints no
@@ -64,6 +80,18 @@ N_FRAMES = 8
 ATE_LIMIT_M = 2e-3
 POSE_TOL = 1e-4  # metres and radians, card against CPU
 K3_RTOL = 1e-5  # of the largest entry of each output
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
+# Operations per element, counted from the plain versions: K1 Sobel (2 x 11),
+# magnitude (3), sector tests (6), NMS and thresholds (6); K2 per dilation
+# step and word of 32 one-bit pixels (the function is bitwise, so a 32-bit
+# operation serves 32 pixels) 8 neighbour ORs, AND, OR, compare, held to the
+# float32 rate for want of a separate integer one; K3 per point Jacobian
+# (36) and 28 multiply-adds with their weights (68); the fused form adds
+# the projection (26), sampling (30) and weighting (6).
+K1_OPS_PER_PIXEL, K2_OPS_PER_WORD_STEP = 37, 11
+K3_OPS_PER_POINT, K3_FUSED_OPS_PER_POINT = 104, 166
+GATHER_SECTOR_BYTES = 32  # one quad row costs one 32-byte sector
 N_PAN = 20  # pan frames; the teleport frame follows
 PAN_STEP = (0.04, 0.0, 0.005, 0.0, 0.017, 0.0)  # tests/test_system.py:47-73
 # The JAX package's ATE on pan + teleport, VOSystem on the CPU (PERF.md
@@ -231,6 +259,117 @@ def _require_launched(phase, launches, names):
         raise RuntimeError(f"{phase}: kernels of the path never launched: {missing} ({launches})")
 
 
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and operations over its float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def serpentine(h: int, w: int):
+    """A 1-px snake longer than H+W from one seed (tests/test_torch_kernels.py):
+    the fixpoint's cap binds before the snake is covered."""
+    cand = np.zeros((h, w), bool)
+    for y in range(0, h, 2):
+        cand[y, 1:w - 1] = True
+        if y + 1 < h:
+            cand[y + 1, (w - 2) if (y // 2) % 2 == 0 else 1] = True
+    strong = np.zeros_like(cand)
+    strong[0, 1] = True
+    return cand[None], strong[None]
+
+
+# Device functions of csrc/*.cu as the profiler names them.  The profiler
+# shows launches made through ctypes only now and then, so it counts the
+# kernels torch launches and the wrappers' launch counts count these.
+HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "lgsx_reduce_kernel",
+                "residual_lgsx_kernel")
+HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
+
+
+def _profile_kernels(fn, reps: int = 1):
+    """(device kernels torch launches per call of ``fn``, their summed
+    device ms per call, hand-written kernels the profiler showed per call),
+    by torch.profiler; (-1, None, None) where the reading cannot be trusted.
+    One profiler window holds 0.1 s of warm-up calls (the profiler drops the
+    kernels of a window's first milliseconds) and two marked stretches of
+    ``reps`` and ``2 * reps`` calls, each closed by one marker kernel and a
+    synchronize,
+    so a kernel belongs to the stretch whose host span holds its start.
+    The reading is trusted only if both stretches show their marker and the
+    second shows twice the first's kernels, within 2%; it is then the second
+    stretch's.  Reported, never gated on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    marks = {"smoke_stretch_1": reps, "smoke_stretch_2": 2 * reps}
+    marker = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while True:
+            fn()
+            torch.cuda.synchronize()
+            if time.perf_counter() - t0 > 0.1:
+                break
+        for mark, n in marks.items():
+            with record_function(mark):
+                for _ in range(n):
+                    fn()
+                marker.add_(1.0)
+                torch.cuda.synchronize()
+    on_card = torch.autograd.DeviceType.CUDA
+    spans, seen = {}, []
+    for e in prof.events():
+        if e.name in marks:
+            if e.device_type != on_card:
+                spans[e.name] = (e.time_range.start, e.time_range.end)
+        elif (e.device_type == on_card and "memcpy" not in e.name.lower()
+              and "memset" not in e.name.lower()):
+            seen.append((e.time_range.start, e.time_range.elapsed_us(),
+                         any(h in e.name for h in HAND_KERNELS)))
+    if len(spans) != 2:
+        return -1, None, None
+    counts = []
+    for lo, hi in (spans[m] for m in marks):
+        inside = sorted(k for k in seen if lo <= k[0] <= hi)
+        by_torch = [us for _, us, hand in inside if not hand]
+        if not by_torch:  # not even the marker
+            return -1, None, None
+        counts.append((len(by_torch) - 1, sum(by_torch[:-1]), len(inside) - len(by_torch)))
+    (n1, _, _), (n2, us2, hand2) = counts
+    if abs(n2 - 2 * n1) > 0.02 * n2:
+        return -1, None, None
+    return n2 / (2 * reps), us2 / (2 * reps) / 1e3, hand2 / (2 * reps)
+
+
+def _queued_ms(fn, reps: int = 50):
+    """Device ms per call of ``fn`` with the host out of the way, by CUDA
+    events: a spin kernel holds the stream while the host queues ``reps``
+    calls, so the events bracket the kernels running back to back.  None if
+    the host was still queueing when the spin ended."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ev[2].record()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].synchronize()
+    if queued_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def main() -> int:
     import torch
 
@@ -283,8 +422,8 @@ def main() -> int:
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
-    counters_ = (K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce)
-    all_kernels = [c.__name__ for c in counters_]
+    counters_ = (K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx)
+    all_kernels = ["canny_nms", "canny_hysteresis", "residual_lgsx"]  # of the paths
     gpu, launches = _path_launches(counters_, lambda: {
         name: _run_chain(grays, depths, _with_solver(cfg, name), dev)
         for name in ("lm", "gn_fixed")
@@ -328,16 +467,29 @@ def main() -> int:
             gp = _reflect_pad(batch, 1, 1).contiguous()
             c_k, s_k = K12.canny_nms(gp, lo, hi)
             c_p, s_p = K12.canny_nms_ref(gp, lo, hi)
-            r_k = K12.canny_hysteresis(c_p, s_p)
             r_p = K12.hysteresis_ref(c_p, s_p)
+            if not K12.hysteresis_fits_shared(dev, *c_p.shape[1:]):
+                raise RuntimeError(f"K2: level {lvl} does not take the shared-memory form")
             n_diff = int((c_k != c_p).sum() + (s_k != s_p).sum())
-            h_diff = int((r_k != r_p).sum())
+            h_diff = sum(int((K12.canny_hysteresis(c_p, s_p, _form=form) != r_p).sum())
+                         for form in (None, "shared", "global"))
             if n_diff or h_diff:
                 raise RuntimeError(
                     f"K1/K2 differ from plain at level {lvl} B={batch.shape[0]}: "
                     f"{n_diff} NMS, {h_diff} hysteresis pixels"
                 )
             k12_diff = max(k12_diff, n_diff, h_diff)
+    # K2 where the cap binds (the snake is not covered) and on ragged rows.
+    for shape in ((24, 64), (23, 41), (120, 200)):
+        c_p, s_p = (torch.from_numpy(m).to(dev) for m in serpentine(*shape))
+        r_p = K12.hysteresis_ref(c_p, s_p)
+        if not 0 < int(r_p.sum()) < int(c_p.sum()):
+            raise RuntimeError(f"K2: the cap does not bind on the {shape} serpentine")
+        for form in ("shared", "global"):
+            h_diff = int((K12.canny_hysteresis(c_p, s_p, _form=form) != r_p).sum())
+            if h_diff:
+                raise RuntimeError(f"K2 ({form}) differs from plain on the {shape} "
+                                   f"serpentine: {h_diff} pixels")
     k12_err = float(min(k12_diff, 1))  # max |kernel - plain| of 0/1 masks
     opt = cfg.tracker.optimizer
     cams = cfg.camera_pyramid()
@@ -346,7 +498,7 @@ def main() -> int:
              (results_lm[-1].R, results_lm[-1].t)]
     for lvl in range(cfg.pyramid.n_levels):
         for R, t in poses:
-            terms = solver.residual_terms(
+            terms = K3.residual_terms(
                 kf_lm.quads[lvl], frames_lm[-1].levels[lvl].cloud, cams[lvl], R, t,
                 opt.edge_distance_lvl[lvl], opt.huber_edge, opt.use_edge_filter,
             )
@@ -358,8 +510,50 @@ def main() -> int:
                 k3_err, k3_rel = max(k3_err, err), max(k3_rel, rel)
     if not k3_rel <= K3_RTOL:
         raise RuntimeError(f"K3 differs from plain by {k3_rel} (relative) > {K3_RTOL}")
+    # Fused K3, the solver's one launch per evaluation, with a third pose
+    # that throws most points out of the image, on both quad forms.
+    from revo_tpu_torch import lie
+    from revo_tpu_torch.ops.edt import quad_structure
+
+    poses.append(tuple(x.to(dev) for x in lie.exp_se3(
+        torch.tensor([0.9, -0.3, 0.1, 0.03, 0.4, -0.08]))))
+    fused_err, fused_rel, fused_cases, fused_counts = 0.0, 0.0, 0, []
+    for lvl in range(cfg.pyramid.n_levels):
+        tables = (kf_lm.quads[lvl], quad_structure(kf_lm.structs[lvl], "dt4"))
+        if [q.dtype for q in tables] != [torch.bfloat16, torch.float32]:
+            raise RuntimeError("fused K3: want a dt4bf and a dt4 table")
+        for quad in tables:
+            for R, t in poses:
+                args = (quad, frames_lm[-1].levels[lvl].cloud, cams[lvl], R, t,
+                        opt.edge_distance_lvl[lvl], opt.huber_edge, opt.use_edge_filter)
+                before = K3.residual_lgsx.launches
+                torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+                got = solver._residual_sums(*args)
+                torch.cuda.set_sync_debug_mode("default")
+                if K3.residual_lgsx.launches != before + 1:
+                    raise RuntimeError("fused K3: an evaluation is not one launch")
+                again = K3.residual_lgsx(*args)
+                want = K3.residual_lgsx_ref(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise RuntimeError(f"fused K3: two launches differ at level {lvl}")
+                counts = [int(got[4]), int(got[5]), int(want[4]), int(want[5])]
+                if counts[:2] != counts[2:]:
+                    raise RuntimeError(f"fused K3: (good, bad) {counts[:2]} != plain "
+                                       f"{counts[2:]} at level {lvl}, {quad.dtype}")
+                fused_counts.append(counts[:2])
+                for a, b in zip(got[:4], want[:4]):
+                    err = float((a - b).abs().max())
+                    fused_err = max(fused_err, err)
+                    fused_rel = max(fused_rel, err / max(float(b.abs().max()), 1e-30))
+                fused_cases += 1
+    if not fused_rel <= K3_RTOL:
+        raise RuntimeError(f"fused K3 differs from plain by {fused_rel} (relative) > {K3_RTOL}")
+    if not any(bad > good for good, bad in fused_counts):
+        raise RuntimeError(f"fused K3: no case with most points out of bounds: {fused_counts}")
     _phase("kernels", k1_k2_differing_pixels=k12_diff, k3_max_abs_err=k3_err,
-           k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL)
+           k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL, fused_k3_cases=fused_cases,
+           fused_k3_max_abs_err=fused_err, fused_k3_max_rel_err=fused_rel,
+           fused_k3_good_bad=fused_counts)
     _phase("main", **summary)
 
     from revo_tpu_torch.autotune import calibrate_capacities
@@ -461,7 +655,7 @@ def main() -> int:
                                     device=device).pyramid.edge_capacity
 
     caps_card, launches = _path_launches(counters_, lambda: calibrate(dev))
-    _require_launched("autotune", launches, ["canny_nms", "canny_hysteresis"])
+    _require_launched("autotune", launches, all_kernels[:2])
     add_launches(launches)
     caps_cpu = calibrate("cpu")
     if caps_card != caps_cpu:
@@ -493,6 +687,17 @@ def main() -> int:
                 R, t = res.R, res.t
 
         stage_ms[f"track_frames_{name}"] = _time_ms(chain, 3, warmup=1) / (N_FRAMES - 1)
+        # Device kernels and busy time of one tracked frame, and how many of
+        # its kernels an evaluation (one fused K3 launch) accounts for.
+        before = K3.residual_lgsx.launches
+        chain()
+        evals = K3.residual_lgsx.launches - before
+        n_kern, busy_ms, _ = _profile_kernels(chain)
+        stage_ms[f"track_frames_{name}_profile"] = {
+            "torch_kernels_per_frame": None if busy_ms is None else n_kern / (N_FRAMES - 1),
+            "evaluations_per_frame": evals / (N_FRAMES - 1),  # one fused K3 launch each
+            "torch_busy_ms_per_frame": None if busy_ms is None else busy_ms / (N_FRAMES - 1),
+        }
 
     # The VO loops over the pan, warmed up by phases 7 and 8.
     timed = {}
@@ -510,35 +715,87 @@ def main() -> int:
 
     gp0 = _reflect_pad(frames_lm[1].levels[0].gray[None], 1, 1).contiguous()
     c0, s0 = K12.canny_nms_ref(gp0, lo, hi)
-    terms0 = solver.residual_terms(
-        kf_lm.quads[0], frames_lm[-1].levels[0].cloud, cams[0],
-        results_lm[-1].R, results_lm[-1].t,
-        opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter,
-    )[:4]
+    # Steps this frame's fixpoint needs: the plain loop runs its last trip of
+    # 8 to the end although that trip's first step already grows nothing.
+    k2_trips = K12.hysteresis_steps_ref(c0, s0)[1]
+    k2_steps = k2_trips if k2_trips >= sum(c0.shape[1:]) else k2_trips - 7
+    fused0 = (kf_lm.quads[0], frames_lm[-1].levels[0].cloud, cams[0],
+              results_lm[-1].R, results_lm[-1].t,
+              opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter)
+    terms0 = K3.residual_terms(*fused0)[:4]
+    cloud0 = fused0[1]
+    n_pix, n_pts = c0.numel(), cloud0.points.shape[0]
+    # Bounds: each input read once, each output written once; the fused form
+    # gathers one sector per point that lands inside the image (the rest
+    # read no row), not the whole table.
+    n_inside0 = int(K3.residual_terms(*fused0[:7], False)[5])  # edge filter off
+    gathered = n_inside0 * GATHER_SECTOR_BYTES
+    floor_gp = torch.zeros((1, 18, 18), device=dev)
     kern = [
         ("canny_nms", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
          lambda: K12.canny_nms(gp0, lo, hi),
-         lambda: K12.canny_nms_ref(gp0, lo, hi), k12_err),
+         lambda: K12.canny_nms_ref(gp0, lo, hi), k12_err,
+         _bound(_nbytes(gp0) + 2 * n_pix, K1_OPS_PER_PIXEL * n_pix)),
         ("canny_hysteresis", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
          lambda: K12.canny_hysteresis(c0, s0),
-         lambda: K12.hysteresis_ref(c0, s0), k12_err),
+         lambda: K12.hysteresis_ref(c0, s0), k12_err,
+         _bound(3 * n_pix, K2_OPS_PER_WORD_STEP * (n_pix / 32) * k2_steps)),
         ("lgsx_reduce", "lgsx.cu", "revo_tpu/ops/pallas/lgsx.py:103",
          lambda: K3.lgsx_reduce(*terms0),
-         lambda: K3.lgsx_reduce_ref(*terms0), k3_err),
+         lambda: K3.lgsx_reduce_ref(*terms0), k3_err,
+         _bound(_nbytes(*terms0) + 43 * 4, K3_OPS_PER_POINT * n_pts)),
+        ("residual_lgsx", "lgsx.cu", "revo_tpu/ops/pallas/lgsx.py:103",
+         lambda: K3.residual_lgsx(*fused0),
+         lambda: K3.residual_lgsx_ref(*fused0), fused_err,
+         _bound(_nbytes(cloud0.points, cloud0.valid, fused0[3], fused0[4]) + gathered + 46 * 4,
+                K3_FUSED_OPS_PER_POINT * n_pts)),
     ]
     rows = []
-    for name, src, replaces, fk, fp, err in kern:
+    for name, src, replaces, fk, fp, err, (bound_ms, bound_by) in kern:
         ms_k, ms_p = _time_ms(fk, 50), _time_ms(fp, 50)
         ms_k2, ms_p2 = _time_ms(fk, 50), _time_ms(fp, 50)
         rows.append({
             "name": name, "route": "cuda", "source": f"revo_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launch_total[name],
             "max_abs_err": err, "ms": min(ms_k, ms_k2), "plain_ms": min(ms_p, ms_p2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes any of these
+            # The kernel alone on the device (launches queued behind a
+            # spin); "ms" above is the rate at which the host can launch it.
+            "device_ms": _queued_ms(fk),
         })
-    _phase("times", smi=smi, stage_ms_per_frame=stage_ms,
-           kernel_ms={r["name"]: [r["ms"], r["plain_ms"]] for r in rows})
+    # The launch floor (K1 on a 16x16 image: what one launch through ctypes
+    # costs), K2's global-memory form beside the shared one, and how many
+    # device kernels one evaluation is now and was as torch ops.
+    launch_floor_ms = min(_time_ms(lambda: K12.canny_nms(floor_gp, lo, hi), 50) for _ in range(2))
+    k2_global_ms = min(
+        _time_ms(lambda: K12.canny_hysteresis(c0, s0, _form="global"), 50) for _ in range(2))
+    def kernels_of(fn):
+        before = K3.residual_lgsx.launches
+        fn()
+        hand = K3.residual_lgsx.launches - before
+        by_torch, _, shown = _profile_kernels(fn, 20)
+        return {"hand_launches": hand,
+                "torch_kernels": by_torch, "hand_kernels_profiler_showed": shown}
 
-    print(json.dumps({"kernels": rows}))
+    eval_kernels = {
+        "residual_sums": kernels_of(lambda: solver._residual_sums(*fused0)),
+        "residual_sums_plain": kernels_of(lambda: K3.residual_lgsx_ref(*fused0)),
+        "residual_system": kernels_of(lambda: solver.residual_system(*fused0)),
+    }
+    _phase("times", smi=smi, stage_ms_per_frame=stage_ms,
+           kernel_ms={r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
+           bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},
+           device_ms={r["name"]: r["device_ms"] for r in rows},
+           launch_floor_ms=launch_floor_ms, canny_hysteresis_global_ms=k2_global_ms,
+           k2_steps=k2_steps, kernels_per_evaluation=eval_kernels,
+           launches_per_pan_frame={k: v / (N_PAN + 1) for k, v in vo_summary["launches"].items()})
+
+    # "kernels": those of the main paths, each launched there; the unfused
+    # K3 is held against its plain version and timed like them, but no path
+    # launches it any more, so it is listed apart.
+    print(json.dumps({"kernels": [r for r in rows if r["name"] in all_kernels],
+                      "kernels_off_path": [r for r in rows if r["name"] not in all_kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ back to the CPU.  Nothing is built when this module is imported.
 ``launch(name, *args)`` calls one exported function on PyTorch's current
 stream: tensors pass their data pointer, ints and floats pass by value,
 and the stream is appended.  Each function returns ``cudaGetLastError()``
-after its launch; a nonzero status raises.
+after its launch; a nonzero status raises.  ``call`` is the same call for
+a function that answers a question of the CUDA runtime instead: it returns
+the function's int.
 """
 from __future__ import annotations
 
@@ -37,8 +39,11 @@ NVCC_FLAGS = (
 # every function also takes the stream as its last argument.
 SIGNATURES = {
     "revo_canny_nms": "pppiiiff",
-    "revo_canny_hysteresis": "ppppiiii",
+    "revo_canny_hysteresis": "pppiiii",
+    "revo_canny_hysteresis_global": "ppppiiii",
+    "revo_canny_hysteresis_shared_limit": "",
     "revo_lgsx_reduce": "pppppi",
+    "revo_residual_lgsx": "pippppffffiiffiippp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -115,14 +120,16 @@ def check_device(device) -> torch.device:
     return device
 
 
-def launch(name: str, *args) -> None:
-    """Launch exported function ``name`` on the current stream of the
-    device its tensor arguments live on; raise on a nonzero launch status."""
+def call(name: str, *args, device=None) -> int:
+    """Call exported function ``name`` on the current stream of the device
+    its tensor arguments live on (``device`` for a function that takes
+    none) and return its int."""
     kinds = SIGNATURES[name]
     if len(args) != len(kinds):
         raise TypeError(f"{name}: {len(kinds)} arguments expected, got {len(args)}")
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    device = tensors[0].device
+    if tensors:
+        device = tensors[0].device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{name}: tensor arguments on different devices")
     cargs = []
@@ -136,6 +143,12 @@ def launch(name: str, *args) -> None:
     fn = getattr(library().lib, name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        status = fn(*cargs, ctypes.c_void_p(stream))
+        return fn(*cargs, ctypes.c_void_p(stream))
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` through ``call``; raise on a nonzero launch
+    status."""
+    status = call(name, *args)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with status {status}")

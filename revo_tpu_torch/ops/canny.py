@@ -11,7 +11,8 @@ Each kernel has a plain PyTorch version beside it (``canny_nms_ref``,
 ``hysteresis_ref``).  A wrapper runs the plain version for a tensor on the
 CPU and the CUDA kernel (revo_tpu_torch/csrc/canny.cu) for a tensor on the
 card; for any other tensor it raises.  ``launches`` on each wrapper counts
-its kernel launches.
+its kernel launches.  K2 has two kernels, chosen by image shape
+(``hysteresis_fits_shared``).
 
 Sector test: the Pallas form ``ay > ax * f32(tan22.5 + 2)`` (the constant
 folded in double, then rounded to f32), where revo_tpu/ops/canny.py writes
@@ -20,6 +21,8 @@ can give (|g| <= 1020) the two forms agree (checked exhaustively), so the
 edges are bit-equal to both JAX paths.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -82,8 +85,9 @@ def canny_nms_ref(gray_pad: torch.Tensor, low_sq: float, high_sq: float):
     return cand, cand & (mag > high_sq)
 
 
-def hysteresis_ref(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
-    """Plain K2.  (B, H, W) bool -> (B, H, W) bool reach.
+def hysteresis_steps_ref(cand: torch.Tensor, strong: torch.Tensor):
+    """Plain K2 and the work it took.  (B, H, W) bool -> ((B, H, W) bool
+    reach, dilation steps the loop ran for the image that ran longest).
 
     Strong seeds grow through cand by synchronous 8-connected 3x3 dilation,
     in trips of 8 steps; an image stops after a trip that left its pixel sum
@@ -106,7 +110,12 @@ def hysteresis_ref(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
         reach = torch.where(active[:, None, None], grown, reach)
         prev = total
         it += _UNROLL
-    return reach > 0.5
+    return reach > 0.5, it
+
+
+def hysteresis_ref(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
+    """Plain K2.  (B, H, W) bool -> (B, H, W) bool reach."""
+    return hysteresis_steps_ref(cand, strong)[0]
 
 
 def _check_cuda(x: torch.Tensor, dtype, ndim: int, name: str):
@@ -139,9 +148,34 @@ def canny_nms(gray_pad: torch.Tensor, low_sq: float, high_sq: float):
 canny_nms.launches = 0
 
 
-def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _shared_limit(device: torch.device) -> int:
+    """Dynamic shared memory in bytes one block may use on ``device``, as
+    the CUDA runtime gives it (232448 on an H100)."""
+    limit = kernels.call("revo_canny_hysteresis_shared_limit", device=device)
+    if limit <= 0:
+        raise RuntimeError(f"canny_hysteresis: no shared-memory limit for {device}")
+    return limit
+
+
+def hysteresis_fits_shared(device, h: int, w: int) -> bool:
+    """Whether an (h, w) image takes K2's shared-memory kernel on
+    ``device``: cand and the two state masks, one bit a pixel in rows of
+    whole 32-bit words, must fit in one block's shared memory
+    (3 * h * ceil(w / 32) * 4 bytes: 640x480 needs 115200 and 1024x576
+    221184 of an H100's 232448; 1280x720 needs 345600 and does not fit)."""
+    return 3 * h * (-(-w // 32)) * 4 <= _shared_limit(torch.device(device))
+
+
+def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> torch.Tensor:
     """K2 wrapper: (B, H, W) bool cand/strong -> (B, H, W) bool edges.
-    CPU tensor: plain version; CUDA tensor: the kernel."""
+    CPU tensor: plain version; CUDA tensor: the kernel, on bit-packed masks
+    in shared memory where the image fits there (``hysteresis_fits_shared``:
+    every pyramid level of a 640x480 frame), else on byte masks in global
+    memory.  The form follows from the shape and the device alone, before
+    the launch, and both give the same bits.  ``_form`` ("shared",
+    "global") lets a comparison force one; "shared" raises for an image
+    that does not fit."""
     if cand.device.type == "cpu":
         return hysteresis_ref(cand, strong)
     if cand.device.type != "cuda":
@@ -151,9 +185,15 @@ def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
     if strong.shape != cand.shape or strong.device != cand.device:
         raise ValueError("canny_hysteresis: cand and strong differ in shape/device")
     b, h, w = cand.shape
+    fits = hysteresis_fits_shared(cand.device, h, w)
+    if _form not in (None, "shared", "global") or (_form == "shared" and not fits):
+        raise ValueError(f"canny_hysteresis: form {_form!r} not available for {h}x{w}")
     out = torch.empty_like(cand)
-    tmp = torch.empty_like(cand)
-    kernels.launch("revo_canny_hysteresis", cand, strong, out, tmp, b, h, w, h + w)
+    if _form == "shared" or (_form is None and fits):
+        kernels.launch("revo_canny_hysteresis", cand, strong, out, b, h, w, h + w)
+    else:
+        tmp = torch.empty_like(cand)
+        kernels.launch("revo_canny_hysteresis_global", cand, strong, out, tmp, b, h, w, h + w)
     canny_hysteresis.launches += 1
     return out
 

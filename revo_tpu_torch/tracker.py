@@ -22,6 +22,7 @@ import torch
 from revo_tpu_torch import lie, solver
 from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.frontend import Frame, Keyframe
+from revo_tpu_torch.ops.project import scale_shift
 
 
 class TrackResult(NamedTuple):
@@ -172,7 +173,7 @@ def counting_map(past: PastFrames, est_pose_w: torch.Tensor, cfg: SystemConfig) 
     The projection rounds as jitted XLA on the CPU does, because floor(u)
     decides the pixel: LU inverse of the estimated pose, FMA-chain 4x4 and
     point products (``lie.inv_lu``, ``lie.matmul_fma``), and
-    ``u = x / z * fx + cx`` as one FMA (``solver._scale_shift``)."""
+    ``u = x / z * fx + cx`` as one FMA (``ops.project.scale_shift``)."""
     cam = cfg.camera_pyramid()[cfg.tracker.histogram_level]
     h, w = cam.height, cam.width
     dev = past.points.device
@@ -182,8 +183,8 @@ def counting_map(past: PastFrames, est_pose_w: torch.Tensor, cfg: SystemConfig) 
         T = lie.matmul_fma(inv_est, past.poses[slot])  # past cam -> current cam
         wxp = lie.matmul_fma(past.points[slot], T[:3, :3].T) + T[:3, 3]
         pz = torch.where(wxp[:, 2] == 0, 1e-12, wxp[:, 2])
-        u = solver._scale_shift(wxp[:, 0] / pz, cam.fx, cam.cx)
-        v = solver._scale_shift(wxp[:, 1] / pz, cam.fy, cam.cy)
+        u = scale_shift(wxp[:, 0] / pz, cam.fx, cam.cx)
+        v = scale_shift(wxp[:, 1] / pz, cam.fy, cam.cy)
         inb = (u >= 0) & (v >= 0) & (u < w) & (v < h) & past.valid[slot]
         lin = torch.floor(v[inb]).to(torch.int64) * w + torch.floor(u[inb]).to(torch.int64)
         m_i = torch.zeros(h * w, dtype=torch.int32, device=dev)

@@ -6,10 +6,12 @@ card is:
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: bit-equal for K1/K2 masks and the front end's edges/clouds;
-K3 within rtol 1e-4 / atol 1e-5 of each output's largest entry (reduction
-order), and bit-identical from run to run (fixed order, no atomics);
-VOSystem on the card: the CPU run's per-frame flags, poses within 1e-4.
+Tolerances: bit-equal for K1/K2 masks (K2 in both its forms) and the front
+end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
+largest entry (reduction order), and bit-identical from run to run (fixed
+order, no atomics); fused K3: good and bad counts equal, floats within 1e-5
+of each output's largest entry, bit-identical from run to run; VOSystem on
+the card: the CPU run's per-frame flags, poses within 1e-4.
 """
 import dataclasses
 
@@ -17,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from revo_tpu_torch import frontend
+from revo_tpu_torch import frontend, solver
 from revo_tpu_torch.config import CameraConfig, SystemConfig
 from revo_tpu_torch.io.synthetic import SyntheticScene, render_frame
 from revo_tpu_torch.ops import canny as K12
 from revo_tpu_torch.ops import lgsx as K3
 from revo_tpu_torch.ops.filters import _reflect_pad
+
+from _torch_inputs import CAM, make_inputs, make_pose, torch_args
 
 pytestmark = pytest.mark.cuda
 
@@ -56,13 +60,16 @@ def test_canny_kernels_bit_equal(cuda, shape):
     c_k, s_k = K12.canny_nms(gp, 1e4, 2.25e4)
     c_p, s_p = K12.canny_nms_ref(gp, 1e4, 2.25e4)
     assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p)
-    assert torch.equal(K12.canny_hysteresis(c_p, s_p), K12.hysteresis_ref(c_p, s_p))
+    want = K12.hysteresis_ref(c_p, s_p)
+    assert K12.hysteresis_fits_shared(cuda, h, w)
+    for form in (None, "shared", "global"):
+        assert torch.equal(K12.canny_hysteresis(c_p, s_p, _form=form), want)
 
 
 @pytest.mark.parametrize("shape", [(24, 40), (23, 41)])
 def test_hysteresis_cap_binds_on_card(cuda, shape):
-    """A snake longer than H+W: the kernel must stop where the JAX loop's
-    cap stops the plain version (16-byte and byte paths)."""
+    """A snake longer than H+W: both kernels must stop where the JAX loop's
+    cap stops the plain version (whole-word and ragged rows)."""
     h, w = shape
     cand = torch.zeros(h, w, dtype=torch.bool)
     for y in range(0, h, 2):
@@ -72,10 +79,27 @@ def test_hysteresis_cap_binds_on_card(cuda, shape):
     strong = torch.zeros_like(cand)
     strong[0, 1] = True
     cand, strong = cand[None].to(cuda), strong[None].to(cuda)
-    got = K12.canny_hysteresis(cand, strong)
     want = K12.hysteresis_ref(cand, strong)
-    assert torch.equal(got, want)
-    assert 0 < int(got.sum()) < int(cand.sum())
+    for form in ("shared", "global"):
+        got = K12.canny_hysteresis(cand, strong, _form=form)
+        assert torch.equal(got, want)
+        assert 0 < int(got.sum()) < int(cand.sum())
+
+
+def test_hysteresis_form_follows_the_shape(cuda):
+    """Every pyramid level of a 640x480 frame takes the shared-memory kernel;
+    an image whose packed masks exceed a block's shared memory takes the
+    global one, by shape alone."""
+    assert all(K12.hysteresis_fits_shared(cuda, h, w)
+               for h, w in ((480, 640), (240, 320), (120, 160), (576, 1024)))
+    h, w = 720, 1280
+    assert not K12.hysteresis_fits_shared(cuda, h, w)
+    rng = np.random.default_rng(7)
+    cand = torch.from_numpy(rng.random((1, h, w)) < 0.3).to(cuda)
+    strong = cand & torch.from_numpy(rng.random((1, h, w)) < 0.01).to(cuda)
+    assert torch.equal(K12.canny_hysteresis(cand, strong), K12.hysteresis_ref(cand, strong))
+    with pytest.raises(ValueError):
+        K12.canny_hysteresis(cand, strong, _form="shared")
 
 
 def test_lgsx_kernel_close_and_deterministic(cuda):
@@ -93,6 +117,33 @@ def test_lgsx_kernel_close_and_deterministic(cuda):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5 * np.abs(b).max())
     again = K3.lgsx_reduce(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("quad_form", ["dt4bf", "dt4"])
+@pytest.mark.parametrize("pose", ["identity", "tracked", "out"])
+@pytest.mark.parametrize("size", [(640, 480, 16384), (320, 240, 4864), (160, 120, 1000)])
+def test_residual_lgsx_kernel_counts_equal_sums_close_deterministic(cuda, size, pose, quad_form):
+    """The fused kernel against its plain version on the card: one launch,
+    no other work; counts equal; floats within 1e-5 of the largest entry;
+    the same bits from a second launch."""
+    w, h, p = size
+    cam = dict(CAM, width=w, height=h, fx=CAM["fx"] * w / 160, fy=CAM["fy"] * w / 160,
+               cx=CAM["cx"] * w / 160, cy=CAM["cy"] * w / 160)
+    quad, pts, valid = make_inputs(p, p, quad_form, cam)
+    args = torch_args(quad, pts, valid, *make_pose(pose), quad_form, device=cuda, cam=cam)
+    before = K3.residual_lgsx.launches
+    got = solver._residual_sums(*args)
+    assert K3.residual_lgsx.launches == before + 1
+    want = K3.residual_lgsx_ref(*args)
+    assert int(got[4]) == int(want[4]) and int(got[5]) == int(want[5])
+    assert int(got[4]) + int(got[5]) == int(valid.sum())
+    if pose == "out":
+        assert int(got[5]) > int(got[4])
+    for a, b in zip(got[:4], want[:4]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
+    again = K3.residual_lgsx(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
