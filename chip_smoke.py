@@ -9,15 +9,22 @@ and then "gn_fixed"), then the VO system loop: VOSystem.run, vo_scan and
 capacity calibration on a fast 20-frame pan (4 cm + ~1 deg per frame, so
 histogram voting promotes keyframes) followed by one teleport frame back at
 frame 0's pose with the motion prior poisoned (so the jump gate fires and
-the keyframe ring relocalizes).  Phases, one line each:
+the keyframe ring relocalizes), then the SLAM back end (loop closure over
+four keyframes of a small loop, checkpoint and scan-state resume) and one
+1280x720 frame, whose level 0 is too large for the fused Canny and takes the
+split kernels.  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
 3. frames    render the synthetic sequence (numpy, worker processes);
 4. kernels   each CUDA kernel against its plain PyTorch version on the card,
-             at main-path shapes: K1 + K2 bit-equal on the 3 pyramid levels
-             of the 8 frames at B=1 and B=8, K2 in both its forms (bit-packed
-             in shared memory, the one these shapes take, and byte masks in
+             at main-path shapes: the fused Canny (canny_fused, one launch
+             from unpadded gray) bit-equal on the 3 pyramid levels of the 8
+             frames at B=1 and B=8, from float32 and from uint8 gray, at
+             ragged widths (37, 65), on three gray serpentines where the H+W
+             cap binds, a second launch bit-identical; K1 + K2 alone bit-equal
+             on the same levels, K2 in both its forms (bit-packed
+             in shared memory, and byte masks in
              global memory), also on a serpentine where the H+W cap binds and
              at a width that is no multiple of 32; K3 on every level's
              residual inputs at identity and at the tracked pose, within 1e-5
@@ -31,14 +38,17 @@ the keyframe ring relocalizes).  Phases, one line each:
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
 6. times     CUDA-event times per stage and per kernel against its plain
-             version at the level-0 shape, beside the kernel's bound (bytes
+             version at the shape its path gives it (level 0 of a 640x480
+             frame; for K1 and K2 alone level 0 of phase 11's 1280x720
+             frame, K2 in its global-memory form), beside the kernel's bound (bytes
              over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
              larger), its device time alone (launches queued behind a spin
              kernel, CUDA events) and the launch floor (K1 on a 16x16
              image), the kernels torch launches per evaluation and per
-             tracked frame (torch.profiler) beside the hand-written
-             kernels' launch counts, and ms per frame of VOSystem and
-             vo_scan;
+             tracked frame (torch.profiler, over the chain's first 2
+             frames) beside the hand-written kernels' launch counts, ms
+             per frame of VOSystem and vo_scan, and the seconds each part
+             of this phase took;
 7. vo        VOSystem.run on the card over pan + teleport: at least one
              promotion and one relocalization, never lost; per-frame flags
              equal to the same run on the CPU (plain versions), poses within
@@ -49,15 +59,33 @@ the keyframe ring relocalizes).  Phases, one line each:
              phase 7's, poses within 5e-4 of them; vo_scan_batched at B=2
              (the pan and a second seed) equal lane by lane to vo_scan;
 9. autotune  calibrate_capacities at margin 0.65 on the first 2 frames, on
-             the card and on the CPU: equal capacities.
+             the card and on the CPU: equal capacities;
+10. slam     on the card and on the CPU: (a) four keyframes along a small
+             loop with drifted pose estimates (tests/test_loopclosure.py) at
+             640x480: close_loops accepts edge (0, 3), corrected keyframe 3
+             is closer to truth than 0.6x the drift, card verdicts equal the
+             CPU's and corrected poses within 1e-4; (b) VOSystem over the
+             pan, checkpoint captured and saved after 10 frames, loaded and
+             restored into a fresh system, continued to the end: poses
+             bit-equal to phase 7's uninterrupted run; (c) the vo_scan state
+             after 10 frames through save_scan_state / load_scan_state,
+             continued with vo_scan_from_state: bit-equal to phase 8's;
+11. large    build_frame of one 1280x720 frame on the card and on the CPU:
+             equal edges and clouds; level 0 takes canny_nms and the
+             global-memory canny_hysteresis, chosen by shape, levels 1-2
+             the fused kernel; then K1 and K2 alone on that level's padded
+             gray and masks, bit-equal to their plain versions.
 
-Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 6.  Launch counts are set
-to 0 just before each main path (phases 5, 7, 8, 9)
-and read just after; every kernel of the path must have launched (K1, K2
-and the fused K3; the unfused K3 ``lgsx_reduce`` is the TPU kernel's own
-contract, which the solver no longer calls, so its count there is 0 and
-the kernel JSON lists it under ``kernels_off_path``).  The kernel JSON's
-``launches`` sum those four runs.  Any failed phase raises
+Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 6.  Launch counts
+are set to 0 just before each path (phases 5, 7, 8, 9, 10, 11)
+and read just after; every kernel of the path must have launched (the fused
+Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
+alone; K1 and K2 on the 1280x720 frame; the unfused K3 ``lgsx_reduce`` is
+the TPU kernel's own contract, which the solver no longer calls, so its
+count is 0 and the kernel JSON lists it under ``kernels_off_path``, as it
+does K2's shared-memory form, whose loop every 640x480 path runs inside
+canny_fused).  The
+kernel JSON's ``launches`` sum those runs.  Any failed phase raises
 and the exit code is nonzero.  The second-to-last
 lines are the kernel JSON and the card's name and power limit; the last line
 is the JSON result.  Without a CUDA device it exits nonzero and prints no
@@ -92,6 +120,7 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
 K1_OPS_PER_PIXEL, K2_OPS_PER_WORD_STEP = 37, 11
 K3_OPS_PER_POINT, K3_FUSED_OPS_PER_POINT = 104, 166
 GATHER_SECTOR_BYTES = 32  # one quad row costs one 32-byte sector
+N_PROFILED = 2  # tracked frames per call inside a profiler window (its events cost seconds)
 N_PAN = 20  # pan frames; the teleport frame follows
 PAN_STEP = (0.04, 0.0, 0.005, 0.0, 0.017, 0.0)  # tests/test_system.py:47-73
 # The JAX package's ATE on pan + teleport, VOSystem on the CPU (PERF.md
@@ -106,8 +135,13 @@ SCAN_TOL = 5e-4  # vo_scan against VOSystem (tests/test_batch.py:35-48)
 CAPACITY_MARGIN = 0.65  # the JAX bench's operating point
 
 
+_T0 = time.perf_counter()
+
+
 def _phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One JSON line per phase; ``at_s`` is the time since the script began."""
+    print(json.dumps({"phase": name, "at_s": round(time.perf_counter() - _T0, 1), **fields}),
+          flush=True)
 
 
 def _smi() -> str:
@@ -283,11 +317,68 @@ def serpentine(h: int, w: int):
     return cand[None], strong[None]
 
 
+def serpentine_gray(h: int, w: int, period: int = 8, thick: int = 3):
+    """(h, w) uint8 gray whose Canny contour at thresholds (40, 150) is one
+    long weak chain with one strong stretch: a 3-px bar 30 levels over the
+    background snakes across the image (its outline far longer than H+W),
+    and its first 10 pixels are 60 over, so hysteresis must walk the whole
+    outline from there and the H+W cap stops it on the way."""
+    img = np.full((h, w), 50, np.uint8)
+    y, k = 3, 0
+    while y + thick <= h - 3:
+        img[y:y + thick, 3:w - 3] = 80
+        if y + period + thick <= h - 3:
+            x0 = w - 3 - thick if k % 2 == 0 else 3
+            img[y:y + period + thick, x0:x0 + thick] = 80
+        y, k = y + period, k + 1
+    img[3:3 + thick, 3:13] = 110
+    return img
+
+
+# tests/test_loopclosure.py:27-52: out, around, and back to ~5 cm from the
+# start; the attached estimates drift by up to 4.5 cm at the loop's end.
+LOOP_XIS = ((0.0, 0.0, 0.0, 0.0, 0.0, 0.0), (0.30, 0.02, 0.03, 0.0, 0.10, 0.0),
+            (0.18, -0.02, 0.12, 0.0, -0.04, 0.0), (0.03, 0.01, 0.02, 0.0, 0.01, 0.0))
+LOOP_DRIFT = (0.0, 0.015, 0.03, 0.045)
+
+
+def loop_poses():
+    """Ground-truth world poses (4, 4, 4) of the four loop keyframes."""
+    import torch
+
+    from revo_tpu_torch import lie
+
+    return lie.matrix_from_rt(*lie.exp_se3(torch.tensor(LOOP_XIS))).numpy().astype(np.float32)
+
+
+def loop_keyframes(cfg, device, rendered=None):
+    """The four loop keyframes on ``device``: imagery at ground truth, pose
+    estimates drifted.  ``rendered``: their (gray, depth) pairs, rendered
+    here when not given.  Returns (keyframes, ground truth, drifted poses)."""
+    import torch
+
+    from revo_tpu_torch import frontend
+    from revo_tpu_torch.io.synthetic import SyntheticScene, render_frame
+
+    gt = loop_poses()
+    if rendered is None:
+        rendered = [render_frame(SyntheticScene(), cfg.camera, T) for T in gt]
+    drifted = gt.copy()
+    drifted[:, :3, 3] += np.array([[d, 0.5 * d, 0.0] for d in LOOP_DRIFT], np.float32)
+    kfs = [
+        frontend.make_keyframe(
+            frontend.build_frame(torch.from_numpy(g).to(device), torch.from_numpy(d).to(device), cfg),
+            torch.from_numpy(Td).to(device), cfg)
+        for (g, d), Td in zip(rendered, drifted)
+    ]
+    return kfs, gt, drifted
+
+
 # Device functions of csrc/*.cu as the profiler names them.  The profiler
 # shows launches made through ctypes only now and then, so it counts the
 # kernels torch launches and the wrappers' launch counts count these.
-HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "lgsx_reduce_kernel",
-                "residual_lgsx_kernel")
+HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
+                "lgsx_reduce_kernel", "residual_lgsx_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -404,31 +495,42 @@ def main() -> int:
            library=os.path.relpath(lib.path))
 
     # -- 3. frames -----------------------------------------------------------
-    # One process pool renders the 8-frame chain, the pan + teleport, and
-    # the second sequence of phase 8's batch.
+    # One process pool renders the 8-frame chain, the pan + teleport, the
+    # second sequence of phase 8's batch and phase 10's four loop keyframes.
     cfg = SystemConfig()
     cam = cfg.camera
     scene = SyntheticScene()
     t0 = time.perf_counter()
     trajs = [scene.trajectory(N_FRAMES, seed=0), pan_sequence(N_PAN),
-             scene.trajectory(N_PAN, seed=1)]
+             scene.trajectory(N_PAN, seed=1), loop_poses()]
     rendered = render_trajectory_parallel(
         scene, cam, np.concatenate(trajs), seed=0, workers=max(os.cpu_count() - 1, 1)
     )
     grays, depths, gt = _sensor_frames(rendered[:N_FRAMES], cfg)
     pan = _sensor_frames(rendered[N_FRAMES:N_FRAMES + N_PAN + 1], cfg)
-    second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:], cfg)
+    second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:-4], cfg)
+    loop_rendered = [(g, d) for g, d, _, _ in rendered[-4:]]
     _phase("frames", n=len(rendered), shape=list(grays[0].shape),
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
-    counters_ = (K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx)
-    all_kernels = ["canny_nms", "canny_hysteresis", "residual_lgsx"]  # of the paths
+    counters_ = (K12.canny_fused, K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce,
+                 K3.residual_lgsx)
+    vga_kernels = ["canny_fused", "residual_lgsx"]  # of every 640x480 path
+    split_kernels = ["canny_nms", "canny_hysteresis"]  # of the 1280x720 frame
+
+    def require_vga(phase, counts, names=vga_kernels):
+        """A 640x480 path went through the fused kernels, and through
+        neither K1 nor K2 alone."""
+        _require_launched(phase, counts, names)
+        if any(counts[n] for n in split_kernels):
+            raise RuntimeError(f"{phase}: a 640x480 path launched the split Canny: {counts}")
+
     gpu, launches = _path_launches(counters_, lambda: {
         name: _run_chain(grays, depths, _with_solver(cfg, name), dev)
         for name in ("lm", "gn_fixed")
     })
-    _require_launched("main", launches, all_kernels)
+    require_vga("main", launches)
     launch_total = dict(launches)
 
     summary = {"launches": launches}
@@ -461,6 +563,42 @@ def main() -> int:
     lo = min(pyr.canny_threshold1, pyr.canny_threshold2) ** 2
     hi = max(pyr.canny_threshold1, pyr.canny_threshold2) ** 2
     k12_diff = 0  # differing mask pixels; any one fails the phase
+    t_lo, t_hi = math.sqrt(lo), math.sqrt(hi)
+
+    fused_px = {"cases": 0, "differing": 0}  # summed over every case below
+
+    def fused_diff(gray, low, high, what):
+        """canny_fused against its plain version on ``gray``, twice; adds
+        the pixels that differ to ``fused_px`` and returns the edge pixels."""
+        want = K12.canny_fused_ref(gray, low, high)
+        got, again = K12.canny_fused(gray, low, high), K12.canny_fused(gray, low, high)
+        n = int((got != want).sum())
+        fused_px["cases"] += 1
+        fused_px["differing"] += n
+        if n or not torch.equal(got, again):
+            raise RuntimeError(f"canny_fused differs from plain on {what}: {n} pixels, "
+                               f"second launch equal: {torch.equal(got, again)}")
+        return int(want.sum())
+
+    fused_edges = 0
+    for lvl in range(cfg.pyramid.n_levels):
+        g = torch.stack([f.levels[lvl].gray for f in frames_lm])  # (8, H, W) float32
+        for batch_ in [g[i:i + 1] for i in range(len(frames_lm))] + [g]:
+            for gray in (batch_, batch_.to(torch.uint8)):
+                fused_edges += fused_diff(gray, t_lo, t_hi,
+                                          f"level {lvl} B={gray.shape[0]} {gray.dtype}")
+    g0_all = torch.stack([f.levels[0].gray for f in frames_lm])
+    for hh, ww in ((29, 37), (40, 65)):  # rows that end inside a word
+        crop = g0_all[:, 200:200 + hh, 300:300 + ww].contiguous()
+        for gray in (crop, crop.to(torch.uint8)):
+            fused_diff(gray, t_lo, t_hi, f"ragged {hh}x{ww} {gray.dtype}")
+    for shape in ((48, 64), (47, 41), (120, 200)):  # the cap binds
+        gray = torch.from_numpy(serpentine_gray(*shape))[None].to(dev)
+        cand = K12.canny_nms_ref(_reflect_pad(gray.float(), 1, 1), 40.0 ** 2, 150.0 ** 2)[0]
+        for g_ in (gray, gray.float()):
+            reached = fused_diff(g_, 40.0, 150.0, f"serpentine {shape} {g_.dtype}")
+        if not 0 < reached < int(cand.sum()):
+            raise RuntimeError(f"canny_fused: the cap does not bind on the {shape} serpentine")
     for lvl in range(cfg.pyramid.n_levels):
         g = torch.stack([f.levels[lvl].gray for f in frames_lm])  # (8, H, W)
         for batch in [g[i:i + 1] for i in range(len(frames_lm))] + [g]:
@@ -490,7 +628,7 @@ def main() -> int:
             if h_diff:
                 raise RuntimeError(f"K2 ({form}) differs from plain on the {shape} "
                                    f"serpentine: {h_diff} pixels")
-    k12_err = float(min(k12_diff, 1))  # max |kernel - plain| of 0/1 masks
+    canny_fused_err = float(min(fused_px["differing"], 1))  # max |kernel - plain| of 0/1 masks
     opt = cfg.tracker.optimizer
     cams = cfg.camera_pyramid()
     k3_err, k3_rel = 0.0, 0.0
@@ -517,7 +655,7 @@ def main() -> int:
 
     poses.append(tuple(x.to(dev) for x in lie.exp_se3(
         torch.tensor([0.9, -0.3, 0.1, 0.03, 0.4, -0.08]))))
-    fused_err, fused_rel, fused_cases, fused_counts = 0.0, 0.0, 0, []
+    fused_err, fused_rel, k3_cases, fused_counts = 0.0, 0.0, 0, []
     for lvl in range(cfg.pyramid.n_levels):
         tables = (kf_lm.quads[lvl], quad_structure(kf_lm.structs[lvl], "dt4"))
         if [q.dtype for q in tables] != [torch.bfloat16, torch.float32]:
@@ -545,13 +683,16 @@ def main() -> int:
                     err = float((a - b).abs().max())
                     fused_err = max(fused_err, err)
                     fused_rel = max(fused_rel, err / max(float(b.abs().max()), 1e-30))
-                fused_cases += 1
+                k3_cases += 1
     if not fused_rel <= K3_RTOL:
         raise RuntimeError(f"fused K3 differs from plain by {fused_rel} (relative) > {K3_RTOL}")
     if not any(bad > good for good, bad in fused_counts):
         raise RuntimeError(f"fused K3: no case with most points out of bounds: {fused_counts}")
-    _phase("kernels", k1_k2_differing_pixels=k12_diff, k3_max_abs_err=k3_err,
-           k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL, fused_k3_cases=fused_cases,
+    _phase("kernels", canny_fused_cases=fused_px["cases"],
+           canny_fused_differing_pixels=fused_px["differing"],
+           canny_fused_edge_pixels=fused_edges,
+           k1_k2_differing_pixels=k12_diff, k3_max_abs_err=k3_err,
+           k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL, fused_k3_cases=k3_cases,
            fused_k3_max_abs_err=fused_err, fused_k3_max_rel_err=fused_rel,
            fused_k3_good_bad=fused_counts)
     _phase("main", **summary)
@@ -576,7 +717,7 @@ def main() -> int:
                                     lambda a: torch.from_numpy(a).to(dev))
 
         (vo_card, (poses_c, flags_c, report_c)), launches = _path_launches(counters_, card_vo)
-        _require_launched("vo", launches, all_kernels)
+        require_vga("vo", launches)
         add_launches(launches)
         _, file_poses = read_tum_trajectory(pose_file)
     vo_cpu = VOSystem(cfg, device="cpu")
@@ -623,7 +764,7 @@ def main() -> int:
         return scan, two, lanes
 
     ((poses_s, outs_s, _), poses_two, lanes), launches = _path_launches(counters_, card_scan)
-    _require_launched("scan", launches, all_kernels)
+    require_vga("scan", launches)
     add_launches(launches)
     poses_s = poses_s.cpu().numpy().astype(np.float64)
     promoted_s = outs_s.promoted.cpu().numpy()
@@ -655,7 +796,7 @@ def main() -> int:
                                     device=device).pyramid.edge_capacity
 
     caps_card, launches = _path_launches(counters_, lambda: calibrate(dev))
-    _require_launched("autotune", launches, all_kernels[:2])
+    require_vga("autotune", launches, vga_kernels[:1])
     add_launches(launches)
     caps_cpu = calibrate("cpu")
     if caps_card != caps_cpu:
@@ -663,41 +804,159 @@ def main() -> int:
     _phase("autotune", margin=CAPACITY_MARGIN, edge_capacity=list(caps_card),
            launches=launches)
 
+    # -- 10. slam: loop closure, checkpoint resume, scan-state resume -----------
+    from revo_tpu_torch import checkpoint, frontend, loopclosure, tracker
+
+    def slam(device, resume):
+        kfs, loop_gt, drifted = loop_keyframes(cfg, device, loop_rendered)
+        corrected, loops = loopclosure.close_loops(kfs, cfg, min_separation=2, radius=0.3)
+        out = {"corrected": corrected, "loops": loops, "gt": loop_gt, "drifted": drifted}
+        if not resume:
+            return out
+        with tempfile.TemporaryDirectory() as tmp:
+            cut = N_PAN // 2
+            vo_a = VOSystem(cfg, device=device)
+            for i in range(cut):
+                vo_a.process_frame(p_grays[i], p_depths[i], i / 30.0)
+            path = os.path.join(tmp, "vo.npz")
+            checkpoint.save(path, checkpoint.capture(vo_a))
+            vo_b = VOSystem(cfg, device=device)
+            checkpoint.restore(vo_b, checkpoint.load(path), vo_a.prev_frame)
+            out["resumed"] = np.stack([
+                vo_b.process_frame(p_grays[i], p_depths[i], i / 30.0) for i in range(cut, N_PAN)])
+            out["resumed_keyframes"] = vo_b.n_keyframes
+            path = os.path.join(tmp, "scan.npz")
+            checkpoint.save_scan_state(path, batch.vo_scan(g_pan[:cut], d_pan[:cut], cfg)[2])
+            state = checkpoint.load_scan_state(path, cfg, device=device)
+            out["scan_tail"] = batch.vo_scan_from_state(state, g_pan[cut:], d_pan[cut:], cfg)[0]
+            out["scan_state_bytes"] = os.path.getsize(path)
+        return out
+
+    slam_c, launches = _path_launches(counters_, lambda: slam(dev, True))
+    require_vga("slam", launches)
+    add_launches(launches)
+    slam_h = slam("cpu", False)
+    edges_c = [(e.a, e.b) for e in slam_c["loops"]]
+    edges_h = [(e.a, e.b) for e in slam_h["loops"]]
+    lc_dt, lc_dr = _max_pose_diff(slam_c["corrected"], slam_h["corrected"])
+    drift_m = float(np.linalg.norm(slam_c["drifted"][3, :3, 3] - slam_c["gt"][3, :3, 3]))
+    left_m = float(np.linalg.norm(slam_c["corrected"][3, :3, 3] - slam_c["gt"][3, :3, 3]))
+    cut = N_PAN // 2
+    slam_summary = {
+        "loop_edges": edges_c, "loop_edges_cpu": edges_h,
+        "loop_errors": [e.error for e in slam_c["loops"]],
+        "corrected_vs_cpu_m": lc_dt, "corrected_vs_cpu_rad": lc_dr,
+        "kf3_drift_m": drift_m, "kf3_after_m": left_m,
+        "resume_cut": cut, "resumed_keyframes": slam_c["resumed_keyframes"],
+        "resume_bit_equal": bool(np.array_equal(slam_c["resumed"], poses_c[cut:N_PAN])),
+        "scan_resume_bit_equal": bool(torch.equal(slam_c["scan_tail"], outs_s.T_w[cut:])),
+        "scan_state_bytes": slam_c["scan_state_bytes"], "launches": launches, "smi": smi,
+    }
+    if edges_c != edges_h or (0, 3) not in edges_c:
+        raise RuntimeError(f"slam: want edge (0, 3) on the card and the CPU: {slam_summary}")
+    if not (lc_dt <= POSE_TOL and lc_dr <= POSE_TOL):
+        raise RuntimeError(f"slam: corrected poses differ from the CPU's: {slam_summary}")
+    if not left_m < 0.6 * drift_m:
+        raise RuntimeError(f"slam: keyframe 3 not pulled back to truth: {slam_summary}")
+    if not (slam_summary["resume_bit_equal"] and slam_summary["scan_resume_bit_equal"]):
+        raise RuntimeError(f"slam: a resumed run differs from the continuous one: {slam_summary}")
+    if slam_c["resumed_keyframes"] < 2:
+        raise RuntimeError(f"slam: the resumed run promoted no keyframe: {slam_summary}")
+    _phase("slam", **slam_summary)
+
+    # -- 11. large: a 1280x720 frame, whose level 0 takes the split kernels -----
+    cam_hd = dataclasses.replace(cam, fx=2 * cam.fx, fy=2 * cam.fy, cx=2 * cam.cx,
+                                 cy=1.5 * cam.cy, width=1280, height=720)
+    cfg_hd = dataclasses.replace(cfg, camera=cam_hd)
+    from revo_tpu_torch.io.synthetic import render_frame
+
+    hd_g, hd_d = render_frame(scene, cam_hd, np.eye(4, dtype=np.float32))
+    hd_g = hd_g.astype(np.uint8)
+
+    def build_hd(device):
+        return frontend.build_frame(torch.from_numpy(hd_g).to(device),
+                                    torch.from_numpy(hd_d).to(device), cfg_hd)
+
+    if K12.hysteresis_fits_shared(dev, 720, 1280):
+        raise RuntimeError("large: a 1280x720 image should not fit the shared-memory fixpoint")
+    f_hd, launches = _path_launches(counters_, lambda: build_hd(dev))
+    _require_launched("large", launches, split_kernels + ["canny_fused"])
+    add_launches(launches)
+    f_hd_cpu = build_hd("cpu")
+    for a, b in zip(f_hd.levels, f_hd_cpu.levels):
+        if not (torch.equal(a.edges.cpu(), b.edges) and torch.equal(a.cloud.valid.cpu(), b.cloud.valid)
+                and int(a.cloud.count) == int(b.cloud.count)
+                and torch.allclose(a.cloud.points.cpu(), b.cloud.points, rtol=1e-6, atol=0)):
+            raise RuntimeError("large: the card's 1280x720 frame differs from the CPU's")
+    # K1 and K2 alone on what this path gave them: level 0's padded gray and
+    # its masks, K2 in the global-memory form that the shape selects.
+    gp_hd = _reflect_pad(f_hd.levels[0].gray.float()[None], 1, 1).contiguous()
+    c_hd, s_hd = K12.canny_nms_ref(gp_hd, lo, hi)
+    r_hd, hd_trips = K12.hysteresis_steps_ref(c_hd, s_hd)
+    c_k, s_k = K12.canny_nms(gp_hd, lo, hi)
+    nms_hd_diff = int((c_k != c_hd).sum() + (s_k != s_hd).sum())
+    hys_hd_diff = int((K12.canny_hysteresis(c_hd, s_hd) != r_hd).sum())
+    if nms_hd_diff or hys_hd_diff or not torch.equal(r_hd[0], f_hd.levels[0].edges_orig):
+        raise RuntimeError(f"large: K1/K2 differ from plain at 1280x720: {nms_hd_diff} NMS, "
+                           f"{hys_hd_diff} hysteresis pixels")
+    nms_hd_err, hys_hd_err = float(min(nms_hd_diff, 1)), float(min(hys_hd_diff, 1))
+    _phase("large", shape=[720, 1280], edge_pixels=[int(lv.edges.sum()) for lv in f_hd.levels],
+           cloud_counts=[int(lv.cloud.count) for lv in f_hd.levels], launches=launches,
+           k1_differing_pixels=nms_hd_diff, k2_global_differing_pixels=hys_hd_diff)
+
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")
-    from revo_tpu_torch import frontend, tracker
+    spent_s, t_part = {}, time.perf_counter()
+
+    def part_done(name):  # host seconds of each part of this phase
+        nonlocal t_part
+        torch.cuda.synchronize()
+        spent_s[name] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
 
     g0 = torch.from_numpy(grays[1]).to(dev)
     d0 = torch.from_numpy(depths[1]).to(dev)
     f1 = frames_lm[1]
+    bf_before = K12.canny_fused.launches
+    frontend.build_frame(g0, d0, cfg_lm)
+    bf_hand = K12.canny_fused.launches - bf_before
+    bf_kernels, bf_busy_ms, _ = _profile_kernels(lambda: frontend.build_frame(g0, d0, cfg_lm), 3)
     stage_ms = {
         "build_frame": _time_ms(lambda: frontend.build_frame(g0, d0, cfg_lm), 10),
+        "build_frame_profile": {"torch_kernels": bf_kernels, "torch_busy_ms": bf_busy_ms,
+                                "hand_launches": bf_hand},
         "make_keyframe": _time_ms(
             lambda: frontend.make_keyframe(f1, torch.eye(4, device=dev), cfg_lm), 5
         ),
     }
+    part_done("front_end")
     for name in ("lm", "gn_fixed"):
         c = _with_solver(cfg, name)
         frames, kf, _, _ = gpu[name]
 
-        def chain():
+        def chain(n=N_FRAMES - 1):
             R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-            for f in frames[1:]:
+            for f in frames[1:1 + n]:
                 res = tracker.track_frames(kf, f, R, t, c)
                 R, t = res.R, res.t
 
         stage_ms[f"track_frames_{name}"] = _time_ms(chain, 3, warmup=1) / (N_FRAMES - 1)
+        part_done(f"track_frames_{name}")
         # Device kernels and busy time of one tracked frame, and how many of
-        # its kernels an evaluation (one fused K3 launch) accounts for.
+        # its kernels an evaluation (one fused K3 launch) accounts for, over
+        # the chain's first N_PROFILED frames: a window over all 7 holds about
+        # a million profiler events and takes a minute to read.
         before = K3.residual_lgsx.launches
-        chain()
+        chain(N_PROFILED)
         evals = K3.residual_lgsx.launches - before
-        n_kern, busy_ms, _ = _profile_kernels(chain)
+        n_kern, busy_ms, _ = _profile_kernels(lambda: chain(N_PROFILED))
         stage_ms[f"track_frames_{name}_profile"] = {
-            "torch_kernels_per_frame": None if busy_ms is None else n_kern / (N_FRAMES - 1),
-            "evaluations_per_frame": evals / (N_FRAMES - 1),  # one fused K3 launch each
-            "torch_busy_ms_per_frame": None if busy_ms is None else busy_ms / (N_FRAMES - 1),
+            "frames": N_PROFILED,
+            "torch_kernels_per_frame": None if busy_ms is None else n_kern / N_PROFILED,
+            "evaluations_per_frame": evals / N_PROFILED,  # one fused K3 launch each
+            "torch_busy_ms_per_frame": None if busy_ms is None else busy_ms / N_PROFILED,
         }
+        part_done(f"track_frames_{name}_profile")
 
     # The VO loops over the pan, warmed up by phases 7 and 8.
     timed = {}
@@ -712,13 +971,17 @@ def main() -> int:
         rep.latency_ms_p50, rep.latency_ms_p95, rep.latency_ms_p99]
     stage_ms["vo_scan_frame"] = _time_ms(
         lambda: batch.vo_scan(g_pan, d_pan, cfg), 1, warmup=0) / N_PAN
+    part_done("vo_loops")
 
     gp0 = _reflect_pad(frames_lm[1].levels[0].gray[None], 1, 1).contiguous()
     c0, s0 = K12.canny_nms_ref(gp0, lo, hi)
     # Steps this frame's fixpoint needs: the plain loop runs its last trip of
     # 8 to the end although that trip's first step already grows nothing.
-    k2_trips = K12.hysteresis_steps_ref(c0, s0)[1]
-    k2_steps = k2_trips if k2_trips >= sum(c0.shape[1:]) else k2_trips - 7
+    def steps_needed(trips, cand):
+        return trips if trips >= sum(cand.shape[1:]) else trips - 7
+
+    k2_steps = steps_needed(K12.hysteresis_steps_ref(c0, s0)[1], c0)
+    k2_steps_hd, n_pix_hd = steps_needed(hd_trips, c_hd), c_hd.numel()
     fused0 = (kf_lm.quads[0], frames_lm[-1].levels[0].cloud, cams[0],
               results_lm[-1].R, results_lm[-1].t,
               opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter)
@@ -731,14 +994,39 @@ def main() -> int:
     n_inside0 = int(K3.residual_terms(*fused0[:7], False)[5])  # edge filter off
     gathered = n_inside0 * GATHER_SECTOR_BYTES
     floor_gp = torch.zeros((1, 18, 18), device=dev)
+    # The fused Canny at what the main path gives it at level 0: the sensor's
+    # uint8 gray, unpadded.  Bound: gray read once, bool edges written once;
+    # K1's operations per pixel plus K2's per word and needed step.
+    gray0 = g0[None].contiguous()
+    if gray0.dtype != torch.uint8 or not torch.equal(gray0[0].float(), frames_lm[1].levels[0].gray):
+        raise RuntimeError("times: level 0 of the main path is not the sensor's uint8 gray")
+    gray0_f = gray0.float()
+
+    def canny_split():  # what one Canny was before the fused kernel
+        gp = _reflect_pad(gray0.to(torch.float32), 1, 1).contiguous()
+        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi))
+
     kern = [
-        ("canny_nms", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
-         lambda: K12.canny_nms(gp0, lo, hi),
-         lambda: K12.canny_nms_ref(gp0, lo, hi), k12_err,
-         _bound(_nbytes(gp0) + 2 * n_pix, K1_OPS_PER_PIXEL * n_pix)),
+        ("canny_fused", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
+         lambda: K12.canny_fused(gray0, t_lo, t_hi),
+         lambda: K12.canny_fused_ref(gray0, t_lo, t_hi), canny_fused_err,
+         _bound(_nbytes(gray0) + n_pix,
+                K1_OPS_PER_PIXEL * n_pix + K2_OPS_PER_WORD_STEP * (n_pix / 32) * k2_steps)),
+        # K1 and K2 alone at the one shape a path gives them: level 0 of the
+        # 1280x720 frame, K2 in its global-memory form.
+        ("canny_nms", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:148",
+         lambda: K12.canny_nms(gp_hd, lo, hi),
+         lambda: K12.canny_nms_ref(gp_hd, lo, hi), nms_hd_err,
+         _bound(_nbytes(gp_hd) + 2 * n_pix_hd, K1_OPS_PER_PIXEL * n_pix_hd)),
         ("canny_hysteresis", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
-         lambda: K12.canny_hysteresis(c0, s0),
-         lambda: K12.hysteresis_ref(c0, s0), k12_err,
+         lambda: K12.canny_hysteresis(c_hd, s_hd),
+         lambda: K12.hysteresis_ref(c_hd, s_hd), hys_hd_err,
+         _bound(3 * n_pix_hd, K2_OPS_PER_WORD_STEP * (n_pix_hd / 32) * k2_steps_hd)),
+        # K2's shared-memory form at 640x480: launched by no path (such
+        # images take canny_fused, which runs the same loop), listed apart.
+        ("canny_hysteresis_shared", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
+         lambda: K12.canny_hysteresis(c0, s0, _form="shared"),
+         lambda: K12.hysteresis_ref(c0, s0), float(min(k12_diff, 1)),
          _bound(3 * n_pix, K2_OPS_PER_WORD_STEP * (n_pix / 32) * k2_steps)),
         ("lgsx_reduce", "lgsx.cu", "revo_tpu/ops/pallas/lgsx.py:103",
          lambda: K3.lgsx_reduce(*terms0),
@@ -756,7 +1044,7 @@ def main() -> int:
         ms_k2, ms_p2 = _time_ms(fk, 50), _time_ms(fp, 50)
         rows.append({
             "name": name, "route": "cuda", "source": f"revo_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launch_total[name],
+            "replaces": replaces, "launches": launch_total.get(name, 0),
             "max_abs_err": err, "ms": min(ms_k, ms_k2), "plain_ms": min(ms_p, ms_p2),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes any of these
@@ -764,12 +1052,28 @@ def main() -> int:
             # spin); "ms" above is the rate at which the host can launch it.
             "device_ms": _queued_ms(fk),
         })
+    part_done("kernel_rows")
     # The launch floor (K1 on a 16x16 image: what one launch through ctypes
     # costs), K2's global-memory form beside the shared one, and how many
     # device kernels one evaluation is now and was as torch ops.
     launch_floor_ms = min(_time_ms(lambda: K12.canny_nms(floor_gp, lo, hi), 50) for _ in range(2))
+    # One Canny at level 0 as it was (pad, K1, K2: two hand launches and the
+    # torch ops between) and as it is, in turns inside this run; and the fused
+    # kernel from float32 gray, what levels 1-2 give it.
+    canny_ab = {
+        "split_ms": [_time_ms(canny_split, 50)], "fused_ms": [_time_ms(kern[0][3], 50)],
+    }
+    canny_ab["fused_ms"].append(_time_ms(kern[0][3], 50))
+    canny_ab["split_ms"].append(_time_ms(canny_split, 50))
+    canny_ab["split_device_ms"] = _queued_ms(canny_split, 20)
+    canny_ab["fused_f32_ms"] = _time_ms(lambda: K12.canny_fused(gray0_f, t_lo, t_hi), 50)
+    canny_ab["fused_f32_device_ms"] = _queued_ms(lambda: K12.canny_fused(gray0_f, t_lo, t_hi))
+    canny_ab["split_torch_kernels"] = _profile_kernels(canny_split, 50)[0]
+    canny_ab["fused_torch_kernels"] = _profile_kernels(kern[0][3], 50)[0]
     k2_global_ms = min(
         _time_ms(lambda: K12.canny_hysteresis(c0, s0, _form="global"), 50) for _ in range(2))
+    part_done("canny_level0")
+
     def kernels_of(fn):
         before = K3.residual_lgsx.launches
         fn()
@@ -783,19 +1087,24 @@ def main() -> int:
         "residual_sums_plain": kernels_of(lambda: K3.residual_lgsx_ref(*fused0)),
         "residual_system": kernels_of(lambda: solver.residual_system(*fused0)),
     }
-    _phase("times", smi=smi, stage_ms_per_frame=stage_ms,
+    part_done("kernels_per_evaluation")
+    _phase("times", smi=smi, seconds_per_part=spent_s, stage_ms_per_frame=stage_ms,
            kernel_ms={r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
            bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},
            device_ms={r["name"]: r["device_ms"] for r in rows},
            launch_floor_ms=launch_floor_ms, canny_hysteresis_global_ms=k2_global_ms,
-           k2_steps=k2_steps, kernels_per_evaluation=eval_kernels,
+           canny_level0=canny_ab,
+           k2_steps=k2_steps, k2_steps_1280x720=k2_steps_hd, kernels_per_evaluation=eval_kernels,
            launches_per_pan_frame={k: v / (N_PAN + 1) for k, v in vo_summary["launches"].items()})
 
-    # "kernels": those of the main paths, each launched there; the unfused
-    # K3 is held against its plain version and timed like them, but no path
+    # "kernels": those of the paths, each launched there; the unfused K3 is
+    # held against its plain version and timed like them, but no path
     # launches it any more, so it is listed apart.
-    print(json.dumps({"kernels": [r for r in rows if r["name"] in all_kernels],
-                      "kernels_off_path": [r for r in rows if r["name"] not in all_kernels]}))
+    on_path = vga_kernels + split_kernels
+    if any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]:
+        raise RuntimeError(f"launch totals do not match the paths: {launch_total}")
+    print(json.dumps({"kernels": [r for r in rows if r["name"] in on_path],
+                      "kernels_off_path": [r for r in rows if r["name"] not in on_path]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

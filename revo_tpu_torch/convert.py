@@ -17,6 +17,7 @@ from revo_tpu_torch import config as C
 from revo_tpu_torch.frontend import Frame, FrameLevel, Keyframe
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.parallel.batch import ScanVOState
+from revo_tpu_torch.parallel.posegraph import PoseGraphEdges
 from revo_tpu_torch.tracker import KeyframeRing, PastFrames
 
 _SECTIONS = {
@@ -120,3 +121,10 @@ def scan_state_from_numpy(tree, device="cpu") -> ScanVOState:
         n_keyframes=int(tree.n_keyframes),
         kf_ring=None if tree.kf_ring is None else ring_from_numpy(tree.kf_ring, device),
     )
+
+
+def edges_from_numpy(tree, device="cpu") -> PoseGraphEdges:
+    """A JAX ``PoseGraphEdges`` with numpy leaves (or a dict of its four
+    arrays) -> the port's PoseGraphEdges on ``device``."""
+    get = tree.__getitem__ if isinstance(tree, dict) else (lambda k: getattr(tree, k))
+    return PoseGraphEdges(*(_tensor(get(k), device) for k in PoseGraphEdges._fields))

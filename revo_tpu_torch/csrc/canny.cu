@@ -39,6 +39,26 @@
 // result once.  A 640x480 mask is 38.4 KB, `cand` and the two state
 // buffers 115 KB of the SM's 227 KB.
 //
+// `revo_canny_fused` is K1 and K2 in one launch, the counterpart of the
+// single-image Pallas kernel `_full_kernel2d` (canny_kernel.py, run by
+// `_canny_single`).  It reads the unpadded gray image, float32 or uint8, and
+// applies REFLECT_101 on the index while it stages a tile, so no padded copy
+// exists.  Blocks of 1024 threads classify 32x32 tiles with K1's arithmetic;
+// a warp is one 32-pixel row of the tile, so two ballots give that row's
+// word of `cand` and of `strong` in K2's layout, and lane 0 stores them into
+// a packed scratch in global memory: two bits a pixel leave the SM, not two
+// bytes, and the bits of a tile's overhang past the right edge are 0 because
+// their threads vote false.  Then the block fences and takes an atomic
+// ticket for its image; the block that draws the last ticket loads the
+// image's packed masks into shared memory, runs K2's fixpoint
+// (`hysteresis_fixpoint`, the one loop both kernels call), unpacks the edges
+// and resets the ticket, so launches need no memset between them.  Bound on
+// the H100: as K2, the serial step chain on one SM; bytes are the gray image
+// read once and the bool edges written once.  Every block asks for the
+// fixpoint's shared memory, which it overlays on its NMS tile, so one block
+// is resident per SM while the tiles are classified; that costs a few waves
+// of microsecond blocks against a fixpoint of tens of steps.
+//
 // `revo_canny_hysteresis_global` is the same loop over ping-pong byte masks
 // in global memory (a 640x480 mask is 300 KB and stays in L2; where rows are
 // whole 16-byte chunks a thread dilates 16 pixels per step with word-wide
@@ -54,73 +74,119 @@ constexpr int TY = 8;
 constexpr float TG22 = 0.41421356237309504880f;  // tan(pi/8) as float
 constexpr float TG67 = 2.41421356237309504880f;  // tan(pi/8) + 2 as float
 
-// gp: (B, H+2, W+2) REFLECT_101-padded gray.  Output pixel (y, x) of image
-// b has its Sobel window at gp rows y..y+2, cols x..x+2.
+constexpr int GS_W = TX + 4;  // row of the staged gray tile
+constexpr int MS_W = TX + 2;  // row of the staged magnitudes
+
+// Gray at image coordinates (gy, gx), read from the (H+2, W+2)
+// REFLECT_101-padded copy; 0 beyond the padding.
+struct PaddedGray {
+  const float* img;
+  int Hp, Wp;
+  __device__ __forceinline__ float operator()(int gy, int gx) const {
+    const int py = gy + 1, px = gx + 1;
+    return (py >= 0 && py < Hp && px >= 0 && px < Wp) ? img[(size_t)py * Wp + px]
+                                                      : 0.0f;
+  }
+};
+
+// Gray at image coordinates (gy, gx), read from the unpadded (H, W) image
+// with REFLECT_101 on the index (-1 -> 1, H -> H - 2); 0 further out, where
+// the padded copy has nothing either.  H, W >= 2.
+template <typename T>
+struct ReflectGray {
+  const T* img;
+  int H, W;
+  __device__ __forceinline__ float operator()(int gy, int gx) const {
+    if (gy < -1 || gy > H || gx < -1 || gx > W) return 0.0f;
+    gy = gy < 0 ? -gy : (gy >= H ? 2 * H - 2 - gy : gy);
+    gx = gx < 0 ? -gx : (gx >= W ? 2 * W - 2 - gx : gx);
+    return (float)img[(size_t)gy * W + gx];
+  }
+};
+
+// K1 on one TX x TYT tile at (y0, x0) by TX * TYT threads: stage the gray
+// tile plus a 2-pixel halo in g_s ((TYT + 4) x GS_W), the magnitudes of the
+// tile plus a 1-pixel ring in m_s ((TYT + 2) x MS_W), then thread `tid`
+// classifies pixel (y0 + tid / TX, x0 + tid % TX): false, false outside the
+// image.
+template <int TYT, typename Gray>
+__device__ __forceinline__ void nms_tile(float* g_s, float* m_s, const Gray& gray,
+                                         int x0, int y0, int H, int W,
+                                         float low_sq, float high_sq, int tid,
+                                         bool& cand, bool& strong) {
+  constexpr int NT = TX * TYT;
+  // g_s[i][j] = gray(y0 - 2 + i, x0 - 2 + j); entries beyond the one-pixel
+  // border only feed magnitudes outside the image, which are forced to 0.
+  for (int k = tid; k < (TYT + 4) * GS_W; k += NT) {
+    const int i = k / GS_W, j = k % GS_W;
+    g_s[k] = gray(y0 - 2 + i, x0 - 2 + j);
+  }
+  __syncthreads();
+
+#define G(i, j) g_s[(i) * GS_W + (j)]
+#define M(i, j) m_s[(i) * MS_W + (j)]
+  // M(i, j) = magnitude of image pixel (y0 - 1 + i, x0 - 1 + j), whose
+  // Sobel window is g_s rows i..i+2, cols j..j+2.
+  for (int k = tid; k < (TYT + 2) * MS_W; k += NT) {
+    const int i = k / MS_W, j = k % MS_W;
+    const int y = y0 - 1 + i, x = x0 - 1 + j;
+    float m = 0.0f;
+    if (y >= 0 && y < H && x >= 0 && x < W) {
+      const float gxv = (G(i, j + 2) + 2.0f * G(i + 1, j + 2) + G(i + 2, j + 2)) -
+                        (G(i, j) + 2.0f * G(i + 1, j) + G(i + 2, j));
+      const float gyv = (G(i + 2, j) + 2.0f * G(i + 2, j + 1) + G(i + 2, j + 2)) -
+                        (G(i, j) + 2.0f * G(i, j + 1) + G(i, j + 2));
+      m = gxv * gxv + gyv * gyv;  // exact integer < 2^24
+    }
+    m_s[k] = m;
+  }
+  __syncthreads();
+
+  cand = strong = false;
+  const int x = x0 + tid % TX, y = y0 + tid / TX;
+  if (x >= W || y >= H) return;
+  const int i = tid / TX + 1, j = tid % TX + 1;  // m_s coordinates
+  // g_s window of this pixel: rows i..i+2, cols j..j+2.
+  const float gxv = (G(i, j + 2) + 2.0f * G(i + 1, j + 2) + G(i + 2, j + 2)) -
+                    (G(i, j) + 2.0f * G(i + 1, j) + G(i + 2, j));
+  const float gyv = (G(i + 2, j) + 2.0f * G(i + 2, j + 1) + G(i + 2, j + 2)) -
+                    (G(i, j) + 2.0f * G(i, j + 1) + G(i, j + 2));
+  const float m = M(i, j);
+  const float ax = fabsf(gxv), ay = fabsf(gyv);
+  bool keep;
+  if (ay < __fmul_rn(ax, TG22)) {  // horizontal gradient: compare left/right
+    keep = (m > M(i, j - 1)) && (m >= M(i, j + 1));
+  } else if (ay > __fmul_rn(ax, TG67)) {  // vertical: compare up/down
+    keep = (m > M(i - 1, j)) && (m >= M(i + 1, j));
+  } else if (__fmul_rn(gxv, gyv) >= 0.0f) {  // "\" diagonal
+    keep = (m > M(i - 1, j - 1)) && (m > M(i + 1, j + 1));
+  } else {  // "/" diagonal
+    keep = (m > M(i - 1, j + 1)) && (m > M(i + 1, j - 1));
+  }
+#undef G
+#undef M
+  cand = keep && (m > low_sq);
+  strong = cand && (m > high_sq);
+}
+
+// gp: (B, H+2, W+2) REFLECT_101-padded gray.
 __global__ void canny_nms_kernel(const float* __restrict__ gp,
                                  uint8_t* __restrict__ cand,
                                  uint8_t* __restrict__ strong, int H, int W,
                                  float low_sq, float high_sq) {
-  __shared__ float g_s[TY + 4][TX + 4];  // gp rows y0-1 .. y0+TY+2
-  __shared__ float m_s[TY + 2][TX + 2];  // magnitude at y0-1 .. y0+TY
+  __shared__ float g_s[(TY + 4) * GS_W];
+  __shared__ float m_s[(TY + 2) * MS_W];
   const int b = blockIdx.z;
-  const int x0 = blockIdx.x * TX;
-  const int y0 = blockIdx.y * TY;
-  const int Hp = H + 2, Wp = W + 2;
-  const float* img = gp + (size_t)b * Hp * Wp;
   const int tid = threadIdx.y * TX + threadIdx.x;
-
-  // g_s[i][j] = gp[y0 - 1 + i][x0 - 1 + j]; out-of-range entries only feed
-  // magnitudes outside the image, which are forced to 0 below.
-  for (int k = tid; k < (TY + 4) * (TX + 4); k += TX * TY) {
-    const int i = k / (TX + 4), j = k % (TX + 4);
-    const int gy = y0 - 1 + i, gx = x0 - 1 + j;
-    g_s[i][j] = (gy >= 0 && gy < Hp && gx >= 0 && gx < Wp)
-                    ? img[(size_t)gy * Wp + gx]
-                    : 0.0f;
-  }
-  __syncthreads();
-
-  // m_s[i][j] = magnitude of image pixel (y0 - 1 + i, x0 - 1 + j), whose
-  // Sobel window is g_s rows i..i+2, cols j..j+2.
-  for (int k = tid; k < (TY + 2) * (TX + 2); k += TX * TY) {
-    const int i = k / (TX + 2), j = k % (TX + 2);
-    const int y = y0 - 1 + i, x = x0 - 1 + j;
-    float m = 0.0f;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      const float gxv = (g_s[i][j + 2] + 2.0f * g_s[i + 1][j + 2] + g_s[i + 2][j + 2]) -
-                        (g_s[i][j] + 2.0f * g_s[i + 1][j] + g_s[i + 2][j]);
-      const float gyv = (g_s[i + 2][j] + 2.0f * g_s[i + 2][j + 1] + g_s[i + 2][j + 2]) -
-                        (g_s[i][j] + 2.0f * g_s[i][j + 1] + g_s[i][j + 2]);
-      m = gxv * gxv + gyv * gyv;  // exact integer < 2^24
-    }
-    m_s[i][j] = m;
-  }
-  __syncthreads();
-
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  const PaddedGray gray{gp + (size_t)b * (H + 2) * (W + 2), H + 2, W + 2};
+  bool c, s;
+  nms_tile<TY>(g_s, m_s, gray, blockIdx.x * TX, blockIdx.y * TY, H, W, low_sq,
+               high_sq, tid, c, s);
+  const int x = blockIdx.x * TX + threadIdx.x, y = blockIdx.y * TY + threadIdx.y;
   if (x >= W || y >= H) return;
-  const int i = threadIdx.y + 1, j = threadIdx.x + 1;  // m_s coordinates
-  // g_s window of this pixel: rows i..i+2, cols j..j+2.
-  const float gxv = (g_s[i][j + 2] + 2.0f * g_s[i + 1][j + 2] + g_s[i + 2][j + 2]) -
-                    (g_s[i][j] + 2.0f * g_s[i + 1][j] + g_s[i + 2][j]);
-  const float gyv = (g_s[i + 2][j] + 2.0f * g_s[i + 2][j + 1] + g_s[i + 2][j + 2]) -
-                    (g_s[i][j] + 2.0f * g_s[i][j + 1] + g_s[i][j + 2]);
-  const float m = m_s[i][j];
-  const float ax = fabsf(gxv), ay = fabsf(gyv);
-  bool keep;
-  if (ay < __fmul_rn(ax, TG22)) {  // horizontal gradient: compare left/right
-    keep = (m > m_s[i][j - 1]) && (m >= m_s[i][j + 1]);
-  } else if (ay > __fmul_rn(ax, TG67)) {  // vertical: compare up/down
-    keep = (m > m_s[i - 1][j]) && (m >= m_s[i + 1][j]);
-  } else if (__fmul_rn(gxv, gyv) >= 0.0f) {  // "\" diagonal
-    keep = (m > m_s[i - 1][j - 1]) && (m > m_s[i + 1][j + 1]);
-  } else {  // "/" diagonal
-    keep = (m > m_s[i - 1][j + 1]) && (m > m_s[i + 1][j - 1]);
-  }
-  const bool c = keep && (m > low_sq);
   const size_t o = (size_t)b * H * W + (size_t)y * W + x;
   cand[o] = c ? 1 : 0;
-  strong[o] = (c && (m > high_sq)) ? 1 : 0;
+  strong[o] = s ? 1 : 0;
 }
 
 constexpr int HYST_THREADS = 1024;
@@ -328,6 +394,34 @@ __device__ __forceinline__ bool dilate_step_bits(const uint32_t* c,
   return grew;
 }
 
+// K2's fixpoint on packed masks in shared memory, by the HYST_THREADS
+// threads of one block (all of them call it; the masks are complete and a
+// barrier has passed).  `c` is cand, `buf0` holds strong; synchronous steps
+// in trips of UNROLL, stopping after a trip that grew nothing or once
+// `max_iters` steps have run.  Returns the buffer that holds the result.
+__device__ __forceinline__ const uint32_t* hysteresis_fixpoint(
+    const uint32_t* c, uint32_t* buf0, uint32_t* buf1, int H, int wpr,
+    int max_iters) {
+  uint32_t* bufs[2] = {buf0, buf1};
+  const int n = H * wpr;
+  const int run = (n + HYST_THREADS - 1) / HYST_THREADS;  // rows per work item
+  int cur = 0;
+  int it = 0;
+  bool trip_grew = true;
+  while (trip_grew && it < max_iters) {
+    trip_grew = false;
+    for (int s = 0; s < UNROLL; ++s) {
+      const bool grew = dilate_step_bits(c, bufs[cur], bufs[cur ^ 1], H, wpr, run);
+      cur ^= 1;
+      // Also orders this step's writes before the next step's reads.
+      if (!__syncthreads_or(grew)) break;
+      trip_grew = true;
+    }
+    it += UNROLL;
+  }
+  return bufs[cur];
+}
+
 __global__ void __launch_bounds__(HYST_THREADS)
 canny_hysteresis_kernel(const uint8_t* __restrict__ cand,
                         const uint8_t* __restrict__ strong,
@@ -349,25 +443,90 @@ canny_hysteresis_kernel(const uint8_t* __restrict__ cand,
   }
   __syncthreads();
 
-  const int run = (n + HYST_THREADS - 1) / HYST_THREADS;  // rows per work item
-  int cur = 0;
-  int it = 0;
-  bool trip_grew = true;
-  while (trip_grew && it < max_iters) {
-    trip_grew = false;
-    for (int s = 0; s < UNROLL; ++s) {
-      const bool grew = dilate_step_bits(c, bufs[cur], bufs[cur ^ 1], H, wpr, run);
-      cur ^= 1;
-      // Also orders this step's writes before the next step's reads.
-      if (!__syncthreads_or(grew)) break;
-      trip_grew = true;
-    }
-    it += UNROLL;
-  }
+  const uint32_t* reach = hysteresis_fixpoint(c, bufs[0], bufs[1], H, wpr, max_iters);
   for (int q = threadIdx.x; q < n; q += HYST_THREADS) {
     const int y = q / wpr, k = q - y * wpr;
-    unpack_word(bufs[cur][q], out + off, y, k, W, vec);
+    unpack_word(reach[q], out + off, y, k, W, vec);
   }
+}
+
+// -- K1 + K2 in one launch ----------------------------------------------------
+
+constexpr int TY_FUSED = HYST_THREADS / TX;  // 32 x 32 tiles, a warp a row
+constexpr size_t FUSED_TILE_BYTES =
+    ((TY_FUSED + 4) * GS_W + (TY_FUSED + 2) * MS_W) * sizeof(float);
+
+// gray: (B, H, W) unpadded; words: per image cand then strong, H * wpr words
+// each; tickets: one zeroed counter per image, left at 0; out: (B, H, W)
+// 0/1 bytes.  Grid (wpr, ceil(H / 32), B), HYST_THREADS threads.
+template <typename T>
+__global__ void __launch_bounds__(HYST_THREADS)
+canny_fused_kernel(const T* __restrict__ gray, uint32_t* words,
+                   unsigned int* tickets, uint8_t* __restrict__ out, int H, int W,
+                   float low_sq, float high_sq, int max_iters) {
+  extern __shared__ uint32_t fused_smem[];  // the tile, then the packed masks
+  __shared__ bool last;
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int wpr = gridDim.x;
+  const int n = H * wpr;
+  float* g_s = reinterpret_cast<float*>(fused_smem);
+  float* m_s = g_s + (TY_FUSED + 4) * GS_W;
+  const ReflectGray<T> img{gray + (size_t)b * H * W, H, W};
+  bool c, s;
+  nms_tile<TY_FUSED>(g_s, m_s, img, blockIdx.x * TX, blockIdx.y * TY_FUSED, H, W,
+                     low_sq, high_sq, tid, c, s);
+  // Lane j of a warp is pixel 32 * blockIdx.x + j of one row: the ballots
+  // are that row's words.  Threads past the right edge vote 0.
+  const uint32_t cbits = __ballot_sync(0xffffffffu, c);
+  const uint32_t sbits = __ballot_sync(0xffffffffu, s);
+  uint32_t* cw = words + (size_t)b * 2 * n;
+  uint32_t* sw = cw + n;
+  const int y = blockIdx.y * TY_FUSED + (tid >> 5);
+  if ((tid & 31) == 0 && y < H) {
+    cw[y * wpr + blockIdx.x] = cbits;
+    sw[y * wpr + blockIdx.x] = sbits;
+  }
+  __threadfence();  // the words are visible before the ticket is taken
+  __syncthreads();  // and every thread is done with the tile in shared memory
+  if (tid == 0) last = atomicAdd(tickets + b, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // Last block of image b: the fixpoint on the words the others wrote.
+  uint32_t* cm = fused_smem;
+  uint32_t* buf0 = fused_smem + n;
+  uint32_t* buf1 = fused_smem + 2 * n;
+  for (int q = tid; q < n; q += HYST_THREADS) {
+    cm[q] = __ldcg(cw + q);
+    buf0[q] = __ldcg(sw + q);
+  }
+  __syncthreads();
+  const uint32_t* reach = hysteresis_fixpoint(cm, buf0, buf1, H, wpr, max_iters);
+  uint8_t* o = out + (size_t)b * H * W;
+  const bool vec = (W % 32 == 0) && (reinterpret_cast<uintptr_t>(o) % 16 == 0);
+  for (int q = tid; q < n; q += HYST_THREADS) {
+    const int yy = q / wpr, k = q - yy * wpr;
+    unpack_word(reach[q], o, yy, k, W, vec);
+  }
+  if (tid == 0) tickets[b] = 0u;
+}
+
+template <typename T>
+static int launch_canny_fused(const T* gray, uint32_t* words,
+                              unsigned int* tickets, uint8_t* out, int B, int H,
+                              int W, float low_sq, float high_sq, int max_iters,
+                              size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        canny_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((W + TX - 1) / TX, (H + TY_FUSED - 1) / TY_FUSED, B);
+  canny_fused_kernel<T><<<grid, HYST_THREADS, smem, stream>>>(
+      gray, words, tickets, out, H, W, low_sq, high_sq, max_iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -412,6 +571,22 @@ extern "C" int revo_canny_hysteresis(const uint8_t* cand, const uint8_t* strong,
   canny_hysteresis_kernel<<<B, HYST_THREADS, smem, stream>>>(cand, strong, out,
                                                              H, W, max_iters);
   return (int)cudaGetLastError();
+}
+
+// gray is float32, or uint8 with `gray_u8`; H, W >= 2, and the image must be
+// one the packed fixpoint fits (revo_canny_hysteresis_shared_limit).
+extern "C" int revo_canny_fused(const void* gray, int gray_u8, uint32_t* words,
+                                unsigned int* tickets, uint8_t* out, int B,
+                                int H, int W, float low_sq, float high_sq,
+                                int max_iters, cudaStream_t stream) {
+  size_t smem = hysteresis_smem_bytes(H, W);
+  if (smem < FUSED_TILE_BYTES) smem = FUSED_TILE_BYTES;
+  if (gray_u8)
+    return launch_canny_fused(static_cast<const uint8_t*>(gray), words, tickets,
+                              out, B, H, W, low_sq, high_sq, max_iters, smem,
+                              stream);
+  return launch_canny_fused(static_cast<const float*>(gray), words, tickets, out,
+                            B, H, W, low_sq, high_sq, max_iters, smem, stream);
 }
 
 extern "C" int revo_canny_hysteresis_global(const uint8_t* cand,

@@ -2,7 +2,7 @@
 clouds, and keyframes (counterpart of revo_tpu/frontend.py).
 
 ``build_frame`` mirrors the ImgPyramidRGBD constructor
-(imgpyramidrgbd.cpp:43-96): per level Canny edges (kernels K1 + K2), BMVC17
+(imgpyramidrgbd.cpp:43-96): per level Canny edges (one fused K1 + K2 launch), BMVC17
 fill-in when patch occupancy is low, and back-projection of edge pixels with
 valid depth into a fixed-capacity cloud; levels > 0 come from pyrDown gray
 and hole-aware depth subsampling.  ``make_keyframe`` adds the per-level DT
@@ -75,7 +75,10 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig):
     pyr = cfg.pyramid
     prev_edges = None
     for lvl in range(pyr.n_levels):
-        canny_in = gaussian_blur(g) if pyr.gaussian_before_canny else g
+        if pyr.gaussian_before_canny:
+            canny_in = gaussian_blur(g)
+        else:  # a uint8 level 0 goes to Canny as it is, uncast
+            canny_in = gray if lvl == 0 and gray.dtype == torch.uint8 else g
         edges = canny(canny_in, pyr.canny_threshold1, pyr.canny_threshold2)
         edges_orig = edges
         patch = pyr.dist_patch_sizes[lvl]

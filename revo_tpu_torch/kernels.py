@@ -42,6 +42,7 @@ SIGNATURES = {
     "revo_canny_hysteresis": "pppiiii",
     "revo_canny_hysteresis_global": "ppppiiii",
     "revo_canny_hysteresis_shared_limit": "",
+    "revo_canny_fused": "pipppiiiffi",
     "revo_lgsx_reduce": "pppppi",
     "revo_residual_lgsx": "pippppffffiiffiippp",
 }

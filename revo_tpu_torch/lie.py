@@ -1,7 +1,7 @@
 """SO(3) / SE(3) maps on torch tensors (counterpart of revo_tpu/lie.py).
 
 The subset the port needs: exp/log of SO(3) and SE(3), compose, inverse,
-(R, t) <-> 4x4, the TUM quaternion pair, and 4x4 products and inverses that
+the SE(3) adjoint, (R, t) <-> 4x4, the TUM quaternion pair, and 4x4 products and inverses that
 round as jitted XLA on the CPU does (``matmul_fma``, ``inv_lu``).  Same formulas,
 small-angle Taylor branches and near-pi log branch as the JAX module, in
 float32.  Tangent convention ``xi = [upsilon, omega]`` (Sophus, se3.hpp:723).
@@ -160,6 +160,15 @@ def compose(R1, t1, R2, t2):
 def inverse(R, t):
     Rt = R.transpose(-1, -2)
     return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def adjoint_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """6x6 adjoint Ad(T) of (R, t) on tangent vectors (se3.hpp ``Adj``;
+    revo_tpu/lie.py::adjoint_se3).  With xi = [upsilon, omega]:
+    Ad = [[R, hat(t) R], [0, R]]."""
+    top = torch.cat([R, hat_so3(t) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def matrix_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

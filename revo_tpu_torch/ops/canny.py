@@ -1,18 +1,23 @@
-"""Canny edges: K1 (Sobel + NMS + double threshold) and K2 (hysteresis).
+"""Canny edges: K1 (Sobel + NMS + double threshold), K2 (hysteresis) and
+the two fused into one launch.
 
-Counterpart of revo_tpu/ops/canny.py and of the two Pallas kernels
-revo_tpu/ops/pallas/canny_kernel.py (``_nms_core`` via ``_canny_single`` /
-``_nms_batched``) and revo_tpu/ops/pallas/hysteresis.py (``_fixpoint`` via
+Counterpart of revo_tpu/ops/canny.py and of the Pallas kernels
+revo_tpu/ops/pallas/canny_kernel.py (``_full_kernel2d`` via ``_canny_single``,
+the single-image kernel that does NMS and hysteresis in one call; ``_nms_core``
+via ``_nms_batched``) and revo_tpu/ops/pallas/hysteresis.py (``_fixpoint`` via
 ``_run_batched``).  cv::Canny(gray, 150, 100, apertureSize=3,
 L2gradient=true) semantics, as called by the reference
 (imgpyramidrgbd.cpp:105-108).
 
 Each kernel has a plain PyTorch version beside it (``canny_nms_ref``,
-``hysteresis_ref``).  A wrapper runs the plain version for a tensor on the
-CPU and the CUDA kernel (revo_tpu_torch/csrc/canny.cu) for a tensor on the
-card; for any other tensor it raises.  ``launches`` on each wrapper counts
-its kernel launches.  K2 has two kernels, chosen by image shape
-(``hysteresis_fits_shared``).
+``hysteresis_ref``, ``canny_fused_ref``).  A wrapper runs the plain version
+for a tensor on the CPU and the CUDA kernel (revo_tpu_torch/csrc/canny.cu)
+for a tensor on the card; for any other tensor it raises.  ``launches`` on
+each wrapper counts its kernel launches.  ``canny_batched`` takes
+``canny_fused`` for every image whose packed masks fit one block's shared
+memory (``hysteresis_fits_shared``: all pyramid levels of a 640x480 frame)
+and ``canny_nms`` + ``canny_hysteresis`` (its global-memory kernel) for
+larger ones, by shape, before any launch.
 
 Sector test: the Pallas form ``ay > ax * f32(tan22.5 + 2)`` (the constant
 folded in double, then rounded to f32), where revo_tpu/ops/canny.py writes
@@ -173,7 +178,10 @@ def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> to
     in shared memory where the image fits there (``hysteresis_fits_shared``:
     every pyramid level of a 640x480 frame), else on byte masks in global
     memory.  The form follows from the shape and the device alone, before
-    the launch, and both give the same bits.  ``_form`` ("shared",
+    the launch, and both give the same bits.  ``canny_batched`` sends every
+    image that fits shared memory to ``canny_fused``, which runs the same
+    loop, so it reaches only the global form here; the shared form stays as
+    the contract of the TPU's K2 at those shapes.  ``_form`` ("shared",
     "global") lets a comparison force one; "shared" raises for an image
     that does not fit."""
     if cand.device.type == "cpu":
@@ -201,16 +209,86 @@ def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> to
 canny_hysteresis.launches = 0
 
 
+def canny_fused_ref(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """Plain fused Canny.  (B, H, W) uint8-valued gray (uint8 or float32)
+    -> (B, H, W) bool edges: REFLECT_101 pad, ``canny_nms_ref`` with the
+    squared thresholds, ``hysteresis_ref``."""
+    gp = _reflect_pad(gray.to(torch.float32), 1, 1)
+    return hysteresis_ref(*canny_nms_ref(gp, low * low, high * high))
+
+
+_fused_scratch = {}  # (device, stream) -> (packed mask words, tickets)
+
+
+def _fused_buffers(device, n_words: int, b: int):
+    """The fused kernel's packed ``cand`` / ``strong`` words and its
+    per-image tickets on the current stream of ``device``.  Launches on one
+    stream run in order and each leaves its tickets at 0, so they share the
+    buffers; either grows when a call needs more."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    words, tickets = _fused_scratch.get(key, (None, None))
+    if words is None or words.numel() < n_words:
+        words = torch.empty(n_words, dtype=torch.int32, device=device)
+    if tickets is None or tickets.numel() < b:
+        tickets = torch.zeros(b, dtype=torch.int32, device=device)
+    _fused_scratch[key] = (words, tickets)
+    return words, tickets
+
+
+def canny_fused(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """K1 + K2 in one launch: (B, H, W) uint8-valued gray, uint8 or float32,
+    unpadded -> (B, H, W) bool edges, bit-equal to ``canny_fused_ref``.
+    CPU tensor: plain version; CUDA tensor: the kernel, for images that
+    ``hysteresis_fits_shared`` admits (others raise: ``canny_batched``
+    routes them to the split kernels).  H and W must be at least 2, as
+    REFLECT_101 needs."""
+    if gray.dim() != 3 or min(gray.shape[-2:]) < 2:
+        raise ValueError(
+            f"canny_fused: want (B, H, W) with H, W >= 2 (REFLECT_101), got {tuple(gray.shape)}"
+        )
+    if gray.device.type == "cpu":
+        return canny_fused_ref(gray, low, high)
+    if gray.device.type != "cuda":
+        raise ValueError(f"canny_fused: unsupported device {gray.device}")
+    if gray.dtype not in (torch.float32, torch.uint8) or not gray.is_contiguous():
+        raise ValueError(
+            f"canny_fused: want contiguous float32 or uint8, got {gray.dtype} "
+            f"contiguous={gray.is_contiguous()}"
+        )
+    b, h, w = gray.shape
+    if not hysteresis_fits_shared(gray.device, h, w):
+        raise ValueError(f"canny_fused: a {h}x{w} image does not fit shared memory")
+    words, tickets = _fused_buffers(gray.device, 2 * b * h * (-(-w // 32)), b)
+    out = torch.empty((b, h, w), dtype=torch.bool, device=gray.device)
+    kernels.launch(
+        "revo_canny_fused",
+        gray, int(gray.dtype == torch.uint8), words, tickets, out, b, h, w,
+        float(low * low), float(high * high), h + w,
+    )
+    canny_fused.launches += 1
+    return out
+
+
+canny_fused.launches = 0
+
+
 def canny_batched(
     gray: torch.Tensor, threshold1: float = 150.0, threshold2: float = 100.0
 ) -> torch.Tensor:
     """(B, H, W) uint8-valued gray -> (B, H, W) bool edges.  As cv::Canny,
-    the smaller threshold is the low (hysteresis) one."""
+    the smaller threshold is the low (hysteresis) one.  uint8 and float32
+    gray go to the kernel as they are; other types are cast to float32."""
     low = float(min(threshold1, threshold2))
     high = float(max(threshold1, threshold2))
-    gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
-    cand, strong = canny_nms(gp, low * low, high * high)
-    return canny_hysteresis(cand, strong)
+    if gray.dtype not in (torch.float32, torch.uint8):
+        gray = gray.to(torch.float32)
+    gray = gray.contiguous()
+    h, w = gray.shape[-2:]
+    if gray.device.type == "cuda" and not hysteresis_fits_shared(gray.device, h, w):
+        gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
+        cand, strong = canny_nms(gp, low * low, high * high)
+        return canny_hysteresis(cand, strong)
+    return canny_fused(gray, low, high)
 
 
 def canny(

@@ -170,6 +170,15 @@ def _vo_scan_step(
     return new_state, out
 
 
+def scan_state_template(cfg: SystemConfig, device="cuda") -> ScanVOState:
+    """A zero-data ScanVOState with the structure and shapes a scan under
+    ``cfg`` carries: the restore target for checkpointed scan states
+    (checkpoint.load_scan_state)."""
+    h, w = cfg.camera.height, cfg.camera.width
+    zeros = torch.zeros((h, w), dtype=torch.float32, device=device)
+    return _init_state(build_frame(zeros, zeros, cfg), cfg)
+
+
 def _stack_outputs(outs) -> ScanVOOutput:
     return ScanVOOutput(*(torch.stack(field) for field in zip(*outs)))
 

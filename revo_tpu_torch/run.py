@@ -19,7 +19,6 @@ import numpy as np
 # Options of revo_tpu.run that the port does not have yet, and the ROADMAP
 # item that brings each.
 _NOT_PORTED = {
-    "close_loops": ("--close-loops", "P12"),
     "windowed_ba": ("--windowed-ba", "P12"),
     "live_view": ("--live-view", "P11"),
     "export_ply": ("--export-ply", "P11"),
@@ -86,8 +85,30 @@ def _evaluate_against_gt(poses, stamps, ds_dir, gt_file) -> None:
           f"{rpe.rot_rmse_deg:.4f} deg per frame")
 
 
+def _maybe_close_loops(vo, poses):
+    """Post-run loop closure over the retained keyframes (a SLAM step the
+    reference lacks); returns the poses, corrected where a loop verified."""
+    from revo_tpu_torch.loopclosure import close_loops
+
+    if vo.n_keyframes < 3 or len(vo.kf_history) < 3:
+        print("[revo_tpu_torch] loop closure: <3 keyframes retained; skipping")
+        return poses
+    corrected, loops = close_loops([kf for _, kf in vo.kf_history], vo.cfg)
+    if not loops:
+        print("[revo_tpu_torch] loop closure: no verified loop edges")
+        return poses
+    # Corrected ring poses back to global keyframe ordinals.
+    all_kf = {o: corrected[i] for i, (o, _) in enumerate(vo.kf_history)}
+    full = [
+        all_kf.get(node.kf_ordinal, node.T_w_kf) @ node.T_kf_curr for node in vo.pose_graph
+    ]
+    print(f"[revo_tpu_torch] loop closure: {len(loops)} edge(s) "
+          f"{[(e.a, e.b) for e in loops]}")
+    return np.stack(full)
+
+
 def _run_dataset(cfg, dataset, out_dir, device, gt_file=None, auto_capacity=0,
-                 capacity_scale=1.15) -> None:
+                 capacity_scale=1.15, close_loops_flag=False) -> None:
     from revo_tpu_torch.io.tum import load_associations, load_tum_frame, load_tum_frame_raw
     from revo_tpu_torch.system import VOSystem
 
@@ -114,13 +135,17 @@ def _run_dataset(cfg, dataset, out_dir, device, gt_file=None, auto_capacity=0,
 
     frames = (load_tum_frame_raw(ds_dir, a) for a in assocs)
     pose_file = os.path.join(out_dir, f"poses_{dataset}.txt")
-    poses, stamps, report = VOSystem(cfg, device=device).run(frames, pose_file=pose_file)
+    vo = VOSystem(cfg, device=device)
+    poses, stamps, report = vo.run(frames, pose_file=pose_file)
     _print_report(report, pose_file)
+    if close_loops_flag:
+        poses = _maybe_close_loops(vo, poses)
     if gt_file:
         _evaluate_against_gt(poses, stamps, ds_dir, gt_file)
 
 
-def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device) -> int:
+def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device,
+                   close_loops_flag: bool = False) -> int:
     from revo_tpu_torch.eval import absolute_trajectory_error, relative_pose_error
     from revo_tpu_torch.io.synthetic import SyntheticScene, render_sequence
     from revo_tpu_torch.system import VOSystem
@@ -133,8 +158,11 @@ def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device) -> int:
             yield gray, depth, ts
 
     pose_file = os.path.join(out_dir, "poses_synthetic.txt")
-    poses, _, report = VOSystem(cfg, device=device).run(frames(), pose_file=pose_file)
+    vo = VOSystem(cfg, device=device)
+    poses, _, report = vo.run(frames(), pose_file=pose_file)
     _print_report(report, pose_file)
+    if close_loops_flag:
+        poses = _maybe_close_loops(vo, poses)
     gt_arr = np.stack(gt)
     ate = absolute_trajectory_error(poses, gt_arr)
     rpe = relative_pose_error(poses, gt_arr)
@@ -177,6 +205,11 @@ def main(argv=None) -> int:
         help="torch device that runs VO (default cuda; cuda without a card "
              "is an error)",
     )
+    parser.add_argument(
+        "--close-loops", action="store_true",
+        help="post-run loop closure over the retained keyframes: verified "
+             "revisits correct the trajectory by pose-graph optimization",
+    )
     for dest, (flag, item) in _NOT_PORTED.items():
         parser.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                             help=f"not ported yet (ROADMAP {item})")
@@ -201,7 +234,8 @@ def main(argv=None) -> int:
                                          seed=args.seed))
             cfg = _calibrate(cfg, [f[0] for f in probe], [f[1] for f in probe],
                              args.capacity_scale, device)
-        return _run_synthetic(cfg, args.synthetic, args.out, args.seed, device)
+        return _run_synthetic(cfg, args.synthetic, args.out, args.seed, device,
+                              close_loops_flag=args.close_loops)
 
     if cfg.dataset.input_type != 0:
         parser.exit(2, "revo_tpu_torch.run: live sensors (INPUT_TYPE "
@@ -213,7 +247,8 @@ def main(argv=None) -> int:
         return 1
     for ds in cfg.dataset.datasets:
         _run_dataset(cfg, ds, args.out, device, gt_file=args.gt,
-                     auto_capacity=args.auto_capacity, capacity_scale=args.capacity_scale)
+                     auto_capacity=args.auto_capacity, capacity_scale=args.capacity_scale,
+                     close_loops_flag=args.close_loops)
     return 0
 
 

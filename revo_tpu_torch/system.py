@@ -14,7 +14,10 @@ package.  Control flow mirrors the reference:
   frame-to-frame motion prior (system.cpp:203-241);
 - motion prior: T_init = T_kf_N * T_{N-1,N} (system.cpp:267-271);
 - a frame whose residual or motion says the track failed is relocalized
-  against the ring of recent keyframes, or coasts on the motion prior.
+  against the ring of recent keyframes, or coasts on the motion prior;
+- with ``TrackerConfig.online_loop_closure``, verified revisits among the
+  retained keyframes are closed mid-run (loopclosure.close_loops) and the
+  correction reaches the live state.
 """
 from __future__ import annotations
 
@@ -104,11 +107,6 @@ class VOSystem:
     gray, uint16 raw or float32 metric depth."""
 
     def __init__(self, cfg: SystemConfig, device):
-        if cfg.tracker.online_loop_closure:
-            raise NotImplementedError(
-                "online loop closure (TrackerConfig.online_loop_closure) is not "
-                "ported yet: ROADMAP P12"
-            )
         if cfg.pyramid.undistort:
             raise NotImplementedError(
                 "undistortion (PyramidConfig.undistort) is not ported yet: ROADMAP P11"
@@ -216,6 +214,50 @@ class VOSystem:
         ordinal, kf = self.kf_history[len(self.kf_history) - 1 - int(idx)]
         return ordinal, kf, sel
 
+    def _online_loop_closure(self) -> int:
+        """Mid-run loop closure (TrackerConfig.online_loop_closure): close
+        verified revisits over the retained keyframes and carry the
+        correction into the live state: retained keyframes, pose-graph
+        anchors, the current keyframe, the past and voting rings (shifted by
+        the current keyframe's correction delta, since their recent frames
+        anchor to it) and the relocalization ring.  Relative state
+        (T_kf_curr, motion prior, solver init) does not change under the
+        correction.  Returns the number of accepted loop edges."""
+        from revo_tpu_torch.loopclosure import close_loops
+
+        if len(self.kf_history) < 3:
+            return 0
+        corrected, loops = close_loops(
+            [kf for _, kf in self.kf_history], self.cfg,
+            radius=self.cfg.tracker.loop_closure_radius,
+        )
+        if not loops:
+            return 0
+        corr = {}
+        for i, (o, kf) in enumerate(self.kf_history):
+            self.kf_history[i] = (o, kf._replace(T_w_k=self._tensor(corrected[i])))
+            corr[o] = corrected[i]
+        for node in self.pose_graph:
+            if node.kf_ordinal in corr:
+                node.T_w_kf = corr[node.kf_ordinal]
+        if self.kf_ordinal_current in corr:
+            old = _np(self.kf.T_w_k)
+            new = corr[self.kf_ordinal_current]
+            # The voting floors projections through these poses, so the
+            # product rounds as the 4x4 algebra around it (lie.matmul_fma).
+            delta = self._tensor((new @ np.linalg.inv(old)).astype(np.float32))
+            self.kf = self.kf._replace(T_w_k=self._tensor(new))
+            self.past = self.past._replace(poses=lie.matmul_fma(delta, self.past.poses))
+            self.past_voting = self.past_voting._replace(
+                poses=lie.matmul_fma(delta, self.past_voting.poses)
+            )
+        if self.reloc_ring is not None:
+            Ts = self.reloc_ring.T_w_k.clone()
+            for i in range(min(len(self.kf_history), Ts.shape[0])):
+                Ts[i] = self.kf_history[-1 - i][1].T_w_k
+            self.reloc_ring = self.reloc_ring._replace(T_w_k=Ts)
+        return len(loops)
+
     # -- main entry ----------------------------------------------------------
 
     def process_frame(self, gray, depth, timestamp: float) -> np.ndarray:
@@ -322,6 +364,12 @@ class VOSystem:
 
         self.prev_frame = frame
         self.n_frames += 1
+        if cfg.tracker.online_loop_closure and (
+            self.just_added_kf  # promotion: a revisit just became closable
+            or self.n_frames % cfg.tracker.loop_closure_every == 0
+        ):
+            # node.T_w_curr below re-derives from the corrected anchor.
+            self._online_loop_closure()
         return node.T_w_curr
 
     def run(self, frames, pose_file: Optional[str] = None):

@@ -6,14 +6,19 @@ card is:
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: bit-equal for K1/K2 masks (K2 in both its forms) and the front
-end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
+Tolerances: bit-equal for K1/K2 masks (K2 in both its forms), the fused
+Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
 largest entry (reduction order), and bit-identical from run to run (fixed
 order, no atomics); fused K3: good and bad counts equal, floats within 1e-5
 of each output's largest entry, bit-identical from run to run; VOSystem on
-the card: the CPU run's per-frame flags, poses within 1e-4.
+the card: the CPU run's per-frame flags, poses within 1e-4; loop closure on
+the card: the CPU's verdicts, corrected poses within 1e-4; a run resumed on
+the card from a checkpoint or a saved scan state: the continuous run's
+poses bit for bit.
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +32,9 @@ from revo_tpu_torch.ops import lgsx as K3
 from revo_tpu_torch.ops.filters import _reflect_pad
 
 from _torch_inputs import CAM, make_inputs, make_pose, torch_args
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import serpentine_gray  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -64,6 +72,54 @@ def test_canny_kernels_bit_equal(cuda, shape):
     assert K12.hysteresis_fits_shared(cuda, h, w)
     for form in (None, "shared", "global"):
         assert torch.equal(K12.canny_hysteresis(c_p, s_p, _form=form), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(1, 480, 640), (8, 240, 320), (8, 120, 160), (3, 37, 53),
+                                   (2, 29, 65), (1, 576, 1024), (2, 2, 2)])
+def test_canny_fused_bit_equal(cuda, shape, dtype):
+    """One launch from unpadded gray, float32 or uint8, whole-word and
+    ragged rows, up to the largest image the shared-memory fixpoint takes:
+    the plain version's edges, and the same bits from a second launch."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda, dtype)
+    before = (K12.canny_fused.launches, K12.canny_nms.launches, K12.canny_hysteresis.launches)
+    got = K12.canny_batched(imgs, 60.0, 30.0)
+    assert (K12.canny_fused.launches, K12.canny_nms.launches,
+            K12.canny_hysteresis.launches) == (before[0] + 1, before[1], before[2])
+    want = K12.canny_fused_ref(imgs, 30.0, 60.0)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert torch.equal(K12.canny_fused(imgs, 30.0, 60.0), want)
+    if h > 2:
+        assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (47, 41), (120, 200)])
+def test_canny_fused_cap_binds_on_card(cuda, shape):
+    """A gray serpentine whose weak contour is longer than H+W from one
+    strong stretch: the fused kernel stops where the plain loop's cap
+    stops."""
+    g = torch.from_numpy(serpentine_gray(*shape))[None].to(cuda)
+    want = K12.canny_fused_ref(g, 40.0, 150.0)
+    cand = K12.canny_nms_ref(_reflect_pad(g.float(), 1, 1), 1600.0, 22500.0)[0]
+    assert 0 < int(want.sum()) < int(cand.sum())
+    assert torch.equal(K12.canny_fused(g, 40.0, 150.0), want)
+    assert torch.equal(K12.canny_fused(g.float(), 40.0, 150.0), want)
+
+
+def test_canny_large_image_takes_the_split_kernels(cuda):
+    """An image whose packed masks exceed a block's shared memory: chosen by
+    shape before any launch, canny_batched runs canny_nms and the
+    global-memory hysteresis, and canny_fused refuses it."""
+    h, w = 720, 1280
+    g = torch.from_numpy(_gray(h, w, 3))[None].to(cuda)
+    before = (K12.canny_fused.launches, K12.canny_nms.launches, K12.canny_hysteresis.launches)
+    got = K12.canny_batched(g, 150.0, 100.0)
+    assert (K12.canny_fused.launches, K12.canny_nms.launches,
+            K12.canny_hysteresis.launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(got, K12.canny_fused_ref(g, 100.0, 150.0))
+    with pytest.raises(ValueError, match="shared memory"):
+        K12.canny_fused(g, 100.0, 150.0)
 
 
 @pytest.mark.parametrize("shape", [(24, 40), (23, 41)])
@@ -154,9 +210,10 @@ def test_build_frame_on_card_matches_cpu(cuda):
     g, d = render_frame(SyntheticScene(), cam, np.eye(4, dtype=np.float32), seed=5)
     g8 = torch.from_numpy(g.astype(np.uint8))
     d16 = torch.from_numpy((d * 5000.0).astype(np.uint16))
-    before = K12.canny_nms.launches
+    before = (K12.canny_fused.launches, K12.canny_nms.launches, K12.canny_hysteresis.launches)
     f_card = frontend.build_frame(g8.to(cuda), d16.to(cuda), cfg)
-    assert K12.canny_nms.launches == before + 3
+    assert (K12.canny_fused.launches, K12.canny_nms.launches,
+            K12.canny_hysteresis.launches) == (before[0] + 3, before[1], before[2])
     f_cpu = frontend.build_frame(g8, d16, cfg)
     for a, b in zip(f_card.levels, f_cpu.levels):
         assert torch.equal(a.edges.cpu(), b.edges)
@@ -196,3 +253,61 @@ def test_vosystem_pan_on_card_matches_cpu(cuda):
     assert sum(f[0] for f in f_card[1:]) >= 1  # the pan promotes
     np.testing.assert_allclose(p_card[:, :3, 3], p_cpu[:, :3, 3], rtol=0, atol=1e-4)
     np.testing.assert_allclose(p_card[:, :3, :3], p_cpu[:, :3, :3], rtol=0, atol=1e-4)
+
+
+def _small_cfg():
+    cam = CameraConfig(fx=150.0, fy=150.0, cx=80.0, cy=60.0, width=160, height=120)
+    return SystemConfig(camera=cam, pyramid=dataclasses.replace(
+        SystemConfig().pyramid, edge_capacity=(4096, 2048, 1024)))
+
+
+def test_close_loops_on_card_matches_cpu(cuda):
+    """The four loop keyframes of chip_smoke's phase 10 at 160x120: edge
+    (0, 3) accepted on both devices, corrected poses within 1e-4."""
+    from chip_smoke import loop_keyframes
+    from revo_tpu_torch import loopclosure
+
+    cfg = _small_cfg()
+    runs = []
+    for device in (cuda, "cpu"):
+        kfs, gt, drifted = loop_keyframes(cfg, device)
+        corrected, loops = loopclosure.close_loops(kfs, cfg, min_separation=2, radius=0.3)
+        runs.append((corrected, [(e.a, e.b) for e in loops]))
+    assert runs[0][1] == runs[1][1] == [(0, 3)]
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=0, atol=1e-4)
+    derr = np.linalg.norm(drifted[3, :3, 3] - gt[3, :3, 3])
+    assert np.linalg.norm(runs[0][0][3, :3, 3] - gt[3, :3, 3]) < 0.6 * derr
+
+
+def test_resume_on_card_is_bit_equal(cuda, tmp_path):
+    """VOSystem cut at frame 6 and restored from its checkpoint file, and
+    vo_scan continued from a saved scan state: the continuous card run's
+    poses bit for bit."""
+    from revo_tpu_torch import checkpoint, system
+    from revo_tpu_torch.io.synthetic import render_sequence
+    from revo_tpu_torch.parallel import batch
+
+    cfg = _small_cfg()
+    frames = [(g, d, ts) for g, d, _, ts in render_sequence(SyntheticScene(), cfg.camera, 12, seed=2)]
+
+    def run(vo, part):
+        return np.stack([vo.process_frame(g, d, ts) for g, d, ts in part])
+
+    full = run(system.VOSystem(cfg, device=cuda), frames)
+    vo_a = system.VOSystem(cfg, device=cuda)
+    run(vo_a, frames[:6])
+    path = str(tmp_path / "vo.npz")
+    checkpoint.save(path, checkpoint.capture(vo_a))
+    vo_b = system.VOSystem(cfg, device=cuda)
+    checkpoint.restore(vo_b, checkpoint.load(path), vo_a.prev_frame)
+    np.testing.assert_array_equal(run(vo_b, frames[6:]), full[6:])
+
+    grays = torch.from_numpy(np.stack([f[0] for f in frames])).to(cuda)
+    depths = torch.from_numpy(np.stack([f[1] for f in frames])).to(cuda)
+    scan_full = batch.vo_scan(grays, depths, cfg)[0]
+    path = str(tmp_path / "scan.npz")
+    checkpoint.save_scan_state(path, batch.vo_scan(grays[:6], depths[:6], cfg)[2])
+    state = checkpoint.load_scan_state(path, cfg, device=cuda)
+    assert state.kf.quads[0].is_cuda and state.kf.quads[0].dtype == torch.bfloat16
+    tail = batch.vo_scan_from_state(state, grays[6:], depths[6:], cfg)[0]
+    assert torch.equal(tail, scan_full[6:])

@@ -120,6 +120,60 @@ def test_run_synthetic_matches_jax(tmp_path):
     np.testing.assert_allclose(p_t, p_j, rtol=0, atol=1e-4)
 
 
+def test_run_close_loops_matches_jax(tmp_path, capsys):
+    """``--synthetic 12 --close-loops`` in both packages: the same report,
+    the same loop-closure line (a 12-frame handheld sequence retains fewer
+    than 3 keyframes, so both skip) and the same pose file within 1e-4."""
+    args = _settings(tmp_path) + ["--synthetic", "12", "--seed", "2", "--close-loops"]
+    assert run.main(args + ["--device", "cpu", "--out", str(tmp_path / "torch")]) == 0
+    out_t = capsys.readouterr().out
+    assert jrun.main(args + ["--cpu", "--out", str(tmp_path / "jax")]) == 0
+    out_j = capsys.readouterr().out
+
+    def closure_line(out, tag):
+        lines = [ln for ln in out.splitlines() if "loop closure:" in ln]
+        assert len(lines) == 1, out
+        return lines[0].replace(tag, "")
+
+    assert closure_line(out_t, "[revo_tpu_torch] ") == closure_line(out_j, "[revo_tpu] ")
+    assert "Frames Tracked: 12" in out_t and "ATE-RMSE" in out_t
+    _, p_t = tum.read_tum_trajectory(str(tmp_path / "torch" / "poses_synthetic.txt"))
+    _, p_j = tum.read_tum_trajectory(str(tmp_path / "jax" / "poses_synthetic.txt"))
+    np.testing.assert_allclose(p_t, p_j, rtol=0, atol=1e-4)
+
+
+def test_maybe_close_loops_reanchors_the_run():
+    """The entry point's post-run closure on a system that retains the four
+    loop keyframes of tests/test_loopclosure.py: edge (0, 3) verifies and
+    every frame re-anchors to its corrected keyframe, as revo_tpu.run's
+    ``_maybe_close_loops`` does it."""
+    import jax
+
+    from revo_tpu import system as jsystem
+    from revo_tpu_torch import system
+    from test_loopclosure import _loop_keyframes
+
+    cfg, kfs, _, drifted = _loop_keyframes()
+    tcfg = convert.config_from_jax(cfg)
+    tk = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k)) for k in kfs]
+    rel = np.eye(4, dtype=np.float32)
+    rel[:3, 3] = [0.01, 0.0, 0.0]
+    vj, vt = jsystem.VOSystem(cfg), system.VOSystem(tcfg, device="cpu")
+    for vo, keyframes, node_cls in ((vj, kfs, jsystem.PoseNode), (vt, tk, system.PoseNode)):
+        vo.kf_history = list(enumerate(keyframes))
+        vo.n_keyframes = 4
+        vo.pose_graph = [
+            node_cls(T_kf_curr=rel, T_w_kf=drifted[i // 2], timestamp=float(i), kf_ordinal=i // 2)
+            for i in range(8)
+        ]
+    poses = np.stack([n.T_w_curr for n in vt.pose_graph])
+    got = run._maybe_close_loops(vt, poses)
+    want = jrun._maybe_close_loops(vj, poses)
+    assert got.shape == (8, 4, 4) and np.abs(got - poses).max() > 5e-3
+    np.testing.assert_array_equal(got[:2], poses[:2])  # the gauge keyframe stays
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
 def test_run_dataset_matches_jax(tmp_path, capsys):
     """Dataset mode on a TUM-layout sequence written as PNGs (raw rgb.txt /
     depth.txt, so the port generates associate.txt) with --gt: the port's
@@ -160,7 +214,7 @@ def test_run_dataset_matches_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--close-loops"], "P12"),
+    (["--close-loops", "--windowed-ba"], "P12"),  # loop edges into windowed BA
     (["--windowed-ba"], "P12"),
     (["--live-view"], "P11"),
     (["--record", "rec"], "P11"),

@@ -237,7 +237,17 @@ def test_renderer_and_ate_match_jax(seq):
 
 def test_import_loads_no_jax():
     """Every port module imports with jax and revo_tpu blocked, and loads
-    neither."""
+    neither; no source line of the port or of chip_smoke.py (whose imports
+    run inside main, on the card) imports them."""
+    import glob
+    import re
+
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|revo_tpu)(?:[.\s]|$)", re.M)
+    sources = glob.glob(os.path.join(REPO, "revo_tpu_torch", "**", "*.py"), recursive=True)
+    assert len(sources) > 25
+    for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
     code = (
         "import sys\n"
         "class Block:\n"
@@ -250,6 +260,11 @@ def test_import_loads_no_jax():
         "import revo_tpu_torch.io.synthetic, revo_tpu_torch.eval\n"
         "import revo_tpu_torch.system, revo_tpu_torch.parallel.batch\n"
         "import revo_tpu_torch.autotune, revo_tpu_torch.io.tum, revo_tpu_torch.run\n"
+        "import revo_tpu_torch.parallel.posegraph, revo_tpu_torch.loopclosure\n"
+        "import revo_tpu_torch.checkpoint, revo_tpu_torch.ops.canny, revo_tpu_torch.ops.lgsx\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'revo_tpu' or m.startswith('revo_tpu.'))\n"
         "print(bad)\n"
