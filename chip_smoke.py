@@ -12,7 +12,10 @@ frame 0's pose with the motion prior poisoned (so the jump gate fires and
 the keyframe ring relocalizes), then the SLAM back end (loop closure over
 four keyframes of a small loop, checkpoint and scan-state resume) and one
 1280x720 frame, whose level 0 is too large for the fused Canny and takes the
-split kernels.  Phases, one line each:
+split kernels; then the rest of the SLAM back end: windowed joint BA over six
+pan keyframes and over the loop keyframes with their loop edge, segment-
+parallel tracking of the pan, and a distorted capture of the pan through
+undistortion and PLY export.  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
@@ -74,10 +77,33 @@ split kernels.  Phases, one line each:
              equal edges and clouds; level 0 takes canny_nms and the
              global-memory canny_hysteresis, chosen by shape, levels 1-2
              the fused kernel; then K1 and K2 alone on that level's padded
-             gray and masks, bit-equal to their plain versions.
+             gray and masks, bit-equal to their plain versions;
+12. ba       (a) pan frames 0, 2, .. 10 made keyframes whose stored poses
+             are perturbed by exp(N(0, 0.008)) (frame 0 exact: the gauge,
+             tests/test_windowed.py:328-370 at full size):
+             refine_keyframes(pairs="overlap") on the card and, on the same
+             keyframes moved to the host, on the CPU: largest translation
+             error after < 0.7x before on both, the level-0 windowed error
+             not above its start, frame 0 unmoved to 1e-6, card poses within
+             1e-3 m / 1e-3 rad of the CPU's; (b) phase 10's loop keyframes:
+             close_loops, then refine_keyframes with edge (0, 3) as
+             extra_pairs of weight 2 and the corrected poses as poses0:
+             keyframe 3 no farther from truth than after loop closure alone
+             plus 2 mm; evaluations per level, torch kernels and ms per
+             evaluation, ms per refine_keyframes call;
+13. segments the pan's 21 frames: track_long_sequence(n_segments=4) with and
+             without refine against vo_scan on the same frames: ATE under
+             2x vo_scan's + 1 mm, stitched end pose within 2 cm;
+14. undistort_ply  the pan's first 8 frames through a numpy lens emulation
+             (TUM fr1 coefficients, fixed-point inversion of the model):
+             VOSystem(undistort=True, store_kf_images=True) on the card and
+             the CPU: ATE < 5 mm, flags equal, the first keyframe's level-0
+             gray within mean 3.0 grey levels of the ideal render and twice
+             as close to it as to the distorted capture; the three PLY
+             files written, read back, counts and colours checked.
 
-Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 6.  Launch counts
-are set to 0 just before each path (phases 5, 7, 8, 9, 10, 11)
+Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 14)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
 alone; K1 and K2 on the 1280x720 frame; the unfused K3 ``lgsx_reduce`` is
@@ -133,6 +159,17 @@ VO_ATE_LIMIT_M = 1.5 * JAX_CPU_ATE_M
 TUM_TOL_M, TUM_TOL_RAD = 1e-6, 1e-5
 SCAN_TOL = 5e-4  # vo_scan against VOSystem (tests/test_batch.py:35-48)
 CAPACITY_MARGIN = 0.65  # the JAX bench's operating point
+BA_FRAMES = (0, 2, 4, 6, 8, 10)  # pan frames that become phase 12's keyframes
+BA_PERTURB = 0.008  # tests/test_windowed.py:355: exp(N(0, 0.008)) on the stored poses
+BA_GAIN = 0.7  # largest translation error after < 0.7x before (test_windowed.py:370)
+BA_VS_CPU = 1e-3  # metres and radians: LM accept/reject may part on atomic-add sums
+BA_LOOP_SLACK_M = 2e-3  # keyframe 3 after loop closure + BA against loop closure alone
+N_SEGMENTS = 4
+SEG_END_TOL_M = 0.02  # tests/test_segments.py:63-73
+TUM_FR1_DISTORTION = (0.2624, -0.9531, -0.0054, 0.0026, 1.1633)  # TUM fr1 calibration
+N_UNDISTORT = 8
+UNDISTORT_ATE_LIMIT_M = 5e-3
+UNDISTORT_GRAY_LIMIT = 3.0  # mean grey levels, tests/test_undistort_recorder.py:141-157
 
 
 _T0 = time.perf_counter()
@@ -374,6 +411,111 @@ def loop_keyframes(cfg, device, rendered=None):
     return kfs, gt, drifted
 
 
+def to_device(tree, device):
+    """A keyframe (or any nest of NamedTuples and tuples of tensors) moved
+    to ``device``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple):
+        moved = [to_device(x, device) for x in tree]
+        return type(tree)(*moved) if hasattr(tree, "_fields") else tuple(moved)
+    return tree
+
+
+def perturbed_poses(gt, scale: float = BA_PERTURB, seed: int = 3):
+    """``gt`` (K, 4, 4) with every pose but the first (the gauge) moved by
+    exp(N(0, scale)) on the left: drifted odometry estimates."""
+    import torch
+
+    from revo_tpu_torch import lie
+
+    xi = np.random.default_rng(seed).normal(size=(len(gt), 6)).astype(np.float32) * scale
+    xi[0] = 0.0
+    return (lie.matrix_from_rt(*lie.exp_se3(torch.from_numpy(xi))).numpy()
+            @ np.asarray(gt, np.float32)).astype(np.float32)
+
+
+def ba_keyframes(cfg, device, grays, depths, stored):
+    """Keyframes on ``device`` from frames and the world poses stored with them."""
+    import torch
+
+    from revo_tpu_torch import frontend
+
+    return [
+        frontend.make_keyframe(
+            frontend.build_frame(torch.from_numpy(g).to(device), torch.from_numpy(d).to(device), cfg),
+            torch.from_numpy(T).to(device), cfg)
+        for g, d, T in zip(grays, depths, stored)
+    ]
+
+
+def max_translation_error(poses, gt) -> float:
+    return float(np.linalg.norm(np.asarray(poses)[:, :3, 3] - np.asarray(gt)[:, :3, 3], axis=1).max())
+
+
+def windowed_error(keyframes, poses, cfg, lvl: int = 0) -> float:
+    """The windowed BA objective at one level over the +-2 index ring."""
+    import torch
+
+    from revo_tpu_torch.parallel import windowed
+
+    dev = keyframes[0].T_w_k.device
+    win = windowed.keyframe_window(
+        keyframes, lvl, torch.from_numpy(np.asarray(poses, np.float32)).to(dev))
+    n = len(keyframes)
+    return float(windowed._accumulate_pairs(
+        win, *windowed.make_pairs(n, 2, device=dev), cfg.camera_pyramid()[lvl],
+        cfg.tracker.optimizer, lvl, n)[2])
+
+
+def read_ply(path):
+    """(element counts, vertex rows as floats) of an ascii PLY file."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    end = lines.index("end_header")
+    counts = {ln.split()[1]: int(ln.split()[2]) for ln in lines[:end] if ln.startswith("element")}
+    rows = np.array([[float(x) for x in ln.split()] for ln in lines[end + 1:end + 1 + counts["vertex"]]])
+    return counts, rows
+
+
+def distort_capture(gray, depth, cam, iters: int = 20):
+    """Emulate a distorting lens on an ideal pinhole render, on the host:
+    for each captured (distorted) pixel, sample the ideal image at the
+    undistorted position, found by fixed-point inversion of the
+    radial-tangential model (x <- (x_d - tangential(x)) / radial(x), what
+    cv2.undistortPoints iterates), independent of the forward-model maps of
+    revo_tpu_torch.ops.undistort.  Rectifying the result with those maps
+    gives the ideal image back.  Gray is sampled bilinearly, depth by the
+    nearest pixel (no depth mixing across silhouettes); samples outside the
+    image are 0.  Returns float32 (gray, depth)."""
+    k1, k2, p1, p2, k3 = cam.distortion
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                       np.arange(cam.height, dtype=np.float64))
+    xd, yd = (u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+        x, y = ((xd - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) / radial,
+                (yd - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) / radial)
+    mu, mv = x * cam.fx + cam.cx, y * cam.fy + cam.cy
+
+    def tap(img, iy, ix):
+        inside = (ix >= 0) & (ix < cam.width) & (iy >= 0) & (iy < cam.height)
+        return np.where(inside, img[iy.clip(0, cam.height - 1), ix.clip(0, cam.width - 1)], 0.0)
+
+    g = np.asarray(gray, np.float64)
+    x0, y0 = np.floor(mu).astype(np.int64), np.floor(mv).astype(np.int64)
+    dx, dy = mu - x0, mv - y0
+    g_d = ((1 - dy) * ((1 - dx) * tap(g, y0, x0) + dx * tap(g, y0, x0 + 1))
+           + dy * ((1 - dx) * tap(g, y0 + 1, x0) + dx * tap(g, y0 + 1, x0 + 1)))
+    d_d = tap(np.asarray(depth, np.float64), np.rint(mv).astype(np.int64),
+              np.rint(mu).astype(np.int64))
+    return g_d.astype(np.float32), d_d.astype(np.float32)
+
+
 # Device functions of csrc/*.cu as the profiler names them.  The profiler
 # shows launches made through ctypes only now and then, so it counts the
 # kernels torch launches and the wrappers' launch counts count these.
@@ -501,14 +643,18 @@ def main() -> int:
     cam = cfg.camera
     scene = SyntheticScene()
     t0 = time.perf_counter()
+    # The pan's 21st pose closes phase 13's sequence: N - 1 divisible by 4.
     trajs = [scene.trajectory(N_FRAMES, seed=0), pan_sequence(N_PAN),
-             scene.trajectory(N_PAN, seed=1), loop_poses()]
+             scene.trajectory(N_PAN, seed=1), pan_sequence(N_PAN + 1)[N_PAN:N_PAN + 1],
+             loop_poses()]
     rendered = render_trajectory_parallel(
         scene, cam, np.concatenate(trajs), seed=0, workers=max(os.cpu_count() - 1, 1)
     )
     grays, depths, gt = _sensor_frames(rendered[:N_FRAMES], cfg)
     pan = _sensor_frames(rendered[N_FRAMES:N_FRAMES + N_PAN + 1], cfg)
-    second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:-4], cfg)
+    second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:-5], cfg)
+    pan_next = _sensor_frames(rendered[-5:-4], cfg)
+    pan_ideal = rendered[N_FRAMES:N_FRAMES + N_UNDISTORT]  # float gray, metric depth
     loop_rendered = [(g, d) for g, d, _, _ in rendered[-4:]]
     _phase("frames", n=len(rendered), shape=list(grays[0].shape),
            seconds=round(time.perf_counter() - t0, 3))
@@ -903,6 +1049,192 @@ def main() -> int:
     _phase("large", shape=[720, 1280], edge_pixels=[int(lv.edges.sum()) for lv in f_hd.levels],
            cloud_counts=[int(lv.cloud.count) for lv in f_hd.levels], launches=launches,
            k1_differing_pixels=nms_hd_diff, k2_global_differing_pixels=hys_hd_diff)
+
+    # -- 12. ba: windowed joint BA over pan keyframes and over the loop --------
+    import collections
+
+    from revo_tpu_torch.parallel import segments, windowed
+
+    ba_idx = list(BA_FRAMES)
+    ba_gt = p_gt[ba_idx].astype(np.float32)
+    ba_stored = perturbed_poses(ba_gt)
+    evals = collections.Counter()  # _accumulate_pairs calls per level
+    accumulate = windowed._accumulate_pairs
+
+    def counted_accumulate(window, pi, pj, pw, cam_, opt_, lvl, n):
+        evals[lvl] += 1
+        return accumulate(window, pi, pj, pw, cam_, opt_, lvl, n)
+
+    def card_ba():
+        kfs = ba_keyframes(cfg, dev, [p_grays[i] for i in ba_idx], [p_depths[i] for i in ba_idx],
+                           ba_stored)
+        refined = windowed.refine_keyframes(kfs, cfg, pairs="overlap")
+        evals_a = dict(evals)
+        evals.clear()
+        kfs_l, loop_gt, _ = loop_keyframes(cfg, dev, loop_rendered)
+        corrected, loops = loopclosure.close_loops(kfs_l, cfg, min_separation=2, radius=0.3)
+        both = windowed.refine_keyframes(
+            kfs_l, cfg, extra_pairs=[(e.a, e.b, 2.0) for e in loops], poses0=corrected)
+        return kfs, refined, evals_a, loop_gt, corrected, loops, both, dict(evals)
+
+    windowed._accumulate_pairs = counted_accumulate
+    try:
+        (kfs_ba, ba_card, evals_a, loop_gt, lc_poses, lc_loops, ba_loop, evals_b), launches = (
+            _path_launches(counters_, card_ba))
+    finally:
+        windowed._accumulate_pairs = accumulate
+    require_vga("ba", launches)
+    add_launches(launches)
+    kfs_ba_cpu = [to_device(k, "cpu") for k in kfs_ba]
+    ba_cpu = windowed.refine_keyframes(kfs_ba_cpu, cfg, pairs="overlap")
+    ba_dt, ba_dr = _max_pose_diff(ba_card, ba_cpu)
+
+    def kf3(poses):  # loop keyframe 3's distance from truth
+        return float(np.linalg.norm(poses[3, :3, 3] - loop_gt[3, :3, 3]))
+
+    # One evaluation at level 0 over the pairs the refinement chose, and the
+    # whole call: torch kernels (torch.profiler) and CUDA-event times.
+    lvl_c = cfg.pyramid.n_levels - 1
+    stored_dev = torch.from_numpy(ba_stored).to(dev)
+    win0 = windowed.keyframe_window(kfs_ba, 0, stored_dev)
+    ba_pairs = windowed.make_pairs_overlap(
+        windowed.keyframe_window(kfs_ba, lvl_c, stored_dev), cams[lvl_c], opt, lvl=lvl_c)
+
+    def one_evaluation():
+        return windowed._accumulate_pairs(win0, *ba_pairs, cams[0], opt, 0, len(kfs_ba))
+
+    ba_summary = {
+        "keyframes": len(kfs_ba), "pan_frames": ba_idx, "pairs": int(ba_pairs[0].numel()),
+        "err_before_m": max_translation_error(ba_stored, ba_gt),
+        "err_after_m": max_translation_error(ba_card, ba_gt),
+        "err_after_cpu_m": max_translation_error(ba_cpu, ba_gt),
+        "windowed_error_before": windowed_error(kfs_ba, ba_stored, cfg),
+        "windowed_error_after": windowed_error(kfs_ba, ba_card, cfg),
+        "windowed_error_after_cpu": windowed_error(kfs_ba_cpu, ba_cpu, cfg),
+        "frame0_moved": float(np.abs(ba_card[0] - ba_stored[0]).max()),
+        "vs_cpu_m": ba_dt, "vs_cpu_rad": ba_dr, "vs_cpu_tol": BA_VS_CPU,
+        "evaluations_per_level": {str(k): v for k, v in sorted(evals_a.items())},
+        "loop_edges": [(e.a, e.b) for e in lc_loops],
+        "loop_evaluations_per_level": {str(k): v for k, v in sorted(evals_b.items())},
+        "kf3_after_loop_closure_m": kf3(lc_poses), "kf3_after_loop_closure_and_ba_m": kf3(ba_loop),
+        "evaluation_torch_kernels": _profile_kernels(one_evaluation, 5)[0],
+        "evaluation_ms": _time_ms(one_evaluation, 10),
+        "refine_keyframes_ms": _time_ms(
+            lambda: windowed.refine_keyframes(kfs_ba, cfg, pairs="overlap"), 3, warmup=1),
+        "launches": launches, "smi": smi,
+    }
+    for side in ("err_after_m", "err_after_cpu_m"):
+        if not ba_summary[side] < BA_GAIN * ba_summary["err_before_m"]:
+            raise RuntimeError(f"ba: {side} not under {BA_GAIN}x the error before: {ba_summary}")
+    if not (ba_summary["windowed_error_after"] <= ba_summary["windowed_error_before"]
+            and ba_summary["windowed_error_after_cpu"] <= ba_summary["windowed_error_before"]):
+        raise RuntimeError(f"ba: the windowed error rose: {ba_summary}")
+    if not (ba_summary["frame0_moved"] <= 1e-6 and np.isfinite(ba_card).all()):
+        raise RuntimeError(f"ba: the gauge frame moved: {ba_summary}")
+    if not (ba_dt <= BA_VS_CPU and ba_dr <= BA_VS_CPU):
+        raise RuntimeError(f"ba: card poses differ from the CPU's: {ba_summary}")
+    if (0, 3) not in ba_summary["loop_edges"] or not (
+            ba_summary["kf3_after_loop_closure_and_ba_m"]
+            <= ba_summary["kf3_after_loop_closure_m"] + BA_LOOP_SLACK_M):
+        raise RuntimeError(f"ba: loop edge + BA left keyframe 3 farther from truth: {ba_summary}")
+    _phase("ba", **ba_summary)
+
+    # -- 13. segments: the pan in four overlapping segments --------------------
+    g_seg = torch.cat([g_pan, torch.from_numpy(pan_next[0][0])[None].to(dev)])
+    d_seg = torch.cat([d_pan, torch.from_numpy(pan_next[1][0])[None].to(dev)])
+    seg_gt = np.concatenate([p_gt[:N_PAN], pan_next[2]])
+
+    def card_segments():
+        return (batch.vo_scan(g_seg, d_seg, cfg)[0],
+                segments.track_long_sequence(g_seg, d_seg, cfg, N_SEGMENTS),
+                segments.track_long_sequence(g_seg, d_seg, cfg, N_SEGMENTS, refine=True))
+
+    seg_poses, launches = _path_launches(counters_, card_segments)
+    require_vga("segments", launches)
+    add_launches(launches)
+    serial, stitched, relaxed = (x.cpu().numpy().astype(np.float64) for x in seg_poses)
+
+    def end_gap(poses):  # the last pose against vo_scan's
+        return float(np.linalg.norm((np.linalg.inv(serial[-1]) @ poses[-1])[:3, 3]))
+
+    seg_summary = {
+        "frames": len(seg_gt), "segments": N_SEGMENTS,
+        "ate_vo_scan_m": absolute_trajectory_error(serial, seg_gt).rmse,
+        "ate_segments_m": absolute_trajectory_error(stitched, seg_gt).rmse,
+        "ate_segments_refined_m": absolute_trajectory_error(relaxed, seg_gt).rmse,
+        "end_vs_vo_scan_m": end_gap(stitched), "end_vs_vo_scan_refined_m": end_gap(relaxed),
+        "end_tol_m": SEG_END_TOL_M, "launches": launches, "smi": smi,
+    }
+    seg_ate_limit = 2.0 * seg_summary["ate_vo_scan_m"] + 1e-3
+    if not (stitched.shape == (len(seg_gt), 4, 4) and np.isfinite(stitched).all()
+            and np.isfinite(relaxed).all()):
+        raise RuntimeError(f"segments: bad poses: {seg_summary}")
+    if not (seg_summary["ate_segments_m"] < seg_ate_limit
+            and seg_summary["ate_segments_refined_m"] < seg_ate_limit):
+        raise RuntimeError(f"segments: ATE over 2x vo_scan's + 1 mm: {seg_summary}")
+    if not (seg_summary["end_vs_vo_scan_m"] <= SEG_END_TOL_M
+            and seg_summary["end_vs_vo_scan_refined_m"] <= SEG_END_TOL_M):
+        raise RuntimeError(f"segments: stitched end pose off vo_scan's: {seg_summary}")
+    _phase("segments", **seg_summary)
+
+    # -- 14. undistort_ply: a distorted capture, rectified; the map as PLY -----
+    cam_d = dataclasses.replace(cam, distortion=TUM_FR1_DISTORTION)
+    cfg_d = dataclasses.replace(
+        cfg, camera=cam_d, pyramid=dataclasses.replace(cfg.pyramid, undistort=True),
+        tracker=dataclasses.replace(cfg.tracker, store_kf_images=True))
+    captured = [distort_capture(g, d, cam_d) for g, d, _, _ in pan_ideal]
+    und_gt = p_gt[:N_UNDISTORT]
+
+    def run_undistort(device):
+        vo = VOSystem(cfg_d, device=device)
+        marks, poses_ = [counters(vo)], []
+        for i, (g, d) in enumerate(captured):
+            poses_.append(vo.process_frame(g, d, i / 30.0))
+            marks.append(counters(vo))
+        return vo, np.stack(poses_), np.diff(np.stack(marks), axis=0)
+
+    (vo_d, poses_d, flags_d), launches = _path_launches(counters_, lambda: run_undistort(dev))
+    require_vga("undistort_ply", launches)
+    add_launches(launches)
+    _, poses_dh, flags_dh = run_undistort("cpu")
+    und_dt, und_dr = _max_pose_diff(poses_d, poses_dh)
+    kf_gray = vo_d.kf_history[0][1].frame.levels[0].gray.cpu().numpy()
+    inner = (slice(32, -32), slice(32, -32))
+    to_ideal = float(np.abs(kf_gray - pan_ideal[0][0].astype(np.float32))[inner].mean())
+    to_capture = float(np.abs(kf_gray - captured[0][0])[inner].mean())
+    with tempfile.TemporaryDirectory() as tmp:
+        from revo_tpu_torch.run import _maybe_export_ply
+
+        _maybe_export_ply(vo_d, poses_d, tmp)
+        cloud_counts, cloud_rows = read_ply(os.path.join(tmp, "map_cloud.ply"))
+        kf_counts, _ = read_ply(os.path.join(tmp, "map_keyframes.ply"))
+        traj_counts, traj_rows = read_ply(os.path.join(tmp, "trajectory.ply"))
+    _, clr01 = frontend.generate_colored_pcl(vo_d.kf_history[0][1].frame, cfg_d)
+    und_summary = {
+        "frames": N_UNDISTORT, "distortion": list(TUM_FR1_DISTORTION),
+        "maps_on": str(vo_d.undistort_maps[0].device),
+        "ate_m": absolute_trajectory_error(poses_d, und_gt).rmse,
+        "ate_limit_m": UNDISTORT_ATE_LIMIT_M, "vs_cpu_m": und_dt, "vs_cpu_rad": und_dr,
+        "keyframes": vo_d.n_keyframes,
+        "kf_gray_vs_ideal": to_ideal, "kf_gray_vs_capture": to_capture,
+        "ply_cloud": cloud_counts, "ply_keyframes": kf_counts, "ply_trajectory": traj_counts,
+        "cloud_colour_range": [float(clr01.min()), float(clr01.max())],
+        "launches": launches, "smi": smi,
+    }
+    if not (und_summary["ate_m"] < UNDISTORT_ATE_LIMIT_M and np.isfinite(poses_d).all()):
+        raise RuntimeError(f"undistort_ply: ATE over the limit: {und_summary}")
+    if not (np.array_equal(flags_d, flags_dh) and und_dt <= POSE_TOL and und_dr <= POSE_TOL):
+        raise RuntimeError(f"undistort_ply: the card's run differs from the CPU's: {und_summary}")
+    if not (vo_d.undistort_maps[0].device.type == "cuda" and to_ideal < UNDISTORT_GRAY_LIMIT
+            and to_ideal < 0.5 * to_capture):
+        raise RuntimeError(f"undistort_ply: the keyframe is not the rectified image: {und_summary}")
+    if not (cloud_counts["vertex"] > 0 and kf_counts["vertex"] == 5 * len(vo_d.kf_history)
+            and traj_counts == {"vertex": N_UNDISTORT, "edge": N_UNDISTORT - 1}
+            and np.isfinite(cloud_rows).all() and cloud_rows[:, 3:].min() >= 0
+            and cloud_rows[:, 3:].max() <= 255 and clr01.min() >= 0.0 and clr01.max() <= 1.0
+            and np.abs(traj_rows - poses_d[:, :3, 3]).max() <= 1e-6):
+        raise RuntimeError(f"undistort_ply: the PLY files read back wrong: {und_summary}")
+    _phase("undistort_ply", **und_summary)
 
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")

@@ -18,6 +18,7 @@ from revo_tpu_torch.frontend import Frame, FrameLevel, Keyframe
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.parallel.batch import ScanVOState
 from revo_tpu_torch.parallel.posegraph import PoseGraphEdges
+from revo_tpu_torch.parallel.windowed import Window
 from revo_tpu_torch.tracker import KeyframeRing, PastFrames
 
 _SECTIONS = {
@@ -128,3 +129,10 @@ def edges_from_numpy(tree, device="cpu") -> PoseGraphEdges:
     arrays) -> the port's PoseGraphEdges on ``device``."""
     get = tree.__getitem__ if isinstance(tree, dict) else (lambda k: getattr(tree, k))
     return PoseGraphEdges(*(_tensor(get(k), device) for k in PoseGraphEdges._fields))
+
+
+def window_from_numpy(tree, device="cpu") -> Window:
+    """A JAX windowed-BA ``Window`` with numpy leaves (or a dict of its four
+    arrays) -> the port's Window on ``device``."""
+    get = tree.__getitem__ if isinstance(tree, dict) else (lambda k: getattr(tree, k))
+    return Window(*(_tensor(get(k), device) for k in Window._fields))

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from revo_tpu_torch.config import SystemConfig
@@ -22,6 +23,7 @@ from revo_tpu_torch.ops.depth import subsample_depth_with_holes
 from revo_tpu_torch.ops.edge_hist import fill_in_edges, patch_histogram
 from revo_tpu_torch.ops.edt import keyframe_structure, quad_structure
 from revo_tpu_torch.ops.filters import gaussian_blur, pyr_down
+from revo_tpu_torch.ops.undistort import remap_bilinear
 
 
 class FrameLevel(NamedTuple):
@@ -56,22 +58,26 @@ def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
     return torch.round(0.299 * r + 0.587 * g + 0.114 * b)
 
 
-def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig):
+def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
+                undistort_maps=None):
     """The pyramid's edge maps, level by level from full resolution: yields
     (gray, depth, edges_orig, edges) per level, edges after fill-in.
 
     Takes uint8 or float32 gray, and uint16 raw depth (scaled by
     1 / depth_scale_factor, iowrapperRGBD.cpp:326-327) or float32 metres;
-    conversion happens on the device."""
-    if cfg.pyramid.undistort:
-        raise NotImplementedError(
-            "undistortion (PyramidConfig.undistort) is not ported yet: ROADMAP P11"
-        )
+    conversion happens on the device.  ``undistort_maps``: (map_u, map_v)
+    tensors from ``ops.undistort.build_undistort_maps``; gray and depth are
+    then rectified first, cv::remap CV_INTER_LINEAR on both like the
+    reference (imgpyramidrgbd.cpp:57-65), gray rounded back to uint8 levels."""
     g = gray.to(torch.float32)
     if depth.dtype == torch.uint16:
         d = depth.to(torch.float32) * (1.0 / cfg.dataset.depth_scale_factor)
     else:
         d = depth.to(torch.float32)
+    if undistort_maps is not None:
+        map_u, map_v = undistort_maps
+        g = gray = torch.round(remap_bilinear(g, map_u, map_v))
+        d = remap_bilinear(d, map_u, map_v)
     pyr = cfg.pyramid
     prev_edges = None
     for lvl in range(pyr.n_levels):
@@ -96,13 +102,15 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig):
             d = subsample_depth_with_holes(d)
 
 
-def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig) -> Frame:
+def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
+                undistort_maps=None) -> Frame:
     """Full pyramid from full-resolution gray and depth, on their device
-    (input dtypes as ``edge_levels`` takes them)."""
+    (input dtypes and ``undistort_maps`` as ``edge_levels`` takes them)."""
     pyr = cfg.pyramid
     cams = cfg.camera_pyramid()
     levels = []
-    for lvl, (g, d, edges_orig, edges) in enumerate(edge_levels(gray, depth, cfg)):
+    for lvl, (g, d, edges_orig, edges) in enumerate(
+            edge_levels(gray, depth, cfg, undistort_maps)):
         cam = cams[lvl]
         cloud = backproject_edges(
             edges, d, cam.fx, cam.fy, cam.cx, cam.cy,
@@ -120,6 +128,36 @@ def make_keyframe(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyfr
         quad_structure(s, cfg.tracker.optimizer.quad_form) for s in structs
     )
     return Keyframe(structs=structs, quads=quads, frame=frame, T_w_k=T_w_k)
+
+
+def generate_colored_pcl(frame: Frame, cfg: SystemConfig, lvl: int = 0, dense: bool = False,
+                         rgb01=None):
+    """Colored point cloud (XYZ + RGB in [0, 1]) for export.
+
+    Mirrors ImgPyramidRGBD::generateColoredPcl (imgpyramidrgbd.cpp:279-327):
+    dense (all valid-depth pixels) or edge-sparse.  Colors come from
+    ``rgb01`` (H, W, 3) if given, else the gray level is replicated.
+    Returns (points (M, 3), colors (M, 3)) as numpy arrays (the export path
+    is the host's; M depends on the data).  Needs the level's images: a
+    keyframe stored with ``TrackerConfig.store_kf_images``."""
+    lv = frame.levels[lvl]
+    cam = cfg.camera_pyramid()[lvl]
+    depth = lv.depth.detach().cpu().numpy()
+    gray = lv.gray.detach().cpu().numpy()
+    ok = np.isfinite(depth) & (depth > cfg.pyramid.depth_min) & (depth < cfg.pyramid.depth_max)
+    if not dense:
+        ok &= lv.edges.detach().cpu().numpy()
+    ys, xs = np.nonzero(ok)
+    z = depth[ys, xs]
+    pts = np.stack(
+        [z * (xs - cam.cx) / cam.fx, z * (ys - cam.cy) / cam.fy, z], axis=-1
+    ).astype(np.float32)
+    if rgb01 is not None:
+        clr = np.asarray(rgb01)[ys, xs].astype(np.float32)
+    else:
+        g01 = (gray[ys, xs] / 255.0).astype(np.float32)
+        clr = np.stack([g01, g01, g01], axis=-1)
+    return pts, clr
 
 
 def prune_keyframe(kf: Keyframe) -> Keyframe:

@@ -200,14 +200,16 @@ def matmul_fma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def inv_lu(T: torch.Tensor) -> torch.Tensor:
-    """float32 inverse of a small square matrix by LU with partial pivoting
-    and two triangular solves (LAPACK getrf + getrs through scipy), on the
-    host: the algorithm and rounding of ``jnp.linalg.inv`` on the CPU.
-    Returns a tensor on ``T``'s device."""
+    """float32 inverse of small square matrices (..., n, n) by LU with
+    partial pivoting and two triangular solves (LAPACK getrf + getrs through
+    scipy), on the host: the algorithm and rounding of ``jnp.linalg.inv`` on
+    the CPU.  Returns a tensor on ``T``'s device."""
     a = T.detach().cpu().numpy().astype(np.float32)
-    inv = scipy.linalg.lu_solve(
-        scipy.linalg.lu_factor(a), np.eye(a.shape[-1], dtype=np.float32)
-    )
+    eye = np.eye(a.shape[-1], dtype=np.float32)
+    flat = a.reshape(-1, *a.shape[-2:])
+    inv = np.stack([
+        scipy.linalg.lu_solve(scipy.linalg.lu_factor(m), eye) for m in flat
+    ]).reshape(a.shape)
     return torch.from_numpy(inv.astype(np.float32)).to(T.device)
 
 

@@ -20,6 +20,27 @@ def apply_rt_cols(pts, R, t):
     return wx, wy, wz
 
 
+def apply_rt_cols_fma(pts, R, t):
+    """``apply_rt_cols`` rounded as jitted XLA on the CPU rounds the JAX
+    expression ``R00 x + R01 y + R02 z + t0``: the second product is rounded
+    to float32, the first and third are fused multiply-adds onto it, and the
+    translation is a plain add.  Each FMA is taken in float64 (the product
+    of two float32 values is exact there), so the result is the same on
+    every device.  For passes that hold bounds and bilinear weights against
+    the JAX package to the last bit, where ``apply_rt_cols``' separately
+    rounded products differ by an ulp in one coordinate of eight."""
+    x, y, z = (pts[..., k].double() for k in range(3))
+    Rd = R.double()
+
+    def row(r):
+        acc = (Rd[..., r, 1] * y).float()
+        acc = (Rd[..., r, 0] * x + acc.double()).float()
+        acc = (Rd[..., r, 2] * z + acc.double()).float()
+        return acc + t[..., r]
+
+    return row(0), row(1), row(2)
+
+
 def _f32(x: float) -> float:
     return float(np.float32(x))
 

@@ -11,6 +11,7 @@ an error, never a quiet CPU run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -19,9 +20,7 @@ import numpy as np
 # Options of revo_tpu.run that the port does not have yet, and the ROADMAP
 # item that brings each.
 _NOT_PORTED = {
-    "windowed_ba": ("--windowed-ba", "P12"),
     "live_view": ("--live-view", "P11"),
-    "export_ply": ("--export-ply", "P11"),
     "input_type": ("--input-type", "P11"),
     "color_dev": ("--color-dev", "P11"),
     "depth_dev": ("--depth-dev", "P11"),
@@ -85,30 +84,101 @@ def _evaluate_against_gt(poses, stamps, ds_dir, gt_file) -> None:
           f"{rpe.rot_rmse_deg:.4f} deg per frame")
 
 
-def _maybe_close_loops(vo, poses):
+def _reanchor(vo, ring_poses) -> np.ndarray:
+    """Every frame of the run re-anchored to its parent keyframe's pose in
+    ``ring_poses`` (one per retained keyframe, in ``vo.kf_history`` order);
+    frames of keyframes no longer retained keep their anchor."""
+    all_kf = {o: ring_poses[i] for i, (o, _) in enumerate(vo.kf_history)}
+    return np.stack([
+        all_kf.get(node.kf_ordinal, node.T_w_kf) @ node.T_kf_curr for node in vo.pose_graph
+    ])
+
+
+def _maybe_export_ply(vo, poses, out_dir) -> None:
+    """Map model export, the reference viewer's saveModel
+    (MapDrawer.h:97-170) without a GUI: the edge-sparse colored cloud of
+    every retained keyframe (transformed to world), the keyframe frusta and
+    the trajectory polyline, all as PLY."""
+    from revo_tpu_torch.frontend import generate_colored_pcl
+    from revo_tpu_torch.viz.ply import (
+        export_colored_pcl_ply,
+        export_keyframe_frusta_ply,
+        export_trajectory_ply,
+    )
+
+    kf_poses = [kf.T_w_k.detach().cpu().numpy() for _, kf in vo.kf_history]
+    pts_all, clr_all = [], []
+    for (_, kf), T in zip(vo.kf_history, kf_poses):
+        pts, clr = generate_colored_pcl(kf.frame, vo.cfg)
+        pts_all.append(pts @ T[:3, :3].T + T[:3, 3])
+        clr_all.append(clr)
+    if pts_all:
+        export_colored_pcl_ply(
+            os.path.join(out_dir, "map_cloud.ply"),
+            np.concatenate(pts_all), np.concatenate(clr_all),
+        )
+    export_keyframe_frusta_ply(os.path.join(out_dir, "map_keyframes.ply"), kf_poses)
+    export_trajectory_ply(os.path.join(out_dir, "trajectory.ply"), np.asarray(poses))
+    print(f"[revo_tpu_torch] PLY model written to {out_dir}/map_cloud.ply, "
+          f"map_keyframes.ply, trajectory.ply")
+
+
+def _maybe_windowed_ba(vo, poses, loop_edges=None, ring_poses0=None):
+    """Post-run windowed joint refinement over the retained keyframes (the
+    BA the reference stubs out); returns re-anchored poses.
+
+    ``loop_edges`` / ``ring_poses0``: when loop closure ran first, its
+    verified revisit edges enter the refinement as residual pairs and its
+    corrected ring poses seed the optimization."""
+    from revo_tpu_torch.parallel.windowed import refine_keyframes
+
+    if len(vo.kf_history) < 2:
+        print("[revo_tpu_torch] windowed BA: <2 keyframes retained; skipping")
+        return poses
+    kfs = [kf for _, kf in vo.kf_history]
+    extra = [(e.a, e.b, 2.0) for e in (loop_edges or [])]
+    refined = refine_keyframes(kfs, vo.cfg, extra_pairs=extra, poses0=ring_poses0)
+    print(f"[revo_tpu_torch] windowed BA: refined {len(kfs)} keyframes "
+          f"(coarse-to-fine joint LM"
+          + (f", {len(extra)} loop edge(s) as residual pairs" if extra else "") + ")")
+    return _reanchor(vo, refined)
+
+
+def _maybe_close_loops(vo, poses, return_detail: bool = False):
     """Post-run loop closure over the retained keyframes (a SLAM step the
-    reference lacks); returns the poses, corrected where a loop verified."""
+    reference lacks); returns the poses, corrected where a loop verified,
+    and with ``return_detail`` also (verified loop edges, corrected ring
+    poses) for windowed BA to take."""
     from revo_tpu_torch.loopclosure import close_loops
 
     if vo.n_keyframes < 3 or len(vo.kf_history) < 3:
         print("[revo_tpu_torch] loop closure: <3 keyframes retained; skipping")
-        return poses
+        return (poses, [], None) if return_detail else poses
     corrected, loops = close_loops([kf for _, kf in vo.kf_history], vo.cfg)
     if not loops:
         print("[revo_tpu_torch] loop closure: no verified loop edges")
-        return poses
-    # Corrected ring poses back to global keyframe ordinals.
-    all_kf = {o: corrected[i] for i, (o, _) in enumerate(vo.kf_history)}
-    full = [
-        all_kf.get(node.kf_ordinal, node.T_w_kf) @ node.T_kf_curr for node in vo.pose_graph
-    ]
+        return (poses, [], None) if return_detail else poses
     print(f"[revo_tpu_torch] loop closure: {len(loops)} edge(s) "
           f"{[(e.a, e.b) for e in loops]}")
-    return np.stack(full)
+    out = _reanchor(vo, corrected)
+    return (out, loops, corrected) if return_detail else out
+
+
+def _post_run_refinement(vo, poses, windowed_ba_flag: bool, close_loops_flag: bool):
+    """The post-run SLAM refinement the flags ask for.  With both, loop
+    closure runs first and its verified edges and corrected poses feed the
+    windowed BA."""
+    loops, ring0 = [], None
+    if close_loops_flag:
+        poses, loops, ring0 = _maybe_close_loops(vo, poses, return_detail=True)
+    if windowed_ba_flag:
+        poses = _maybe_windowed_ba(vo, poses, loop_edges=loops, ring_poses0=ring0)
+    return poses
 
 
 def _run_dataset(cfg, dataset, out_dir, device, gt_file=None, auto_capacity=0,
-                 capacity_scale=1.15, close_loops_flag=False) -> None:
+                 capacity_scale=1.15, close_loops_flag=False, windowed_ba_flag=False,
+                 export_ply=False) -> None:
     from revo_tpu_torch.io.tum import load_associations, load_tum_frame, load_tum_frame_raw
     from revo_tpu_torch.system import VOSystem
 
@@ -138,14 +208,16 @@ def _run_dataset(cfg, dataset, out_dir, device, gt_file=None, auto_capacity=0,
     vo = VOSystem(cfg, device=device)
     poses, stamps, report = vo.run(frames, pose_file=pose_file)
     _print_report(report, pose_file)
-    if close_loops_flag:
-        poses = _maybe_close_loops(vo, poses)
+    poses = _post_run_refinement(vo, poses, windowed_ba_flag, close_loops_flag)
+    if export_ply:
+        _maybe_export_ply(vo, poses, out_dir)
     if gt_file:
         _evaluate_against_gt(poses, stamps, ds_dir, gt_file)
 
 
 def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device,
-                   close_loops_flag: bool = False) -> int:
+                   close_loops_flag: bool = False, windowed_ba_flag: bool = False,
+                   export_ply: bool = False) -> int:
     from revo_tpu_torch.eval import absolute_trajectory_error, relative_pose_error
     from revo_tpu_torch.io.synthetic import SyntheticScene, render_sequence
     from revo_tpu_torch.system import VOSystem
@@ -161,8 +233,9 @@ def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device,
     vo = VOSystem(cfg, device=device)
     poses, _, report = vo.run(frames(), pose_file=pose_file)
     _print_report(report, pose_file)
-    if close_loops_flag:
-        poses = _maybe_close_loops(vo, poses)
+    poses = _post_run_refinement(vo, poses, windowed_ba_flag, close_loops_flag)
+    if export_ply:
+        _maybe_export_ply(vo, poses, out_dir)
     gt_arr = np.stack(gt)
     ate = absolute_trajectory_error(poses, gt_arr)
     rpe = relative_pose_error(poses, gt_arr)
@@ -210,6 +283,17 @@ def main(argv=None) -> int:
         help="post-run loop closure over the retained keyframes: verified "
              "revisits correct the trajectory by pose-graph optimization",
     )
+    parser.add_argument(
+        "--windowed-ba", action="store_true",
+        help="post-run windowed joint refinement of the retained keyframes "
+             "(parallel.windowed; raise KF_HISTORY_SIZE to retain more); with "
+             "--close-loops the verified loop edges enter as residual pairs",
+    )
+    parser.add_argument(
+        "--export-ply", action="store_true",
+        help="export the map model as PLY (colored keyframe cloud, keyframe "
+             "frusta, trajectory)",
+    )
     for dest, (flag, item) in _NOT_PORTED.items():
         parser.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                             help=f"not ported yet (ROADMAP {item})")
@@ -224,6 +308,12 @@ def main(argv=None) -> int:
 
     device = check_device(args.device)
     cfg = load_config(args.settings, args.dataset)
+    if args.export_ply:
+        # The colored cloud reads keyframe images from the retained history;
+        # everything else runs with pruned keyframes (frontend.prune_keyframe).
+        cfg = dataclasses.replace(
+            cfg, tracker=dataclasses.replace(cfg.tracker, store_kf_images=True)
+        )
     os.makedirs(args.out, exist_ok=True)
 
     if args.synthetic > 0:
@@ -235,7 +325,8 @@ def main(argv=None) -> int:
             cfg = _calibrate(cfg, [f[0] for f in probe], [f[1] for f in probe],
                              args.capacity_scale, device)
         return _run_synthetic(cfg, args.synthetic, args.out, args.seed, device,
-                              close_loops_flag=args.close_loops)
+                              close_loops_flag=args.close_loops,
+                              windowed_ba_flag=args.windowed_ba, export_ply=args.export_ply)
 
     if cfg.dataset.input_type != 0:
         parser.exit(2, "revo_tpu_torch.run: live sensors (INPUT_TYPE "
@@ -248,7 +339,8 @@ def main(argv=None) -> int:
     for ds in cfg.dataset.datasets:
         _run_dataset(cfg, ds, args.out, device, gt_file=args.gt,
                      auto_capacity=args.auto_capacity, capacity_scale=args.capacity_scale,
-                     close_loops_flag=args.close_loops)
+                     close_loops_flag=args.close_loops, windowed_ba_flag=args.windowed_ba,
+                     export_ply=args.export_ply)
     return 0
 
 

@@ -34,6 +34,7 @@ from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.frontend import Frame, Keyframe, build_frame, make_keyframe, prune_keyframe
 from revo_tpu_torch.io.tum import write_tum_trajectory
 from revo_tpu_torch.kernels import check_device
+from revo_tpu_torch.ops.undistort import build_undistort_maps
 
 
 class TrackerStatus(enum.Enum):
@@ -83,10 +84,12 @@ class VOReport:
     latency_ms_p99: float = 0.0
 
 
-def frame_step(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: SystemConfig):
-    """One frame: pyramid build, coarse-to-fine track against ``kf``, and
-    the histogram vote.  Returns (frame, result, T_kf_n, T_w_curr, new_kf)."""
-    frame = build_frame(gray, depth, cfg)
+def frame_step(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: SystemConfig,
+               undistort_maps=None):
+    """One frame: pyramid build (rectified first when ``undistort_maps`` is
+    given), coarse-to-fine track against ``kf``, and the histogram vote.
+    Returns (frame, result, T_kf_n, T_w_curr, new_kf)."""
+    frame = build_frame(gray, depth, cfg, undistort_maps)
     res = tracker.track_frames(kf, frame, R0, t0, cfg)
     T_kf_n = lie.matrix_from_rt(res.R, res.t)
     T_w_curr = lie.matmul_fma(kf.T_w_k, T_kf_n)
@@ -107,12 +110,15 @@ class VOSystem:
     gray, uint16 raw or float32 metric depth."""
 
     def __init__(self, cfg: SystemConfig, device):
-        if cfg.pyramid.undistort:
-            raise NotImplementedError(
-                "undistortion (PyramidConfig.undistort) is not ported yet: ROADMAP P11"
-            )
         self.cfg = cfg
         self.device = check_device(device)
+        # Rectification maps (camerapyr.h:125-137): built once on the host,
+        # held on the system's device.
+        self.undistort_maps = None
+        if cfg.pyramid.undistort:
+            self.undistort_maps = tuple(
+                torch.from_numpy(m).to(self.device) for m in build_undistort_maps(cfg.camera)
+            )
         self.pose_graph: List[PoseNode] = []
         self.kf: Optional[Keyframe] = None
         self.prev_frame: Optional[Frame] = None
@@ -265,7 +271,9 @@ class VOSystem:
         cfg = self.cfg
 
         if self.n_frames == 0:
-            frame = build_frame(self._tensor(gray), self._tensor(depth), cfg)
+            frame = build_frame(
+                self._tensor(gray), self._tensor(depth), cfg, self.undistort_maps
+            )
             eye4 = np.eye(4, dtype=np.float32)
             self._make_keyframe(frame, eye4)
             node = PoseNode(
@@ -282,7 +290,7 @@ class VOSystem:
         t_start = time.perf_counter()
         frame, res, T_kf_n_dev, T_w_curr_dev, new_kf_dev = frame_step(
             self._tensor(gray), self._tensor(depth), self.kf, self.past_voting,
-            self.R, self.t, cfg,
+            self.R, self.t, cfg, self.undistort_maps,
         )
 
         if cfg.tracker.enable_relocalization and (

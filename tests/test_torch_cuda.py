@@ -14,7 +14,12 @@ of each output's largest entry, bit-identical from run to run; VOSystem on
 the card: the CPU run's per-frame flags, poses within 1e-4; loop closure on
 the card: the CPU's verdicts, corrected poses within 1e-4; a run resumed on
 the card from a checkpoint or a saved scan state: the continuous run's
-poses bit for bit.
+poses bit for bit; windowed BA on the card: within 1e-3 m / 1e-3 rad of the
+CPU's on the same keyframes (its block sums are atomic adds, and the LM
+schedule may part on a tie), the windowed system itself within 1e-4 of its
+largest entry; undistortion on the card: the rectified frame equal to the
+CPU's, VOSystem flags equal and poses within 1e-4; segments on the card: the
+CPU's stitched poses within 5e-4.
 """
 import dataclasses
 import os
@@ -311,3 +316,99 @@ def test_resume_on_card_is_bit_equal(cuda, tmp_path):
     assert state.kf.quads[0].is_cuda and state.kf.quads[0].dtype == torch.bfloat16
     tail = batch.vo_scan_from_state(state, grays[6:], depths[6:], cfg)[0]
     assert torch.equal(tail, scan_full[6:])
+
+
+def _pan_frames(cam, n):
+    from revo_tpu_torch import lie
+
+    step = lie.matrix_from_rt(*lie.exp_se3(
+        torch.tensor([0.04, 0.0, 0.005, 0.0, 0.017, 0.0]))).numpy()
+    T = np.eye(4, dtype=np.float32)
+    frames, gt = [], []
+    for _ in range(n):
+        frames.append(render_frame(SyntheticScene(), cam, T))
+        gt.append(T.copy())
+        T = T @ step
+    return frames, np.stack(gt)
+
+
+def test_windowed_ba_on_card_matches_cpu(cuda):
+    """chip_smoke's phase 12 at 160x120: six pan keyframes with perturbed
+    stored poses; one assembled system and the refined poses, card against
+    the same keyframes on the CPU."""
+    from chip_smoke import (ba_keyframes, max_translation_error, perturbed_poses, to_device)
+    from revo_tpu_torch.parallel import windowed
+
+    cfg = _small_cfg()
+    frames, gt = _pan_frames(cfg.camera, 11)
+    gt = gt[::2]
+    stored = perturbed_poses(gt)
+    kfs = ba_keyframes(cfg, cuda, [f[0] for f in frames[::2]], [f[1] for f in frames[::2]], stored)
+    kfs_cpu = [to_device(k, "cpu") for k in kfs]
+    assert kfs[0].structs[0].is_cuda and not kfs_cpu[0].structs[0].is_cuda
+
+    def system_of(keyframes):
+        dev = keyframes[0].T_w_k.device
+        win = windowed.keyframe_window(keyframes, 0, torch.from_numpy(stored).to(dev))
+        return windowed._accumulate_pairs(
+            win, *windowed.make_pairs(6, 2, device=dev), cfg.camera_pyramid()[0],
+            cfg.tracker.optimizer, 0, 6)
+
+    for a, b in zip(system_of(kfs), system_of(kfs_cpu)):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    card = windowed.refine_keyframes(kfs, cfg)
+    cpu = windowed.refine_keyframes(kfs_cpu, cfg)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card[0], stored[0], atol=1e-6)  # the gauge
+    assert max_translation_error(card, gt) < 0.7 * max_translation_error(stored, gt)
+
+
+def test_undistort_on_card_matches_cpu(cuda):
+    """chip_smoke's phase 14 at 160x120: a distorted capture of the pan
+    through VOSystem(undistort=True) on the card and on the CPU."""
+    from chip_smoke import TUM_FR1_DISTORTION, distort_capture
+    from revo_tpu_torch import system
+    from revo_tpu_torch.ops.undistort import build_undistort_maps
+
+    base = _small_cfg()
+    cam = dataclasses.replace(base.camera, distortion=TUM_FR1_DISTORTION)
+    cfg = dataclasses.replace(base, camera=cam,
+                              pyramid=dataclasses.replace(base.pyramid, undistort=True))
+    frames, _ = _pan_frames(cam, 8)
+    captured = [distort_capture(g, d, cam) for g, d in frames]
+    maps = build_undistort_maps(cam)
+    g, d = captured[0]
+    f_card = frontend.build_frame(
+        torch.from_numpy(g).to(cuda), torch.from_numpy(d).to(cuda), cfg,
+        tuple(torch.from_numpy(m).to(cuda) for m in maps))
+    f_cpu = frontend.build_frame(torch.from_numpy(g), torch.from_numpy(d), cfg,
+                                 tuple(torch.from_numpy(m) for m in maps))
+    for a, b in zip(f_card.levels, f_cpu.levels):
+        assert torch.equal(a.gray.cpu(), b.gray) and torch.equal(a.edges.cpu(), b.edges)
+        assert torch.equal(a.depth.cpu(), b.depth)
+    runs = []
+    for device in (cuda, "cpu"):
+        vo = system.VOSystem(cfg, device=device)
+        assert vo.undistort_maps[0].device.type == torch.device(device).type
+        poses = np.stack([vo.process_frame(g, d, i / 30.0) for i, (g, d) in enumerate(captured)])
+        runs.append((poses, vo.n_keyframes, vo.n_relocalized, vo.n_tracking_lost))
+    assert runs[0][1:] == runs[1][1:]
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=0, atol=1e-4)
+
+
+def test_segments_on_card_match_cpu(cuda):
+    """track_long_sequence over a 13-frame pan in 4 segments on the card:
+    the CPU's stitched trajectory within 5e-4, with and without refine."""
+    from revo_tpu_torch.parallel import segments
+
+    cfg = _small_cfg()
+    frames, _ = _pan_frames(cfg.camera, 13)
+    grays = torch.from_numpy(np.stack([f[0] for f in frames]))
+    depths = torch.from_numpy(np.stack([f[1] for f in frames]))
+    for refine in (False, True):
+        card = segments.track_long_sequence(grays.to(cuda), depths.to(cuda), cfg, 4, refine=refine)
+        cpu = segments.track_long_sequence(grays, depths, cfg, 4, refine=refine)
+        assert card.is_cuda and card.shape == (13, 4, 4)
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0, atol=5e-4)

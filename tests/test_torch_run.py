@@ -214,8 +214,6 @@ def test_run_dataset_matches_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--close-loops", "--windowed-ba"], "P12"),  # loop edges into windowed BA
-    (["--windowed-ba"], "P12"),
     (["--live-view"], "P11"),
     (["--record", "rec"], "P11"),
     (["--input-type", "2"], "P11"),

@@ -262,6 +262,8 @@ def test_import_loads_no_jax():
         "import revo_tpu_torch.autotune, revo_tpu_torch.io.tum, revo_tpu_torch.run\n"
         "import revo_tpu_torch.parallel.posegraph, revo_tpu_torch.loopclosure\n"
         "import revo_tpu_torch.checkpoint, revo_tpu_torch.ops.canny, revo_tpu_torch.ops.lgsx\n"
+        "import revo_tpu_torch.parallel.windowed, revo_tpu_torch.parallel.segments\n"
+        "import revo_tpu_torch.ops.undistort, revo_tpu_torch.viz.ply\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

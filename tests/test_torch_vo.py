@@ -344,14 +344,21 @@ def test_lost_frame_coasts_like_jax(cfgs):
 
 
 def test_unported_options_raise(cfgs):
-    """Undistortion is still to port; online loop closure no longer is."""
+    """Neither online loop closure nor undistortion raises any more: both
+    construct, undistortion with its maps built for the camera; what is
+    still to port is refused by name (the sharded forms, ROADMAP P13)."""
     _, tcfg = cfgs
     lc = dataclasses.replace(tcfg, tracker=dataclasses.replace(tcfg.tracker,
                                                                online_loop_closure=True))
     assert system.VOSystem(lc, device="cpu")._online_loop_closure() == 0  # no keyframes yet
     ud = dataclasses.replace(tcfg, pyramid=dataclasses.replace(tcfg.pyramid, undistort=True))
-    with pytest.raises(NotImplementedError, match="P11"):
-        system.VOSystem(ud, device="cpu")
+    vo = system.VOSystem(ud, device="cpu")
+    assert [m.shape for m in vo.undistort_maps] == [(tcfg.camera.height, tcfg.camera.width)] * 2
+    assert system.VOSystem(tcfg, device="cpu").undistort_maps is None
+    from revo_tpu_torch.parallel import batch
+
+    with pytest.raises(NotImplementedError, match="P13"):
+        batch.vo_scan_batched(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 4, 4), tcfg, mesh=object())
 
 
 def test_cuda_device_without_card_raises(cfgs, monkeypatch):
