@@ -15,11 +15,15 @@ four keyframes of a small loop, checkpoint and scan-state resume) and one
 split kernels; then the rest of the SLAM back end: windowed joint BA over six
 pan keyframes and over the loop keyframes with their loop edge, segment-
 parallel tracking of the pan, and a distorted capture of the pan through
-undistortion and PLY export.  Phases, one line each:
+undistortion and PLY export; then the live entry point (the viewer, the
+replayed V4L2 sessions and the recorded capture through ``run.main``) and the
+box, column and sparse scene families with a loop trajectory.  Phases, one
+line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
-3. frames    render the synthetic sequence (numpy, worker processes);
+3. frames    render every phase's synthetic frames (numpy, one pool of
+             worker processes);
 4. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at main-path shapes: the fused Canny (canny_fused, one launch
              from unpadded gray) bit-equal on the 3 pyramid levels of the 8
@@ -100,10 +104,46 @@ undistortion and PLY export.  Phases, one line each:
              the CPU: ATE < 5 mm, flags equal, the first keyframe's level-0
              gray within mean 3.0 grey levels of the ideal render and twice
              as close to it as to the distorted capture; the three PLY
-             files written, read back, counts and colours checked.
+             files written, read back, counts and colours checked;
+15. live     first a ``host_libraries`` line: which of the native libraries
+             (io, sensor, oracle) loaded or built, else the loader's reason,
+             and whether matplotlib and cv2 import.  (a) VOSystem with
+             store_kf_images over the pan's 20 sensor frames (uint8 / uint16,
+             stamps i / 30) with a LiveViewer(every=5), then run's post-run
+             refinement (loop closure + BA) and PLY export: poses bit-equal
+             to the same run without a viewer; live/index.html written and no
+             live/viewer_errors.log; trajectory.png and map.png exactly when
+             matplotlib imports, overlay.png exactly when cv2 does;
+             reprojection_overlay on the card's keyframe and frame equal to
+             the same objects moved to the host; BA refines >= 2 keyframes;
+             the three PLY files read back.  (b) when the sensor library is
+             available: the same frames as a YUYV and a Z16 session through
+             the V4L2 engine's replay shim and ``run.main`` (INPUT_TYPE 3,
+             --close-loops --windowed-ba --export-ply --live-view --device
+             cuda): returns 0, 20 pose lines with the sessions' stamps within
+             the TUM file's precision of (a), ATE under phase 7's limit,
+             >= 60 canny_fused and > 0 residual_lgsx launches, and --device
+             cpu within 1e-4; else ``"live_cli": null`` and the reason.  (c)
+             when cv2 imports: the pan recorded by TUMRecorder and read back
+             by ``run.main`` in dataset mode with the same flags and --gt:
+             poses within the TUM file's precision of (a), the evaluation,
+             refinement and export lines printed, plots exactly when
+             matplotlib imports;
+16. scenes   one 640x480 frame each of box_scene, column_scene and
+             sparse_scene through build_frame on the card and the CPU: equal
+             edges and clouds, and the sparse scene's fill-in fires at levels
+             1 and 2 (occupancy under n_percentage, edges added); the first
+             24 poses of loop_trajectory(110, radius=0.75, wobble=0.004,
+             seed=5) rendered in box_scene through vo_scan on the card and
+             the CPU: never lost, flags equal, poses within 1e-4, ATE under
+             the limit; when the oracle library is available, oracle_run
+             over the 8-frame chain: its ms per frame (one core of the host
+             CPU, named beside it) and poses within 1 cm / 0.02 of ground
+             truth.
 
-Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 6.
-Launch counts are set to 0 just before each path (phases 5, 7 to 14)
+Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
+host_libraries, 15, 16, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 16)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
 alone; K1 and K2 on the 1280x720 frame; the unfused K3 ``lgsx_reduce`` is
@@ -170,6 +210,11 @@ TUM_FR1_DISTORTION = (0.2624, -0.9531, -0.0054, 0.0026, 1.1633)  # TUM fr1 calib
 N_UNDISTORT = 8
 UNDISTORT_ATE_LIMIT_M = 5e-3
 UNDISTORT_GRAY_LIMIT = 3.0  # mean grey levels, tests/test_undistort_recorder.py:141-157
+# tests/test_scenes.py:302's loop (110 frames, radius 0.75 m: ~4 cm a frame), its first 24 poses
+LOOP_FRAMES_OF, N_LOOP = 110, 24
+# vo_scan's ATE on those 24 frames on the card (NVIDIA H100 80GB HBM3, 700 W), times 1.5.
+LOOP_CARD_ATE_M = 0.0022926644064904917
+LOOP_ATE_LIMIT_M = 1.5 * LOOP_CARD_ATE_M
 
 
 _T0 = time.perf_counter()
@@ -187,6 +232,14 @@ def _smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _host_cpu_name() -> str:
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return "unknown"
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -300,6 +353,19 @@ def run_teleport(vo, grays, depths, pose_file, to_tensor):
     poses, _, report = vo.run(frames(), pose_file=pose_file)
     marks.append(counters(vo))
     return poses, np.diff(np.stack(marks), axis=0), report
+
+
+def render_jobs(jobs, workers: int):
+    """Render [(scene, camera, T_w_c, seed)] in one pool of worker processes
+    (what ``render_trajectory_parallel`` does for one scene, here for jobs
+    over several); returns [(gray, depth, T_w_c, timestamp i / 30)]."""
+    import multiprocessing as mp
+
+    from revo_tpu_torch.io.synthetic import _render_one
+
+    with mp.get_context("spawn").Pool(workers) as pool:
+        outs = pool.map(_render_one, jobs, chunksize=4)
+    return [(g, d, job[2], i / 30.0) for i, ((g, d), job) in enumerate(zip(outs, jobs))]
 
 
 def _sensor_frames(rendered, cfg):
@@ -612,7 +678,8 @@ def main() -> int:
     from revo_tpu_torch import kernels, solver
     from revo_tpu_torch.config import SystemConfig
     from revo_tpu_torch.eval import absolute_trajectory_error
-    from revo_tpu_torch.io.synthetic import SyntheticScene, render_trajectory_parallel
+    from revo_tpu_torch.io import synthetic as syn
+    from revo_tpu_torch.io.synthetic import SyntheticScene
     from revo_tpu_torch.ops import canny as K12
     from revo_tpu_torch.ops import lgsx as K3
     from revo_tpu_torch.ops.filters import _reflect_pad
@@ -647,16 +714,28 @@ def main() -> int:
     trajs = [scene.trajectory(N_FRAMES, seed=0), pan_sequence(N_PAN),
              scene.trajectory(N_PAN, seed=1), pan_sequence(N_PAN + 1)[N_PAN:N_PAN + 1],
              loop_poses()]
-    rendered = render_trajectory_parallel(
-        scene, cam, np.concatenate(trajs), seed=0, workers=max(os.cpu_count() - 1, 1)
-    )
+    # Phase 16's frames ride in the same pool: one frame of each scene
+    # family, and the first poses of a loop in the box scene.
+    families = {"box": syn.box_scene(), "column": syn.column_scene(), "sparse": syn.sparse_scene()}
+    loop_traj = syn.loop_trajectory(LOOP_FRAMES_OF, radius=0.75, wobble=0.004, seed=5)[:N_LOOP]
+    eye4 = np.eye(4, dtype=np.float32)
+    n_default = sum(len(t) for t in trajs)
+    jobs = [(scene, cam, T, i) for i, T in enumerate(np.concatenate(trajs))]
+    jobs += [(sc, cam, eye4, 1) for sc in families.values()]
+    jobs += [(families["box"], cam, T, 5000 + i) for i, T in enumerate(loop_traj)]
+    rendered_all = render_jobs(jobs, workers=max(os.cpu_count() - 1, 1))
+    rendered = rendered_all[:n_default]
+    family_frames = {
+        name: _sensor_frames(rendered_all[n_default + k:n_default + k + 1], cfg)
+        for k, name in enumerate(families)}
+    loop_seq = _sensor_frames(rendered_all[n_default + len(families):], cfg)
     grays, depths, gt = _sensor_frames(rendered[:N_FRAMES], cfg)
     pan = _sensor_frames(rendered[N_FRAMES:N_FRAMES + N_PAN + 1], cfg)
     second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:-5], cfg)
     pan_next = _sensor_frames(rendered[-5:-4], cfg)
     pan_ideal = rendered[N_FRAMES:N_FRAMES + N_UNDISTORT]  # float gray, metric depth
     loop_rendered = [(g, d) for g, d, _, _ in rendered[-4:]]
-    _phase("frames", n=len(rendered), shape=list(grays[0].shape),
+    _phase("frames", n=len(rendered_all), shape=list(grays[0].shape),
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
@@ -1235,6 +1314,363 @@ def main() -> int:
             and np.abs(traj_rows - poses_d[:, :3, 3]).max() <= 1e-6):
         raise RuntimeError(f"undistort_ply: the PLY files read back wrong: {und_summary}")
     _phase("undistort_ply", **und_summary)
+
+    # -- 15. live: the viewer, post-run refinement and the live CLI ------------
+    import contextlib
+    import importlib.util
+    import io as _io
+
+    from revo_tpu_torch import run as run_mod
+    from revo_tpu_torch.io import native_loader, native_oracle, sensors
+    from revo_tpu_torch.viz.debug import reprojection_overlay
+    from revo_tpu_torch.viz.live import LiveViewer
+
+    host_libs = {
+        "native": {
+            "io": native_loader.why_unavailable() or True,
+            "sensor": sensors.why_unavailable() or True,
+            "oracle": native_oracle.why_unavailable() or True,
+        },
+        "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+        "cv2": importlib.util.find_spec("cv2") is not None,
+    }
+    _phase("host_libraries", **host_libs)
+    cfg_live = dataclasses.replace(
+        cfg, tracker=dataclasses.replace(cfg.tracker, store_kf_images=True))
+    live_stamps = [i / 30.0 for i in range(N_PAN)]
+    live_gt = p_gt[:N_PAN]
+
+    class TimedViewer(LiveViewer):
+        """LiveViewer that keeps what each update cost the tracking thread."""
+
+        update_ms: list
+
+        def update(self, vo, frame, pose, frame_idx):
+            t0_ = time.perf_counter()
+            super().update(vo, frame, pose, frame_idx)
+            self.update_ms.append((frame_idx, 1e3 * (time.perf_counter() - t0_)))
+
+    def live_frames():
+        return zip(p_grays[:N_PAN], p_depths[:N_PAN], live_stamps)
+
+    def check_live_dir(out, what):
+        """The viewer's files under ``out``/live: index.html written, no
+        error log, each pane exactly when its library imports."""
+        live_dir = os.path.join(out, "live")
+        log = os.path.join(live_dir, "viewer_errors.log")
+        if os.path.exists(log):
+            raise RuntimeError(f"{what}: the viewer logged errors: {open(log).read()}")
+        if not os.path.exists(os.path.join(live_dir, "index.html")):
+            raise RuntimeError(f"{what}: no live/index.html")
+        sizes = {}
+        for name, lib in (("trajectory.png", "matplotlib"), ("map.png", "matplotlib"),
+                          ("overlay.png", "cv2")):
+            path = os.path.join(live_dir, name)
+            sizes[name] = os.path.getsize(path) if os.path.exists(path) else 0
+            if (sizes[name] > 0) != host_libs[lib]:
+                raise RuntimeError(f"{what}: {name} has {sizes[name]} bytes with "
+                                   f"{lib} importable: {host_libs[lib]}")
+        return sizes
+
+    def check_ply(out, n_keyframes, poses_, what):
+        cloud_counts_, cloud_rows_ = read_ply(os.path.join(out, "map_cloud.ply"))
+        kf_counts_, _ = read_ply(os.path.join(out, "map_keyframes.ply"))
+        traj_counts_, traj_rows_ = read_ply(os.path.join(out, "trajectory.ply"))
+        if not (cloud_counts_["vertex"] > 0 and np.isfinite(cloud_rows_).all()
+                and kf_counts_["vertex"] == 5 * n_keyframes
+                and traj_counts_ == {"vertex": len(poses_), "edge": len(poses_) - 1}
+                and np.abs(traj_rows_ - np.asarray(poses_)[:, :3, 3]).max() <= 1e-6):
+            raise RuntimeError(f"{what}: the PLY files read back wrong: {cloud_counts_}, "
+                               f"{kf_counts_}, {traj_counts_}")
+        return {"cloud": cloud_counts_, "keyframes": kf_counts_, "trajectory": traj_counts_}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) VOSystem.run with the viewer, as run's live mode drives it.
+        out_a = os.path.join(tmp, "a")
+        os.makedirs(out_a)
+        t0 = time.perf_counter()
+        poses_plain = VOSystem(cfg_live, device=dev).run(live_frames())[0]
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+
+        def card_live():
+            vo = VOSystem(cfg_live, device=dev)
+            viewer = TimedViewer(out_a, every=5)
+            viewer.update_ms = []
+            t0_ = time.perf_counter()
+            poses_ = vo.run(live_frames(), pose_file=os.path.join(out_a, "poses.txt"),
+                            viewer=viewer)[0]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0_
+            viewer.close()
+            return vo, viewer, poses_, seconds
+
+        (vo_l, viewer_l, poses_l, viewed_s), launches_a = _path_launches(counters_, card_live)
+        require_vga("live", launches_a)
+        add_launches(launches_a)
+        if not np.array_equal(poses_l, poses_plain):
+            raise RuntimeError("live: the viewer changed the poses: "
+                               f"{_max_pose_diff(poses_l, poses_plain)}")
+        live_sizes = check_live_dir(out_a, "live (a)")
+        # The overlay from the card's objects and from the same objects on the host.
+        T_kf_cur = np.linalg.inv(vo_l.kf.T_w_k.cpu().numpy()) @ poses_l[-1]
+        over_card = reprojection_overlay(vo_l.kf, vo_l.prev_frame, T_kf_cur[:3, :3],
+                                         T_kf_cur[:3, 3], cfg_live)
+        over_host = reprojection_overlay(to_device(vo_l.kf, "cpu"), to_device(vo_l.prev_frame, "cpu"),
+                                         T_kf_cur[:3, :3], T_kf_cur[:3, 3], cfg_live)
+        if not (over_card.shape == (cam.height, cam.width, 3) and over_card.dtype == np.uint8
+                and np.array_equal(over_card, over_host)
+                and (over_card[..., 2] != over_card[..., 1]).any()):
+            raise RuntimeError("live: reprojection_overlay on the card's keyframe differs from "
+                               "the host's, or painted nothing")
+        said = _io.StringIO()
+        with contextlib.redirect_stdout(said):
+            refined_l, launches_r = _path_launches(
+                counters_, lambda: run_mod._post_run_refinement(vo_l, poses_l, True, True))
+            run_mod._maybe_export_ply(vo_l, refined_l, out_a)
+        add_launches(launches_r)
+        said = said.getvalue()
+        ba_said = [ln for ln in said.splitlines() if "windowed BA: refined" in ln]
+        n_refined = int(ba_said[0].split("refined")[1].split()[0]) if ba_said else 0
+        if n_refined < 2 or n_refined != len(vo_l.kf_history):
+            raise RuntimeError(f"live: post-run BA refined {n_refined} keyframes: {said}")
+        ply_a = check_ply(out_a, len(vo_l.kf_history), refined_l, "live (a)")
+        enq = [ms for i, ms in viewer_l.update_ms if i % 5 == 0]
+        live_summary = {
+            "frames": N_PAN, "keyframes": vo_l.n_keyframes, "lost": vo_l.n_tracking_lost,
+            "viewer_bit_equal": True,
+            "equals_phase7_poses": bool(np.array_equal(poses_l, poses_c[:N_PAN])),
+            "ate_m": absolute_trajectory_error(poses_l, live_gt).rmse,
+            "ate_refined_m": absolute_trajectory_error(refined_l, live_gt).rmse,
+            "ms_per_frame_no_viewer": 1e3 * plain_s / N_PAN,
+            "ms_per_frame_with_viewer": 1e3 * viewed_s / N_PAN,
+            "viewer_update_ms_due_frames": enq,
+            "viewer_update_ms_other_frames_max":
+                max(ms for i, ms in viewer_l.update_ms if i % 5),
+            "live_files_bytes": live_sizes, "overlay_painted_pixels":
+                int((over_card[..., 2] != over_card[..., 1]).sum()),
+            "refined_keyframes": n_refined, "post_run_said": said.strip().splitlines(),
+            "ply": ply_a, "launches": launches_a, "launches_refinement": launches_r,
+        }
+
+        # (b) the live entry point: the same frames as V4L2 sessions through
+        # the engine's replay shim and ``run.main``.
+        if host_libs["native"]["sensor"] is True:
+            c_sess, d_sess = os.path.join(tmp, "color.rvs"), os.path.join(tmp, "depth.rvs")
+            sensors.write_session(c_sess, [sensors.encode_yuyv(g) for g in p_grays[:N_PAN]],
+                                  live_stamps, cam.width, cam.height, sensors.YUYV)
+            sensors.write_session(d_sess, [d.astype("<u2").tobytes() for d in p_depths[:N_PAN]],
+                                  live_stamps, cam.width, cam.height, sensors.Z16)
+            settings = os.path.join(tmp, "settings.yaml")
+            with open(settings, "w") as f:
+                f.write("%YAML:1.0\nINPUT_TYPE: 3\n")
+
+            def live_cli(out, device):
+                said_ = _io.StringIO()
+                with contextlib.redirect_stdout(said_):
+                    rc = run_mod.main([
+                        settings, "--out", out, "--color-dev", "/dev/videoC",
+                        "--depth-dev", "/dev/videoD", "--replay-color", c_sess,
+                        "--replay-depth", d_sess, "--max-frames", str(N_PAN), "--close-loops",
+                        "--windowed-ba", "--export-ply", "--live-view", "--device", device])
+                if rc != 0:
+                    raise RuntimeError(f"live_cli: run.main returned {rc}: {said_.getvalue()}")
+                with open(os.path.join(out, "poses_live.txt")) as f:
+                    n_lines = len(f.read().splitlines())
+                stamps_, poses_ = read_tum_trajectory(os.path.join(out, "poses_live.txt"))
+                return said_.getvalue(), n_lines, stamps_, poses_
+
+            try:
+                out_b, out_bh = os.path.join(tmp, "b"), os.path.join(tmp, "b_cpu")
+                t0 = time.perf_counter()
+                (said_b, n_lines, stamps_b, poses_b), launches_b = _path_launches(
+                    counters_, lambda: live_cli(out_b, "cuda"))
+                cli_s = time.perf_counter() - t0
+                add_launches(launches_b)
+                _, _, _, poses_bh = live_cli(out_bh, "cpu")
+            finally:
+                sensors.use_real_devices()
+            cli_dt, cli_dr = _max_pose_diff(poses_b, poses_l)
+            cpu_dt, cpu_dr = _max_pose_diff(poses_b, poses_bh)
+            cli_ate = absolute_trajectory_error(poses_b.astype(np.float64), live_gt).rmse
+            tracking_said = [ln for ln in said_b.splitlines() if "Mean Tracking Time" in ln]
+            cli_summary = {
+                "returned": 0, "pose_lines": n_lines, "vs_run_m": cli_dt, "vs_run_rad": cli_dr,
+                "vs_cpu_m": cpu_dt, "vs_cpu_rad": cpu_dr, "ate_m": cli_ate,
+                "ate_limit_m": VO_ATE_LIMIT_M, "seconds": cli_s, "report": tracking_said,
+                "live_files_bytes": check_live_dir(out_b, "live (b)"),
+                "ply": {k: os.path.getsize(os.path.join(out_b, k)) for k in
+                        ("map_cloud.ply", "map_keyframes.ply", "trajectory.ply")},
+                "launches": launches_b,
+            }
+            check_live_dir(out_bh, "live (b, cpu)")
+            if f"live sensor: astra (INPUT_TYPE=3) {cam.width}x{cam.height}" not in said_b:
+                raise RuntimeError(f"live_cli: no sensor line: {said_b}")
+            if "windowed BA: refined" not in said_b or "PLY model written" not in said_b:
+                raise RuntimeError(f"live_cli: no refinement or export: {said_b}")
+            if not (n_lines == N_PAN and np.allclose(stamps_b, live_stamps, rtol=0, atol=1e-6)
+                    and cli_dt <= TUM_TOL_M and cli_dr <= TUM_TOL_RAD):
+                raise RuntimeError(f"live_cli: poses_live.txt is not phase 15 (a)'s run: {cli_summary}")
+            if not cli_ate < VO_ATE_LIMIT_M:
+                raise RuntimeError(f"live_cli: ATE {cli_ate} m >= {VO_ATE_LIMIT_M} m")
+            if not (launches_b["canny_fused"] >= 3 * N_PAN and launches_b["residual_lgsx"] > 0
+                    and not any(launches_b[n] for n in split_kernels)):
+                raise RuntimeError(f"live_cli: the path's kernels did not launch: {launches_b}")
+            if not (cpu_dt <= POSE_TOL and cpu_dr <= POSE_TOL):
+                raise RuntimeError(f"live_cli: card poses differ from --device cpu: {cli_summary}")
+            live_summary["live_cli"] = cli_summary
+        else:
+            live_summary["live_cli"] = None
+            live_summary["live_cli_not_run"] = host_libs["native"]["sensor"]
+
+        # (c) the same flags through the entry point's dataset mode: the pan
+        # recorded as a TUM capture (TUMRecorder, OpenCV's PNG encoder) and
+        # read back by ``run.main`` with --gt.  Needs OpenCV, no sensor library.
+        if host_libs["cv2"]:
+            from revo_tpu_torch import lie
+            from revo_tpu_torch.io.recorder import TUMRecorder
+            from revo_tpu_torch.io.tum import write_tum_trajectory
+
+            ds_dir = os.path.join(tmp, "pan")
+            with TUMRecorder(ds_dir, cfg.dataset.depth_scale_factor) as rec:
+                for g_, (_, d_m, _, _), ts_ in zip(
+                        p_grays, rendered[N_FRAMES:N_FRAMES + N_PAN], live_stamps):
+                    rec.add(g_, d_m, ts_)
+            gt32 = live_gt.astype(np.float32)
+            write_tum_trajectory(
+                os.path.join(ds_dir, "groundtruth.txt"), live_stamps, gt32[:, :3, 3],
+                lie.quaternion_from_matrix(torch.from_numpy(gt32[:, :3, :3])).numpy())
+            ds_yaml = os.path.join(tmp, "dataset.yaml")
+            with open(ds_yaml, "w") as f:
+                f.write(f'%YAML:1.0\nMainFolder: "{tmp}/"\nDatasets: "pan"\n')
+            ds_settings = os.path.join(tmp, "dataset_settings.yaml")
+            with open(ds_settings, "w") as f:
+                f.write("%YAML:1.0\nDO_OUTPUT_POSES: 1\n")
+            out_c = os.path.join(tmp, "c")
+
+            def dataset_cli():
+                said_ = _io.StringIO()
+                with contextlib.redirect_stdout(said_):
+                    rc = run_mod.main([
+                        ds_settings, ds_yaml, "--out", out_c, "--gt", "groundtruth.txt",
+                        "--close-loops", "--windowed-ba", "--export-ply", "--live-view",
+                        "--device", "cuda"])
+                if rc != 0:
+                    raise RuntimeError(f"dataset_cli: run.main returned {rc}: {said_.getvalue()}")
+                return said_.getvalue(), read_tum_trajectory(os.path.join(out_c, "poses_pan.txt"))
+
+            (said_c, (stamps_c, poses_ds)), launches_c = _path_launches(counters_, dataset_cli)
+            add_launches(launches_c)
+            ds_dt, ds_dr = _max_pose_diff(poses_ds, poses_l)
+            ds_summary = {
+                "recorded_frames": rec.n, "decoder": "native" if host_libs["native"]["io"] is True
+                else "cv2", "pose_lines": len(stamps_c), "vs_run_m": ds_dt, "vs_run_rad": ds_dr,
+                "said": [ln for ln in said_c.splitlines()
+                         if "vs GT" in ln or "windowed BA" in ln or "loop closure" in ln],
+                "live_files_bytes": check_live_dir(out_c, "live (c)"),
+                "plots": sorted(n_ for n_ in os.listdir(out_c) if n_.endswith(".png")),
+                "launches": launches_c,
+            }
+            if not (rec.n == N_PAN and len(stamps_c) == N_PAN
+                    and ds_dt <= TUM_TOL_M and ds_dr <= TUM_TOL_RAD):
+                raise RuntimeError(f"dataset_cli: poses_pan.txt is not phase 15 (a)'s run: {ds_summary}")
+            if not ("ATE-RMSE vs GT" in said_c and "windowed BA: refined" in said_c
+                    and "PLY model written" in said_c):
+                raise RuntimeError(f"dataset_cli: evaluation, refinement or export missing: {said_c}")
+            if (len(ds_summary["plots"]) == 2) != host_libs["matplotlib"]:
+                raise RuntimeError(f"dataset_cli: plots {ds_summary['plots']} with matplotlib "
+                                   f"importable: {host_libs['matplotlib']}")
+            if not (launches_c["canny_fused"] >= 3 * N_PAN and launches_c["residual_lgsx"] > 0
+                    and not any(launches_c[n] for n in split_kernels)):
+                raise RuntimeError(f"dataset_cli: the path's kernels did not launch: {launches_c}")
+            for name_ in ("map_cloud.ply", "map_keyframes.ply", "trajectory.ply"):
+                if not os.path.getsize(os.path.join(out_c, name_)) > 0:
+                    raise RuntimeError(f"dataset_cli: {name_} is empty")
+            live_summary["dataset_cli"] = ds_summary
+        else:
+            live_summary["dataset_cli"] = None
+    _phase("live", smi=smi, **live_summary)
+
+    # -- 16. scenes: the scene families and a loop trajectory ------------------
+    from revo_tpu_torch.ops.edge_hist import patch_histogram
+
+    def scene_frame(name, device):
+        g_, d_, _ = family_frames[name]
+        return frontend.build_frame(torch.from_numpy(g_[0]).to(device),
+                                    torch.from_numpy(d_[0]).to(device), cfg)
+
+    def scan_loop(device):
+        return batch.vo_scan(torch.from_numpy(np.stack(loop_seq[0])).to(device),
+                             torch.from_numpy(np.stack(loop_seq[1])).to(device), cfg)[:2]
+
+    def card_scenes():
+        return {name: scene_frame(name, dev) for name in families}, scan_loop(dev)
+
+    (fam_card, (loop_card, loop_outs)), launches = _path_launches(counters_, card_scenes)
+    require_vga("scenes", launches)
+    add_launches(launches)
+    scene_summary = {}
+    for name in families:
+        f_cpu = scene_frame(name, "cpu")
+        for a, b in zip(fam_card[name].levels, f_cpu.levels):
+            if not (torch.equal(a.edges.cpu(), b.edges) and torch.equal(a.edges_orig.cpu(), b.edges_orig)
+                    and torch.equal(a.cloud.valid.cpu(), b.cloud.valid)
+                    and int(a.cloud.count) == int(b.cloud.count)
+                    and torch.allclose(a.cloud.points.cpu(), b.cloud.points, rtol=1e-6, atol=0)):
+                raise RuntimeError(f"scenes: the card's {name} frame differs from the CPU's")
+        scene_summary[name] = {
+            "edge_pixels": [int(lv.edges.sum()) for lv in fam_card[name].levels],
+            "cloud_counts": [int(lv.cloud.count) for lv in fam_card[name].levels]}
+    # The sparse family is where the BMVC17 fill-in fires
+    # (tests/test_scenes.py:184-250): occupancy under n_percentage at the
+    # coarse levels, and edges added there.
+    fill = {}
+    for lvl in (1, 2):
+        lv = fam_card["sparse"].levels[lvl]
+        occ = float(patch_histogram(lv.edges_orig, cfg.pyramid.dist_patch_sizes[lvl])[1])
+        filled = int(lv.edges.sum()) - int(lv.edges_orig.sum())
+        fill[str(lvl)] = {"occupancy": occ, "filled_pixels": filled}
+        if not (occ < cfg.pyramid.n_percentage and filled > 0):
+            raise RuntimeError(f"scenes: the sparse scene's fill-in did not fire at level {lvl}: {fill}")
+    scene_summary["sparse"]["fill_in"] = fill
+    loop_cpu, loop_outs_h = scan_loop("cpu")
+    loop_card = loop_card.cpu().numpy().astype(np.float64)
+    lp_dt, lp_dr = _max_pose_diff(loop_card, loop_cpu.numpy().astype(np.float64))
+    loop_flags = {k: getattr(loop_outs, k).cpu().numpy() for k in ("promoted", "relocalized", "lost")}
+    loop_ate = absolute_trajectory_error(loop_card, loop_seq[2]).rmse
+    step_m = float(np.linalg.norm(np.diff(loop_traj[:, :3, 3], axis=0), axis=1).mean())
+    scene_summary["loop"] = {
+        "frames": N_LOOP, "of": LOOP_FRAMES_OF, "mean_step_m": step_m,
+        "promoted_at": np.flatnonzero(loop_flags["promoted"]).tolist(),
+        "relocalized": int(loop_flags["relocalized"].sum()), "lost": int(loop_flags["lost"].sum()),
+        "ate_m": loop_ate, "ate_limit_m": LOOP_ATE_LIMIT_M, "vs_cpu_m": lp_dt, "vs_cpu_rad": lp_dr,
+    }
+    if loop_flags["lost"].sum() or not np.isfinite(loop_card).all():
+        raise RuntimeError(f"scenes: the loop was lost: {scene_summary['loop']}")
+    if not all(np.array_equal(loop_flags[k], getattr(loop_outs_h, k).numpy()) for k in loop_flags):
+        raise RuntimeError(f"scenes: the loop's card flags differ from the CPU's: {scene_summary['loop']}")
+    if not (lp_dt <= POSE_TOL and lp_dr <= POSE_TOL):
+        raise RuntimeError(f"scenes: the loop's card poses differ from the CPU's: {scene_summary['loop']}")
+    if not loop_ate < LOOP_ATE_LIMIT_M:
+        raise RuntimeError(f"scenes: loop ATE {loop_ate} m >= {LOOP_ATE_LIMIT_M} m")
+    # The single-core C++ oracle over the 8-frame chain: a host CPU time,
+    # beside that CPU's name; its poses within tests/test_native_oracle.py's
+    # bound of ground truth (1 cm, 0.02 Frobenius).
+    if host_libs["native"]["oracle"] is True:
+        best_s, secs, o_poses, o_errs = native_oracle.oracle_run(
+            cfg, [g for g, _, _, _ in rendered[:N_FRAMES]], [d for _, d, _, _ in rendered[:N_FRAMES]])
+        o_dt = max(float(np.linalg.norm(T[:3, 3] - gt[i + 1][:3, 3])) for i, T in enumerate(o_poses))
+        o_dr = max(float(np.linalg.norm(T[:3, :3] - gt[i + 1][:3, :3])) for i, T in enumerate(o_poses))
+        scene_summary["oracle"] = {
+            "host_cpu": _host_cpu_name(), "ms_per_frame_best": 1e3 * best_s,
+            "ms_per_frame": (1e3 * secs).tolist(), "vs_gt_m": o_dt, "vs_gt_frobenius": o_dr,
+            "final_errors_max": float(o_errs.max())}
+        if not (best_s > 0 and np.isfinite(o_errs).all() and o_dt < 0.01 and o_dr < 0.02):
+            raise RuntimeError(f"scenes: the oracle does not track: {scene_summary['oracle']}")
+    else:
+        scene_summary["oracle"] = None
+        scene_summary["oracle_not_run"] = host_libs["native"]["oracle"]
+    _phase("scenes", launches=launches, smi=smi, **scene_summary)
 
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")

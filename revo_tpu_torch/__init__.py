@@ -5,7 +5,9 @@ The per-frame tracking step of revo_tpu (``frontend.build_frame`` ->
 around it (``system.VOSystem``, ``parallel.batch.vo_scan``, ``autotune``,
 ``python -m revo_tpu_torch.run``) and the SLAM back end (``loopclosure``,
 ``parallel.posegraph``, ``parallel.windowed``, ``parallel.segments``,
-``checkpoint``) on torch tensors, with hand-written
+``checkpoint``) on torch tensors, the host side around them (``io``: TUM
+files, synthetic scenes, live sensors, recorder, native bindings; ``viz``;
+``utils``), with hand-written
 Hopper kernels (``csrc/*.cu``) for the three kernels the
 JAX package wrote in Pallas: Canny NMS (K1) and hysteresis (K2) in
 ``ops.canny``, the LGSX normal-equation reduction (K3) in ``ops.lgsx``.

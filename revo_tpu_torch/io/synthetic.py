@@ -103,6 +103,180 @@ class Cylinder:
     phase: float = 0.0
 
 
+def box_faces(
+    center, half_size, phase0: float = 0.0,
+    texture: str = "full", flat_base: float = 120.0,
+) -> List[Plane]:
+    """Six bounded textured faces of an axis-aligned cuboid.
+
+    Nearest-t raycasting resolves the convex self-occlusion exactly (the
+    first bounded face a ray crosses is the visible one), so boxes create
+    true depth discontinuities and view-dependent silhouette edges — the
+    regime where DT edge alignment has to cope with appearing/disappearing
+    occlusion contours rather than a smooth textured surface.
+    """
+    c = np.asarray(center, np.float64)
+    s = np.asarray(half_size, np.float64)
+    ex = np.array([1.0, 0.0, 0.0])
+    ey = np.array([0.0, 1.0, 0.0])
+    ez = np.array([0.0, 0.0, 1.0])
+    faces = []
+    axes = [(ex, ey, ez), (ey, ez, ex), (ez, ex, ey)]
+    for k, (n, a1, a2) in enumerate(axes):
+        for sgn in (+1.0, -1.0):
+            d = float(n @ c + sgn * s[k])
+            ulo, uhi = a1 @ c - s[(k + 1) % 3], a1 @ c + s[(k + 1) % 3]
+            vlo, vhi = a2 @ c - s[(k + 2) % 3], a2 @ c + s[(k + 2) % 3]
+            faces.append(
+                Plane(
+                    n=n.copy(),
+                    d=d,
+                    a1=a1.copy(),
+                    a2=a2.copy(),
+                    phase=phase0 + 0.7 * len(faces),
+                    bounds=(float(ulo), float(uhi), float(vlo), float(vhi)),
+                    texture=texture,
+                    # Flat faces alternate brightness so box creases and
+                    # silhouettes stay visible as intensity edges even with
+                    # zero in-surface texture (the edge-sparse regime).
+                    flat_value=flat_base + 35.0 * ((len(faces) % 3) - 1),
+                )
+            )
+    return faces
+
+
+def box_scene(**kw) -> "SyntheticScene":
+    """Occlusion-heavy scene family: the textured room plus two cuboids at
+    different depths.  Moving the camera slides the boxes' silhouettes
+    across the far wall (depth discontinuities + occlusion boundaries),
+    unlike the smooth-parallax bounded panels of the default scene."""
+    planes = _default_planes()[:3]  # walls + floor only
+    planes += box_faces((-0.25, 0.45, 1.9), (0.22, 0.16, 0.18), phase0=4.2)
+    planes += box_faces((0.42, -0.05, 2.45), (0.18, 0.26, 0.15), phase0=7.9)
+    return SyntheticScene(planes=planes, **kw)
+
+
+def sparse_scene(**kw) -> "SyntheticScene":
+    """Edge-sparse / low-texture scene family: flat (textureless) walls and
+    floor plus two flat-faced cuboids and a handful of landmark discs.  The
+    only Canny edges are surface boundaries — wall/floor creases, box
+    creases, box-vs-wall silhouettes — and the disc rims, so large image
+    regions are blank and coarse-level patch occupancy drops below the
+    reference's nPercentage threshold: the regime BMVC17 edge fill-in
+    exists for (imgpyramidrgbd.cpp:111-172, fillInEdges).  Gated in
+    tests/test_torch_scenes.py (the fill-in fires as in the JAX package)."""
+    walls = _default_planes()[:3]
+    flat_vals = (150.0, 95.0, 60.0)  # back/floor/side: creases stay visible
+    planes = []
+    for pl, fv in zip(walls, flat_vals):
+        # Back wall keeps the landmark discs (sparse unique anchors so the
+        # alignment is not line-only); floor and side wall are fully flat.
+        mode = "discs" if fv == 150.0 else "flat"
+        planes.append(
+            dataclasses.replace(pl, texture=mode, flat_value=fv)
+        )
+    planes += box_faces(
+        (-0.25, 0.45, 1.9), (0.22, 0.16, 0.18), phase0=4.2,
+        texture="flat", flat_base=200.0,
+    )
+    planes += box_faces(
+        (0.42, -0.05, 2.45), (0.18, 0.26, 0.15), phase0=7.9,
+        texture="flat", flat_base=30.0,
+    )
+    return SyntheticScene(planes=planes, **kw)
+
+
+def column_scene(**kw) -> "SyntheticScene":
+    """Curved-surface scene family: the textured room plus two cylindrical
+    columns.  Depth varies nonlinearly across each column and the occluding
+    contour slides around the surface as the camera moves — silhouette
+    edges here are not attached to any fixed 3-D crease, the hardest edge
+    regime for DT alignment (boxes at least keep their crease edges)."""
+    planes = _default_planes()[:3]  # walls + floor only
+    cyls = [
+        Cylinder(center=np.array([-0.32, 2.05]), radius=0.17,
+                 ylo=-0.8, yhi=1.0, phase=5.1),
+        Cylinder(center=np.array([0.45, 2.55]), radius=0.24,
+                 ylo=-0.9, yhi=1.0, phase=8.6),
+    ]
+    return SyntheticScene(planes=planes, cylinders=cyls, **kw)
+
+
+def _libm_sincos():
+    """The C library's ``sinf`` / ``cosf``.  XLA's CPU backend lowers the
+    scalar sine and cosine of the JAX package's ``loop_trajectory`` to these
+    calls; they are within an ulp but not correctly rounded, and
+    ``torch.sin`` / ``torch.cos`` round differently at some angles."""
+    import ctypes
+    import ctypes.util
+
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for f in (libm.sinf, libm.cosf):
+        f.restype = ctypes.c_float
+        f.argtypes = [ctypes.c_float]
+    return libm.sinf, libm.cosf
+
+
+def _exp_so3_host(omega):
+    """``lie.exp_so3`` of one float32 3-vector on the host, its sine and
+    cosine taken from the C library (``_libm_sincos``): a last-bit change in
+    a rotation moves rendered pixels, and the scenes must render as the JAX
+    package's do.  Everything else is ``lie.exp_so3``'s float32 arithmetic."""
+    import torch
+
+    from revo_tpu_torch import lie
+
+    sinf, cosf = _libm_sincos()
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    W = lie.hat_so3(omega)
+    if float(theta_sq) < lie._EPS:
+        a, b = 1.0 - theta_sq / 6.0, 0.5 - theta_sq / 24.0
+    else:
+        theta = torch.sqrt(theta_sq)
+        a = torch.tensor(sinf(float(theta))) / theta
+        b = (1.0 - torch.tensor(cosf(float(theta)))) / (theta * theta)
+    return torch.eye(3) + a * W + b * (W @ W)
+
+
+def loop_trajectory(
+    n_frames: int,
+    radius: float = 0.25,
+    wobble: float = 0.004,
+    seed: int = 0,
+    circuits: int = 1,
+) -> np.ndarray:
+    """Closed-loop trajectory (N, 4, 4): ``circuits`` full lateral circuits
+    in the x-y plane with gentle yaw, returning exactly to the start — the
+    revisit geometry loop-closure needs (pose[N-1] ~ pose[0], and frames
+    near the end re-observe the first keyframes' views).  With
+    ``circuits=2`` (a double circuit) every azimuth is visited twice, so
+    multiple independent loop edges exist along the whole path — the
+    multi-loop gate geometry (VERDICT r2 item 4)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    poses = []
+    for i in range(n_frames):
+        a = circuits * 2.0 * np.pi * i / (n_frames - 1)
+        # lateral circle + slight look-around yaw, plus smooth wobble
+        t = np.array(
+            [
+                radius * np.sin(a),
+                0.4 * radius * (1.0 - np.cos(a)),
+                0.15 * radius * np.sin(2 * a),
+            ]
+        )
+        yaw = 0.25 * np.sin(a)
+        dR = _exp_so3_host(torch.from_numpy(np.array([0, yaw, 0], np.float32)))
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = dR.numpy()
+        T[:3, 3] = t
+        if wobble > 0 and 0 < i < n_frames - 1:
+            T[:3, 3] += rng.normal(scale=wobble, size=3)
+        poses.append(T)
+    return np.stack(poses)
+
+
 def render_trajectory(scene: "SyntheticScene", cam, traj: np.ndarray, seed: int = 0):
     """Yield (gray, depth, T_w_c, timestamp) over an explicit trajectory."""
     for i, T in enumerate(traj):

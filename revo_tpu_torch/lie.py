@@ -1,8 +1,10 @@
 """SO(3) / SE(3) maps on torch tensors (counterpart of revo_tpu/lie.py).
 
-The subset the port needs: exp/log of SO(3) and SE(3), compose, inverse,
-the SE(3) adjoint, (R, t) <-> 4x4, the TUM quaternion pair, and 4x4 products and inverses that
-round as jitted XLA on the CPU does (``matmul_fma``, ``inv_lu``).  Same formulas,
+The group API of the JAX module: hat/vee, exp/log of SO(3) and SE(3),
+compose, inverse, the SE(3) adjoint, Lie brackets, point transforms, geodesic
+interpolation and the iterative mean, (R, t) <-> 4x4, the TUM quaternion pair,
+and 4x4 products and inverses that round as jitted XLA on the CPU does
+(``matmul_fma``, ``inv_lu``).  Same formulas,
 small-angle Taylor branches and near-pi log branch as the JAX module, in
 float32.  Tangent convention ``xi = [upsilon, omega]`` (Sophus, se3.hpp:723).
 
@@ -38,6 +40,11 @@ def hat_so3(omega: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee_so3(Omega: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat_so3` (so3.hpp ``SO3::vee``)."""
+    return torch.stack([Omega[..., 2, 1], Omega[..., 0, 2], Omega[..., 1, 0]], dim=-1)
 
 
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:
@@ -162,6 +169,13 @@ def inverse(R, t):
     return Rt, -(Rt @ t[..., None])[..., 0]
 
 
+def transform_points(R, t, pts):
+    """Apply (R, t) to points of shape (..., N, 3).  Multiply and sum, never
+    a float32 ``matmul``: N can be a whole cloud, and the card must not
+    round it to TF32."""
+    return (R[..., None, :, :] * pts[..., None, :]).sum(-1) + t[..., None, :]
+
+
 def adjoint_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """6x6 adjoint Ad(T) of (R, t) on tangent vectors (se3.hpp ``Adj``;
     revo_tpu/lie.py::adjoint_se3).  With xi = [upsilon, omega]:
@@ -169,6 +183,78 @@ def adjoint_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, hat_so3(t) @ R], dim=-1)
     bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def hat_se3(xi: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix form of a twist (se3.hpp ``SE3::hat``).  With
+    xi = [upsilon, omega]: [[hat(omega), upsilon], [0, 0]]."""
+    top = torch.cat([hat_so3(xi[..., 3:]), xi[..., :3, None]], dim=-1)
+    bottom = torch.zeros(*top.shape[:-2], 1, 4, dtype=xi.dtype, device=xi.device)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def vee_se3(X: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat_se3` (se3.hpp ``SE3::vee``)."""
+    return torch.cat([X[..., :3, 3], vee_so3(X[..., :3, :3])], dim=-1)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b on the last axis.  Each component x * y - z * w rounds as
+    ``jnp.cross`` does on the CPU, where XLA contracts it into one fused
+    multiply-add onto the rounded second product; the fused step is taken in
+    the next wider type (the product of two float32 values is exact in
+    float64), so the result is the same on every device."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    wide = torch.float64 if a.dtype == torch.float32 else a.dtype
+
+    def diff(x, y, z, w):
+        return (x.to(wide) * y.to(wide) - (z * w).to(wide)).to(a.dtype)
+
+    return torch.stack(
+        [diff(a1, b2, a2, b1), diff(a2, b0, a0, b2), diff(a0, b1, a1, b0)], dim=-1
+    )
+
+
+def lie_bracket_so3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """so(3) Lie bracket [a, b] = a x b (so3.hpp ``SO3::lieBracket``)."""
+    return _cross(a, b)
+
+
+def lie_bracket_se3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """se(3) Lie bracket (se3.hpp ``SE3::lieBracket``):
+    [a, b] = [omega_a x ups_b + ups_a x omega_b, omega_a x omega_b], which
+    equals vee(hat(a) hat(b) - hat(b) hat(a))."""
+    ups_a, om_a = a[..., :3], a[..., 3:]
+    ups_b, om_b = b[..., :3], b[..., 3:]
+    return torch.cat(
+        [_cross(om_a, ups_b) + _cross(ups_a, om_b), _cross(om_a, om_b)], dim=-1
+    )
+
+
+def interpolate_se3(Ra, ta, Rb, tb, alpha):
+    """Geodesic interpolation a * exp(alpha * log(a^-1 * b))
+    (sophus/interpolate.hpp:28-38).  ``alpha`` may be batched."""
+    Ri, ti = inverse(Ra, ta)
+    xi = log_se3(*compose(Ri, ti, Rb, tb))
+    alpha = torch.as_tensor(alpha, dtype=xi.dtype, device=xi.device)
+    dR, dt = exp_se3(alpha[..., None] * xi)
+    return compose(Ra, ta, dR, dt)
+
+
+def average_se3(R: torch.Tensor, t: torch.Tensor, iters: int = 20):
+    """Iterative bi-invariant mean of a set of poses (sophus/average.hpp
+    ``iterativeMean``): X <- X * exp(mean_i log(X^-1 * T_i)), a fixed
+    iteration count like the JAX module's (Sophus runs at most 20).
+
+    R: (N, 3, 3), t: (N, 3).  Returns (R_mean, t_mean)."""
+    Rm, tm = R[0], t[0]
+    for _ in range(iters):
+        Ri, ti = inverse(Rm, tm)
+        xi = log_se3(*compose(Ri[None], ti[None], R, t)).mean(dim=0)
+        dR, dt = exp_se3(xi)
+        Rm, tm = compose(Rm, tm, dR, dt)
+    return Rm, tm
 
 
 def matrix_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

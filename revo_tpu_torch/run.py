@@ -4,9 +4,11 @@
 Replaces main.cpp:22-48: loads the two-file config, then runs VO over each
 dataset listed in the dataset file, writing ``poses_<dataset>.txt`` in TUM
 format.  ``--synthetic N`` renders an N-frame synthetic sequence instead and
-reports ATE/RPE against its exact ground truth.  Everything runs on
-``--device`` (default ``cuda``); a CUDA device on a machine without one is
-an error, never a quiet CPU run.
+reports ATE/RPE against its exact ground truth.  With ``INPUT_TYPE`` 1/2/3
+(settings yaml or ``--input-type``) it tracks a live sensor through the
+native V4L2 engine, or recorded sessions of one through the engine's replay
+shim.  Everything runs on ``--device`` (default ``cuda``); a CUDA device on a
+machine without one is an error, never a quiet CPU run.
 """
 from __future__ import annotations
 
@@ -16,20 +18,6 @@ import os
 import sys
 
 import numpy as np
-
-# Options of revo_tpu.run that the port does not have yet, and the ROADMAP
-# item that brings each.
-_NOT_PORTED = {
-    "live_view": ("--live-view", "P11"),
-    "input_type": ("--input-type", "P11"),
-    "color_dev": ("--color-dev", "P11"),
-    "depth_dev": ("--depth-dev", "P11"),
-    "replay_color": ("--replay-color", "P11"),
-    "replay_depth": ("--replay-depth", "P11"),
-    "max_frames": ("--max-frames", "P11"),
-    "record": ("--record", "P11"),
-}
-
 
 def _print_report(report, pose_file) -> None:
     # VO report (system.cpp:292-304)
@@ -56,7 +44,7 @@ def _calibrate(cfg, grays, depths, scale, device):
     return cfg
 
 
-def _evaluate_against_gt(poses, stamps, ds_dir, gt_file) -> None:
+def _evaluate_against_gt(poses, stamps, ds_dir, gt_file, out_dir) -> None:
     """ATE/RPE against a TUM groundtruth.txt (the reference delegates this
     to the external rgbd_benchmark_tools, README.md:57)."""
     from revo_tpu_torch.eval import absolute_trajectory_error, relative_pose_error
@@ -82,6 +70,13 @@ def _evaluate_against_gt(poses, stamps, ds_dir, gt_file) -> None:
     )
     print(f"RPE vs GT: {rpe.trans_rmse * 1000:.2f} mm / "
           f"{rpe.rot_rmse_deg:.4f} deg per frame")
+    try:
+        from revo_tpu_torch.viz import plot_error, plot_trajectory
+
+        plot_trajectory(os.path.join(out_dir, "trajectory_vs_gt.png"), est, gt)
+        plot_error(os.path.join(out_dir, "ate_error_vs_gt.png"), est, gt)
+    except ImportError:  # no matplotlib: the numbers above are the result
+        pass
 
 
 def _reanchor(vo, ring_poses) -> np.ndarray:
@@ -176,9 +171,29 @@ def _post_run_refinement(vo, poses, windowed_ba_flag: bool, close_loops_flag: bo
     return poses
 
 
+def _maybe_viewer(live_view: bool, out_dir: str):
+    if not live_view:
+        return None
+    from revo_tpu_torch.viz.live import LiveViewer
+
+    return LiveViewer(out_dir)
+
+
+def _run_vo(vo, frames, pose_file, live_view: bool, out_dir: str):
+    """``vo.run`` with the live viewer when asked for, then the VO report."""
+    viewer = _maybe_viewer(live_view, out_dir)
+    poses, stamps, report = vo.run(frames, pose_file=pose_file, viewer=viewer)
+    if viewer is not None:
+        viewer.close()
+        print(f"Live view written to {out_dir}/live/index.html")
+    _print_report(report, pose_file)
+    return poses, stamps
+
+
 def _run_dataset(cfg, dataset, out_dir, device, gt_file=None, auto_capacity=0,
-                 capacity_scale=1.15, close_loops_flag=False, windowed_ba_flag=False,
-                 export_ply=False) -> None:
+                 capacity_scale=1.15, close_loops_flag=False, live_view=False,
+                 windowed_ba_flag=False, export_ply=False) -> None:
+    from revo_tpu_torch.io import native_loader
     from revo_tpu_torch.io.tum import load_associations, load_tum_frame, load_tum_frame_raw
     from revo_tpu_torch.system import VOSystem
 
@@ -203,21 +218,91 @@ def _run_dataset(cfg, dataset, out_dir, device, gt_file=None, auto_capacity=0,
         cfg = _calibrate(cfg, [p[0] for p in probe], [p[1] for p in probe],
                          capacity_scale, device)
 
-    frames = (load_tum_frame_raw(ds_dir, a) for a in assocs)
+    # Which host decoder reads the PNGs: the native threaded prefetcher
+    # (replaces the reference's IO thread) where its library is available,
+    # OpenCV otherwise.  Either way uint8 / uint16 frames go to the device
+    # raw and convert there.
+    if native_loader.native_available():
+        def frames():
+            rgb = [os.path.join(ds_dir, a.rgb_path) for a in assocs]
+            dep = [os.path.join(ds_dir, a.depth_path) for a in assocs]
+            shape = (cfg.camera.height, cfg.camera.width)
+            with native_loader.NativePrefetcher(rgb, dep, shape) as pf:
+                for i, a in enumerate(assocs):
+                    gray_u8, depth_u16 = pf.get(i)
+                    yield gray_u8, depth_u16, a.rgb_ts
+    else:
+        def frames():
+            for a in assocs:
+                yield load_tum_frame_raw(ds_dir, a)
+
     pose_file = os.path.join(out_dir, f"poses_{dataset}.txt")
     vo = VOSystem(cfg, device=device)
-    poses, stamps, report = vo.run(frames, pose_file=pose_file)
-    _print_report(report, pose_file)
+    poses, stamps = _run_vo(vo, frames(), pose_file, live_view, out_dir)
     poses = _post_run_refinement(vo, poses, windowed_ba_flag, close_loops_flag)
     if export_ply:
         _maybe_export_ply(vo, poses, out_dir)
     if gt_file:
-        _evaluate_against_gt(poses, stamps, ds_dir, gt_file)
+        _evaluate_against_gt(poses, stamps, ds_dir, gt_file, out_dir)
+
+
+def _run_live(cfg, input_type: int, out_dir: str, device, color_dev: str, depth_dev: str,
+              replay_color=None, replay_depth=None, max_frames: int = 0,
+              close_loops_flag: bool = False, live_view: bool = False,
+              windowed_ba_flag: bool = False, export_ply: bool = False,
+              record_dir=None) -> None:
+    """INPUT_TYPE 1/2/3: live-sensor VO through the native V4L2 engine (the
+    reference's live modalities, iowrapperRGBD.h:56-102).  Frames arrive as
+    uint8 gray and raw uint16 depth and go to the device as they are.
+
+    ``replay_color`` / ``replay_depth`` route the engine at recorded session
+    files through the replay shim: the same engine path without hardware
+    (field-capture debugging; also how the tests drive this)."""
+    from revo_tpu_torch.io import sensors
+    from revo_tpu_torch.system import VOSystem
+
+    if replay_color:
+        mapping = {color_dev: replay_color}
+        if replay_depth:
+            mapping[depth_dev] = replay_depth
+        sensors.use_replay(mapping)
+    cam = sensors.open_sensor(
+        input_type, color_dev=color_dev, depth_dev=depth_dev,
+        width=cfg.camera.width, height=cfg.camera.height,
+        warmup=0 if replay_color else None,
+    )
+    print(f"[revo_tpu_torch] live sensor: {cam.profile.name} "
+          f"(INPUT_TYPE={input_type}) {cam.width}x{cam.height}")
+
+    def frames():
+        rec = None
+        if record_dir:
+            from revo_tpu_torch.io.recorder import TUMRecorder
+
+            rec = TUMRecorder(record_dir)
+        try:
+            for i, (gray, depth, ts) in enumerate(cam):
+                if max_frames and i >= max_frames:
+                    break
+                if rec is not None:
+                    rec.add(gray, depth, ts)
+                yield gray, depth, ts
+        finally:
+            if rec is not None:
+                rec.close()
+
+    vo = VOSystem(cfg, device=device)
+    pose_file = os.path.join(out_dir, "poses_live.txt")
+    poses, _ = _run_vo(vo, frames(), pose_file, live_view, out_dir)
+    cam.close()
+    poses = _post_run_refinement(vo, poses, windowed_ba_flag, close_loops_flag)
+    if export_ply:
+        _maybe_export_ply(vo, poses, out_dir)
 
 
 def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device,
-                   close_loops_flag: bool = False, windowed_ba_flag: bool = False,
-                   export_ply: bool = False) -> int:
+                   close_loops_flag: bool = False, live_view: bool = False,
+                   windowed_ba_flag: bool = False, export_ply: bool = False) -> int:
     from revo_tpu_torch.eval import absolute_trajectory_error, relative_pose_error
     from revo_tpu_torch.io.synthetic import SyntheticScene, render_sequence
     from revo_tpu_torch.system import VOSystem
@@ -231,12 +316,20 @@ def _run_synthetic(cfg, n_frames: int, out_dir: str, seed: int, device,
 
     pose_file = os.path.join(out_dir, "poses_synthetic.txt")
     vo = VOSystem(cfg, device=device)
-    poses, _, report = vo.run(frames(), pose_file=pose_file)
-    _print_report(report, pose_file)
+    poses, _ = _run_vo(vo, frames(), pose_file, live_view, out_dir)
     poses = _post_run_refinement(vo, poses, windowed_ba_flag, close_loops_flag)
     if export_ply:
         _maybe_export_ply(vo, poses, out_dir)
     gt_arr = np.stack(gt)
+    try:
+        from revo_tpu_torch.viz import plot_error, plot_trajectory
+
+        plot_trajectory(os.path.join(out_dir, "trajectory.png"), poses, gt_arr,
+                        title="synthetic VO")
+        plot_error(os.path.join(out_dir, "ate_error.png"), poses, gt_arr)
+        print(f"Plots written to {out_dir}/trajectory.png, ate_error.png")
+    except ImportError:  # no matplotlib: the numbers below are the result
+        pass
     ate = absolute_trajectory_error(poses, gt_arr)
     rpe = relative_pose_error(poses, gt_arr)
     print(
@@ -294,23 +387,50 @@ def main(argv=None) -> int:
         help="export the map model as PLY (colored keyframe cloud, keyframe "
              "frusta, trajectory)",
     )
-    for dest, (flag, item) in _NOT_PORTED.items():
-        parser.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
-                            help=f"not ported yet (ROADMAP {item})")
+    parser.add_argument(
+        "--live-view", action="store_true",
+        help="render live progress (trajectory + reprojection overlay + 3-D "
+             "map + auto-refreshing index.html) to OUT/live/ on a background "
+             "thread while the run progresses: the headless equivalent of "
+             "the reference's Pangolin viewer thread",
+    )
+    parser.add_argument(
+        "--input-type", type=int, default=None, metavar="N",
+        help="live-sensor modality override (reference INPUT_TYPE, "
+             "iowrapperRGBD.h:56-102): 1 = Orbbec Astra Pro, 2 = RealSense, "
+             "3 = Orbbec Astra; default comes from the settings yaml "
+             "(INPUT_TYPE, 0 = dataset files)",
+    )
+    parser.add_argument("--color-dev", default="/dev/video0",
+                        help="V4L2 color device (live modes)")
+    parser.add_argument("--depth-dev", default="/dev/video1",
+                        help="V4L2 depth device (live modes)")
+    parser.add_argument(
+        "--replay-color", default=None, metavar="FILE",
+        help="serve the color device from a recorded session file through "
+             "the engine's replay shim (hardware-free live mode)",
+    )
+    parser.add_argument("--replay-depth", default=None, metavar="FILE",
+                        help="session file for the depth device")
+    parser.add_argument("--max-frames", type=int, default=0,
+                        help="stop the live run after N frames (0 = until "
+                             "the stream ends)")
+    parser.add_argument(
+        "--record", default=None, metavar="DIR",
+        help="record the live stream as a TUM-format capture while "
+             "tracking (DO_RECORD_IMAGES, iowrapperRGBD.cpp:181-217)",
+    )
     args = parser.parse_args(argv)
-
-    for dest, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            parser.exit(2, f"revo_tpu_torch.run: {flag} is not ported yet (ROADMAP {item})\n")
 
     from revo_tpu_torch.config import load_config
     from revo_tpu_torch.kernels import check_device
 
     device = check_device(args.device)
     cfg = load_config(args.settings, args.dataset)
-    if args.export_ply:
-        # The colored cloud reads keyframe images from the retained history;
-        # everything else runs with pruned keyframes (frontend.prune_keyframe).
+    if args.export_ply or args.live_view:
+        # The colored-map surfaces read keyframe images from the retained
+        # history; everything else runs with pruned keyframes
+        # (frontend.prune_keyframe).
         cfg = dataclasses.replace(
             cfg, tracker=dataclasses.replace(cfg.tracker, store_kf_images=True)
         )
@@ -325,12 +445,17 @@ def main(argv=None) -> int:
             cfg = _calibrate(cfg, [f[0] for f in probe], [f[1] for f in probe],
                              args.capacity_scale, device)
         return _run_synthetic(cfg, args.synthetic, args.out, args.seed, device,
-                              close_loops_flag=args.close_loops,
+                              close_loops_flag=args.close_loops, live_view=args.live_view,
                               windowed_ba_flag=args.windowed_ba, export_ply=args.export_ply)
 
-    if cfg.dataset.input_type != 0:
-        parser.exit(2, "revo_tpu_torch.run: live sensors (INPUT_TYPE "
-                       f"{cfg.dataset.input_type}) are not ported yet (ROADMAP P11)\n")
+    input_type = args.input_type if args.input_type is not None else cfg.dataset.input_type
+    if input_type != 0:
+        _run_live(cfg, input_type, args.out, device, args.color_dev, args.depth_dev,
+                  replay_color=args.replay_color, replay_depth=args.replay_depth,
+                  max_frames=args.max_frames, close_loops_flag=args.close_loops,
+                  live_view=args.live_view, windowed_ba_flag=args.windowed_ba,
+                  export_ply=args.export_ply, record_dir=args.record)
+        return 0
     if not args.dataset:
         parser.error("either provide dataset yaml or --synthetic N")
     if not cfg.dataset.datasets:
@@ -339,8 +464,8 @@ def main(argv=None) -> int:
     for ds in cfg.dataset.datasets:
         _run_dataset(cfg, ds, args.out, device, gt_file=args.gt,
                      auto_capacity=args.auto_capacity, capacity_scale=args.capacity_scale,
-                     close_loops_flag=args.close_loops, windowed_ba_flag=args.windowed_ba,
-                     export_ply=args.export_ply)
+                     close_loops_flag=args.close_loops, live_view=args.live_view,
+                     windowed_ba_flag=args.windowed_ba, export_ply=args.export_ply)
     return 0
 
 

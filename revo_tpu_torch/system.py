@@ -380,14 +380,19 @@ class VOSystem:
             self._online_loop_closure()
         return node.T_w_curr
 
-    def run(self, frames, pose_file: Optional[str] = None):
+    def run(self, frames, pose_file: Optional[str] = None, viewer=None):
         """Run over an iterable of (gray, depth, timestamp); returns (poses
         (N, 4, 4), timestamps, VOReport) and writes ``pose_file`` in TUM
-        format when given (and cfg.do_output_poses)."""
+        format when given (and cfg.do_output_poses).  ``viewer`` is an
+        optional live visualizer (viz.live.LiveViewer) handed a snapshot per
+        frame, the non-blocking equivalent of the reference's viewer-thread
+        hand-off (system.cpp:279-281); it changes no pose."""
         poses, stamps = [], []
         for gray, depth, ts in frames:
             poses.append(self.process_frame(gray, depth, ts))
             stamps.append(ts)
+            if viewer is not None:
+                viewer.update(self, self.prev_frame, poses[-1], len(poses) - 1)
         poses = np.stack(poses) if poses else np.zeros((0, 4, 4))
         if pose_file and self.cfg.do_output_poses:
             R = torch.from_numpy(np.ascontiguousarray(poses[:, :3, :3], np.float32))

@@ -5,7 +5,7 @@ Tolerances: calibrated capacities equal; RPE within 1e-12 relative; a TUM
 file read back by either package gives the same poses bit for bit; the pose
 file that ``python -m revo_tpu_torch.run --synthetic 12 --device cpu``
 writes within 1e-4 of the one ``revo_tpu.run --synthetic 12 --cpu`` writes
-on the same settings.
+on the same settings; the two CLIs take the same options.
 """
 import os
 import subprocess
@@ -213,16 +213,31 @@ def test_run_dataset_matches_jax(tmp_path, capsys):
     np.testing.assert_allclose(p_t, p_j, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--live-view"], "P11"),
-    (["--record", "rec"], "P11"),
-    (["--input-type", "2"], "P11"),
-])
-def test_unported_flag_exits_nonzero(flag, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        run.main(["--synthetic", "2", "--device", "cpu", *flag])
-    assert exc.value.code != 0
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+def test_cli_accepts_every_flag_of_the_jax_cli(monkeypatch):
+    """Every option of ``python -m revo_tpu.run`` but ``--cpu`` (the port has
+    ``--device``) parses in the port, with the same default and type."""
+    import argparse
+
+    grabbed = {}
+
+    def grab(self, argv=None):
+        grabbed.update({a.option_strings[-1]: (a.default, a.type, a.nargs, type(a).__name__)
+                        for a in self._actions if a.option_strings})
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+
+    def options(main):
+        grabbed.clear()
+        with pytest.raises(SystemExit):
+            main([])
+        return dict(grabbed)
+
+    want, got = options(jrun.main), options(run.main)
+    del want["--cpu"], want["--help"]
+    assert "--device" in got and len(want) == 17
+    for flag, spec in want.items():
+        assert got[flag] == spec, flag
 
 
 def test_cuda_without_card_raises(monkeypatch, tmp_path):

@@ -236,15 +236,17 @@ def test_renderer_and_ate_match_jax(seq):
 
 
 def test_import_loads_no_jax():
-    """Every port module imports with jax and revo_tpu blocked, and loads
-    neither; no source line of the port or of chip_smoke.py (whose imports
-    run inside main, on the card) imports them."""
+    """Every port module (the package is walked, so a new module cannot be
+    forgotten) imports with jax and revo_tpu blocked, and loads neither, nor
+    matplotlib or OpenCV, which the views import inside their functions; no
+    source line of the port or of chip_smoke.py (whose imports run inside
+    main, on the card) imports jax or revo_tpu."""
     import glob
     import re
 
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|revo_tpu)(?:[.\s]|$)", re.M)
     sources = glob.glob(os.path.join(REPO, "revo_tpu_torch", "**", "*.py"), recursive=True)
-    assert len(sources) > 25
+    assert len(sources) > 40
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
             assert not pat.search(f.read()), path
@@ -264,6 +266,18 @@ def test_import_loads_no_jax():
         "import revo_tpu_torch.checkpoint, revo_tpu_torch.ops.canny, revo_tpu_torch.ops.lgsx\n"
         "import revo_tpu_torch.parallel.windowed, revo_tpu_torch.parallel.segments\n"
         "import revo_tpu_torch.ops.undistort, revo_tpu_torch.viz.ply\n"
+        "import revo_tpu_torch.lie, revo_tpu_torch.utils, revo_tpu_torch.utils.timing\n"
+        "import revo_tpu_torch.utils.logging, revo_tpu_torch.utils.metrics\n"
+        "import revo_tpu_torch.io, revo_tpu_torch.io._native, revo_tpu_torch.io.native_loader\n"
+        "import revo_tpu_torch.io.sensors, revo_tpu_torch.io.recorder\n"
+        "import revo_tpu_torch.io.native_oracle, revo_tpu_torch.io.associate\n"
+        "import revo_tpu_torch.viz, revo_tpu_torch.viz.plot, revo_tpu_torch.viz.debug\n"
+        "import revo_tpu_torch.viz.map3d, revo_tpu_torch.viz.live\n"
+        "import pkgutil\n"
+        "walked = [m.name for m in pkgutil.walk_packages(revo_tpu_torch.__path__, 'revo_tpu_torch.')]\n"
+        "missing = [m for m in walked if m not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "assert not [m for m in ('matplotlib', 'cv2') if m in sys.modules]\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
