@@ -17,7 +17,9 @@ pan keyframes and over the loop keyframes with their loop edge, segment-
 parallel tracking of the pan, and a distorted capture of the pan through
 undistortion and PLY export; then the live entry point (the viewer, the
 replayed V4L2 sessions and the recorded capture through ``run.main``) and the
-box, column and sparse scene families with a loop trajectory.  Phases, one
+box, column and sparse scene families with a loop trajectory; then the
+multi-device layer: the sharded forms on a mesh of slots, the two-stage
+pipeline, a one-process NCCL group and two processes over gloo.  Phases, one
 line each:
 
 1. device    the card, its power limit, TF32 pinned off;
@@ -139,11 +141,35 @@ line each:
              the limit; when the oracle library is available, oracle_run
              over the 8-frame chain: its ms per frame (one core of the host
              CPU, named beside it) and poses within 1 cm / 0.02 of ground
-             truth.
+             truth;
+17. mesh     the multi-device layer on n = max(2, cards) slots (two on
+             cuda:0 with one card): (a) each sharded form against its
+             mesh-less card run: vo_scan_batched over phase 8's two
+             sequences and track_long_sequence(n_segments=4) over phase
+             13's 21 frames bit-equal; verify_candidates_batched over
+             phase 10's loop keyframes, three pairs padded to the slots,
+             verdicts and poses bit-equal; residual_system_point_sharded at
+             level 0 of the chain's frame 1 (P = 16384): counts equal, A
+             and g within rtol 1e-4 / atol 1e-6 of residual_system;
+             optimize_pose_graph_sharded on phase 10's loop graph padded
+             with weight-0 edges within 1e-4; optimize_window_sharded over
+             phase 12's six perturbed keyframes, levels 2 -> 1 -> 0 over
+             all 30 ordered pairs (6 evaluations a level from lambda 0.1),
+             within 1e-3 m / 1e-3 rad of the unsharded chain and its
+             largest translation error under 0.7x the start's; (b)
+             pipeline_replay over the pan's 20 frames with both stages on
+             cuda:0 (two streams), and on cuda:0 / cuda:1 with two cards,
+             bit-equal to the sequential build + track, and the host syncs
+             one build_frame makes; (c) a one-process NCCL group started by
+             maybe_distributed_init, psum and gather through it; (d) two
+             processes over gloo on cuda:0 (``chip_smoke.py --mesh-worker``),
+             vo_scan_batched(mesh=make_mesh()) over phase 8's two sequences,
+             one per rank, bit-equal on both ranks to (a); seconds per form.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
-host_libraries, 15, 16, 6.
-Launch counts are set to 0 just before each path (phases 5, 7 to 16)
+host_libraries, 15, 16, 17, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 17, each
+form of 17 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
 alone; K1 and K2 on the 1280x720 frame; the unfused K3 ``lgsx_reduce`` is
@@ -215,6 +241,16 @@ LOOP_FRAMES_OF, N_LOOP = 110, 24
 # vo_scan's ATE on those 24 frames on the card (NVIDIA H100 80GB HBM3, 700 W), times 1.5.
 LOOP_CARD_ATE_M = 0.0022926644064904917
 LOOP_ATE_LIMIT_M = 1.5 * LOOP_CARD_ATE_M
+# Phase 17: the point-sharded system against the unsharded one
+# (tests/test_lgsx_sharded.py:62-80), three loop candidates (padded to a
+# multiple of the slots), the sharded window's schedule (levels 2 -> 1 -> 0,
+# evaluations per level, initial lambda, index ring: every ordered pair of
+# the six, as phase 12's overlap pairs are; scripts/torch_window_variants.py
+# compares the choices), and the two gloo workers' time limit.
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-6
+MESH_PAIRS = ((0, 2), (0, 3), (1, 3))
+MESH_BA_ITERS, MESH_BA_DAMPING, MESH_BA_RADIUS = 6, 0.1, 5
+WORKER_TIMEOUT_S = 300
 
 
 _T0 = time.perf_counter()
@@ -669,9 +705,65 @@ def _queued_ms(fn, reps: int = 50):
     return ev[1].elapsed_time(ev[2]) / reps
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _bit_equal(a, b) -> bool:
+    """Equal bit for bit (NaN included), on whatever devices they live."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def mesh_worker(frames_npz: str, out_prefix: str) -> int:
+    """One rank of phase 17 (d), started by ``main`` as
+    ``chip_smoke.py --mesh-worker FRAMES.npz OUT_PREFIX`` with the
+    environment torchrun would set: a gloo group (NCCL takes one rank per
+    card, and both ranks share card 0), ``make_mesh()`` (this rank's card)
+    and ``vo_scan_batched`` over the sequences in the file, one per rank;
+    the gathered poses go to OUT_PREFIX<rank>.npy."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from revo_tpu_torch.config import SystemConfig
+    from revo_tpu_torch.ops import canny as K12
+    from revo_tpu_torch.ops import lgsx as K3
+    from revo_tpu_torch.parallel import batch
+    from revo_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init
+
+    if not maybe_distributed_init(backend="gloo"):
+        raise RuntimeError("mesh worker: no two-process group in the environment")
+    try:
+        mesh = make_mesh()
+        frames = np.load(frames_npz)
+        t0 = time.perf_counter()
+        poses = batch.vo_scan_batched(torch.from_numpy(frames["grays"]),
+                                      torch.from_numpy(frames["depths"]), SystemConfig(), mesh=mesh)
+        torch.cuda.synchronize()
+        np.save(f"{out_prefix}{dist.get_rank()}.npy", poses.cpu().numpy())
+        print(json.dumps({"rank": dist.get_rank(), "mesh": repr(mesh), "poses_on": str(poses.device),
+                          "seconds": time.perf_counter() - t0,
+                          "launches": {"canny_fused": K12.canny_fused.launches,
+                                       "residual_lgsx": K3.residual_lgsx.launches}}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs the card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1671,6 +1763,225 @@ def main() -> int:
         scene_summary["oracle"] = None
         scene_summary["oracle_not_run"] = host_libs["native"]["oracle"]
     _phase("scenes", launches=launches, smi=smi, **scene_summary)
+
+    # -- 17. mesh: the sharded forms on a mesh of slots, the pipeline, groups --
+    import warnings
+
+    import torch.distributed as dist
+
+    from revo_tpu_torch import lie
+    from revo_tpu_torch.parallel import mesh as pmesh
+    from revo_tpu_torch.parallel import pipeline, posegraph
+
+    n_cards = torch.cuda.device_count()
+    n_slots = max(2, n_cards)  # on one card: two slots on cuda:0
+    slot_devices = [torch.device("cuda", i % n_cards) if dev.type == "cuda" else dev
+                    for i in range(n_slots)]
+
+    def mesh_of(axis, work=n_slots):  # as many slots as divide the work
+        return pmesh.make_mesh((axis,), devices=slot_devices[:math.gcd(n_slots, work)])
+
+    mesh_s, mesh_launches = {}, {}
+
+    def mesh_form(name, fn, kernels=vga_kernels):
+        """Run one form with the launch counts reset; every kernel of its
+        path must launch, neither K1 nor K2 alone."""
+        t0 = time.perf_counter()
+        out, counts = _path_launches(counters_, fn)
+        mesh_s[name] = round(time.perf_counter() - t0, 3)
+        mesh_launches[name] = counts
+        require_vga(f"mesh {name}", counts, kernels)
+        add_launches(counts)
+        return out
+
+    # (a) each form on the mesh against its mesh-less card run.
+    two_g, two_d = torch.stack([g_pan, g_two]), torch.stack([d_pan, d_two])
+    scan_mesh = mesh_form("vo_scan_batched", lambda: batch.vo_scan_batched(
+        two_g, two_d, cfg, mesh=mesh_of("seq", 2)))
+    seg_mesh = mesh_form("track_long_sequence", lambda: segments.track_long_sequence(
+        g_seg, d_seg, cfg, N_SEGMENTS, mesh=mesh_of("seq", N_SEGMENTS)))
+    kfs_loop, _, _ = loop_keyframes(cfg, dev, loop_rendered)
+    verdicts = mesh_form("verify_candidates_batched", lambda: loopclosure.verify_candidates_batched(
+        kfs_loop, MESH_PAIRS, cfg, mesh=mesh_of("cand")), ["residual_lgsx"])
+    verdicts_plain = loopclosure.verify_candidates_batched(kfs_loop, MESH_PAIRS, cfg)
+    verdicts_equal = all(
+        (a is None) == (b is None) and (a is None or (np.array_equal(a[0], b[0]) and a[1] == b[1]))
+        for a, b in zip(verdicts, verdicts_plain))
+    pt_args = (kf_lm.quads[0], frames_lm[1].levels[0].cloud, cams[0], results_lm[0].R,
+               results_lm[0].t, opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter)
+    sys_mesh = mesh_form("residual_system_point_sharded", lambda: solver.residual_system_point_sharded(
+        *pt_args, mesh_of("pt", pt_args[1].points.shape[0])), ["residual_lgsx"])
+    sys_plain = solver.residual_system(*pt_args)
+    pt_err = {k: float((a - b).abs().max()) for k, a, b in (
+        ("A", sys_mesh.A, sys_plain.A), ("g", sys_mesh.g, sys_plain.g), ("err", sys_mesh.err, sys_plain.err))}
+    pt_close = all(torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL)
+                   for a, b in ((sys_mesh.A, sys_plain.A), (sys_mesh.g, sys_plain.g)))
+    pt_counts = [int(sys_mesh.info.good), int(sys_mesh.info.bad),
+                 int(sys_plain.info.good), int(sys_plain.info.bad)]
+    # The pose graph of close_loops over phase 10's loop keyframes: odometry
+    # edges from the drifted estimates, its loop edges, weight-0 padding.
+    drifted, loops_c = slam_c["drifted"], slam_c["loops"]
+    k_loop = len(drifted)
+    ei = list(range(k_loop - 1)) + [e.a for e in loops_c]
+    ej = list(range(1, k_loop)) + [e.b for e in loops_c]
+    em = [np.linalg.inv(drifted[i]) @ drifted[i + 1] for i in range(k_loop - 1)]
+    em += [e.T_ab for e in loops_c]
+    ew = [1.0] * (k_loop - 1) + [2.0] * len(loops_c)
+    pad = (-len(ei)) % n_slots
+    pg_edges = posegraph.PoseGraphEdges(
+        i=torch.tensor(ei + [0] * pad, dtype=torch.int32, device=dev),
+        j=torch.tensor(ej + [0] * pad, dtype=torch.int32, device=dev),
+        T_meas=torch.from_numpy(np.stack(em + [np.eye(4)] * pad).astype(np.float32)).to(dev),
+        weight=torch.tensor(ew + [0.0] * pad, dtype=torch.float32, device=dev))
+    pg_start = torch.from_numpy(drifted).to(dev)
+    pg_mesh = mesh_form("optimize_pose_graph_sharded", lambda: posegraph.optimize_pose_graph_sharded(
+        pg_start, pg_edges, mesh_of("edge"), iters=15), [])
+    pg_plain = posegraph.optimize_pose_graph(pg_start, pg_edges, iters=15)
+    pg_dt, pg_dr = _max_pose_diff(pg_mesh.cpu().numpy(), pg_plain.cpu().numpy())
+
+    def window_chain(sharded):
+        """Phase 12's six keyframes from their perturbed poses, coarse to
+        fine over the index ring, sharded over "pair" or not."""
+        poses_ = torch.from_numpy(ba_stored).to(dev)
+        for lvl in range(cfg.pyramid.n_levels - 1, -1, -1):
+            win = windowed.keyframe_window(kfs_ba, lvl, poses_)
+            if sharded:
+                poses_ = windowed.optimize_window_sharded(
+                    win, cams[lvl], opt, mesh_of("pair"), lvl=lvl, iters=MESH_BA_ITERS,
+                    radius=MESH_BA_RADIUS, damping=MESH_BA_DAMPING)
+            else:
+                poses_, _ = windowed.optimize_window(
+                    win, *windowed.make_pairs(len(kfs_ba), MESH_BA_RADIUS, device=dev), cams[lvl],
+                    opt, lvl=lvl, iters=MESH_BA_ITERS, damping=MESH_BA_DAMPING)
+        return poses_.cpu().numpy()
+
+    win_mesh = mesh_form("optimize_window_sharded", lambda: window_chain(True), [])
+    win_plain = window_chain(False)
+    win_dt, win_dr = _max_pose_diff(win_mesh, win_plain)
+
+    # (b) the two-stage pipeline against the sequential card step.
+    def sequential_step():
+        kf0 = frontend.make_keyframe(frontend.build_frame(g_pan[0], d_pan[0], cfg),
+                                     torch.eye(4, device=dev), cfg)
+        R_, t_ = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        poses_, errs_ = [torch.eye(4, device=dev)], [torch.zeros((), device=dev)]
+        for i in range(1, N_PAN):
+            res_ = tracker.track_frames(kf0, frontend.build_frame(g_pan[i], d_pan[i], cfg), R_, t_, cfg)
+            R_, t_ = res_.R, res_.t
+            poses_.append(lie.matrix_from_rt(R_, t_))
+            errs_.append(res_.error)
+        return torch.stack(poses_), torch.stack(errs_)
+
+    seq_poses, seq_errs = mesh_form("pipeline_sequential", sequential_step)
+    pipelines = {"one_card_two_streams": [dev, dev]}
+    if n_cards >= 2:
+        pipelines["two_cards"] = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    pipe_equal = {}
+    for name, devs in pipelines.items():
+        p_poses, p_errs = mesh_form(f"pipeline_replay_{name}",
+                                    lambda devs=devs: pipeline.pipeline_replay(g_pan, d_pan, cfg, devs))
+        pipe_equal[name] = _bit_equal(p_poses, seq_poses) and _bit_equal(p_errs, seq_errs)
+    # Host syncs inside one build_frame: each holds the host until the
+    # build stream gets there (counted, not removed).
+    sync_mode = torch.cuda.get_sync_debug_mode() if dev.type == "cuda" else None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            frontend.build_frame(g_pan[1], d_pan[1], cfg)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(sync_mode)
+    build_syncs = sum("synchroniz" in str(w.message) for w in caught)
+
+    # (c) a one-process NCCL group through maybe_distributed_init.
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        raise RuntimeError("mesh: a process group is already running")
+    many = pmesh.maybe_distributed_init(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                        world_size=1, rank=0, local_rank=0)
+    try:
+        group_mesh = pmesh.make_mesh()
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        group = {"backend": dist.get_backend(), "started_many": many, "mesh": repr(group_mesh),
+                 "psum": float(pmesh.psum([x.sum()], group_mesh, "seq")),
+                 "gather_equal": bool(torch.equal(pmesh.gather([x], group_mesh, "seq"), x))}
+    finally:
+        dist.destroy_process_group()
+    mesh_s["nccl_group"] = round(time.perf_counter() - t0, 3)
+
+    # (d) two processes over gloo on card 0, one pan sequence each.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_npz = os.path.join(tmp, "pan_two.npz")
+        np.savez(frames_npz, grays=two_g.cpu().numpy(), depths=two_d.cpu().numpy())
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker", frames_npz,
+             os.path.join(tmp, "rank")],
+            env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                     RANK=str(rank), LOCAL_RANK="0"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        outs = []
+        try:
+            for p_ in procs:
+                outs.append(p_.communicate(timeout=WORKER_TIMEOUT_S)[0])
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.communicate()
+        if any(p_.returncode != 0 for p_ in procs):
+            raise RuntimeError(f"mesh: a gloo worker failed: {[p_.returncode for p_ in procs]}\n"
+                               + "\n".join(o[-3000:] for o in outs))
+        ranks = [np.load(os.path.join(tmp, f"rank{r}.npy")) for r in range(2)]
+        workers = [json.loads([ln for ln in o.splitlines() if ln.startswith('{"rank"')][-1])
+                   for o in outs]
+    mesh_s["gloo_two_processes"] = round(time.perf_counter() - t0, 3)
+    lanes_np = lanes.cpu().numpy()
+    gloo_equal = [bool(np.array_equal(r_.view(np.int32), lanes_np.view(np.int32))) for r_ in ranks]
+
+    mesh_summary = {
+        "device_count": n_cards, "slots": [str(d) for d in slot_devices],
+        "vo_scan_batched_bit_equal": _bit_equal(scan_mesh, lanes),
+        "track_long_sequence_bit_equal": _bit_equal(seg_mesh, seg_poses[1]),
+        "candidates": [list(c) for c in MESH_PAIRS],
+        "verdicts_accepted": [v is not None for v in verdicts],
+        "verdicts_bit_equal": verdicts_equal,
+        "point_sharded_points": int(pt_args[1].points.shape[0]),
+        "point_sharded_good_bad": pt_counts[:2], "unsharded_good_bad": pt_counts[2:],
+        "point_sharded_max_abs_err": pt_err, "point_sharded_rtol_atol": [MESH_RTOL, MESH_ATOL],
+        "pose_graph_edges": int(pg_edges.i.numel()), "pose_graph_vs_unsharded": [pg_dt, pg_dr],
+        "window_vs_unsharded": [win_dt, win_dr], "window_tol": BA_VS_CPU,
+        "window_err_before_m": max_translation_error(ba_stored, ba_gt),
+        "window_err_after_m": max_translation_error(win_mesh, ba_gt),
+        "window_err_after_unsharded_m": max_translation_error(win_plain, ba_gt),
+        "pipeline_bit_equal": pipe_equal,
+        "pipeline_errors": [float(e) for e in seq_errs],
+        "build_frame_host_syncs": build_syncs,
+        "nccl_group": group, "gloo_workers": workers, "gloo_ranks_bit_equal": gloo_equal,
+        "seconds": mesh_s, "launches": mesh_launches, "smi": smi,
+    }
+    if not (mesh_summary["vo_scan_batched_bit_equal"] and mesh_summary["track_long_sequence_bit_equal"]):
+        raise RuntimeError(f"mesh: a sequence-sharded form differs from its mesh-less run: {mesh_summary}")
+    if not (verdicts_equal and any(mesh_summary["verdicts_accepted"])):
+        raise RuntimeError(f"mesh: sharded candidate verdicts differ: {mesh_summary}")
+    if not (pt_counts[:2] == pt_counts[2:] and pt_close):
+        raise RuntimeError(f"mesh: the point-sharded system differs: {mesh_summary}")
+    if not (pg_dt <= POSE_TOL and pg_dr <= POSE_TOL):
+        raise RuntimeError(f"mesh: the sharded pose graph differs: {mesh_summary}")
+    if not (win_dt <= BA_VS_CPU and win_dr <= BA_VS_CPU and np.isfinite(win_mesh).all()
+            and mesh_summary["window_err_after_m"] < BA_GAIN * mesh_summary["window_err_before_m"]):
+        raise RuntimeError(f"mesh: the sharded window differs or did not refine: {mesh_summary}")
+    if not all(pipe_equal.values()):
+        raise RuntimeError(f"mesh: the pipeline differs from the sequential step: {mesh_summary}")
+    if not (group["backend"] == "nccl" and group["started_many"] is False
+            and group["psum"] == 28.0 and group["gather_equal"]):
+        raise RuntimeError(f"mesh: the one-process NCCL group failed: {mesh_summary}")
+    if not all(gloo_equal):
+        raise RuntimeError(f"mesh: a gloo rank's poses differ from the one-process run: {mesh_summary}")
+    _phase("mesh", **mesh_summary)
 
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")

@@ -58,7 +58,7 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def frame_from_numpy(tree, device="cpu") -> Frame:
+def frame_from_numpy(tree, device) -> Frame:
     """A JAX ``Frame`` with numpy leaves -> the port's Frame on ``device``."""
     levels = []
     for lv in tree.levels:
@@ -77,7 +77,7 @@ def frame_from_numpy(tree, device="cpu") -> Frame:
     return Frame(levels=tuple(levels), timestamp=_tensor(tree.timestamp, device))
 
 
-def keyframe_from_numpy(tree, device="cpu") -> Keyframe:
+def keyframe_from_numpy(tree, device) -> Keyframe:
     """A JAX ``Keyframe`` with numpy leaves -> the port's Keyframe."""
     return Keyframe(
         structs=tuple(_tensor(s, device) for s in tree.structs),
@@ -87,7 +87,7 @@ def keyframe_from_numpy(tree, device="cpu") -> Keyframe:
     )
 
 
-def past_from_numpy(tree, device="cpu") -> PastFrames:
+def past_from_numpy(tree, device) -> PastFrames:
     """A JAX ``PastFrames`` with numpy leaves -> the port's PastFrames."""
     return PastFrames(
         points=_tensor(tree.points, device),
@@ -97,7 +97,7 @@ def past_from_numpy(tree, device="cpu") -> PastFrames:
     )
 
 
-def ring_from_numpy(tree, device="cpu") -> KeyframeRing:
+def ring_from_numpy(tree, device) -> KeyframeRing:
     """A JAX ``KeyframeRing`` with numpy leaves -> the port's KeyframeRing."""
     return KeyframeRing(
         structs=tuple(_tensor(s, device) for s in tree.structs),
@@ -107,7 +107,7 @@ def ring_from_numpy(tree, device="cpu") -> KeyframeRing:
     )
 
 
-def scan_state_from_numpy(tree, device="cpu") -> ScanVOState:
+def scan_state_from_numpy(tree, device) -> ScanVOState:
     """A JAX ``ScanVOState`` with numpy leaves -> the port's ScanVOState."""
     return ScanVOState(
         kf=keyframe_from_numpy(tree.kf, device),
@@ -124,14 +124,14 @@ def scan_state_from_numpy(tree, device="cpu") -> ScanVOState:
     )
 
 
-def edges_from_numpy(tree, device="cpu") -> PoseGraphEdges:
+def edges_from_numpy(tree, device) -> PoseGraphEdges:
     """A JAX ``PoseGraphEdges`` with numpy leaves (or a dict of its four
     arrays) -> the port's PoseGraphEdges on ``device``."""
     get = tree.__getitem__ if isinstance(tree, dict) else (lambda k: getattr(tree, k))
     return PoseGraphEdges(*(_tensor(get(k), device) for k in PoseGraphEdges._fields))
 
 
-def window_from_numpy(tree, device="cpu") -> Window:
+def window_from_numpy(tree, device) -> Window:
     """A JAX windowed-BA ``Window`` with numpy leaves (or a dict of its four
     arrays) -> the port's Window on ``device``."""
     get = tree.__getitem__ if isinstance(tree, dict) else (lambda k: getattr(tree, k))

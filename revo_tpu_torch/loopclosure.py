@@ -31,6 +31,7 @@ import torch
 from revo_tpu_torch import tracker
 from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.frontend import Keyframe
+from revo_tpu_torch.parallel.mesh import gather, local_slots, shard, to_device
 from revo_tpu_torch.parallel.posegraph import PoseGraphEdges, optimize_pose_graph
 
 
@@ -114,14 +115,25 @@ def verify_candidates_batched(
     """Verify all candidate pairs; one entry per candidate, ``(T_ab,
     error)`` or ``None``, what ``verify_candidate`` returns for each.  JAX
     runs the pairs as one vmapped dispatch; here they are tracked one after
-    the other, as ``tracker.track_ring`` tracks its slots.  Sharding the
-    candidates over several cards (JAX's ``mesh`` form) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("verify_candidates_batched over a device mesh is ROADMAP P13")
-    return [
-        verify_candidate(keyframes[a], keyframes[b], cfg, max_error, min_good_ratio, min_good)
-        for a, b in cands
-    ]
+    the other, as ``tracker.track_ring`` tracks its slots.  With ``mesh``
+    the candidates, padded to a multiple of the axis size with copies of
+    candidate 0, are sharded over ``axis``: each slot verifies its share
+    with the two keyframes of each pair on its device, and the verdicts
+    are gathered in order, the padding dropped."""
+    def verify(pairs, kfs):
+        return [verify_candidate(kfs(a), kfs(b), cfg, max_error, min_good_ratio, min_good)
+                for a, b in pairs]
+
+    if mesh is None or not cands:
+        return verify(cands, keyframes.__getitem__)
+    slots = local_slots(mesh, axis)
+    cands = list(cands)
+    padded = cands + cands[:1] * ((-len(cands)) % mesh.shape[axis])
+    verdicts = gather([
+        verify(pairs, lambda k, dev=dev: to_device(keyframes[k], dev))
+        for pairs, dev in zip(shard(padded, mesh, axis), slots)
+    ], mesh, axis)
+    return verdicts[:len(cands)]
 
 
 def close_loops(

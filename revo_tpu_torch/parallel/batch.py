@@ -27,6 +27,7 @@ import torch
 from revo_tpu_torch import lie, tracker
 from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.frontend import Frame, Keyframe, build_frame, make_keyframe
+from revo_tpu_torch.parallel.mesh import gather, shard
 from revo_tpu_torch.system import frame_step
 from revo_tpu_torch.tracker import KeyframeRing, PastFrames
 
@@ -221,10 +222,17 @@ def vo_scan(
     return outs_full.T_w, outs_full, final_state
 
 
-def vo_scan_batched(grays: torch.Tensor, depths: torch.Tensor, cfg: SystemConfig, mesh=None):
+def vo_scan_batched(grays: torch.Tensor, depths: torch.Tensor, cfg: SystemConfig, mesh=None,
+                    axis: str = "seq") -> torch.Tensor:
     """Multi-sequence VO: (B, N, H, W) inputs -> (B, N, 4, 4) poses, one
-    vo_scan per sequence in turn.  Sharding sequences over several cards
-    (JAX's ``mesh`` form) is ROADMAP P13."""
-    if mesh is not None:
-        raise NotImplementedError("vo_scan_batched over a device mesh is ROADMAP P13")
-    return torch.stack([vo_scan(g, d, cfg)[0] for g, d in zip(grays, depths)])
+    vo_scan per sequence in turn.  With ``mesh`` the sequences are sharded
+    over ``axis`` (B must divide by its size): each slot scans its share on
+    its device and the poses are gathered in order, on the first slot's
+    device (on every rank under a process group).  Each sequence runs the
+    same program either way, so the result is bit-equal to the mesh-less
+    loop on the same devices."""
+    if mesh is None:
+        return torch.stack([vo_scan(g, d, cfg)[0] for g, d in zip(grays, depths)])
+    parts = [vo_scan_batched(g, d, cfg)
+             for g, d in zip(shard(grays, mesh, axis), shard(depths, mesh, axis))]
+    return gather(parts, mesh, axis)

@@ -1,5 +1,5 @@
-"""Pose-graph Gauss-Newton optimization on one device (counterpart of
-revo_tpu/parallel/posegraph.py).
+"""Pose-graph Gauss-Newton optimization, on one device or with the edges
+sharded over a mesh (counterpart of revo_tpu/parallel/posegraph.py).
 
 Nodes are world poses T_i (world-from-node); an edge (i, j) carries a
 measured relative pose M_ij ~ T_i^-1 T_j.  Minimized over left-multiplicative
@@ -10,7 +10,7 @@ updates T_i <- exp(xi_i) T_i, node 0 fixed (gauge):
 With E_e = M^-1 Ti^-1 Tj and J_r^-1(log E) ~ I the edge Jacobians are
 d r / d xi_j = +Ad(T_j^-1) and d r / d xi_i = -Ad(T_j^-1).  The normal
 equations are dense (6N, 6N): keyframe graphs have tens to hundreds of
-nodes.  Everything stays on the device of ``poses``.
+nodes.  ``optimize_pose_graph`` stays on the device of ``poses``.
 
 The block scatters are ``index_put_(accumulate=True)``.  On the card that
 is atomic adds, so where several edges meet in one block the order of their
@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from revo_tpu_torch import lie
+from revo_tpu_torch.parallel.mesh import local_slots, psum, replicate, shard
 
 
 class PoseGraphEdges(NamedTuple):
@@ -94,11 +95,22 @@ def optimize_pose_graph(
     return poses
 
 
-def optimize_pose_graph_sharded(poses, edges, mesh, axis: str = "edge",
-                                iters: int = 10, damping: float = 1e-6):
-    """Edges sharded over several cards with an all-reduce of H and b: not
-    ported yet."""
-    raise NotImplementedError("optimize_pose_graph_sharded is ROADMAP P13")
+def optimize_pose_graph_sharded(poses: torch.Tensor, edges: PoseGraphEdges, mesh,
+                                axis: str = "edge", iters: int = 10,
+                                damping: float = 1e-6) -> torch.Tensor:
+    """Distributed GN: the edges are sharded over ``axis`` of ``mesh`` (E
+    must divide by its size; pad with weight-0 lanes), each slot assembles
+    the block normal equations of its share, ``psum`` meets them, and the
+    solve runs once on the first slot's device (on every rank under a
+    process group), whose poses the next iteration replicates.  Returns
+    the refined (N, 4, 4) poses there."""
+    n = poses.shape[0]
+    local = shard(edges, mesh, axis)
+    poses = poses.to(local_slots(mesh, axis)[0])
+    for _ in range(iters):
+        Hs, bs = zip(*(_assemble(P, e, n) for P, e in zip(replicate(poses, mesh, axis), local)))
+        poses = _solve_and_update(poses, psum(Hs, mesh, axis), psum(bs, mesh, axis), n, damping)
+    return poses
 
 
 def trajectory_to_edges(poses: torch.Tensor) -> PoseGraphEdges:

@@ -6,10 +6,10 @@ segment is tracked on its own by ``vo_scan``, which anchors it at its first
 frame.  Stitching composes the segment anchors by a prefix product over
 SE(3); an optional pose-graph relaxation over the consecutive-frame edges
 follows.  JAX vmaps the segments (or shards them over a mesh) and takes the
-prefix product as an associative scan; on one card the segments run one
-after the other, as ``vo_scan_batched`` runs its sequences, and the prefix
-is a running product, so float32 anchors differ from the scan tree's by
-ulps.
+prefix product as an associative scan; here the segments run one after the
+other, as ``vo_scan_batched`` runs its sequences (or are sharded over a
+mesh as it shards them), and the prefix is a running product, so float32
+anchors differ from the scan tree's by ulps.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from revo_tpu_torch import lie
 from revo_tpu_torch.config import SystemConfig
-from revo_tpu_torch.parallel.batch import vo_scan
+from revo_tpu_torch.parallel.batch import vo_scan_batched
 from revo_tpu_torch.parallel.posegraph import optimize_pose_graph, trajectory_to_edges
 
 
@@ -47,11 +47,11 @@ def track_segments(
     mesh=None, axis: str = "seq",
 ) -> torch.Tensor:
     """Track each (S, L, H, W) segment on its own; returns segment-local
-    poses (S, L, 4, 4) anchored at identity per segment.  Sharding the
-    segments over several cards (JAX's ``mesh`` form) is ROADMAP P13."""
-    if mesh is not None:
-        raise NotImplementedError("track_segments over a device mesh is ROADMAP P13")
-    return torch.stack([vo_scan(g, d, cfg)[0] for g, d in zip(seg_grays, seg_depths)])
+    poses (S, L, 4, 4) anchored at identity per segment.  With ``mesh`` the
+    segments are sharded over ``axis`` as ``vo_scan_batched`` shards
+    sequences (S must divide by its size), bit-equal to the mesh-less
+    form."""
+    return vo_scan_batched(seg_grays, seg_depths, cfg, mesh=mesh, axis=axis)
 
 
 def stitch_segments(seg_poses: torch.Tensor) -> torch.Tensor:
@@ -73,7 +73,8 @@ def track_long_sequence(
 ) -> torch.Tensor:
     """Segment-parallel VO end to end: split -> track -> stitch (-> optional
     pose-graph relaxation over consecutive-frame edges).  Runs on the device
-    of ``grays``."""
+    of ``grays``, or with ``mesh`` tracks the segments on its "seq" slots
+    and stitches on the first slot's device."""
     sg, sd = split_segments(grays, depths, n_segments)
     poses = stitch_segments(track_segments(sg, sd, cfg, mesh=mesh))
     if refine:

@@ -59,6 +59,7 @@ from revo_tpu_torch import lie
 from revo_tpu_torch.config import CameraConfig, OptimizerConfig
 from revo_tpu_torch.ops.interp import bilinear_sample_stacked
 from revo_tpu_torch.ops.project import apply_rt_cols_fma, scale_shift
+from revo_tpu_torch.parallel.mesh import local_slots, psum, replicate, shard
 
 
 class Window(NamedTuple):
@@ -374,11 +375,36 @@ def optimize_window(
     return poses, err
 
 
-def optimize_window_sharded(window, cam, opt, mesh, axis: str = "pair", lvl: int = 0,
-                            iters: int = 10, radius: int = 2, damping: float = 1.0):
-    """Pairs sharded over several cards with an all-reduce of H, b and the
-    error: not ported yet."""
-    raise NotImplementedError("optimize_window_sharded is ROADMAP P13")
+def optimize_window_sharded(window: Window, cam: CameraConfig, opt: OptimizerConfig, mesh,
+                            axis: str = "pair", lvl: int = 0, iters: int = 10, radius: int = 2,
+                            damping: float = 1.0) -> torch.Tensor:
+    """Joint LM with the co-visibility pairs (``make_pairs``, padded with
+    weight-0 lanes to a multiple of the axis size) sharded over ``axis`` of
+    ``mesh``: each slot runs the pair pass of its share against a
+    replicated window, and H, b and the error meet in ``psum`` before the
+    accept/reject test, so every slot would take the same decisions; the
+    schedule runs on the first slot's device.  Returns the refined poses
+    there."""
+    n_frames = window.poses.shape[0]
+    home = local_slots(mesh, axis)[0]
+    pi, pj, pw = make_pairs(n_frames, radius, device=home)
+    pad = (-len(pi)) % mesh.shape[axis]
+    pi = torch.cat([pi, torch.zeros(pad, dtype=torch.int32, device=home)])
+    pj = torch.cat([pj, torch.ones(pad, dtype=torch.int32, device=home)])
+    pw = torch.cat([pw, torch.zeros(pad, dtype=torch.float32, device=home)])
+    shares = list(zip(replicate(window, mesh, axis), shard(pi, mesh, axis),
+                      shard(pj, mesh, axis), shard(pw, mesh, axis)))
+
+    def accumulate(poses):
+        parts = [
+            _accumulate_pairs(win._replace(poses=poses.to(win.poses.device)), i, j, w, cam,
+                              opt, lvl, n_frames)
+            for win, i, j, w in shares
+        ]
+        return tuple(psum(x, mesh, axis) for x in zip(*parts))
+
+    poses, _, _ = _lm_window(window.poses.to(home), accumulate, n_frames, iters, damping)
+    return poses
 
 
 def keyframe_window(keyframes, lvl: int, poses: torch.Tensor) -> Window:

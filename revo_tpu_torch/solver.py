@@ -26,6 +26,7 @@ from revo_tpu_torch.config import CameraConfig, OptimizerConfig
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.lgsx import residual_lgsx
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
+from revo_tpu_torch.parallel.mesh import psum, replicate, shard
 
 
 class ResidualInfo(NamedTuple):
@@ -113,6 +114,26 @@ def residual_system(
     return _normalize_sums(
         *_residual_sums(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter)
     )
+
+
+def residual_system_point_sharded(
+    quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter, mesh, axis: str = "pt"
+) -> LevelSystem:
+    """``residual_system`` with the edge points sharded over ``axis`` of
+    ``mesh``: each slot reduces its share of the cloud (one fused K3 launch
+    on the card) against a replicated quad table and pose, the unnormalized
+    sums meet in ``psum`` and are normalized once.  The points must divide
+    by the axis size (pad with invalid lanes); the kernel reads only the
+    quad table by vector loads, so any slice of the points serves."""
+    sums = []
+    for quad_s, pts, valid, R_s, t_s in zip(
+        replicate(quad, mesh, axis), shard(cloud.points, mesh, axis),
+        shard(cloud.valid, mesh, axis), replicate(R, mesh, axis), replicate(t, mesh, axis),
+    ):
+        local = EdgeCloud(points=pts, valid=valid, count=valid.sum(dtype=torch.int32))
+        sums.append(_residual_sums(quad_s, local, cam, R_s, t_s, edge_distance, huber,
+                                   use_edge_filter))
+    return _normalize_sums(*(psum(parts, mesh, axis) for parts in zip(*sums)))
 
 
 def _damped_step(sys: LevelSystem, lam, R, t, impl: str):

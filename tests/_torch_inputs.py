@@ -62,3 +62,22 @@ def torch_args(quad, pts, valid, R, t, quad_form, device="cpu", cam=None):
         count=torch.tensor(int(valid.sum()), dtype=torch.int32, device=device))
     return (q.to(device), cloud, CameraConfig(**(cam or CAM)), torch.from_numpy(R).to(device),
             torch.from_numpy(t).to(device), EDGE_DISTANCE, HUBER, True)
+
+
+def small_config():
+    """The port's twin of tests/test_solver.py::small_cfg (160x120, 3
+    levels, capacities (4096, 2048, 1024)) for callers that may not import
+    jax; tests/test_torch_distributed.py holds it equal to the converted
+    JAX config."""
+    import dataclasses
+
+    from revo_tpu_torch.config import SystemConfig
+
+    cfg = SystemConfig()
+    return dataclasses.replace(
+        cfg,
+        camera=CameraConfig(fx=150.0, fy=150.0, cx=80.0, cy=60.0, width=160, height=120),
+        pyramid=dataclasses.replace(cfg.pyramid, pyr_min_lvl=2, pyr_max_lvl=0,
+                                    edge_capacity=(4096, 2048, 1024),
+                                    dist_patch_sizes=(20, 10, 5)),
+    )

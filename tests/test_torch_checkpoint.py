@@ -104,7 +104,8 @@ def test_jax_checkpoint_resumes_in_the_port(cfgs, host_runs):
         a, b = getattr(loaded, f.name), getattr(want, f.name)
         for x, y in zip(a, b) if f.name == "kf_structs" else [(a, b)]:
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    prev = convert.frame_from_numpy(jax.tree.map(np.asarray, host_runs["jax_cut"].prev_frame))
+    prev = convert.frame_from_numpy(jax.tree.map(np.asarray, host_runs["jax_cut"].prev_frame),
+                                    device="cpu")
     vo = system.VOSystem(cfgs[1], device="cpu")
     checkpoint.restore(vo, loaded, prev)
     assert vo.kf.quads[0].dtype == torch.bfloat16  # rebuilt from the structs

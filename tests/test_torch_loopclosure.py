@@ -38,7 +38,7 @@ def loop():
     """(JAX cfg, port cfg, JAX keyframes, the same keyframes carried into
     the port, ground truth, drifted estimates)."""
     cfg, kfs, gt, drifted = _loop_keyframes()
-    tk = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k)) for k in kfs]
+    tk = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k), device="cpu") for k in kfs]
     return cfg, convert.config_from_jax(cfg), kfs, tk, gt, drifted
 
 
@@ -128,7 +128,7 @@ def test_verdicts_match_serial_and_jax(loop, max_error):
 def test_empty_candidates_and_mesh_form(loop):
     _, tcfg, _, tk, _, _ = loop
     assert lc.verify_candidates_batched(tk, [], tcfg) == []
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(TypeError, match="Mesh"):
         lc.verify_candidates_batched(tk, PAIRS, tcfg, mesh=object())
 
 

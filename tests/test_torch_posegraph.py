@@ -54,7 +54,7 @@ def _concat(a, b):
 def _both(e):
     """The same edge arrays as a JAX and a port PoseGraphEdges."""
     return (jpg.PoseGraphEdges(**{k: jnp.asarray(v) for k, v in e.items()}),
-            convert.edges_from_numpy(e))
+            convert.edges_from_numpy(e, device="cpu"))
 
 
 def _mean_residual(poses, edges):
@@ -116,7 +116,7 @@ def test_loop_closure_distributes_error_like_jax():
     ej, et = _both(_concat(_edges_np(poses), loop))
     noisy = _perturb(poses, scale=0.08)
     refined = pg.optimize_pose_graph(torch.from_numpy(noisy), et, iters=20)
-    r = pg.pose_graph_residuals(refined, convert.edges_from_numpy(loop))
+    r = pg.pose_graph_residuals(refined, convert.edges_from_numpy(loop, device="cpu"))
     assert float(torch.linalg.vector_norm(r)) < 1e-3
     want = np.asarray(jpg.optimize_pose_graph(jnp.asarray(noisy), ej, iters=20))
     np.testing.assert_allclose(refined.numpy(), want, rtol=0, atol=POSE_TOL)
@@ -129,8 +129,9 @@ def test_padding_edges_ignored():
                T_meas=np.tile(np.eye(4, dtype=np.float32), (5, 1, 1)),
                weight=np.zeros(5, np.float32))
     noisy = torch.from_numpy(_perturb(poses))
-    a = pg.optimize_pose_graph(noisy, convert.edges_from_numpy(e), iters=10)
-    b = pg.optimize_pose_graph(noisy, convert.edges_from_numpy(_concat(e, pad)), iters=10)
+    a = pg.optimize_pose_graph(noisy, convert.edges_from_numpy(e, device="cpu"), iters=10)
+    b = pg.optimize_pose_graph(noisy, convert.edges_from_numpy(_concat(e, pad), device="cpu"),
+                               iters=10)
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
 
 
@@ -142,5 +143,5 @@ def test_trajectory_to_edges_and_sharded_form():
     np.testing.assert_array_equal(got.j.numpy(), np.asarray(want.j))
     np.testing.assert_allclose(got.T_meas.numpy(), np.asarray(want.T_meas), atol=1e-6)
     np.testing.assert_array_equal(got.weight.numpy(), np.asarray(want.weight))
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(TypeError, match="Mesh"):
         pg.optimize_pose_graph_sharded(torch.from_numpy(poses), got, mesh=object())

@@ -37,7 +37,7 @@ def loop_systems():
 
     cfg, kfs, _, drifted = _loop_keyframes()
     tcfg = convert.config_from_jax(cfg)
-    tk = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k)) for k in kfs]
+    tk = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k), device="cpu") for k in kfs]
     rel = np.eye(4, dtype=np.float32)
     rel[:3, 3] = [0.01, 0.0, 0.0]
     vj, vt = jsystem.VOSystem(cfg), system.VOSystem(tcfg, device="cpu")

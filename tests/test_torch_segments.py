@@ -99,5 +99,5 @@ def test_segments_match_serial_roughly(clip):
     parallel = segments.stitch_segments(seg_poses).numpy()
     d = np.linalg.inv(serial[-1]) @ parallel[-1]
     assert np.linalg.norm(d[:3, 3]) < 0.02
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(TypeError, match="Mesh"):
         segments.track_segments(sg, sd, tcfg, mesh=object())

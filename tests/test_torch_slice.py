@@ -142,8 +142,8 @@ def test_track_from_jax_keyframe(seq, solver_name):
     cfg = _cfg(solver_name)
     fj = _jax_frames(seq, cfg)
     kj = jfront.make_keyframe(fj[0], jnp.eye(4), cfg)
-    kt = convert.keyframe_from_numpy(_numpy_tree(kj))
-    ft = convert.frame_from_numpy(_numpy_tree(fj[2]))
+    kt = convert.keyframe_from_numpy(_numpy_tree(kj), device="cpu")
+    ft = convert.frame_from_numpy(_numpy_tree(fj[2]), device="cpu")
     rj = jtracker.track_frames(kj, fj[2], jnp.eye(3), jnp.zeros(3), cfg)
     rt = tracker.track_frames(kt, ft, torch.eye(3), torch.zeros(3),
                               convert.config_from_jax(cfg))
@@ -161,8 +161,8 @@ def test_level_system_matches_jax(seq, lvl):
     tcam = convert.config_from_jax(cfg).camera_pyramid()[lvl]
     fj = _jax_frames(seq, cfg)
     kj = jfront.make_keyframe(fj[0], jnp.eye(4), cfg)
-    kt = convert.keyframe_from_numpy(_numpy_tree(kj))
-    ft = convert.frame_from_numpy(_numpy_tree(fj[1]))
+    kt = convert.keyframe_from_numpy(_numpy_tree(kj), device="cpu")
+    ft = convert.frame_from_numpy(_numpy_tree(fj[1]), device="cpu")
     xi = (np.random.default_rng(lvl).normal(size=6) * 0.004).astype(np.float32)
     R, t = lie.exp_se3(torch.from_numpy(xi))
     # Jitted, as inside track_frames: XLA then fuses u = x / z * fx + cx
@@ -200,7 +200,7 @@ def test_frame_and_keyframe_round_trip(seq):
     cfg = _cfg()
     fj = _jax_frames(seq, cfg)[1]
     kj = jfront.make_keyframe(fj, jnp.eye(4), cfg)
-    kt = convert.keyframe_from_numpy(_numpy_tree(kj))
+    kt = convert.keyframe_from_numpy(_numpy_tree(kj), device="cpu")
     for lj, lt in zip(kj.frame.levels, kt.frame.levels):
         for name in ("gray", "depth", "edges", "edges_orig"):
             np.testing.assert_array_equal(getattr(lt, name).numpy(), np.asarray(getattr(lj, name)))
@@ -265,6 +265,7 @@ def test_import_loads_no_jax():
         "import revo_tpu_torch.parallel.posegraph, revo_tpu_torch.loopclosure\n"
         "import revo_tpu_torch.checkpoint, revo_tpu_torch.ops.canny, revo_tpu_torch.ops.lgsx\n"
         "import revo_tpu_torch.parallel.windowed, revo_tpu_torch.parallel.segments\n"
+        "import revo_tpu_torch.parallel.mesh, revo_tpu_torch.parallel.pipeline\n"
         "import revo_tpu_torch.ops.undistort, revo_tpu_torch.viz.ply\n"
         "import revo_tpu_torch.lie, revo_tpu_torch.utils, revo_tpu_torch.utils.timing\n"
         "import revo_tpu_torch.utils.logging, revo_tpu_torch.utils.metrics\n"

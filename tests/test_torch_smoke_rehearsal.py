@@ -53,7 +53,7 @@ def test_phases_15_and_16_rehearse_on_the_cpu(tmp_path, capsys):
     cs = _chip_smoke()
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         src = f.read()
-    code = textwrap.dedent(src[src.index("    # -- 15. live"):src.index("    # -- 6. times")])
+    code = textwrap.dedent(src[src.index("    # -- 15. live"):src.index("    # -- 17. mesh")])
     base = SystemConfig()
     c, s = base.camera, 0.25
     cam = dataclasses.replace(c, width=160, height=120, fx=c.fx * s, fy=c.fy * s,

@@ -182,7 +182,7 @@ def test_colored_pcl_and_ply_files_equal_jax(distorted, tmp_path):
     cfg, tcfg, frames, _ = distorted
     g, d, _ = frames[0]
     fj = jfrontend.build_frame(jnp.asarray(g), jnp.asarray(d), cfg)
-    ft = convert.frame_from_numpy(jax.tree.map(np.asarray, fj))
+    ft = convert.frame_from_numpy(jax.tree.map(np.asarray, fj), device="cpu")
     rgb = np.random.default_rng(0).uniform(0, 1, (120, 160, 3)).astype(np.float32)
     for kw in (dict(), dict(dense=True), dict(lvl=1), dict(rgb01=rgb)):
         pts_t, clr_t = frontend.generate_colored_pcl(ft, tcfg, **kw)

@@ -105,8 +105,8 @@ def test_reprojection_overlay_matches_jax(tmp_path, lvl):
     fj = [jfront.build_frame(jnp.asarray(g), jnp.asarray(d), cfg) for g, d, _, _ in seq]
     kj = jfront.make_keyframe(fj[0], jnp.eye(4), cfg)
     res = jtracker.track_frames(kj, fj[2], jnp.eye(3), jnp.zeros(3), cfg)
-    kt = convert.keyframe_from_numpy(_np_tree(kj))
-    ft = convert.frame_from_numpy(_np_tree(fj[2]))
+    kt = convert.keyframe_from_numpy(_np_tree(kj), device="cpu")
+    ft = convert.frame_from_numpy(_np_tree(fj[2]), device="cpu")
     want = jdebug.reprojection_overlay(kj, fj[2], res.R, res.t, cfg, lvl=lvl)
     png = str(tmp_path / "overlay.png")
     got = debug.reprojection_overlay(kt, ft, torch.from_numpy(np.array(res.R)),

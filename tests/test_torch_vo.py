@@ -126,12 +126,12 @@ def test_push_ring_matches_jax(cfgs, pan_frames):
     kfs = [jfront.make_keyframe(frames[i], jnp.asarray(gt[i]), cfg) for i in (0, 4, 8)]
     k = cfg.tracker.kf_history_size
     rj = jtracker.ring_from_keyframe(kfs[0], k)
-    rt = tracker.ring_from_keyframe(convert.keyframe_from_numpy(_np_tree(kfs[0])), k)
+    rt = tracker.ring_from_keyframe(convert.keyframe_from_numpy(_np_tree(kfs[0]), device="cpu"), k)
     for i in range(k + 2):
         kj = kfs[(i + 1) % 3]
         pose = gt[i + 1]
         rj = jtracker.push_ring(rj, kj, jnp.asarray(pose))
-        rt = tracker.push_ring(rt, convert.keyframe_from_numpy(_np_tree(kj)),
+        rt = tracker.push_ring(rt, convert.keyframe_from_numpy(_np_tree(kj), device="cpu"),
                                torch.from_numpy(pose))
         assert rt.n == int(rj.n)
         np.testing.assert_array_equal(rt.T_w_k.numpy(), np.asarray(rj.T_w_k))
@@ -139,7 +139,7 @@ def test_push_ring_matches_jax(cfgs, pan_frames):
             np.testing.assert_array_equal(a.float().numpy(), np.asarray(b).astype(np.float32))
     assert rt.n == k
     # The converter carries the same ring across.
-    rc = convert.ring_from_numpy(_np_tree(rj))
+    rc = convert.ring_from_numpy(_np_tree(rj), device="cpu")
     assert rc.n == rt.n and all(torch.equal(a, b) for a, b in zip(rc.quads, rt.quads))
 
 
@@ -157,8 +157,9 @@ def test_track_frames_bucketed_matches_track_frames(cfgs, pan_frames):
     """Slicing away padding lanes changes only the reduction order."""
     cfg, tcfg = cfgs
     frames, gt = pan_frames
-    kf = convert.keyframe_from_numpy(_np_tree(jfront.make_keyframe(frames[0], jnp.eye(4), cfg)))
-    ft = convert.frame_from_numpy(_np_tree(frames[2]))
+    kf = convert.keyframe_from_numpy(_np_tree(jfront.make_keyframe(frames[0], jnp.eye(4), cfg)),
+                                     device="cpu")
+    ft = convert.frame_from_numpy(_np_tree(frames[2]), device="cpu")
     eye, zero = torch.eye(3), torch.zeros(3)
     full = tracker.track_frames(kf, ft, eye, zero, tcfg)
     bucketed = tracker.track_frames_bucketed(kf, ft, eye, zero, tcfg)
@@ -229,14 +230,15 @@ def test_counting_map_and_new_kf_bit_equal(cfgs, pan_frames):
             pj = jtracker.push_past(pj, cl.points, cl.valid, jnp.asarray(gt[s]))
         xi = torch.from_numpy((rng.normal(size=6) * noise).astype(np.float32))
         est = (gt[cur] @ lie.matrix_from_rt(*lie.exp_se3(xi)).numpy()).astype(np.float32)
-        pt = convert.past_from_numpy(_np_tree(pj))
+        pt = convert.past_from_numpy(_np_tree(pj), device="cpu")
         m_j = np.asarray(_jax_counting_map(pj, jnp.asarray(est), cfg))
         m_t = tracker.counting_map(pt, torch.from_numpy(est), tcfg).numpy()
         np.testing.assert_array_equal(m_t, m_j, err_msg=f"case {slots} -> {cur}")
         assert m_t.max() > 0
         nj = bool(jtracker.assess_tracking_quality(pj, jnp.asarray(est), frames[cur], cfg))
         nt = bool(tracker.assess_tracking_quality(
-            pt, torch.from_numpy(est), convert.frame_from_numpy(_np_tree(frames[cur])), tcfg))
+            pt, torch.from_numpy(est), convert.frame_from_numpy(_np_tree(frames[cur]), device="cpu"),
+            tcfg))
         assert nt == nj, f"case {slots} -> {cur}: new_kf {nt} != JAX {nj}"
         outcomes.add(nt)
     assert outcomes == {True, False}
@@ -346,7 +348,7 @@ def test_lost_frame_coasts_like_jax(cfgs):
 def test_unported_options_raise(cfgs):
     """Neither online loop closure nor undistortion raises any more: both
     construct, undistortion with its maps built for the camera; what is
-    still to port is refused by name (the sharded forms, ROADMAP P13)."""
+    the mesh forms take only a ``parallel.mesh.Mesh``."""
     _, tcfg = cfgs
     lc = dataclasses.replace(tcfg, tracker=dataclasses.replace(tcfg.tracker,
                                                                online_loop_closure=True))
@@ -357,7 +359,7 @@ def test_unported_options_raise(cfgs):
     assert system.VOSystem(tcfg, device="cpu").undistort_maps is None
     from revo_tpu_torch.parallel import batch
 
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(TypeError, match="Mesh"):
         batch.vo_scan_batched(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 4, 4), tcfg, mesh=object())
 
 
@@ -372,7 +374,7 @@ def test_prune_keyframe_and_rgb_to_gray_match_jax(cfgs, pan_frames):
     frames, gt = pan_frames
     full = jfront.make_keyframe(frames[0], jnp.eye(4), cfg)
     kj = jfront.prune_keyframe(full)
-    kt = frontend.prune_keyframe(convert.keyframe_from_numpy(_np_tree(full)))
+    kt = frontend.prune_keyframe(convert.keyframe_from_numpy(_np_tree(full), device="cpu"))
     for lj, lt in zip(kj.frame.levels, kt.frame.levels):
         for name in ("gray", "depth", "edges", "edges_orig"):
             assert tuple(getattr(lt, name).shape) == np.asarray(getattr(lj, name)).shape == (1, 1)

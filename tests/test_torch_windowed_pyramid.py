@@ -101,7 +101,7 @@ def rendered_keyframes():
             g, d = render_frame(scene, cfg.camera, T)
             kfs.append(make_keyframe(build_frame(jnp.asarray(g), jnp.asarray(d), cfg),
                                      jnp.asarray(Ts), cfg))
-        port = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k)) for k in kfs]
+        port = [convert.keyframe_from_numpy(jax.tree.map(np.asarray, k), device="cpu") for k in kfs]
         return kfs, port, np.stack(true_poses)
 
     def exp(xi):
