@@ -19,8 +19,9 @@ undistortion and PLY export; then the live entry point (the viewer, the
 replayed V4L2 sessions and the recorded capture through ``run.main``) and the
 box, column and sparse scene families with a loop trajectory; then the
 multi-device layer: the sharded forms on a mesh of slots, the two-stage
-pipeline, a one-process NCCL group and two processes over gloo.  Phases, one
-line each:
+pipeline, a one-process NCCL group and two processes over gloo; then the
+batched step, B sequences in one lane axis as the JAX package's vmap runs
+them.  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
@@ -41,7 +42,13 @@ line each:
              what the solver launches) on 3 levels x {identity, tracked, a
              pose that throws most points out of the image} x {dt4bf, dt4}:
              good and bad counts equal, floats within 1e-5 of the largest
-             entry, a second launch bit-identical, and no host sync;
+             entry, a second launch bit-identical, and no host sync; the
+             batched fused K3 at B=8 (3 levels x poses cycling identity /
+             tracked / out x one cloud shared by stride 0 or each lane's
+             own, the 8 chain frames' keyframe tables): each lane bit-equal
+             to its B=1 launch, counts equal to the plain version, floats
+             within 1e-5, lanes left out by the mask untouched, a second
+             launch bit-identical, no host sync;
 5. main      the main path on the card with launch counts reset just before
              it; every kernel must have launched, outputs finite, poses
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
@@ -66,7 +73,13 @@ line each:
              the same poses;
 8. scan      vo_scan on the card over the pan: promotion flags equal to
              phase 7's, poses within 5e-4 of them; vo_scan_batched at B=2
-             (the pan and a second seed) equal lane by lane to vo_scan;
+             (the pan and a second seed) equal lane by lane to vo_scan; and
+             four lanes under scan relocalization (jump gate 0.07 m): the
+             pan, tests/test_relocalization.py's seed-11 walk with its
+             frame 0 again from frame 14, the second sequence forwards and
+             backwards, through vo_scan_lanes, each lane's outputs
+             bit-equal to vo_scan alone, one lane promoting and one
+             relocalizing on frames where no other lane does, none lost;
 9. autotune  calibrate_capacities at margin 0.65 on the first 2 frames, on
              the card and on the CPU: equal capacities;
 10. slam     on the card and on the CPU: (a) four keyframes along a small
@@ -164,12 +177,27 @@ line each:
              maybe_distributed_init, psum and gather through it; (d) two
              processes over gloo on cuda:0 (``chip_smoke.py --mesh-worker``),
              vo_scan_batched(mesh=make_mesh()) over phase 8's two sequences,
-             one per rank, bit-equal on both ranks to (a); seconds per form.
+             one per rank, bit-equal on both ranks to (a); seconds per form;
+18. batched  at 640x480 with capacities (8192, 4864, 2304), gn_fixed (the
+             JAX bench's batched solver) then lm: (a) build_frame_batched /
+             make_keyframe_batched of the 8 chain frames, each lane
+             bit-equal to B=1, 3 canny_fused launches for the batch; (b)
+             the chain stepped as the JAX headline steps it (lane b tracks
+             frame 1 + (b + s) % 7 at step s against frame 0's keyframe,
+             from its own last pose): lane 0 bit-equal to the chain tracked
+             alone, ATE < 2 mm; (c) track_ring on the teleport frame against
+             phase 7's ring: each slot bit-equal to the slot tracked alone;
+             (d) per batched step 3 canny_fused launches, per level as many
+             residual_lgsx launches as the slowest lane's evaluations alone,
+             host syncs (sync debug mode "warn") equal to the flag reads;
+             (e) CUDA-event ms per batched step at B = 1, 8, 16, 32 (lm at
+             1, 8) against B one-lane steps in the same call, with the
+             profiler's kernels per step and device-busy share.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
-host_libraries, 15, 16, 17, 6.
-Launch counts are set to 0 just before each path (phases 5, 7 to 17, each
-form of 17 on its own)
+host_libraries, 15, 16, 17, 18, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 18, each
+form of 17 and each path of 18 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
 alone; K1 and K2 on the 1280x720 frame; the unfused K3 ``lgsx_reduce`` is
@@ -211,7 +239,6 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
 # the projection (26), sampling (30) and weighting (6).
 K1_OPS_PER_PIXEL, K2_OPS_PER_WORD_STEP = 37, 11
 K3_OPS_PER_POINT, K3_FUSED_OPS_PER_POINT = 104, 166
-GATHER_SECTOR_BYTES = 32  # one quad row costs one 32-byte sector
 N_PROFILED = 2  # tracked frames per call inside a profiler window (its events cost seconds)
 N_PAN = 20  # pan frames; the teleport frame follows
 PAN_STEP = (0.04, 0.0, 0.005, 0.0, 0.017, 0.0)  # tests/test_system.py:47-73
@@ -251,6 +278,14 @@ MESH_RTOL, MESH_ATOL = 1e-4, 1e-6
 MESH_PAIRS = ((0, 2), (0, 3), (1, 3))
 MESH_BA_ITERS, MESH_BA_DAMPING, MESH_BA_RADIUS = 6, 0.1, 5
 WORKER_TIMEOUT_S = 300
+# Phase 8's four lanes under scan relocalization: tests/test_relocalization.py's
+# seed-11 walk (its first 14 poses, then its frame 0 again), with a jump gate
+# between the pan's 4 cm steps and that teleport.
+N_TELEPORT, SCAN_JUMP_M = 14, 0.07
+# Phase 4's batched fused K3 and phase 18: the JAX headline's lanes (bench.py
+# B = 8) at the margin-0.65 capacities of ROADMAP P8, and the lane counts timed.
+K3_LANES = 8
+BATCH_LANES, BATCH_CAPS, BATCH_TIMED = 8, (8192, 4864, 2304), (1, 8, 16, 32)
 
 
 _T0 = time.perf_counter()
@@ -437,6 +472,14 @@ def _bound(n_bytes: float, n_ops: float):
     and operations over its float32 rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _gathered_bytes(quad, n_inside: int) -> int:
+    """Bytes of one lane's quad table (H*W, 4) that K3 must read: one row
+    (8 B for dt4bf, 16 B for dt4) per point inside the image, and no more
+    than the whole table, each row read once."""
+    row = quad.shape[-1] * quad.element_size()
+    return min(quad.shape[-2] * row, n_inside * row)
 
 
 def _nbytes(*tensors) -> int:
@@ -705,6 +748,49 @@ def _queued_ms(fn, reps: int = 50):
     return ev[1].elapsed_time(ev[2]) / reps
 
 
+def _busy(fn):
+    """(device kernels, their summed device ms, host ms) of one call of
+    ``fn`` by torch.profiler, every kernel counted (torch's and the
+    hand-written ones); the window opens with one warm-up call, whose
+    kernels the profiler may drop.  (None, None, None) if the marked call
+    is not in the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    marker = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function("smoke_busy"):
+            fn()
+            marker.add_(1.0)
+            torch.cuda.synchronize()
+    on_card = torch.autograd.DeviceType.CUDA
+    span = [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.name == "smoke_busy" and e.device_type != on_card]
+    if not span:
+        return None, None, None
+    lo, hi = span[0]
+    # Kernels only: copies, fills, the stream syncs CUPTI records on the
+    # device side, and the marked range's own copy on the device timeline
+    # (it spans the whole call) are left out.
+    inside = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == on_card and lo <= e.time_range.start <= hi
+              and e.name != "smoke_busy"
+              and not any(w in e.name.lower() for w in ("memcpy", "memset", "sync"))]
+    return len(inside) - 1, sum(inside) / 1e3, (hi - lo) / 1e3
+
+
+def _tensor_leaves(tree):
+    import torch
+
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for sub in tree for x in _tensor_leaves(sub)]
+
+
 def _free_port() -> int:
     import socket
 
@@ -768,6 +854,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs the card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from revo_tpu_torch import kernels, solver
+    from revo_tpu_torch import lanes as lane_tree
     from revo_tpu_torch.config import SystemConfig
     from revo_tpu_torch.eval import absolute_trajectory_error
     from revo_tpu_torch.io import synthetic as syn
@@ -815,12 +902,16 @@ def main() -> int:
     jobs = [(scene, cam, T, i) for i, T in enumerate(np.concatenate(trajs))]
     jobs += [(sc, cam, eye4, 1) for sc in families.values()]
     jobs += [(families["box"], cam, T, 5000 + i) for i, T in enumerate(loop_traj)]
+    jobs += [(scene, cam, T, 6000 + i)
+             for i, T in enumerate(scene.trajectory(N_TELEPORT, seed=11))]
     rendered_all = render_jobs(jobs, workers=max(os.cpu_count() - 1, 1))
     rendered = rendered_all[:n_default]
     family_frames = {
         name: _sensor_frames(rendered_all[n_default + k:n_default + k + 1], cfg)
         for k, name in enumerate(families)}
-    loop_seq = _sensor_frames(rendered_all[n_default + len(families):], cfg)
+    loop_seq = _sensor_frames(
+        rendered_all[n_default + len(families):n_default + len(families) + N_LOOP], cfg)
+    walk = _sensor_frames(rendered_all[-N_TELEPORT:], cfg)
     grays, depths, gt = _sensor_frames(rendered[:N_FRAMES], cfg)
     pan = _sensor_frames(rendered[N_FRAMES:N_FRAMES + N_PAN + 1], cfg)
     second = _sensor_frames(rendered[N_FRAMES + N_PAN + 1:-5], cfg)
@@ -1005,13 +1096,78 @@ def main() -> int:
         raise RuntimeError(f"fused K3 differs from plain by {fused_rel} (relative) > {K3_RTOL}")
     if not any(bad > good for good, bad in fused_counts):
         raise RuntimeError(f"fused K3: no case with most points out of bounds: {fused_counts}")
+    # Batched fused K3, the solver's launch over lanes: K3_LANES lanes at each
+    # level with poses cycling identity / tracked / out of the image, against
+    # the eight chain frames' keyframe tables, with one cloud shared by all
+    # lanes (stride 0) and with each lane's own cloud.
+    from revo_tpu_torch import frontend
+    from revo_tpu_torch.ops.backproject import EdgeCloud
+
+    kfs8 = frontend.make_keyframe_batched(
+        lane_tree.stack_lanes(frames_lm), torch.eye(4, device=dev).expand(N_FRAMES, 4, 4), cfg)
+    R8 = torch.stack([poses[i % 3][0] for i in range(K3_LANES)])
+    t8 = torch.stack([poses[i % 3][1] for i in range(K3_LANES)])
+    odd = torch.tensor([i % 2 == 1 for i in range(K3_LANES)], device=dev)
+    lanes_rel, lanes_cases, lanes_counts = 0.0, 0, []
+    k3b_args = {}  # level 0, own clouds: phase 6 times it
+    for lvl in range(cfg.pyramid.n_levels):
+        own = lane_tree.stack_lanes([f.levels[lvl].cloud for f in frames_lm[:K3_LANES]])
+        shared = lane_tree.add_lane_axis(frames_lm[-1].levels[lvl].cloud, K3_LANES)
+        for what, cloud_b in (("shared", shared), ("own", own)):
+            args = (kfs8.quads[lvl][:K3_LANES], cloud_b, cams[lvl], R8, t8,
+                    opt.edge_distance_lvl[lvl], opt.huber_edge, opt.use_edge_filter)
+            k3b_args.setdefault(what, args)
+            active = torch.ones(K3_LANES, dtype=torch.bool, device=dev)
+            out = torch.empty((K3_LANES, 46), device=dev)
+            before = K3.residual_lgsx.launches
+            torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+            K3.residual_lgsx_batched(*args, active, out)
+            torch.cuda.set_sync_debug_mode("default")
+            if K3.residual_lgsx.launches != before + 1:
+                raise RuntimeError("batched K3: B lanes are not one launch")
+            rows = out.clone()
+            K3.residual_lgsx_batched(*args, active, out)
+            if not torch.equal(out.view(torch.int32), rows.view(torch.int32)):
+                raise RuntimeError(f"batched K3: two launches differ at level {lvl}, {what}")
+            held = torch.full((K3_LANES, 46), -7.0, device=dev)  # odd lanes inactive
+            K3.residual_lgsx_batched(*args, ~odd, held)
+            kept = torch.where(odd[:, None], torch.full_like(rows, -7.0), rows)
+            if not torch.equal(held.view(torch.int32), kept.view(torch.int32)):
+                raise RuntimeError(f"batched K3: inactive lanes touched or active lanes "
+                                   f"differ at level {lvl}, {what}")
+            want = K3.residual_lgsx_batched_ref(*args)
+            for i in range(K3_LANES):
+                one = torch.empty((1, 46), device=dev)
+                K3.residual_lgsx_batched(
+                    args[0][i:i + 1], EdgeCloud(cloud_b.points[i:i + 1], cloud_b.valid[i:i + 1],
+                                                None),
+                    args[2], R8[i:i + 1], t8[i:i + 1], *args[5:], None, one)
+                if not torch.equal(one[0].view(torch.int32), rows[i].view(torch.int32)):
+                    raise RuntimeError(f"batched K3: lane {i} differs from its B=1 launch at "
+                                       f"level {lvl}, {what}")
+                counts = rows[i, 44:46].view(torch.int32).tolist()
+                if counts != [int(want[4][i]), int(want[5][i])]:
+                    raise RuntimeError(f"batched K3: lane {i} counts {counts} != plain at "
+                                       f"level {lvl}, {what}")
+                lanes_counts.append(counts)
+                got_i = (rows[i, :36], rows[i, 36:42], rows[i, 42:43], rows[i, 43:44])
+                for a, b in zip(got_i, (want[0][i].reshape(-1), want[1][i], want[2][i:i + 1],
+                                        want[3][i:i + 1])):
+                    err = float((a - b).abs().max())
+                    lanes_rel = max(lanes_rel, err / max(float(b.abs().max()), 1e-30))
+                lanes_cases += 1
+    if not lanes_rel <= K3_RTOL:
+        raise RuntimeError(f"batched K3 differs from plain by {lanes_rel} (relative) > {K3_RTOL}")
+    if not any(bad > good for good, bad in lanes_counts):
+        raise RuntimeError("batched K3: no lane with most points out of bounds")
     _phase("kernels", canny_fused_cases=fused_px["cases"],
            canny_fused_differing_pixels=fused_px["differing"],
            canny_fused_edge_pixels=fused_edges,
            k1_k2_differing_pixels=k12_diff, k3_max_abs_err=k3_err,
            k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL, fused_k3_cases=k3_cases,
            fused_k3_max_abs_err=fused_err, fused_k3_max_rel_err=fused_rel,
-           fused_k3_good_bad=fused_counts)
+           fused_k3_good_bad=fused_counts, batched_k3_lanes=K3_LANES,
+           batched_k3_lane_cases=lanes_cases, batched_k3_max_rel_err=lanes_rel)
     _phase("main", **summary)
 
     from revo_tpu_torch.autotune import calibrate_capacities
@@ -1073,14 +1229,40 @@ def main() -> int:
 
     g_pan, d_pan = stack(p_grays), stack(p_depths)
     g_two, d_two = stack(second[0]), stack(second[1])
+    # Four lanes under scan relocalization: the pan (promotes), the seed-11
+    # walk and then its frame 0 again (the ring relocalizes the teleport),
+    # the second sequence forwards and backwards.
+    cfg_reloc = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, scan_relocalization=True, max_jump_translation=SCAN_JUMP_M))
+    tail = N_PAN - N_TELEPORT
+
+    def four(k):  # 0: gray, 1: depth
+        walk_k = list(walk[k]) + [walk[k][0]] * tail
+        lanes_k = [p_grays, walk_k, second[0], second[0][::-1]] if k == 0 else [
+            p_depths, walk_k, second[1], second[1][::-1]]
+        return torch.from_numpy(np.stack([np.stack(x[:N_PAN]) for x in lanes_k])).to(dev)
+
+    g_four, d_four = four(0), four(1)
 
     def card_scan():
         scan = batch.vo_scan(g_pan, d_pan, cfg)
         two = batch.vo_scan(g_two, d_two, cfg)[0]
         lanes = batch.vo_scan_batched(torch.stack([g_pan, g_two]), torch.stack([d_pan, d_two]), cfg)
-        return scan, two, lanes
+        four_outs = batch.vo_scan_lanes(g_four, d_four, cfg_reloc)[0]
+        return scan, two, lanes, four_outs
 
-    ((poses_s, outs_s, _), poses_two, lanes), launches = _path_launches(counters_, card_scan)
+    ((poses_s, outs_s, _), poses_two, lanes, four_outs), launches = _path_launches(
+        counters_, card_scan)
+    four_alone = [batch.vo_scan(g_four[i], d_four[i], cfg_reloc)[1] for i in range(4)]
+    four_equal = [all(_bit_equal(a[i], b) for a, b in zip(four_outs, alone))
+                  for i, alone in enumerate(four_alone)]
+    four_flags = np.stack([four_outs.promoted.cpu().numpy(), four_outs.relocalized.cpu().numpy(),
+                           four_outs.lost.cpu().numpy()], axis=-1)  # (lane, frame, 3)
+
+    def alone_at(k):  # (lane, frame) where only that lane shows flag k
+        return [(int(i), int(f)) for i, f in zip(*np.nonzero(four_flags[..., k]))
+                if four_flags[:, f, k].sum() == 1]
+
     require_vga("scan", launches)
     add_launches(launches)
     poses_s = poses_s.cpu().numpy().astype(np.float64)
@@ -1094,6 +1276,12 @@ def main() -> int:
         "ate_second_m": absolute_trajectory_error(
             poses_two.cpu().numpy().astype(np.float64), second[2]).rmse,
         "launches": launches, "smi": smi,
+        "four_lanes": {
+            "promoted_at": [np.flatnonzero(x).tolist() for x in four_flags[..., 0]],
+            "relocalized_at": [np.flatnonzero(x).tolist() for x in four_flags[..., 1]],
+            "lost_at": [np.flatnonzero(x).tolist() for x in four_flags[..., 2]],
+            "lanes_bit_equal_vo_scan": four_equal, "jump_gate_m": SCAN_JUMP_M,
+        },
     }
     want_promoted = flags_c[:N_PAN, 0] > 0
     want_promoted[0] = False  # frame 0 is the first keyframe, not a promotion
@@ -1105,6 +1293,11 @@ def main() -> int:
     if not (lanes.shape == (2, N_PAN, 4, 4) and torch.equal(lanes[0], outs_s.T_w)
             and torch.equal(lanes[1], poses_two)):
         raise RuntimeError("scan: vo_scan_batched lanes differ from vo_scan")
+    if not all(four_equal):
+        raise RuntimeError(f"scan: B=4 lanes differ from vo_scan alone: {scan_summary}")
+    if not (alone_at(0) and alone_at(1) and not four_flags[..., 2].any()):
+        raise RuntimeError("scan: want a lane that promotes and one that relocalizes on frames "
+                           f"where the others do not, and no lane lost: {scan_summary}")
     _phase("scan", **scan_summary)
 
     # -- 9. autotune: capacities from the first 2 frames ---------------------
@@ -1983,6 +2176,205 @@ def main() -> int:
         raise RuntimeError(f"mesh: a gloo rank's poses differ from the one-process run: {mesh_summary}")
     _phase("mesh", **mesh_summary)
 
+    # -- 18. batched: the batched step at full width, as the JAX headline runs --
+    cfg_caps = dataclasses.replace(cfg, pyramid=dataclasses.replace(
+        cfg.pyramid, edge_capacity=BATCH_CAPS))
+    g8 = torch.from_numpy(np.stack(grays)).to(dev)  # the 8-frame chain, uint8
+    d8 = torch.from_numpy(np.stack(depths)).to(dev)  # uint16
+    eye4_b = torch.eye(4, device=dev).expand(BATCH_LANES, 4, 4)
+
+    def lanes_of(x, idx):  # slices stacked: raw uint16 depth has no gather
+        return torch.stack([x[i] for i in idx])
+
+    def tree_equal(a, b):
+        la, lb = _tensor_leaves(a), _tensor_leaves(b)
+        return len(la) == len(lb) and all(_bit_equal(x, y) for x, y in zip(la, lb))
+
+    batched_summary = {"lanes": BATCH_LANES, "edge_capacity": list(BATCH_CAPS), "smi": smi}
+    # (a) build_frame / make_keyframe of the 8 frames as one batch.
+    frames8, launches = _path_launches(
+        counters_, lambda: frontend.build_frame_batched(g8, d8, cfg_caps))
+    require_vga("batched build", launches, vga_kernels[:1])
+    add_launches(launches)
+    kfs8b = frontend.make_keyframe_batched(frames8, eye4_b, cfg_caps)
+    alone8 = [frontend.build_frame(g8[i], d8[i], cfg_caps) for i in range(BATCH_LANES)]
+    build_equal = [tree_equal(lane_tree.lane(frames8, i), alone8[i]) for i in range(BATCH_LANES)]
+    kf_equal = [tree_equal(lane_tree.lane(kfs8b, i)._replace(frame=None), frontend.make_keyframe(
+        alone8[i], torch.eye(4, device=dev), cfg_caps)._replace(frame=None))
+        for i in range(BATCH_LANES)]
+    batched_summary["build_frame_lanes_bit_equal"] = build_equal
+    batched_summary["make_keyframe_lanes_bit_equal"] = kf_equal
+    batched_summary["canny_fused_per_batched_build"] = launches["canny_fused"]
+    if not (all(build_equal) and all(kf_equal)) or launches["canny_fused"] != pyr.n_levels:
+        raise RuntimeError(f"batched: lanes of the front end differ or Canny launched per "
+                           f"lane: {batched_summary} {launches}")
+
+    # (b) + (d) the chain stepped as the JAX headline steps it (bench.py
+    # phase_stack): lane b tracks frame 1 + (b + s) % 7 at step s against
+    # frame 0's keyframe, each lane from its own last pose; lane 0 walks the
+    # plain trajectory.  Per step the launches, and per level the fused K3
+    # launches against each lane's own evaluations alone.
+    n_chain = N_FRAMES - 1
+    level_of = {cams[lvl].height * cams[lvl].width: lvl for lvl in range(pyr.n_levels)}
+    real_lanes = solver.residual_lgsx_lanes
+    per_level = []
+
+    def counting(ops, *args, **kw):  # records the level of every evaluation
+        per_level.append(level_of[ops.quad.shape[-2]])
+        return real_lanes(ops, *args, **kw)
+
+    def level_counts(fn):
+        per_level.clear()
+        solver.residual_lgsx_lanes = counting
+        try:
+            out = fn()
+        finally:
+            solver.residual_lgsx_lanes = real_lanes
+        return out, [per_level.count(lvl) for lvl in range(pyr.n_levels)]
+
+    def count_syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchronizing" in str(w.message) for w in caught)
+
+    for solver_name in ("gn_fixed", "lm"):
+        c = _with_solver(cfg_caps, solver_name)
+        kf0 = frontend.make_keyframe(frontend.build_frame(g8[0], d8[0], c),
+                                     torch.eye(4, device=dev), c)
+        kf0_b = lane_tree.add_lane_axis(kf0._replace(frame=None), BATCH_LANES)
+        steps = [[1 + (b + s) % n_chain for b in range(BATCH_LANES)] for s in range(n_chain)]
+
+        def headline():
+            R = torch.eye(3, device=dev).expand(BATCH_LANES, 3, 3)
+            t = torch.zeros((BATCH_LANES, 3), device=dev)
+            out, step_counts = [], []
+            for idx in steps:
+                before = {k.__name__: k.launches for k in counters_}
+                f = frontend.build_frame_batched(lanes_of(g8, idx), lanes_of(d8, idx), c)
+                res, levels = level_counts(lambda: tracker.track_frames_batched(kf0_b, f, R, t, c))
+                R, t = res.R, res.t
+                step_counts.append(({k.__name__: k.launches - before[k.__name__]
+                                     for k in counters_}, levels))
+                out.append(res)
+            return out, step_counts
+
+        (chain_b, step_counts), launches = _path_launches(counters_, headline)
+        require_vga(f"batched {solver_name}", launches)
+        add_launches(launches)
+        # Lane 0 against the chain tracked alone (phase 5's chain at these
+        # capacities), and every lane's per-level evaluations alone.
+        R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        est, lane0_equal = [np.eye(4)], []
+        for s, res in enumerate(chain_b):
+            one = tracker.track_frames(kf0, frontend.build_frame(g8[s + 1], d8[s + 1], c), R, t, c)
+            lane0_equal.append(tree_equal(lane_tree.lane(res, 0), one))
+            R, t = one.R, one.t
+            T = np.eye(4)
+            T[:3, :3], T[:3, 3] = R.cpu().numpy(), t.cpu().numpy()
+            est.append(T)
+        ate = absolute_trajectory_error(np.stack(est), gt).rmse
+        # Step 0 again, lane by lane alone, for (d).
+        R0 = torch.eye(3, device=dev)
+        t0_ = torch.zeros(3, device=dev)
+        frames0 = frontend.build_frame_batched(lanes_of(g8, steps[0]), lanes_of(d8, steps[0]), c)
+        alone_levels = [level_counts(lambda i=i: tracker.track_frames(
+            kf0, lane_tree.lane(frames0, i), R0, t0_, c))[1] for i in range(BATCH_LANES)]
+        worst = [max(a[lvl] for a in alone_levels) for lvl in range(pyr.n_levels)]
+        first_counts = step_counts[0]
+        syncs = count_syncs(lambda: tracker.track_frames_batched(
+            kf0_b, frames0, R0.expand(BATCH_LANES, 3, 3), t0_.expand(BATCH_LANES, 3), c))
+        flag_reads = sum(worst) - (pyr.n_levels if solver_name == "lm" else 0)
+        batched_summary[solver_name] = {
+            "lane0_bit_equal_chain_alone": lane0_equal, "ate_m": ate,
+            "canny_fused_per_step": [sc["canny_fused"] for sc, _ in step_counts],
+            "residual_lgsx_per_step": [sc["residual_lgsx"] for sc, _ in step_counts],
+            "step0_evaluations_per_level": first_counts[1],
+            "step0_slowest_lane_per_level": worst,
+            "step0_host_syncs": syncs, "step0_flag_reads_expected": flag_reads,
+        }
+        if not (all(lane0_equal) and ate < ATE_LIMIT_M):
+            raise RuntimeError(f"batched {solver_name}: lane 0 differs from the chain alone or "
+                               f"ATE >= {ATE_LIMIT_M}: {batched_summary[solver_name]}")
+        if any(sc["canny_fused"] != pyr.n_levels for sc, _ in step_counts):
+            raise RuntimeError(f"batched {solver_name}: not {pyr.n_levels} canny_fused launches "
+                               f"per step: {batched_summary[solver_name]}")
+        if first_counts[1] != worst or syncs != flag_reads:
+            raise RuntimeError(f"batched {solver_name}: evaluations per level are not the slowest "
+                               f"lane's, or host syncs are not one per evaluation: "
+                               f"{batched_summary[solver_name]}")
+
+    # (c) track_ring on the teleport frame (phase 7's ring): the batch over
+    # the active slots against the slots tracked one by one.
+    ring = vo_card.reloc_ring
+    tele = frontend.build_frame(torch.from_numpy(p_grays[N_PAN]).to(dev),
+                                torch.from_numpy(p_depths[N_PAN]).to(dev), cfg)
+    ring_res, launches = _path_launches(counters_, lambda: tracker.track_ring(ring, tele, cfg))
+    require_vga("batched ring", launches, vga_kernels[1:])
+    add_launches(launches)
+    eye3, zero3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    ring_equal = [tree_equal(lane_tree.lane(ring_res, s_), tracker.track_frames(
+        tracker.ring_keyframe(ring, s_, tele), tele, eye3, zero3, cfg)) for s_ in range(ring.n)]
+    found, idx, _ = tracker.select_reloc_candidate(ring_res, ring.n, cfg)
+    batched_summary["track_ring"] = {
+        "active_slots": ring.n, "slots_bit_equal": ring_equal, "found": bool(found),
+        "slot": int(idx), "residual_lgsx_launches": launches["residual_lgsx"],
+    }
+    if not (all(ring_equal) and bool(found) and ring.n >= 2):
+        raise RuntimeError(f"batched: track_ring differs from its slots: {batched_summary}")
+
+    # (e) ms per batched step (build + track of B lanes from identity) at
+    # B in BATCH_TIMED (lm at the first two) against B steps of one lane,
+    # in turns in this run: batched, one lane B times (twice below B = 16),
+    # batched.
+    def step_fn(b_, c):
+        idx = [1 + i % n_chain for i in range(b_)]
+        g_b, d_b = lanes_of(g8, idx), lanes_of(d8, idx)
+        kf_b = lane_tree.add_lane_axis(kf0._replace(frame=None), b_)
+        R_b, t_b = torch.eye(3, device=dev).expand(b_, 3, 3), torch.zeros((b_, 3), device=dev)
+
+        def batched_step():
+            f = frontend.build_frame_batched(g_b, d_b, c)
+            return tracker.track_frames_batched(kf_b, f, R_b, t_b, c)
+
+        def single_steps():
+            for i in range(b_):
+                tracker.track_frames(kf0, frontend.build_frame(g_b[i], d_b[i], c), eye3, zero3, c)
+
+        return batched_step, single_steps
+
+    timing = {}
+    for solver_name, timed_b in (("gn_fixed", BATCH_TIMED), ("lm", BATCH_TIMED[:2])):
+        c = _with_solver(cfg_caps, solver_name)
+        kf0 = frontend.make_keyframe(frontend.build_frame(g8[0], d8[0], c),
+                                     torch.eye(4, device=dev), c)
+        rows_t = []
+        for b_ in timed_b:
+            batched_step, single_steps = step_fn(b_, c)
+            ms_b = [_time_ms(batched_step, 2, warmup=1)]
+            ms_s = [_time_ms(single_steps, 1, warmup=1 if b_ == 1 else 0)]
+            if b_ < 16:
+                ms_s.append(_time_ms(single_steps, 1, warmup=0))
+            ms_b.append(_time_ms(batched_step, 2, warmup=0))
+            before = K3.residual_lgsx.launches
+            batched_step()
+            evals = K3.residual_lgsx.launches - before
+            n_kern, busy_ms, span_ms = _busy(batched_step)
+            rows_t.append({
+                "B": b_, "batched_ms": min(ms_b), "singles_ms": min(ms_s),
+                "batched_ms_per_lane": min(ms_b) / b_, "singles_ms_per_lane": min(ms_s) / b_,
+                "residual_lgsx_per_step": evals, "kernels_per_step": n_kern,
+                "device_busy_ms": busy_ms, "profiled_step_ms": span_ms,
+                "device_busy_share": None if busy_ms is None else busy_ms / span_ms,
+            })
+        timing[solver_name] = rows_t
+    batched_summary["step_times"] = timing
+    _phase("batched", **batched_summary)
+
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")
     spent_s, t_part = {}, time.perf_counter()
@@ -2068,10 +2460,10 @@ def main() -> int:
     cloud0 = fused0[1]
     n_pix, n_pts = c0.numel(), cloud0.points.shape[0]
     # Bounds: each input read once, each output written once; the fused form
-    # gathers one sector per point that lands inside the image (the rest
-    # read no row), not the whole table.
+    # reads one quad row per point that lands inside the image (the rest
+    # read no row), at most the whole table.
     n_inside0 = int(K3.residual_terms(*fused0[:7], False)[5])  # edge filter off
-    gathered = n_inside0 * GATHER_SECTOR_BYTES
+    gathered = _gathered_bytes(fused0[0], n_inside0)
     floor_gp = torch.zeros((1, 18, 18), device=dev)
     # The fused Canny at what the main path gives it at level 0: the sensor's
     # uint8 gray, unpadded.  Bound: gray read once, bool edges written once;
@@ -2131,6 +2523,29 @@ def main() -> int:
             # spin); "ms" above is the rate at which the host can launch it.
             "device_ms": _queued_ms(fk),
         })
+    # The fused K3 at its batched shape: phase 4's K3_LANES lanes of level
+    # 0, each with its own cloud and pose.  Bound: B times one lane's.
+    quads_b, cloud_b, _, R_b, t_b = k3b_args["own"][:5]
+    gathered_b = sum(_gathered_bytes(quads_b[i], int(K3.residual_terms(
+        quads_b[i], EdgeCloud(cloud_b.points[i], cloud_b.valid[i], None), cams[0], R_b[i], t_b[i],
+        opt.edge_distance_lvl[0], opt.huber_edge, False)[5])) for i in range(K3_LANES))
+    bound_b = _bound(
+        _nbytes(cloud_b.points, cloud_b.valid, R_b, t_b) + gathered_b
+        + K3_LANES * 46 * 4, K3_FUSED_OPS_PER_POINT * cloud_b.points.shape[1] * K3_LANES)
+
+    def fk_b():
+        return K3.residual_lgsx_batched(*k3b_args["own"])
+
+    def fp_b():
+        return K3.residual_lgsx_batched_ref(*k3b_args["own"])
+
+    next(r for r in rows if r["name"] == "residual_lgsx")["batched"] = {
+        "lanes": K3_LANES, "points_per_lane": int(cloud_b.points.shape[1]),
+        "ms": min(_time_ms(fk_b, 50), _time_ms(fk_b, 50)),
+        "plain_ms": min(_time_ms(fp_b, 10), _time_ms(fp_b, 10)),
+        "bound_ms": bound_b[0], "bound_by": bound_b[1], "device_ms": _queued_ms(fk_b),
+        "max_rel_err": lanes_rel,
+    }
     part_done("kernel_rows")
     # The launch floor (K1 on a 16x16 image: what one launch through ctypes
     # costs), K2's global-memory form beside the shared one, and how many

@@ -12,6 +12,10 @@ live sensors, recorder, native bindings; ``viz``; ``utils``), with
 hand-written Hopper kernels (``csrc/*.cu``) for the three kernels the
 JAX package wrote in Pallas: Canny NMS (K1) and hysteresis (K2) in
 ``ops.canny``, the LGSX normal-equation reduction (K3) in ``ops.lgsx``.
+The main path also runs B sequences at once, each lane bit-equal to
+itself alone, as the JAX package's ``vmap`` runs it
+(``frontend.build_frame_batched``, ``tracker.track_frames_batched``,
+``parallel.batch.vo_scan_batched``; K3 takes the lanes in one launch).
 Module names mirror revo_tpu's.  This package imports torch and numpy, never
 jax or revo_tpu; ``revo_tpu`` stays the reference it is tested against.
 """

@@ -26,7 +26,17 @@
 // writes one 32-word partial row to a scratch buffer, fences and takes an
 // atomic ticket; the last block to arrive sums the rows in block-index
 // order, writes the 46 outputs and resets the ticket, so no memset is
-// needed between launches.  Only blockIdx.x is used; y is free for a batch.
+// needed between launches.
+//
+// blockIdx.y is the lane: B independent evaluations in one launch (the JAX
+// package vmaps the solver over sequences, ring slots and loop pairs).
+// Every operand has a lane stride, 0 where the lanes share it (one frame's
+// cloud tracked against K ring keyframes).  Each lane has its own partial
+// rows, ticket and 46 outputs, and reduces in the order a one-lane launch
+// does, so each lane's bits equal its B = 1 launch.  A lane whose byte in
+// `active` (device memory) is 0 returns at once and leaves its outputs as
+// they were: the solver freezes lanes that have converged without a host
+// round trip.  Bound at B lanes: B times one lane's bytes.
 //
 // Neither form uses float atomics: the summation order is fixed, so the
 // same inputs give bit-identical sums run after run.  Bound on the H100:
@@ -101,12 +111,27 @@ __device__ __forceinline__ int clamp_index(float fu, int hi) {
 
 template <bool BF16>
 __global__ void __launch_bounds__(RL_THREADS)
-residual_lgsx_kernel(const void* __restrict__ quad, const float* __restrict__ pts,
-                     const uint8_t* __restrict__ valid,
-                     const float* __restrict__ Rp, const float* __restrict__ tp,
+residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
+                     const float* __restrict__ pts, int pts_stride,
+                     const uint8_t* __restrict__ valid, int valid_stride,
+                     const float* __restrict__ Rp, int R_stride,
+                     const float* __restrict__ tp, int t_stride,
+                     const uint8_t* __restrict__ active,
                      float fx, float fy, float cx, float cy, int W, int H,
                      float edge_distance, float huber, int use_edge_filter,
                      int P, float* partial, unsigned int* ticket, float* out) {
+  const size_t batch = blockIdx.y;  // the lane of the batch
+  if (!active[batch]) return;  // uniform over the block
+  pts += batch * pts_stride;
+  valid += batch * valid_stride;
+  Rp += batch * R_stride;
+  tp += batch * t_stride;
+  partial += batch * gridDim.x * ROW;
+  ticket += batch;
+  out += batch * 46;
+  // Quad rows of this lane (quad_stride counts rows of 4 taps).
+  const size_t quad_row0 = batch * quad_stride;
+
   float acc[NF];
 #pragma unroll
   for (int k = 0; k < NF; ++k) acc[k] = 0.0f;
@@ -136,7 +161,7 @@ residual_lgsx_kernel(const void* __restrict__ quad, const float* __restrict__ pt
       const float fu = floorf(u), fv = floorf(v);
       const float dx = __fsub_rn(u, fu), dy = __fsub_rn(v, fv);
       const int ix = clamp_index(fu, W - 2), iy = clamp_index(fv, H - 2);
-      const size_t row = (size_t)iy * W + ix;
+      const size_t row = quad_row0 + (size_t)iy * W + ix;
       float i00, i01, i10, i11;
       if (BF16) {  // bf16 is the upper half of a float: upcast by a shift
         const uint2 q = __ldg(reinterpret_cast<const uint2*>(quad) + row);
@@ -245,24 +270,30 @@ extern "C" int revo_lgsx_reduce(const float* wxp, const float* grads,
   return (int)cudaGetLastError();
 }
 
-// partial: ceil(P / 128) rows of 32 floats; ticket: one zeroed uint32 that
-// every launch leaves at 0; out: 46 floats.
-extern "C" int revo_residual_lgsx(const void* quad, int quad_bf16,
-                                  const float* pts, const uint8_t* valid,
-                                  const float* R, const float* t, float fx,
+// B lanes; per lane: partial, ceil(P / 128) rows of 32 floats; ticket, one
+// zeroed uint32 that every launch leaves at 0; out, 46 floats.  Strides are
+// in elements of each operand (rows of 4 taps for quad), 0 for a shared one.
+extern "C" int revo_residual_lgsx(const void* quad, int quad_bf16, int quad_stride,
+                                  const float* pts, int pts_stride,
+                                  const uint8_t* valid, int valid_stride,
+                                  const float* R, int R_stride, const float* t,
+                                  int t_stride, const uint8_t* active, float fx,
                                   float fy, float cx, float cy, int W, int H,
                                   float edge_distance, float huber,
-                                  int use_edge_filter, int P, float* partial,
+                                  int use_edge_filter, int P, int B, float* partial,
                                   unsigned int* ticket, float* out,
                                   cudaStream_t stream) {
-  const int blocks = P > 0 ? (P + RL_THREADS - 1) / RL_THREADS : 1;
+  if (B <= 0) return 0;
+  const dim3 grid(P > 0 ? (P + RL_THREADS - 1) / RL_THREADS : 1, B);
   if (quad_bf16) {
-    residual_lgsx_kernel<true><<<blocks, RL_THREADS, 0, stream>>>(
-        quad, pts, valid, R, t, fx, fy, cx, cy, W, H, edge_distance, huber,
+    residual_lgsx_kernel<true><<<grid, RL_THREADS, 0, stream>>>(
+        quad, quad_stride, pts, pts_stride, valid, valid_stride, R, R_stride, t,
+        t_stride, active, fx, fy, cx, cy, W, H, edge_distance, huber,
         use_edge_filter, P, partial, ticket, out);
   } else {
-    residual_lgsx_kernel<false><<<blocks, RL_THREADS, 0, stream>>>(
-        quad, pts, valid, R, t, fx, fy, cx, cy, W, H, edge_distance, huber,
+    residual_lgsx_kernel<false><<<grid, RL_THREADS, 0, stream>>>(
+        quad, quad_stride, pts, pts_stride, valid, valid_stride, R, R_stride, t,
+        t_stride, active, fx, fy, cx, cy, W, H, edge_distance, huber,
         use_edge_filter, P, partial, ticket, out);
   }
   return (int)cudaGetLastError();

@@ -8,6 +8,13 @@ valid depth into a fixed-capacity cloud; levels > 0 come from pyrDown gray
 and hole-aware depth subsampling.  ``make_keyframe`` adds the per-level DT
 structures and dt-only quad tables the solver samples.  Outputs live on the
 device of the inputs.
+
+Both run B sequences' frames at once (``build_frame_batched``,
+``make_keyframe_batched``: a leading lane axis on every tensor of the
+Frame / Keyframe, one Canny launch per level for all lanes), what the JAX
+package gets from ``vmap``; each lane's bits are those it gets alone, and
+``build_frame`` / ``make_keyframe`` are the B = 1 case; ``lanes`` moves
+NamedTuples of tensors between the two forms.
 """
 from __future__ import annotations
 
@@ -17,8 +24,9 @@ import numpy as np
 import torch
 
 from revo_tpu_torch.config import SystemConfig
+from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.backproject import EdgeCloud, backproject_edges
-from revo_tpu_torch.ops.canny import canny
+from revo_tpu_torch.ops.canny import canny_batched
 from revo_tpu_torch.ops.depth import subsample_depth_with_holes
 from revo_tpu_torch.ops.edge_hist import fill_in_edges, patch_histogram
 from revo_tpu_torch.ops.edt import keyframe_structure, quad_structure
@@ -61,7 +69,9 @@ def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
 def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
                 undistort_maps=None):
     """The pyramid's edge maps, level by level from full resolution: yields
-    (gray, depth, edges_orig, edges) per level, edges after fill-in.
+    (gray, depth, edges_orig, edges) per level, edges after fill-in.  Images
+    are (..., H, W), lanes on the leading axes; Canny takes them all in one
+    launch per level.
 
     Takes uint8 or float32 gray, and uint16 raw depth (scaled by
     1 / depth_scale_factor, iowrapperRGBD.cpp:326-327) or float32 metres;
@@ -85,7 +95,10 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
             canny_in = gaussian_blur(g)
         else:  # a uint8 level 0 goes to Canny as it is, uncast
             canny_in = gray if lvl == 0 and gray.dtype == torch.uint8 else g
-        edges = canny(canny_in, pyr.canny_threshold1, pyr.canny_threshold2)
+        h, w = canny_in.shape[-2:]
+        edges = canny_batched(
+            canny_in.reshape(-1, h, w), pyr.canny_threshold1, pyr.canny_threshold2
+        ).reshape(canny_in.shape)
         edges_orig = edges
         patch = pyr.dist_patch_sizes[lvl]
         counts, occupancy = patch_histogram(edges, patch)
@@ -94,7 +107,7 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
                 edges, prev_edges, counts, patch, pyr.dist_patch_sizes[lvl - 1]
             )
             sparse = occupancy < torch.full_like(occupancy, pyr.n_percentage)
-            edges = torch.where(sparse, filled, edges)
+            edges = torch.where(sparse[..., None, None], filled, edges)
         yield g, d, edges_orig, edges
         prev_edges = edges
         if lvl + 1 < pyr.n_levels:
@@ -102,10 +115,12 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
             d = subsample_depth_with_holes(d)
 
 
-def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
-                undistort_maps=None) -> Frame:
-    """Full pyramid from full-resolution gray and depth, on their device
-    (input dtypes and ``undistort_maps`` as ``edge_levels`` takes them)."""
+def build_frame_batched(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
+                        undistort_maps=None) -> Frame:
+    """Full pyramids of B frames from (B, H, W) full-resolution gray and
+    depth, on their device (input dtypes and ``undistort_maps`` as
+    ``edge_levels`` takes them): a Frame with a leading lane axis on every
+    tensor."""
     pyr = cfg.pyramid
     cams = cfg.camera_pyramid()
     levels = []
@@ -119,15 +134,29 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
         levels.append(
             FrameLevel(gray=g, depth=d, edges=edges, edges_orig=edges_orig, cloud=cloud)
         )
-    return Frame(levels=tuple(levels), timestamp=torch.zeros((), device=gray.device))
+    return Frame(levels=tuple(levels),
+                 timestamp=torch.zeros(gray.shape[:1], device=gray.device))
 
 
-def make_keyframe(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
+def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
+                undistort_maps=None) -> Frame:
+    """``build_frame_batched`` of one (H, W) frame."""
+    return lane(build_frame_batched(gray[None], depth[None], cfg, undistort_maps), 0)
+
+
+def make_keyframe_batched(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
+    """Keyframes of a batched Frame with world poses T_w_k (B, 4, 4)."""
     structs = tuple(keyframe_structure(lv.edges) for lv in frame.levels)
     quads = tuple(
         quad_structure(s, cfg.tracker.optimizer.quad_form) for s in structs
     )
     return Keyframe(structs=structs, quads=quads, frame=frame, T_w_k=T_w_k)
+
+
+def make_keyframe(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
+    """``make_keyframe_batched`` of one frame."""
+    kf = make_keyframe_batched(add_lane_axis(frame), T_w_k[None], cfg)
+    return lane(kf, 0)._replace(frame=frame)
 
 
 def generate_colored_pcl(frame: Frame, cfg: SystemConfig, lvl: int = 0, dense: bool = False,

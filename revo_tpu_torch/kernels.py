@@ -44,7 +44,7 @@ SIGNATURES = {
     "revo_canny_hysteresis_shared_limit": "",
     "revo_canny_fused": "pipppiiiffi",
     "revo_lgsx_reduce": "pppppi",
-    "revo_residual_lgsx": "pippppffffiiffiippp",
+    "revo_residual_lgsx": "piipipipipipffffiiffiiippp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

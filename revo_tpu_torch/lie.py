@@ -8,10 +8,13 @@ and 4x4 products and inverses that round as jitted XLA on the CPU does
 small-angle Taylor branches and near-pi log branch as the JAX module, in
 float32.  Tangent convention ``xi = [upsilon, omega]`` (Sophus, se3.hpp:723).
 
-3x3 products are plain float32 ``matmul``s: ``chip_smoke.py`` pins
-``torch.backends.cuda.matmul.allow_tf32 = False`` so the card never rounds
-them to TF32 (the JAX side measured reduced-precision pose products doubling
-ATE, revo_tpu/lie.py:23-31).
+The 3x3 products of exp and compose are elementwise (``matmul_fma``,
+``matvec``), never a cuBLAS or TF32 ``matmul`` (the JAX side measured
+reduced-precision pose products doubling ATE, revo_tpu/lie.py:23-31): they
+round on the CPU as PyTorch's 2-D ``matmul`` does there, and each of a stack
+of poses rounds as it does alone, on any device, which the solver's lanes
+need.  Other products are plain float32 ``matmul``s, which
+``chip_smoke.py`` pins off TF32.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ def exp_so3(omega: torch.Tensor) -> torch.Tensor:
         (1.0 - torch.cos(theta_safe)) / (theta_safe * theta_safe),
     )
     W = hat_so3(omega)
-    W2 = W @ W
+    W2 = matmul_fma(W, W)
     eye = _eye_like(omega, W.shape[:-2])
     return eye + a[..., None, None] * W + b[..., None, None] * W2
 
@@ -132,11 +135,10 @@ def exp_se3(xi: torch.Tensor):
     R = exp_so3(omega)
     b, c = _so3_left_jacobian_terms(omega)
     W = hat_so3(omega)
-    W2 = W @ W
+    W2 = matmul_fma(W, W)
     eye = _eye_like(xi, W.shape[:-2])
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
-    t = (V @ upsilon[..., None])[..., 0]
-    return R, t
+    return R, matvec(V, upsilon)
 
 
 def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -161,7 +163,7 @@ def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def compose(R1, t1, R2, t2):
     """(R1, t1) * (R2, t2): first apply 2, then 1."""
-    return R1 @ R2, (R1 @ t2[..., None])[..., 0] + t1
+    return matmul_fma(R1, R2), matvec(R1, t2) + t1
 
 
 def inverse(R, t):
@@ -275,14 +277,23 @@ def matmul_fma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """float32 ``A @ B`` for small matrices, rounded as XLA's CPU dot rounds
     it inside ``jit``: each entry is the first product, then one fused
     multiply-add per further term in order.  Each FMA is taken in float64
-    (the product of two float32 values is exact there), so the result is
-    the same on every device and never passes through cuBLAS or TF32."""
-    acc = (A[..., :, 0:1].double() * B[..., 0:1, :].double()).float()
+    (the product of two float32 values is exact there, so ``addcmul``'s
+    one rounding is the FMA's), so the result is the same on every device
+    and never passes through cuBLAS or TF32."""
+    Ad, Bd = A.double(), B.double()
+    acc = (Ad[..., :, 0:1] * Bd[..., 0:1, :]).float()
     for k in range(1, A.shape[-1]):
-        acc = (
-            A[..., :, k:k + 1].double() * B[..., k:k + 1, :].double() + acc.double()
-        ).float()
+        acc = torch.addcmul(acc.double(), Ad[..., :, k:k + 1], Bd[..., k:k + 1, :]).float()
     return acc
+
+
+def matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``A @ v`` for (..., 3, 3) matrices and (..., 3) vectors as
+    elementwise float32 ops: the three products summed last to first, each
+    operation rounded, as PyTorch's CPU (3, 3) @ (3, 1) product rounds.
+    Lanes stacked on the leading axes get the bits each gets alone, on any
+    device (a batched ``matmul`` may take another kernel per batch size)."""
+    return (A[..., 2] * v[..., None, 2] + A[..., 1] * v[..., None, 1]) + A[..., 0] * v[..., None, 0]
 
 
 def inv_lu(T: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,8 @@ pose-graph optimizer (parallel/posegraph.py).
 1. Candidates: keyframe pairs (a, b), b - a > min_separation, whose
    estimated positions lie within ``radius`` metres (host numpy).
 2. Verification: track keyframe b's frame against keyframe a's DT structure
-   from the current relative estimate; accept on low mean error, enough
-   inliers and a healthy good/bad ratio.  It reads only a keyframe's
+   from the current relative estimate, all pairs as one batch; accept on
+   low mean error, enough inliers and a healthy good/bad ratio.  It reads only a keyframe's
    structs, quads and clouds, so pruned keyframes
    (``frontend.prune_keyframe``) verify like whole ones.
 3. Correction: odometry edges between consecutive keyframes plus the
@@ -30,7 +30,8 @@ import torch
 
 from revo_tpu_torch import tracker
 from revo_tpu_torch.config import SystemConfig
-from revo_tpu_torch.frontend import Keyframe
+from revo_tpu_torch.frontend import Frame, FrameLevel, Keyframe
+from revo_tpu_torch.lanes import stack_lanes
 from revo_tpu_torch.parallel.mesh import gather, local_slots, shard, to_device
 from revo_tpu_torch.parallel.posegraph import PoseGraphEdges, optimize_pose_graph
 
@@ -68,6 +69,41 @@ def find_candidates(
     return [(a, b) for _, a, b in out[:max_candidates]]
 
 
+def _track_pairs(pairs, kfs, cfg: SystemConfig):
+    """Track keyframe b's frame against keyframe a's DT tables from the
+    current relative estimate, for every pair (a, b) in one batch (the
+    lanes read the two keyframes' tables and clouds, so pruned and whole
+    keyframes mix).  Returns the TrackResult as numpy arrays with the pair
+    axis."""
+    kf = {k: kfs(k) for k in sorted({k for pair in pairs for k in pair})}
+    dev = kf[pairs[0][0]].T_w_k.device
+    kf_a = stack_lanes([kf[a]._replace(frame=None, T_w_k=None) for a, _ in pairs])
+    levels = stack_lanes([
+        tuple(FrameLevel(None, None, None, None, lv.cloud) for lv in kf[b].frame.levels)
+        for _, b in pairs
+    ])
+    T0 = np.stack([(np.linalg.inv(_pose(kf[a])) @ _pose(kf[b])).astype(np.float32)
+                   for a, b in pairs])
+    T0 = torch.from_numpy(T0).to(dev)
+    res = tracker.track_frames_batched(
+        kf_a, Frame(levels=levels, timestamp=None), T0[:, :3, :3], T0[:, :3, 3], cfg
+    )
+    return tracker.TrackResult(*(x.detach().cpu().numpy() for x in res))
+
+
+def _verdict(res, i: int, max_error: float, min_good_ratio: float, min_good: int):
+    """Pair ``i``'s (T_ab, error), or None when it fails the gates."""
+    err = float(res.error[i])
+    good = int(res.good[i])
+    bad = max(int(res.bad[i]), 1)
+    if err > max_error or good < min_good or good / bad < min_good_ratio:
+        return None
+    T_ab = np.eye(4, dtype=np.float32)
+    T_ab[:3, :3] = res.R[i]
+    T_ab[:3, 3] = res.t[i]
+    return T_ab, err
+
+
 def verify_candidate(
     kf_a: Keyframe,
     kf_b: Keyframe,
@@ -83,23 +119,9 @@ def verify_candidate(
     tracker.cpp:351): loop pairs sit across wider baselines where partial
     overlap is legitimate, so precision comes from the DT error bound plus
     an absolute inlier count, the ratio only guarding degenerate overlaps."""
-    T_ab0 = (np.linalg.inv(_pose(kf_a)) @ _pose(kf_b)).astype(np.float32)
-    dev = kf_a.T_w_k.device
-    res = tracker.track_frames(
-        kf_a, kf_b.frame,
-        torch.from_numpy(np.ascontiguousarray(T_ab0[:3, :3])).to(dev),
-        torch.from_numpy(np.ascontiguousarray(T_ab0[:3, 3])).to(dev),
-        cfg,
-    )
-    err = float(res.error)
-    good = int(res.good)
-    bad = max(int(res.bad), 1)
-    if err > max_error or good < min_good or good / bad < min_good_ratio:
-        return None
-    T_ab = np.eye(4, dtype=np.float32)
-    T_ab[:3, :3] = res.R.detach().cpu().numpy()
-    T_ab[:3, 3] = res.t.detach().cpu().numpy()
-    return T_ab, err
+    return verify_candidates_batched(
+        [kf_a, kf_b], [(0, 1)], cfg, max_error, min_good_ratio, min_good
+    )[0]
 
 
 def verify_candidates_batched(
@@ -113,19 +135,21 @@ def verify_candidates_batched(
     axis: str = "cand",
 ) -> List[Optional[Tuple[np.ndarray, float]]]:
     """Verify all candidate pairs; one entry per candidate, ``(T_ab,
-    error)`` or ``None``, what ``verify_candidate`` returns for each.  JAX
-    runs the pairs as one vmapped dispatch; here they are tracked one after
-    the other, as ``tracker.track_ring`` tracks its slots.  With ``mesh``
-    the candidates, padded to a multiple of the axis size with copies of
-    candidate 0, are sharded over ``axis``: each slot verifies its share
-    with the two keyframes of each pair on its device, and the verdicts
-    are gathered in order, the padding dropped."""
+    error)`` or ``None``, what ``verify_candidate`` returns for each.  The
+    pairs are tracked as one batch, JAX's one vmapped dispatch; each pair's
+    bits are those it gets alone.  With ``mesh`` the candidates, padded to
+    a multiple of the axis size with copies of candidate 0, are sharded
+    over ``axis``: each slot verifies its share as one batch with the two
+    keyframes of each pair on its device, and the verdicts are gathered in
+    order, the padding dropped."""
     def verify(pairs, kfs):
-        return [verify_candidate(kfs(a), kfs(b), cfg, max_error, min_good_ratio, min_good)
-                for a, b in pairs]
+        if not pairs:
+            return []
+        res = _track_pairs(pairs, kfs, cfg)
+        return [_verdict(res, i, max_error, min_good_ratio, min_good) for i in range(len(pairs))]
 
     if mesh is None or not cands:
-        return verify(cands, keyframes.__getitem__)
+        return verify(list(cands), keyframes.__getitem__)
     slots = local_slots(mesh, axis)
     cands = list(cands)
     padded = cands + cands[:1] * ((-len(cands)) % mesh.shape[axis])

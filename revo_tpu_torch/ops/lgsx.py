@@ -13,6 +13,10 @@ residual pass (``residual_terms``: transform, project, bounds-check, sample
 the dt quad table, edge filter, Huber weight) and that reduction, plus the
 unweighted error sum and the good and bad counts, in one kernel launch that
 reads the pose from device memory and needs no host sync.
+``residual_lgsx_batched`` is the same over B lanes in one launch (the JAX
+package vmaps the solver); ``residual_lgsx`` is its B = 1 case.  A solver
+level checks its cloud and quad table once (``lane_operands``) and launches
+with each evaluation's pose (``residual_lgsx_lanes``).
 
 Each has a plain PyTorch version beside it (``lgsx_reduce_ref``, the JAX
 solver's einsum path, solver.py:264-281; ``residual_lgsx_ref``).  A wrapper
@@ -22,9 +26,13 @@ other device; ``launches`` on each wrapper counts its kernel launches.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from revo_tpu_torch import kernels
+from revo_tpu_torch.config import CameraConfig
+from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.interp import bilinear_sample_dtquad
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 
@@ -112,8 +120,9 @@ def residual_terms(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter
 
 
 def residual_lgsx_ref(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter):
-    """Plain fused K3: ``residual_terms``, ``lgsx_reduce_ref`` and the
-    unweighted sum as torch ops -> (A, g, sum_w, sum_unw, n_good, n_bad)."""
+    """Plain fused K3 of one lane: ``residual_terms``, ``lgsx_reduce_ref``
+    and the unweighted sum as torch ops -> (A, g, sum_w, sum_unw, n_good,
+    n_bad)."""
     wxp, grads, r, wg, gm, n_good, n_bad = residual_terms(
         quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter
     )
@@ -121,71 +130,178 @@ def residual_lgsx_ref(quad, cloud, cam, R, t, edge_distance, huber, use_edge_fil
     return A, gvec, sum_w, torch.sum(gm * r * r), n_good, n_bad
 
 
+def _lane_outputs(out: torch.Tensor):
+    """(B, 46) output rows -> (A (B, 6, 6), g (B, 6), sum_w (B,), sum_unw
+    (B,), n_good (B,) int32, n_bad (B,) int32), views of ``out``."""
+    b = out.shape[0]
+    counts = out[:, 44:46].view(torch.int32)
+    return (out[:, :36].view(b, 6, 6), out[:, 36:42], out[:, 42], out[:, 43],
+            counts[:, 0], counts[:, 1])
+
+
+def residual_lgsx_batched_ref(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter,
+                              active=None, out=None):
+    """Plain version of ``residual_lgsx_batched``: ``residual_lgsx_ref`` lane
+    by lane, so each lane sums in the one-lane order, written into the rows
+    of ``out`` that ``active`` selects."""
+    b = R.shape[0]
+    if out is None:
+        out = torch.zeros((b, 46), dtype=torch.float32, device=R.device)
+    on = [True] * b if active is None else active.tolist()
+    for lane in range(b):
+        if not on[lane]:
+            continue
+        lane_cloud = EdgeCloud(points=cloud.points[lane], valid=cloud.valid[lane], count=None)
+        A, g, sw, su, ng, nb = residual_lgsx_ref(
+            quad[lane], lane_cloud, cam, R[lane], t[lane], edge_distance, huber,
+            use_edge_filter,
+        )
+        out[lane, :36] = A.reshape(-1)
+        out[lane, 36:42] = g
+        out[lane, 42] = sw
+        out[lane, 43] = su
+        out[lane, 44:46].view(torch.int32).copy_(torch.stack([ng, nb]))
+    return _lane_outputs(out)
+
+
 _RL_THREADS = 128  # points per block (csrc/lgsx.cu RL_THREADS)
 _RL_ROW = 32  # words per block's partial row (csrc/lgsx.cu ROW)
-_scratch = {}  # (device, stream) -> (partial rows, ticket)
+_scratch = {}  # (device, stream) -> (partial rows, tickets, all-lanes mask)
 
 
-def _residual_scratch(device, blocks: int):
-    """The fused kernel's partial rows and ticket on the current stream of
-    ``device``.  Launches on one stream run in order and each leaves the
-    ticket at 0, so they share one buffer; it grows when a cloud needs more
-    rows."""
+def _residual_scratch(device, rows: int, lanes: int):
+    """The fused kernel's partial rows, per-lane tickets and an all-true
+    lane mask on the current stream of ``device``.  Launches on one stream
+    run in order and each leaves the tickets of its lanes at 0, so they
+    share one buffer; it grows when a call needs more rows or lanes."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     held = _scratch.get(key)
-    if held is None or held[0].shape[0] < blocks * _RL_ROW:
+    if held is None or held[0].shape[0] < rows * _RL_ROW or held[1].shape[0] < lanes:
         held = (
-            torch.empty(blocks * _RL_ROW, dtype=torch.float32, device=device),
-            torch.zeros(1, dtype=torch.int32, device=device),
+            torch.empty(rows * _RL_ROW, dtype=torch.float32, device=device),
+            torch.zeros(lanes, dtype=torch.int32, device=device),
+            torch.ones(lanes, dtype=torch.bool, device=device),
         )
         _scratch[key] = held
     return held
 
 
-def residual_lgsx(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter):
-    """Fused K3 wrapper: one evaluation's unnormalized sums (A (6, 6),
-    g (6,), sum_w, sum_unw, n_good, n_bad (int32)) over the cloud at pose
-    (R, t) against a keyframe level's (H*W, 4) dt quad table, float32 or
-    bfloat16.  CPU tensors: plain version; CUDA tensors: one kernel launch,
-    nothing else, the outputs views of one (46,) buffer."""
+def _lane_operand(x: torch.Tensor, b: int, lane_shape, dtypes, device, name):
+    """``x`` (B, *lane_shape) as the kernel takes it: each lane contiguous
+    and lanes a fixed stride apart, 0 when they share one operand (an
+    ``expand``).  Returns (tensor, lane stride in elements); copies only a
+    view that is neither."""
+    if (x.dim() != 1 + len(lane_shape) or x.shape[1:] != lane_shape
+            or x.shape[0] not in (1, b)):
+        raise ValueError(f"residual_lgsx: {name} want ({b} or 1, *{tuple(lane_shape)}), "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in dtypes or x.device != device:
+        raise ValueError(f"residual_lgsx: {name} want {dtypes} on {device}, "
+                         f"got {x.dtype} on {x.device}")
+    if x.is_contiguous():
+        return x, (0 if x.shape[0] == 1 else x.stride(0))
+    if x.stride(0) == 0 and x[0].is_contiguous():
+        return x, 0
+    x = x.contiguous()
+    return x, (0 if x.shape[0] == 1 else x.stride(0))
+
+
+class LaneOperands(NamedTuple):
+    """The operands of a solver level's fused K3 launches that stay fixed
+    while the poses change, checked and laid out once by ``lane_operands``.
+    On the CPU ``strides`` and ``scratch`` are None."""
+
+    quad: torch.Tensor  # (B or 1, H*W, 4) float32 / bfloat16
+    cloud: EdgeCloud  # points (B or 1, P, 3), valid (B or 1, P)
+    cam: CameraConfig
+    lanes: int
+    strides: tuple  # lane strides of quad (in rows), points, valid
+    scratch: tuple  # partial rows, tickets, all-lanes mask (B,)
+
+
+def lane_operands(quad, cloud, cam, lanes: int) -> LaneOperands:
+    """Check the pose-independent operands of ``residual_lgsx_lanes`` once:
+    ``quad`` (B, H*W, 4), ``cloud`` points (B, P, 3) and valid (B, P), each
+    shareable by the ``lanes`` lanes through ``expand``.  On the card the
+    scratch is that of the current stream, where the launches must run."""
     device = cloud.points.device
     if device.type == "cpu":
-        return residual_lgsx_ref(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter)
+        return LaneOperands(quad, cloud, cam, lanes, None, None)
     if device.type != "cuda":
         raise ValueError(f"residual_lgsx: unsupported device {device}")
-    p = cloud.points.shape[0]
-    h, w = cam.height, cam.width
-    # Contiguous copies only where a caller hands in a view (a pose cut from
-    # a 4x4, say); the usual operands pass through untouched.
-    points, valid = cloud.points.contiguous(), cloud.valid.contiguous()
-    R, t = R.contiguous(), t.contiguous()
-    wants = (
-        (quad, (torch.float32, torch.bfloat16), (h * w, 4)),
-        (points, (torch.float32,), (p, 3)),
-        (valid, (torch.bool,), (p,)),
-        (R, (torch.float32,), (3, 3)),
-        (t, (torch.float32,), (3,)),
-    )
-    for x, dtypes, shape in wants:
-        if (x.dtype not in dtypes or tuple(x.shape) != shape or x.device != device
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"residual_lgsx: want contiguous {dtypes} {shape} on {device}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device} contiguous={x.is_contiguous()}"
-            )
+    p = cloud.points.shape[-2]
+    quad, quad_s = _lane_operand(quad, lanes, (cam.height * cam.width, 4),
+                                 (torch.float32, torch.bfloat16), device, "quad")
+    points, pts_s = _lane_operand(cloud.points, lanes, (p, 3), (torch.float32,), device,
+                                  "points")
+    valid, valid_s = _lane_operand(cloud.valid, lanes, (p,), (torch.bool,), device, "valid")
     if quad.data_ptr() % 16:
         raise ValueError("residual_lgsx: the quad table must be 16-byte aligned")
-    partial, ticket = _residual_scratch(device, max(-(-p // _RL_THREADS), 1))
-    out = torch.empty(46, dtype=torch.float32, device=device)
+    blocks = max(-(-p // _RL_THREADS), 1)
+    partial, ticket, every_lane = _residual_scratch(device, lanes * blocks, lanes)
+    return LaneOperands(quad, EdgeCloud(points=points, valid=valid, count=None), cam, lanes,
+                        (quad_s // 4, pts_s, valid_s), (partial, ticket, every_lane[:lanes]))
+
+
+def residual_lgsx_lanes(ops: LaneOperands, R, t, edge_distance, huber, use_edge_filter,
+                        active=None, out=None):
+    """``residual_lgsx_batched`` on operands ``lane_operands`` checked: per
+    call only the poses (R (B, 3, 3), t (B, 3)), ``active`` and ``out`` are
+    checked, and on the card the call is one launch."""
+    if ops.scratch is None:
+        return residual_lgsx_batched_ref(ops.quad, ops.cloud, ops.cam, R, t, edge_distance,
+                                         huber, use_edge_filter, active, out)
+    b, device, cam = ops.lanes, ops.quad.device, ops.cam
+    R, R_s = _lane_operand(R, b, (3, 3), (torch.float32,), device, "R")
+    t, t_s = _lane_operand(t, b, (3,), (torch.float32,), device, "t")
+    partial, ticket, every_lane = ops.scratch
+    if active is None:
+        active = every_lane
+    elif active.shape != (b,) or active.dtype != torch.bool or not active.is_contiguous():
+        raise ValueError(f"residual_lgsx: active want contiguous bool ({b},), "
+                         f"got {active.dtype} {tuple(active.shape)}")
+    if out is None:
+        out = torch.empty((b, 46), dtype=torch.float32, device=device)
+    elif out.shape != (b, 46) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"residual_lgsx: out want contiguous float32 ({b}, 46)")
+    quad_s, pts_s, valid_s = ops.strides
     kernels.launch(
         "revo_residual_lgsx",
-        quad, int(quad.dtype == torch.bfloat16), points, valid, R, t,
-        cam.fx, cam.fy, cam.cx, cam.cy, w, h, edge_distance, huber,
-        int(bool(use_edge_filter)), p, partial, ticket, out,
+        ops.quad, int(ops.quad.dtype == torch.bfloat16), quad_s, ops.cloud.points, pts_s,
+        ops.cloud.valid, valid_s, R, R_s, t, t_s, active, cam.fx, cam.fy, cam.cx, cam.cy,
+        cam.width, cam.height, edge_distance, huber, int(bool(use_edge_filter)),
+        ops.cloud.points.shape[-2], b, partial, ticket, out,
     )
     residual_lgsx.launches += 1
-    counts = out[44:46].view(torch.int32)
-    return out[:36].view(6, 6), out[36:42], out[42], out[43], counts[0], counts[1]
+    return _lane_outputs(out)
+
+
+def residual_lgsx_batched(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter,
+                          active=None, out=None):
+    """Fused K3 over B lanes: each lane's unnormalized sums (A (B, 6, 6),
+    g (B, 6), sum_w (B,), sum_unw (B,), n_good, n_bad (B,) int32) over its
+    cloud at its pose (R (B, 3, 3), t (B, 3)) against its keyframe level's
+    (H*W, 4) dt quad table, float32 or bfloat16 (``quad`` (B, H*W, 4)).
+    Any operand may be shared by the lanes through ``expand`` (stride 0).
+    ``active`` (B,) bool selects the lanes to evaluate; the rows of ``out``
+    (B, 46) of the others stay as they were.  The outputs are views of
+    ``out``.  CPU tensors: the plain version lane by lane; CUDA tensors:
+    one kernel launch, nothing else, no host sync."""
+    ops = lane_operands(quad, cloud, cam, R.shape[0])
+    return residual_lgsx_lanes(ops, R, t, edge_distance, huber, use_edge_filter, active, out)
+
+
+def residual_lgsx(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter):
+    """Fused K3 wrapper, one lane: one evaluation's unnormalized sums
+    (A (6, 6), g (6,), sum_w, sum_unw, n_good, n_bad (int32)) over the cloud
+    at pose (R, t) against a keyframe level's (H*W, 4) dt quad table,
+    float32 or bfloat16: ``residual_lgsx_batched`` at B = 1.  ``launches``
+    counts the kernel's launches at any B."""
+    lane = EdgeCloud(points=cloud.points[None], valid=cloud.valid[None], count=None)
+    outs = residual_lgsx_batched(
+        quad[None], lane, cam, R[None], t[None], edge_distance, huber, use_edge_filter
+    )
+    return tuple(x[0] for x in outs)
 
 
 residual_lgsx.launches = 0

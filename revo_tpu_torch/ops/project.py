@@ -11,13 +11,16 @@ import torch
 
 
 def apply_rt_cols(pts, R, t):
-    """(R @ p + t) for (P, 3) points as (x, y, z) columns: nine float32
-    multiply-adds per point, never a (possibly TF32) matmul."""
+    """(R @ p + t) for (..., P, 3) points as (x, y, z) columns, (...) the
+    lanes of R (..., 3, 3) and t (..., 3): nine float32 multiply-adds per
+    point, never a (possibly TF32) matmul."""
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
-    wx = R[..., 0, 0] * x + R[..., 0, 1] * y + R[..., 0, 2] * z + t[..., 0]
-    wy = R[..., 1, 0] * x + R[..., 1, 1] * y + R[..., 1, 2] * z + t[..., 1]
-    wz = R[..., 2, 0] * x + R[..., 2, 1] * y + R[..., 2, 2] * z + t[..., 2]
-    return wx, wy, wz
+
+    def row(r):
+        return (R[..., r, 0, None] * x + R[..., r, 1, None] * y + R[..., r, 2, None] * z
+                + t[..., r, None])
+
+    return row(0), row(1), row(2)
 
 
 def apply_rt_cols_fma(pts, R, t):

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from revo_tpu_torch.config import CameraConfig
-from revo_tpu_torch.ops.interp import bilinear_sample
+from revo_tpu_torch.ops.interp import bilinear_sample_stacked
 
 
 def build_undistort_maps(cam: CameraConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -45,11 +45,14 @@ def build_undistort_maps(cam: CameraConfig) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def remap_bilinear(img: torch.Tensor, map_u: torch.Tensor, map_v: torch.Tensor) -> torch.Tensor:
-    """Bilinear warp: out[y, x] = img(map_v[y, x], map_u[y, x]); samples out
+    """Bilinear warp of (..., H, W) images: out[..., y, x] =
+    img(map_v[y, x], map_u[y, x]), each image as it warps alone; samples out
     of range clamp to the border (cv::remap BORDER_CONSTANT differs only on
     pixels the solver's 2-px border test excludes anyway)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
+    stack = img.reshape(-1, h, w, 1).to(torch.float32)  # lanes on the leading axes
     u = map_u.reshape(-1).clamp(0.0, w - 1.001)
     v = map_v.reshape(-1).clamp(0.0, h - 1.001)
-    out = bilinear_sample(img[..., None].to(torch.float32), u, v)
-    return out[:, 0].reshape(h, w)
+    index = torch.arange(stack.shape[0], device=img.device)[:, None]
+    out = bilinear_sample_stacked(stack, index, u, v)
+    return out[..., 0].reshape(img.shape)

@@ -6,10 +6,10 @@ segment is tracked on its own by ``vo_scan``, which anchors it at its first
 frame.  Stitching composes the segment anchors by a prefix product over
 SE(3); an optional pose-graph relaxation over the consecutive-frame edges
 follows.  JAX vmaps the segments (or shards them over a mesh) and takes the
-prefix product as an associative scan; here the segments run one after the
-other, as ``vo_scan_batched`` runs its sequences (or are sharded over a
-mesh as it shards them), and the prefix is a running product, so float32
-anchors differ from the scan tree's by ulps.
+prefix product as an associative scan; here the segments are the lanes of
+one ``vo_scan_batched`` (or are sharded over a mesh as it shards them), and
+the prefix is a running product, so float32 anchors differ from the scan
+tree's by ulps.
 """
 from __future__ import annotations
 

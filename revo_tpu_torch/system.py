@@ -31,9 +31,12 @@ import torch
 
 from revo_tpu_torch import lie, tracker
 from revo_tpu_torch.config import SystemConfig
-from revo_tpu_torch.frontend import Frame, Keyframe, build_frame, make_keyframe, prune_keyframe
+from revo_tpu_torch.frontend import (
+    Frame, Keyframe, build_frame, build_frame_batched, make_keyframe, prune_keyframe,
+)
 from revo_tpu_torch.io.tum import write_tum_trajectory
 from revo_tpu_torch.kernels import check_device
+from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.undistort import build_undistort_maps
 
 
@@ -84,20 +87,35 @@ class VOReport:
     latency_ms_p99: float = 0.0
 
 
-def frame_step(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: SystemConfig,
-               undistort_maps=None):
-    """One frame: pyramid build (rectified first when ``undistort_maps`` is
-    given), coarse-to-fine track against ``kf``, and the histogram vote.
-    Returns (frame, result, T_kf_n, T_w_curr, new_kf)."""
-    frame = build_frame(gray, depth, cfg, undistort_maps)
-    res = tracker.track_frames(kf, frame, R0, t0, cfg)
+def frame_step_batched(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: SystemConfig,
+                       undistort_maps=None):
+    """One frame of B sequences at once: pyramid build of (B, H, W) gray
+    and depth (rectified first when ``undistort_maps`` is given), a
+    coarse-to-fine track of each lane against its keyframe (``kf`` with a
+    leading lane axis, poses R0 (B, 3, 3), t0 (B, 3)) and each lane's
+    histogram vote (``past_voting`` a batched PastFrames,
+    ``tracker.stack_past``).  Returns (frame, result, T_kf_n, T_w_curr,
+    new_kf), each with the lane axis."""
+    frame = build_frame_batched(gray, depth, cfg, undistort_maps)
+    res = tracker.track_frames_batched(kf, frame, R0, t0, cfg)
     T_kf_n = lie.matrix_from_rt(res.R, res.t)
     T_w_curr = lie.matmul_fma(kf.T_w_k, T_kf_n)
     if cfg.tracker.check_tracking_results:
-        new_kf = tracker.assess_tracking_quality(past_voting, T_w_curr, frame, cfg)
+        new_kf = tracker.assess_tracking_quality_batched(past_voting, T_w_curr, frame, cfg)
     else:
-        new_kf = torch.zeros((), dtype=torch.bool, device=T_w_curr.device)
+        new_kf = torch.zeros(gray.shape[:1], dtype=torch.bool, device=T_w_curr.device)
     return frame, res, T_kf_n, T_w_curr, new_kf
+
+
+def frame_step(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: SystemConfig,
+               undistort_maps=None):
+    """``frame_step_batched`` of one frame against one keyframe.  Returns
+    (frame, result, T_kf_n, T_w_curr, new_kf)."""
+    out = frame_step_batched(
+        gray[None], depth[None], add_lane_axis(kf._replace(frame=None)),
+        tracker.stack_past([past_voting]), R0[None], t0[None], cfg, undistort_maps,
+    )
+    return lane(out, 0)
 
 
 def _np(x: torch.Tensor) -> np.ndarray:

@@ -12,6 +12,14 @@ searches.
 The rings' fill counts ``n`` are Python ints: the loops that drive them read
 them on the host anyway, and a host count keeps every push free of device
 syncs.
+
+Tracking and voting run B lanes at once (``track_frames_batched``,
+``assess_tracking_quality_batched``: a leading lane axis on the keyframe's
+tables, the frame's clouds and the poses; a batched PastFrames holds one
+``n`` per lane), what the JAX package gets from ``vmap``.  Each lane's bits
+are those it gets alone; ``track_frames`` and ``assess_tracking_quality``
+are the B = 1 case, and ``track_ring`` tracks a frame against all active
+ring slots as one batch.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import torch
 
 from revo_tpu_torch import lie, solver
 from revo_tpu_torch.config import SystemConfig
-from revo_tpu_torch.frontend import Frame, Keyframe
+from revo_tpu_torch.frontend import Frame, FrameLevel, Keyframe
+from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.project import scale_shift
 
 
@@ -34,21 +43,27 @@ class TrackResult(NamedTuple):
     new_kf: torch.Tensor  # () bool: good/bad < good_bad_ratio_new_kf
 
 
-def track_frames(
+def track_frames_batched(
     kf: Keyframe, frame: Frame, R0: torch.Tensor, t0: torch.Tensor, cfg: SystemConfig
 ) -> TrackResult:
-    """Track ``frame`` against ``kf`` from the initial pose (R0, t0)."""
+    """Track B lanes at once: lane b's frame clouds against lane b's
+    keyframe tables from (R0[b], t0[b]).  ``kf`` needs structs and quads
+    with a leading lane axis (its ``frame`` is not read), ``frame`` its
+    clouds; either may share one lane's tensors by ``expand``.  Returns a
+    TrackResult with the lane axis."""
     pyr = cfg.pyramid
     opt = cfg.tracker.optimizer
     cams = cfg.camera_pyramid()
     R, t = R0, t0
+    b, dev = R0.shape[0], R0.device
     if cfg.tracker.check_init_values:
         # "DO NOT INIT WITH PREVIOUS TRANSFORM" (tracker.cpp:277-282), only
         # when identity is clearly better (TrackerConfig.init_check_margin).
         lvl = pyr.pyr_min_lvl
         cloud = frame.levels[lvl].cloud
         dt_img = kf.structs[lvl][..., 2]
-        eye, zero = torch.eye(3, device=R.device), torch.zeros(3, device=R.device)
+        eye = torch.eye(3, device=dev).expand(b, 3, 3)
+        zero = torch.zeros(3, device=dev).expand(b, 3)
 
         def cost(R_, t_):
             return solver.eval_cost(
@@ -57,19 +72,30 @@ def track_frames(
             )
 
         use_eye = cost(eye, zero) < cfg.tracker.init_check_margin * cost(R, t)
-        R = torch.where(use_eye, eye, R)
-        t = torch.where(use_eye, zero, t)
+        R = torch.where(use_eye[:, None, None], eye, R)
+        t = torch.where(use_eye[:, None], zero, t)
 
     info = None
     err = None
     for lvl in range(pyr.pyr_min_lvl, pyr.pyr_max_lvl - 1, -1):
-        R, t, err, info = solver.solve_level(
+        R, t, err, info = solver.solve_level_batched(
             kf.quads[lvl], frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl
         )
     good_f = info.good.to(torch.float32)
     bad_f = torch.clamp(info.bad, min=1).to(torch.float32)
     new_kf = (good_f / bad_f) < cfg.tracker.good_bad_ratio_new_kf
     return TrackResult(R=R, t=t, error=err, good=info.good, bad=info.bad, new_kf=new_kf)
+
+
+def track_frames(
+    kf: Keyframe, frame: Frame, R0: torch.Tensor, t0: torch.Tensor, cfg: SystemConfig
+) -> TrackResult:
+    """Track ``frame`` against ``kf`` from the initial pose (R0, t0):
+    ``track_frames_batched`` at B = 1."""
+    res = track_frames_batched(
+        add_lane_axis(kf._replace(frame=None)), add_lane_axis(frame), R0[None], t0[None], cfg
+    )
+    return lane(res, 0)
 
 
 # -- capacity bucketing --------------------------------------------------------
@@ -125,7 +151,9 @@ class PastFrames(NamedTuple):
     The system keeps two: a rolling ring of the newest K frames, and the
     frozen voting set, the K frames before the last promotion (or the first
     K frames before any), which revo_tpu/tracker.py::PastFrames explains.
-    Slot 0 is the oldest; ``n`` counts the filled slots (<= K).
+    Slot 0 is the oldest; ``n`` counts the filled slots (<= K).  A batched
+    PastFrames (``stack_past``) has a leading lane axis on the tensors and
+    ``n`` a tuple of the lanes' counts.
     """
 
     points: torch.Tensor  # (K, P, 3) camera-frame points at histogram level
@@ -165,6 +193,41 @@ def push_past(past: PastFrames, points, valid, pose_w) -> PastFrames:
     )
 
 
+def stack_past(pasts) -> PastFrames:
+    """B lanes' PastFrames as one batched PastFrames: a leading lane axis on
+    the tensors and ``n`` a tuple of the lanes' counts."""
+    return PastFrames(
+        points=torch.stack([p.points for p in pasts]),
+        valid=torch.stack([p.valid for p in pasts]),
+        poses=torch.stack([p.poses for p in pasts]),
+        n=tuple(p.n for p in pasts),
+    )
+
+
+def counting_map_batched(past: PastFrames, est_pose_w: torch.Tensor,
+                         cfg: SystemConfig) -> torch.Tensor:
+    """``counting_map`` of B lanes (a batched PastFrames, est_pose_w
+    (B, 4, 4)) -> (B, H, W) int32, without a host sync past the LU
+    inverse: the marks of each lane's active slots land in one scatter."""
+    cam = cfg.camera_pyramid()[cfg.tracker.histogram_level]
+    h, w = cam.height, cam.width
+    k, dev = past.points.shape[1], past.points.device
+    inv_est = lie.inv_lu(est_pose_w)
+    T = lie.matmul_fma(inv_est[:, None], past.poses)  # past cam -> current cam
+    wxp = lie.matmul_fma(past.points, T[..., :3, :3].transpose(-1, -2)) + T[..., None, :3, 3]
+    pz = torch.where(wxp[..., 2] == 0, 1e-12, wxp[..., 2])
+    u = scale_shift(wxp[..., 0] / pz, cam.fx, cam.cx)
+    v = scale_shift(wxp[..., 1] / pz, cam.fy, cam.cy)
+    slots = torch.stack([torch.arange(k, device=dev) < n for n in past.n])
+    inb = (u >= 0) & (v >= 0) & (u < w) & (v < h) & past.valid & slots[..., None]
+    ui = torch.where(inb, torch.floor(u), 0.0).to(torch.int64)
+    vi = torch.where(inb, torch.floor(v), 0.0).to(torch.int64)
+    lin = torch.where(inb, vi * w + ui, h * w)
+    hit = torch.zeros((*inb.shape[:-1], h * w + 1), dtype=torch.bool, device=dev)
+    hit = hit.scatter_(-1, lin, True)[..., : h * w]  # M_i: binary per slot
+    return hit.sum(1, dtype=torch.int32).reshape(-1, h, w)
+
+
 def counting_map(past: PastFrames, est_pose_w: torch.Tensor, cfg: SystemConfig) -> torch.Tensor:
     """The IROS17 counting map M = sum_i M_i, (H, W) int32 at the histogram
     level: M_i marks the pixels that past slot i's edge points project to
@@ -174,23 +237,36 @@ def counting_map(past: PastFrames, est_pose_w: torch.Tensor, cfg: SystemConfig) 
     decides the pixel: LU inverse of the estimated pose, FMA-chain 4x4 and
     point products (``lie.inv_lu``, ``lie.matmul_fma``), and
     ``u = x / z * fx + cx`` as one FMA (``ops.project.scale_shift``)."""
-    cam = cfg.camera_pyramid()[cfg.tracker.histogram_level]
-    h, w = cam.height, cam.width
-    dev = past.points.device
-    inv_est = lie.inv_lu(est_pose_w)
-    m = torch.zeros(h * w, dtype=torch.int32, device=dev)
-    for slot in range(past.n):
-        T = lie.matmul_fma(inv_est, past.poses[slot])  # past cam -> current cam
-        wxp = lie.matmul_fma(past.points[slot], T[:3, :3].T) + T[:3, 3]
-        pz = torch.where(wxp[:, 2] == 0, 1e-12, wxp[:, 2])
-        u = scale_shift(wxp[:, 0] / pz, cam.fx, cam.cx)
-        v = scale_shift(wxp[:, 1] / pz, cam.fy, cam.cy)
-        inb = (u >= 0) & (v >= 0) & (u < w) & (v < h) & past.valid[slot]
-        lin = torch.floor(v[inb]).to(torch.int64) * w + torch.floor(u[inb]).to(torch.int64)
-        m_i = torch.zeros(h * w, dtype=torch.int32, device=dev)
-        m_i[lin] = 1
-        m += m_i
-    return m.reshape(h, w)
+    return counting_map_batched(stack_past([past]), est_pose_w[None], cfg)[0]
+
+
+def assess_tracking_quality_batched(
+    past: PastFrames, est_pose_w: torch.Tensor, frame: Frame, cfg: SystemConfig
+) -> torch.Tensor:
+    """``assess_tracking_quality`` of B lanes (a batched PastFrames, est
+    (B, 4, 4), a batched Frame) -> (B,) bool."""
+    trk = cfg.tracker
+    lvl = trk.histogram_level
+    k = past.points.shape[1]
+    depth = frame.levels[lvl].depth
+    b = depth.shape[0]
+    full = [n >= k for n in past.n]
+    no = torch.zeros((), dtype=torch.bool, device=depth.device)
+    if not any(full):
+        return no.expand(b)
+    m = counting_map_batched(past, est_pose_w, cfg).reshape(b, -1)
+    valid_depth = (
+        torch.isfinite(depth) & (depth > cfg.pyramid.depth_min) & (depth < cfg.pyramid.depth_max)
+    )
+    mask = (valid_depth & frame.levels[lvl].edges_orig).reshape(b, -1)
+    # Exact integer counts, the role of JAX's one-hot contraction.
+    overlaps = torch.zeros((b, k + 1), dtype=torch.int64, device=depth.device)
+    overlaps = overlaps.scatter_add_(1, m.to(torch.int64), mask.to(torch.int64))
+    overlaps = overlaps.to(torch.float32)
+    # Integer counts times the weights, summed: exact in any order.
+    weighted = sum(overlaps[:, j] * trk.hist_weights[j] for j in range(1, k + 1))
+    vote = weighted < overlaps[:, 0]
+    return torch.stack([vote[i] if full[i] else no for i in range(b)])
 
 
 def assess_tracking_quality(
@@ -202,21 +278,9 @@ def assess_tracking_quality(
     falls below the zero-overlap count.  Only once K past frames exist
     (histogram.size() < 4 guard, tracker.cpp:184).  Returns a () bool
     tensor on the frame's device."""
-    trk = cfg.tracker
-    lvl = trk.histogram_level
-    k = past.points.shape[0]
-    depth = frame.levels[lvl].depth
-    if past.n < k:
-        return torch.zeros((), dtype=torch.bool, device=depth.device)
-    m = counting_map(past, est_pose_w, cfg).reshape(-1)
-    valid_depth = (
-        torch.isfinite(depth) & (depth > cfg.pyramid.depth_min) & (depth < cfg.pyramid.depth_max)
-    )
-    mask = (valid_depth & frame.levels[lvl].edges_orig).reshape(-1)
-    # Exact integer counts, the role of JAX's one-hot contraction.
-    overlaps = torch.bincount(m[mask].to(torch.int64), minlength=k + 1).to(torch.float32)
-    weights = torch.tensor(trk.hist_weights[: k + 1], dtype=torch.float32, device=depth.device)
-    return torch.sum(overlaps[1:] * weights[1:]) < overlaps[0]
+    return assess_tracking_quality_batched(
+        stack_past([past]), est_pose_w[None], add_lane_axis(frame), cfg
+    )[0]
 
 
 # -- relocalization ring --------------------------------------------------------
@@ -273,25 +337,54 @@ def ring_keyframe(ring: KeyframeRing, slot: int, frame: Frame) -> Keyframe:
     )
 
 
-def track_ring(ring: KeyframeRing, frame: Frame, cfg: SystemConfig) -> TrackResult:
-    """Track ``frame`` from identity against every active ring keyframe,
-    newest first, through track_frames.  Returns the per-slot results
-    stacked along a leading slot axis.  Inactive slots are never selected,
-    so they are not tracked: their rows hold error inf and good 0."""
-    dev = ring.T_w_k.device
-    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+def track_rings(rings, frames, cfg: SystemConfig):
+    """Track each frame from identity against every active slot of its
+    ring, all (frame, slot) pairs in one batch; returns per ring the
+    results stacked along a leading slot axis, newest first.  Inactive
+    slots are never selected, so they are not tracked: their rows hold
+    error inf and good 0."""
+    dev = rings[0].T_w_k.device
+    n_levels = len(rings[0].quads)
+
+    def cat(parts):  # one ring's slices stay views
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    quads = tuple(cat([r.quads[lvl][:r.n] for r in rings]) for lvl in range(n_levels))
+    structs = tuple(cat([r.structs[lvl][:r.n] for r in rings]) for lvl in range(n_levels))
+
+    def cloud(lvl):  # each frame's cloud once per slot of its ring
+        parts = [add_lane_axis(f.levels[lvl].cloud, r.n) for r, f in zip(rings, frames)]
+        return type(parts[0])(*(cat(list(field)) for field in zip(*parts)))
+
+    clouds = Frame(levels=tuple(FrameLevel(None, None, None, None, cloud(lvl))
+                                for lvl in range(n_levels)), timestamp=None)
+    total = sum(r.n for r in rings)
+    kf = Keyframe(structs=structs, quads=quads, frame=None, T_w_k=None)
+    res = track_frames_batched(
+        kf, clouds,
+        torch.eye(3, device=dev).expand(total, 3, 3), torch.zeros(3, device=dev).expand(total, 3),
+        cfg,
+    )
     izero = torch.zeros((), dtype=torch.int32, device=dev)
     inactive = TrackResult(
-        R=eye, t=zero, error=torch.full((), float("inf"), device=dev),
-        good=izero, bad=izero, new_kf=torch.zeros((), dtype=torch.bool, device=dev),
+        R=torch.eye(3, device=dev), t=torch.zeros(3, device=dev),
+        error=torch.full((), float("inf"), device=dev), good=izero, bad=izero,
+        new_kf=torch.zeros((), dtype=torch.bool, device=dev),
     )
-    results = []
-    for slot in range(ring.T_w_k.shape[0]):
-        if slot >= ring.n:
-            results.append(inactive)
-            continue
-        results.append(track_frames(ring_keyframe(ring, slot, frame), frame, eye, zero, cfg))
-    return TrackResult(*(torch.stack(field) for field in zip(*results)))
+    out, start = [], 0
+    for r in rings:
+        k = r.T_w_k.shape[0]
+        rows = [lane(res, start + i) for i in range(r.n)] + [inactive] * (k - r.n)
+        out.append(TrackResult(*(torch.stack(field) for field in zip(*rows))))
+        start += r.n
+    return out
+
+
+def track_ring(ring: KeyframeRing, frame: Frame, cfg: SystemConfig) -> TrackResult:
+    """Track ``frame`` from identity against every active ring keyframe in
+    one batch, the frame's clouds shared by the slots (stride 0).  Returns
+    the per-slot results stacked along a leading slot axis, newest first."""
+    return track_rings([ring], [frame], cfg)[0]
 
 
 def select_reloc_candidate(res_all: TrackResult, ring_n: int, cfg: SystemConfig):

@@ -10,7 +10,9 @@ Tolerances: bit-equal for K1/K2 masks (K2 in both its forms), the fused
 Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
 largest entry (reduction order), and bit-identical from run to run (fixed
 order, no atomics); fused K3: good and bad counts equal, floats within 1e-5
-of each output's largest entry, bit-identical from run to run; VOSystem on
+of each output's largest entry, bit-identical from run to run, and over 8
+lanes each lane bit-equal to its one-lane launch; a batched track on the
+card: each lane bit-equal to the lane tracked alone; VOSystem on
 the card: the CPU run's per-frame flags, poses within 1e-4; loop closure on
 the card: the CPU's verdicts, corrected poses within 1e-4; a run resumed on
 the card from a checkpoint or a saved scan state: the continuous run's
@@ -29,11 +31,12 @@ import numpy as np
 import pytest
 import torch
 
-from revo_tpu_torch import frontend, solver
+from revo_tpu_torch import frontend, lanes, solver
 from revo_tpu_torch.config import CameraConfig, SystemConfig
 from revo_tpu_torch.io.synthetic import SyntheticScene, render_frame
 from revo_tpu_torch.ops import canny as K12
 from revo_tpu_torch.ops import lgsx as K3
+from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.filters import _reflect_pad
 
 from _torch_inputs import CAM, make_inputs, make_pose, torch_args
@@ -206,6 +209,84 @@ def test_residual_lgsx_kernel_counts_equal_sums_close_deterministic(cuda, size, 
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
     again = K3.residual_lgsx(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shared_cloud", [True, False])
+@pytest.mark.parametrize("quad_form", ["dt4bf", "dt4"])
+def test_residual_lgsx_batched_lanes_equal_one_lane_launches(cuda, quad_form, shared_cloud):
+    """The fused kernel over 8 lanes (poses cycling identity / tracked /
+    out, a table per lane, one cloud shared by stride 0 or one per lane):
+    each lane bit-equal to its B = 1 launch, counts equal to the plain
+    version, floats within 1e-5 of the largest entry; lanes left out by
+    ``active`` keep their rows; a second launch gives the same bits."""
+    b, p = 8, 4864
+    kinds = ("identity", "tracked", "out")
+    tables = [make_inputs(seed, p, quad_form)[0] for seed in range(b)]
+    clouds = [make_inputs(10 + seed, p, quad_form)[1:] for seed in range(b)]
+    dtype = torch.bfloat16 if quad_form == "dt4bf" else torch.float32
+    quad = torch.from_numpy(np.stack(tables)).to(dtype).to(cuda)
+    if shared_cloud:
+        pts, valid = (torch.from_numpy(x).to(cuda) for x in clouds[0])
+        cloud = EdgeCloud(pts[None].expand(b, p, 3), valid[None].expand(b, p), None)
+    else:
+        cloud = EdgeCloud(torch.from_numpy(np.stack([c[0] for c in clouds])).to(cuda),
+                             torch.from_numpy(np.stack([c[1] for c in clouds])).to(cuda), None)
+    R = torch.from_numpy(np.stack([make_pose(kinds[i % 3])[0] for i in range(b)])).to(cuda)
+    t = torch.from_numpy(np.stack([make_pose(kinds[i % 3])[1] for i in range(b)])).to(cuda)
+    cam = CameraConfig(**CAM)
+    rest = (6.0, 0.3, True)
+    out = torch.empty((b, 46), device=cuda)
+    before = K3.residual_lgsx.launches
+    got = K3.residual_lgsx_batched(quad, cloud, cam, R, t, *rest, None, out)
+    assert K3.residual_lgsx.launches == before + 1
+    rows = out.clone()
+    want = K3.residual_lgsx_batched_ref(quad, cloud, cam, R, t, *rest)
+    for i in range(b):
+        one = torch.empty((1, 46), device=cuda)
+        lane = EdgeCloud(cloud.points[i:i + 1], cloud.valid[i:i + 1], None)
+        K3.residual_lgsx_batched(quad[i:i + 1], lane, cam, R[i:i + 1], t[i:i + 1], *rest, None,
+                                 one)
+        assert torch.equal(one[0].view(torch.int32), rows[i].view(torch.int32))
+    assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+    assert int(got[5][2]) > int(got[4][2])
+    for a, w in zip(got[:4], want[:4]):
+        a, w = a.cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5 * np.abs(w).max())
+    keep = torch.tensor([i % 2 == 0 for i in range(b)], device=cuda)
+    held = torch.full((b, 46), -7.0, device=cuda)
+    K3.residual_lgsx_batched(quad, cloud, cam, R, t, *rest, keep, held)
+    assert torch.equal(held[keep].view(torch.int32), rows[keep].view(torch.int32))
+    assert bool((held[~keep] == -7.0).all())
+    K3.residual_lgsx_batched(quad, cloud, cam, R, t, *rest, None, out)
+    assert torch.equal(out.view(torch.int32), rows.view(torch.int32))
+
+
+def test_track_frames_batched_on_card_lanes_bit_equal(cuda):
+    """Three 160x120 frames tracked as one batch on the card (LM, lanes
+    from identity and from a perturbed pose): each lane's result bit-equal
+    to the same lane tracked alone on the card."""
+    from revo_tpu_torch import lie, tracker
+
+    cam = CameraConfig(fx=150.0, fy=150.0, cx=80.0, cy=60.0, width=160, height=120)
+    cfg = SystemConfig(camera=cam, pyramid=dataclasses.replace(
+        SystemConfig().pyramid, edge_capacity=(4096, 2048, 1024)))
+    scene = SyntheticScene()
+    traj = scene.trajectory(4, seed=3)
+    rendered = [render_frame(scene, cam, T, seed=3000 + i) for i, T in enumerate(traj)]
+    g = torch.from_numpy(np.stack([x.astype(np.uint8) for x, _ in rendered])).to(cuda)
+    d = torch.from_numpy(np.stack([(y * 5000.0).astype(np.uint16) for _, y in rendered])).to(cuda)
+    kf = frontend.make_keyframe(frontend.build_frame(g[0], d[0], cfg),
+                                torch.eye(4, device=cuda), cfg)
+    frames = frontend.build_frame_batched(g[1:], d[1:], cfg)
+    dR, dt = lie.exp_se3(torch.tensor([0.01, -0.008, 0.006, 0.004, -0.003, 0.005]))
+    R0 = torch.stack([torch.eye(3), torch.eye(3), dR]).to(cuda)
+    t0 = torch.stack([torch.zeros(3), torch.zeros(3), dt]).to(cuda)
+    res = tracker.track_frames_batched(
+        lanes.add_lane_axis(kf._replace(frame=None), 3), frames, R0, t0, cfg)
+    for i in range(3):
+        one = tracker.track_frames(kf, lanes.lane(frames, i), R0[i], t0[i], cfg)
+        for a, b in zip(lanes.lane(res, i), one):
+            assert torch.equal(a.cpu(), b.cpu())
 
 
 def test_build_frame_on_card_matches_cpu(cuda):
