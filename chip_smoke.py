@@ -12,7 +12,8 @@ frame 0's pose with the motion prior poisoned (so the jump gate fires and
 the keyframe ring relocalizes), then the SLAM back end (loop closure over
 four keyframes of a small loop, checkpoint and scan-state resume) and one
 1280x720 frame, whose level 0 is too large for the fused Canny and takes the
-split kernels; then the rest of the SLAM back end: windowed joint BA over six
+cluster Canny (a 5120x2880 image, too large for that too, takes the split
+kernels); then the rest of the SLAM back end: windowed joint BA over six
 pan keyframes and over the loop keyframes with their loop edge, segment-
 parallel tracking of the pan, and a distorted capture of the pan through
 undistortion and PLY export; then the live entry point (the viewer, the
@@ -55,14 +56,19 @@ them.  Phases, one line each:
              versions), ATE against ground truth < 2 mm for both solvers;
 6. times     CUDA-event times per stage and per kernel against its plain
              version at the shape its path gives it (level 0 of a 640x480
-             frame; for K1 and K2 alone level 0 of phase 11's 1280x720
-             frame, K2 in its global-memory form), beside the kernel's bound (bytes
+             frame; for the cluster Canny level 0 of phase 11's 1280x720
+             frame; for K1 and K2 alone phase 11's 5120x2880 image, K2 in
+             its global-memory form), beside the kernel's bound (bytes
              over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
              larger), its device time alone (launches queued behind a spin
              kernel, CUDA events) and the launch floor (K1 on a 16x16
              image), the kernels torch launches per evaluation and per
              tracked frame (torch.profiler, over the chain's first 2
-             frames) beside the hand-written kernels' launch counts, ms
+             frames) beside the hand-written kernels' launch counts; level 0
+             of the 1280x720 frame through the split kernels and through the
+             cluster Canny in turns, and build_frame at 1280x720 both ways,
+             the cluster at 16 and 8 blocks an image,
+             and at 640x480 beside canny_fused (a route no path takes); ms
              per frame of VOSystem and vo_scan, and the seconds each part
              of this phase took;
 7. vo        VOSystem.run on the card over pan + teleport: at least one
@@ -93,10 +99,20 @@ them.  Phases, one line each:
              after 10 frames through save_scan_state / load_scan_state,
              continued with vo_scan_from_state: bit-equal to phase 8's;
 11. large    build_frame of one 1280x720 frame on the card and on the CPU:
-             equal edges and clouds; level 0 takes canny_nms and the
-             global-memory canny_hysteresis, chosen by shape, levels 1-2
-             the fused kernel; then K1 and K2 alone on that level's padded
-             gray and masks, bit-equal to their plain versions;
+             equal edges and clouds; level 0 takes one canny_cluster launch
+             and no split kernel, chosen by shape, levels 1-2 the fused
+             kernel; build_frame_batched of the frame and its mirror image
+             (B = 2): one canny_cluster launch, each lane bit-equal to B = 1;
+             canny_cluster bit-equal to its plain version at 1280x720,
+             1920x1080 and 2560x1440, uint8 and float32, B = 1 and 3, and on
+             gray serpentines where the H+W cap binds, at the cluster size
+             the card picks and at 8 and 16 blocks, a second launch
+             bit-identical; a cluster launch the card refuses raises; K1 and
+             K2 alone on level 0's padded gray and masks; then a 5120x2880
+             image (the frame tiled 4 x 4), above a cluster's shared memory,
+             through canny_batched: canny_nms and the global-memory
+             canny_hysteresis, equal to the plain version, and K1 and K2
+             alone on it bit-equal to theirs;
 12. ba       (a) pan frames 0, 2, .. 10 made keyframes whose stored poses
              are perturbed by exp(N(0, 0.008)) (frame 0 exact: the gauge,
              tests/test_windowed.py:328-370 at full size):
@@ -200,7 +216,8 @@ Launch counts are set to 0 just before each path (phases 5, 7 to 18, each
 form of 17 and each path of 18 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
-alone; K1 and K2 on the 1280x720 frame; the unfused K3 ``lgsx_reduce`` is
+alone; the cluster Canny on the 1280x720 frames; K1 and K2 on the
+5120x2880 image; the unfused K3 ``lgsx_reduce`` is
 the TPU kernel's own contract, which the solver no longer calls, so its
 count is 0 and the kernel JSON lists it under ``kernels_off_path``, as it
 does K2's shared-memory form, whose loop every 640x480 path runs inside
@@ -517,6 +534,21 @@ def serpentine_gray(h: int, w: int, period: int = 8, thick: int = 3):
     return img
 
 
+def blob_gray(h: int, w: int, seed: int):
+    """(h, w) uint8 gray of smooth waves, eight Gaussian blobs and a bright
+    rectangle (tests/test_torch_cuda.py's images): edges of every
+    orientation at any size, made in a second where a render takes many."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = 40.0 + 30.0 * np.sin(xx / 17.0) + 25.0 * np.cos(yy / 23.0)
+    for _ in range(8):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        s, a = rng.uniform(5, 25), rng.uniform(40, 120)
+        img += a * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+    img[int(h * 0.3):int(h * 0.6), int(w * 0.2):int(w * 0.5)] += 60
+    return np.round(np.clip(img, 0, 255)).astype(np.uint8)
+
+
 # tests/test_loopclosure.py:27-52: out, around, and back to ~5 cm from the
 # start; the attached estimates drift by up to 4.5 cm at the loop's end.
 LOOP_XIS = ((0.0, 0.0, 0.0, 0.0, 0.0, 0.0), (0.30, 0.02, 0.03, 0.0, 0.10, 0.0),
@@ -665,7 +697,7 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 # shows launches made through ctypes only now and then, so it counts the
 # kernels torch launches and the wrappers' launch counts count these.
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
-                "lgsx_reduce_kernel", "residual_lgsx_kernel")
+                "canny_cluster_kernel", "lgsx_reduce_kernel", "residual_lgsx_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -922,17 +954,17 @@ def main() -> int:
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
-    counters_ = (K12.canny_fused, K12.canny_nms, K12.canny_hysteresis, K3.lgsx_reduce,
-                 K3.residual_lgsx)
+    counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_nms, K12.canny_hysteresis,
+                 K3.lgsx_reduce, K3.residual_lgsx)
     vga_kernels = ["canny_fused", "residual_lgsx"]  # of every 640x480 path
-    split_kernels = ["canny_nms", "canny_hysteresis"]  # of the 1280x720 frame
+    split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above a cluster's memory
 
     def require_vga(phase, counts, names=vga_kernels):
         """A 640x480 path went through the fused kernels, and through
-        neither K1 nor K2 alone."""
+        neither the cluster Canny nor K1 or K2 alone."""
         _require_launched(phase, counts, names)
-        if any(counts[n] for n in split_kernels):
-            raise RuntimeError(f"{phase}: a 640x480 path launched the split Canny: {counts}")
+        if any(counts[n] for n in split_kernels + ["canny_cluster"]):
+            raise RuntimeError(f"{phase}: a 640x480 path launched another Canny: {counts}")
 
     gpu, launches = _path_launches(counters_, lambda: {
         name: _run_chain(grays, depths, _with_solver(cfg, name), dev)
@@ -1374,7 +1406,7 @@ def main() -> int:
         raise RuntimeError(f"slam: the resumed run promoted no keyframe: {slam_summary}")
     _phase("slam", **slam_summary)
 
-    # -- 11. large: a 1280x720 frame, whose level 0 takes the split kernels -----
+    # -- 11. large: a 1280x720 frame, whose level 0 takes the cluster kernel --
     cam_hd = dataclasses.replace(cam, fx=2 * cam.fx, fy=2 * cam.fy, cx=2 * cam.cx,
                                  cy=1.5 * cam.cy, width=1280, height=720)
     cfg_hd = dataclasses.replace(cfg, camera=cam_hd)
@@ -1387,19 +1419,93 @@ def main() -> int:
         return frontend.build_frame(torch.from_numpy(hd_g).to(device),
                                     torch.from_numpy(hd_d).to(device), cfg_hd)
 
-    if K12.hysteresis_fits_shared(dev, 720, 1280):
-        raise RuntimeError("large: a 1280x720 image should not fit the shared-memory fixpoint")
+    if K12.hysteresis_fits_shared(dev, 720, 1280) or not K12.hysteresis_fits_cluster(dev, 720, 1280):
+        raise RuntimeError("large: a 1280x720 image should take the cluster kernel")
     f_hd, launches = _path_launches(counters_, lambda: build_hd(dev))
-    _require_launched("large", launches, split_kernels + ["canny_fused"])
+    _require_launched("large", launches, ["canny_cluster", "canny_fused"])
+    if launches["canny_cluster"] != 1 or any(launches[n] for n in split_kernels):
+        raise RuntimeError(f"large: level 0 should take one canny_cluster and no split kernel: "
+                           f"{launches}")
     add_launches(launches)
+    large = {"launches": launches}
     f_hd_cpu = build_hd("cpu")
     for a, b in zip(f_hd.levels, f_hd_cpu.levels):
         if not (torch.equal(a.edges.cpu(), b.edges) and torch.equal(a.cloud.valid.cpu(), b.cloud.valid)
                 and int(a.cloud.count) == int(b.cloud.count)
                 and torch.allclose(a.cloud.points.cpu(), b.cloud.points, rtol=1e-6, atol=0)):
             raise RuntimeError("large: the card's 1280x720 frame differs from the CPU's")
-    # K1 and K2 alone on what this path gave them: level 0's padded gray and
-    # its masks, K2 in the global-memory form that the shape selects.
+    # The batched front end at 1280x720: the frame and its mirror image as
+    # two lanes, one canny_cluster launch for both, each lane bit-equal to
+    # the lane built alone.
+    hd_g2, hd_d2 = (torch.from_numpy(np.stack([x, np.ascontiguousarray(x[:, ::-1])])).to(dev)
+                    for x in (hd_g, hd_d))
+    f_hd2, launches = _path_launches(
+        counters_, lambda: frontend.build_frame_batched(hd_g2, hd_d2, cfg_hd))
+    if launches["canny_cluster"] != 1 or any(launches[n] for n in split_kernels):
+        raise RuntimeError(f"large: B = 2 should take one canny_cluster launch: {launches}")
+    add_launches(launches)
+    for i in range(2):
+        alone = frontend.build_frame(hd_g2[i], hd_d2[i], cfg_hd)
+        la, lb = _tensor_leaves(lane_tree.lane(f_hd2, i)), _tensor_leaves(alone)
+        if len(la) != len(lb) or not all(_bit_equal(x, y) for x, y in zip(la, lb)):
+            raise RuntimeError(f"large: lane {i} of the B = 2 front end differs from B = 1")
+    large["batched_launches"] = launches
+    # canny_cluster against its plain version: level 0 of the frame (as the
+    # path gives it, uint8, and as float32), B = 3 with its mirror and a
+    # blob image, blob images at 1920x1080 and 2560x1440, gray serpentines
+    # where the H+W cap binds; at the cluster size the card picks and at 8
+    # and 16 blocks; a second launch bit-identical.
+    gray_hd = hd_g2[:1].contiguous()
+    if not torch.equal(gray_hd[0].float(), f_hd.levels[0].gray):
+        raise RuntimeError("large: level 0 is not the sensor's uint8 gray")
+    cluster_px = {"cases": 0, "differing": 0, "edge_pixels": 0}
+
+    def cluster_diff(gray, low, high, what):
+        want = K12.canny_fused_ref(gray, low, high)
+        for ranks in (None, 8, 16):
+            got = K12.canny_cluster(gray, low, high, _ranks=ranks)
+            again = K12.canny_cluster(gray, low, high, _ranks=ranks)
+            n = int((got != want).sum())
+            cluster_px["cases"] += 1
+            cluster_px["differing"] += n
+            if n or not torch.equal(got, again):
+                raise RuntimeError(f"canny_cluster ({ranks} blocks) differs from plain on {what}: "
+                                   f"{n} pixels, second launch equal: {torch.equal(got, again)}")
+        cluster_px["edge_pixels"] += int(want.sum())
+        return int(want.sum())
+
+    blob = {hw: torch.from_numpy(np.stack([blob_gray(*hw, s) for s in range(3)])).to(dev)
+            for hw in ((720, 1280), (1080, 1920), (1440, 2560))}
+    hd3 = torch.cat([hd_g2, blob[(720, 1280)][:1]])
+    for what, gray in (("1280x720 level 0", gray_hd), ("1280x720 B=3", hd3),
+                       ("1920x1080 B=1", blob[(1080, 1920)][:1]),
+                       ("1920x1080 B=3", blob[(1080, 1920)]),
+                       ("2560x1440 B=1", blob[(1440, 2560)][:1]),
+                       ("2560x1440 B=3", blob[(1440, 2560)])):
+        for g_ in (gray, gray.float()):
+            cluster_diff(g_, t_lo, t_hi, f"{what} {g_.dtype}")
+    for shape in ((720, 1280), (1080, 1920), (1440, 2560)):  # the cap binds
+        gray = torch.from_numpy(serpentine_gray(*shape))[None].to(dev)
+        cand = K12.canny_nms_ref(_reflect_pad(gray.float(), 1, 1), 40.0 ** 2, 150.0 ** 2)[0]
+        for g_ in (gray, gray.float()):
+            reached = cluster_diff(g_, 40.0, 150.0, f"serpentine {shape} {g_.dtype}")
+        if not 0 < reached < int(cand.sum()):
+            raise RuntimeError(f"canny_cluster: the cap does not bind on the {shape} serpentine")
+    cluster_err = float(min(cluster_px["differing"], 1))  # max |kernel - plain| of 0/1 masks
+    large["canny_cluster_check"] = cluster_px
+    # A launch the card refuses raises: 17 blocks, above Hopper's largest
+    # cluster, and 16 blocks whose bands exceed a block's shared memory.
+    big = torch.from_numpy(np.tile(hd_g, (4, 4)))[None].to(dev)  # 5120x2880: the frame 4 x 4
+    large["refused_launches"] = []
+    for what, gray, ranks in (("17 blocks", gray_hd, 17), ("5120x2880", big, 16)):
+        try:
+            K12.canny_cluster(gray, t_lo, t_hi, _ranks=ranks)
+        except RuntimeError as err:
+            large["refused_launches"].append(f"{what}: {err}")
+        else:
+            raise RuntimeError(f"canny_cluster: a launch of {what} did not raise")
+    # K1 and K2 alone on level 0's padded gray and masks, as before the
+    # cluster kernel took this shape.
     gp_hd = _reflect_pad(f_hd.levels[0].gray.float()[None], 1, 1).contiguous()
     c_hd, s_hd = K12.canny_nms_ref(gp_hd, lo, hi)
     r_hd, hd_trips = K12.hysteresis_steps_ref(c_hd, s_hd)
@@ -1409,10 +1515,35 @@ def main() -> int:
     if nms_hd_diff or hys_hd_diff or not torch.equal(r_hd[0], f_hd.levels[0].edges_orig):
         raise RuntimeError(f"large: K1/K2 differ from plain at 1280x720: {nms_hd_diff} NMS, "
                            f"{hys_hd_diff} hysteresis pixels")
-    nms_hd_err, hys_hd_err = float(min(nms_hd_diff, 1)), float(min(hys_hd_diff, 1))
+    # An image above a cluster's shared memory (5120x2880): canny_batched
+    # takes the split kernels, the path that keeps them; then K1 and K2
+    # alone on its padded gray and masks.
+    if K12.hysteresis_fits_cluster(dev, *big.shape[1:]):
+        raise RuntimeError("large: a 5120x2880 image should exceed a cluster's shared memory")
+    e_big, launches = _path_launches(counters_, lambda: K12.canny_batched(
+        big, pyr.canny_threshold1, pyr.canny_threshold2))
+    _require_launched("large", launches, split_kernels)
+    if launches["canny_cluster"] or launches["canny_fused"]:
+        raise RuntimeError(f"large: the 5120x2880 image should take the split kernels: {launches}")
+    add_launches(launches)
+    large["above_cluster_launches"] = launches
+    gp_big = _reflect_pad(big.float(), 1, 1).contiguous()
+    c_big, s_big = K12.canny_nms_ref(gp_big, lo, hi)
+    r_big, big_trips = K12.hysteresis_steps_ref(c_big, s_big)
+    c_k, s_k = K12.canny_nms(gp_big, lo, hi)
+    nms_big_diff = int((c_k != c_big).sum() + (s_k != s_big).sum())
+    hys_big_diff = int((K12.canny_hysteresis(c_big, s_big) != r_big).sum())
+    if nms_big_diff or hys_big_diff or not torch.equal(e_big, r_big):
+        raise RuntimeError(f"large: K1/K2 differ from plain at 5120x2880: {nms_big_diff} NMS, "
+                           f"{hys_big_diff} hysteresis pixels")
+    nms_big_err = float(min(nms_big_diff + nms_hd_diff, 1))
+    hys_big_err = float(min(hys_big_diff + hys_hd_diff, 1))
     _phase("large", shape=[720, 1280], edge_pixels=[int(lv.edges.sum()) for lv in f_hd.levels],
-           cloud_counts=[int(lv.cloud.count) for lv in f_hd.levels], launches=launches,
-           k1_differing_pixels=nms_hd_diff, k2_global_differing_pixels=hys_hd_diff)
+           cloud_counts=[int(lv.cloud.count) for lv in f_hd.levels],
+           cluster_ranks=K12._cluster_ranks(dev, 720, 1280),
+           k1_differing_pixels=nms_hd_diff + nms_big_diff,
+           k2_global_differing_pixels=hys_hd_diff + hys_big_diff,
+           above_cluster_shape=list(big.shape[1:]), **large)
 
     # -- 12. ba: windowed joint BA over pan keyframes and over the loop --------
     import collections
@@ -2453,6 +2584,7 @@ def main() -> int:
 
     k2_steps = steps_needed(K12.hysteresis_steps_ref(c0, s0)[1], c0)
     k2_steps_hd, n_pix_hd = steps_needed(hd_trips, c_hd), c_hd.numel()
+    k2_steps_big, n_pix_big = steps_needed(big_trips, c_big), c_big.numel()
     fused0 = (kf_lm.quads[0], frames_lm[-1].levels[0].cloud, cams[0],
               results_lm[-1].R, results_lm[-1].t,
               opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter)
@@ -2483,16 +2615,24 @@ def main() -> int:
          lambda: K12.canny_fused_ref(gray0, t_lo, t_hi), canny_fused_err,
          _bound(_nbytes(gray0) + n_pix,
                 K1_OPS_PER_PIXEL * n_pix + K2_OPS_PER_WORD_STEP * (n_pix / 32) * k2_steps)),
-        # K1 and K2 alone at the one shape a path gives them: level 0 of the
-        # 1280x720 frame, K2 in its global-memory form.
+        # The cluster Canny at what the 1280x720 path gives it at level 0:
+        # the sensor's uint8 gray, unpadded; bound as canny_fused's.
+        ("canny_cluster", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
+         lambda: K12.canny_cluster(gray_hd, t_lo, t_hi),
+         lambda: K12.canny_fused_ref(gray_hd, t_lo, t_hi), cluster_err,
+         _bound(_nbytes(gray_hd) + n_pix_hd,
+                K1_OPS_PER_PIXEL * n_pix_hd + K2_OPS_PER_WORD_STEP * (n_pix_hd / 32) * k2_steps_hd)),
+        # K1 and K2 alone at the one shape a path gives them: phase 11's
+        # 5120x2880 image, above a cluster's shared memory, K2 in its
+        # global-memory form.
         ("canny_nms", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:148",
-         lambda: K12.canny_nms(gp_hd, lo, hi),
-         lambda: K12.canny_nms_ref(gp_hd, lo, hi), nms_hd_err,
-         _bound(_nbytes(gp_hd) + 2 * n_pix_hd, K1_OPS_PER_PIXEL * n_pix_hd)),
+         lambda: K12.canny_nms(gp_big, lo, hi),
+         lambda: K12.canny_nms_ref(gp_big, lo, hi), nms_big_err,
+         _bound(_nbytes(gp_big) + 2 * n_pix_big, K1_OPS_PER_PIXEL * n_pix_big)),
         ("canny_hysteresis", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
-         lambda: K12.canny_hysteresis(c_hd, s_hd),
-         lambda: K12.hysteresis_ref(c_hd, s_hd), hys_hd_err,
-         _bound(3 * n_pix_hd, K2_OPS_PER_WORD_STEP * (n_pix_hd / 32) * k2_steps_hd)),
+         lambda: K12.canny_hysteresis(c_big, s_big),
+         lambda: K12.hysteresis_ref(c_big, s_big), hys_big_err,
+         _bound(3 * n_pix_big, K2_OPS_PER_WORD_STEP * (n_pix_big / 32) * k2_steps_big)),
         # K2's shared-memory form at 640x480: launched by no path (such
         # images take canny_fused, which runs the same loop), listed apart.
         ("canny_hysteresis_shared", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
@@ -2568,6 +2708,49 @@ def main() -> int:
         _time_ms(lambda: K12.canny_hysteresis(c0, s0, _form="global"), 50) for _ in range(2))
     part_done("canny_level0")
 
+    # Level 0 of the 1280x720 frame as it ran before the cluster kernel
+    # (pad, K1, K2's global form) and as the cluster kernel runs it, in
+    # turns; the cluster kernel at 16 and at 8 blocks an image; and at
+    # 640x480 level 0 beside canny_fused, a route no path takes.
+    def canny_split_hd():
+        gp = _reflect_pad(gray_hd.to(torch.float32), 1, 1).contiguous()
+        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi))
+
+    def cluster_hd(ranks=None):
+        return lambda: K12.canny_cluster(gray_hd, t_lo, t_hi, _ranks=ranks)
+
+    canny_hd = {"ranks": K12._cluster_ranks(dev, 720, 1280), "split_ms": [], "cluster_ms": []}
+    for key, fn in (("split_ms", canny_split_hd), ("cluster_ms", cluster_hd()),
+                    ("cluster_ms", cluster_hd()), ("split_ms", canny_split_hd)):
+        canny_hd[key].append(_time_ms(fn, 20))
+    canny_hd["split_device_ms"] = _queued_ms(canny_split_hd, 10)
+    canny_hd["by_ranks"] = [  # in turns: 16, 8, 8, 16 blocks an image
+        {"ranks": r, "ms": _time_ms(cluster_hd(r), 50), "device_ms": _queued_ms(cluster_hd(r))}
+        for r in (16, 8, 8, 16)]
+    canny_hd["f32_device_ms"] = _queued_ms(
+        lambda: K12.canny_cluster(gray_hd.float(), t_lo, t_hi))
+    canny_hd["640x480"] = {"ranks": K12._cluster_ranks(dev, 480, 640)}
+    for key, fn in (("fused", kern[0][3]), ("cluster", lambda: K12.canny_cluster(gray0, t_lo, t_hi)),
+                    ("cluster", lambda: K12.canny_cluster(gray0, t_lo, t_hi)),
+                    ("fused", kern[0][3])):
+        canny_hd["640x480"].setdefault(f"{key}_device_ms", []).append(_queued_ms(fn))
+    if not torch.equal(K12.canny_cluster(gray0, t_lo, t_hi), kern[0][4]()):
+        raise RuntimeError("times: canny_cluster differs from plain at 640x480")
+
+    def build_hd_split():  # build_frame at 1280x720 routed as before the cluster kernel
+        fits = K12.hysteresis_fits_cluster
+        K12.hysteresis_fits_cluster = lambda *_: False
+        try:
+            return build_hd(dev)
+        finally:
+            K12.hysteresis_fits_cluster = fits
+
+    canny_hd["build_frame_ms"] = {"split": [], "cluster": []}
+    for key, fn in (("split", build_hd_split), ("cluster", lambda: build_hd(dev)),
+                    ("cluster", lambda: build_hd(dev)), ("split", build_hd_split)):
+        canny_hd["build_frame_ms"][key].append(_time_ms(fn, 10))
+    part_done("canny_1280x720")
+
     def kernels_of(fn):
         before = K3.residual_lgsx.launches
         fn()
@@ -2587,14 +2770,15 @@ def main() -> int:
            bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},
            device_ms={r["name"]: r["device_ms"] for r in rows},
            launch_floor_ms=launch_floor_ms, canny_hysteresis_global_ms=k2_global_ms,
-           canny_level0=canny_ab,
-           k2_steps=k2_steps, k2_steps_1280x720=k2_steps_hd, kernels_per_evaluation=eval_kernels,
+           canny_level0=canny_ab, canny_1280x720=canny_hd,
+           k2_steps=k2_steps, k2_steps_1280x720=k2_steps_hd,
+           k2_steps_5120x2880=k2_steps_big, kernels_per_evaluation=eval_kernels,
            launches_per_pan_frame={k: v / (N_PAN + 1) for k, v in vo_summary["launches"].items()})
 
     # "kernels": those of the paths, each launched there; the unfused K3 is
     # held against its plain version and timed like them, but no path
     # launches it any more, so it is listed apart.
-    on_path = vga_kernels + split_kernels
+    on_path = vga_kernels + ["canny_cluster"] + split_kernels
     if any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]:
         raise RuntimeError(f"launch totals do not match the paths: {launch_total}")
     print(json.dumps({"kernels": [r for r in rows if r["name"] in on_path],

@@ -1,5 +1,6 @@
 // Canny on Hopper: K1 (Sobel + NMS + double threshold) and K2 (hysteresis,
-// on bit-packed masks in shared memory and on byte masks in global memory).
+// on bit-packed masks in shared memory, in one block or across a cluster,
+// and on byte masks in global memory).
 //
 // K1 `revo_canny_nms` replaces the Pallas kernels of
 // revo_tpu/ops/pallas/canny_kernel.py (`_nms_core` run by `_canny_single` /
@@ -64,6 +65,28 @@
 // whole 16-byte chunks a thread dilates 16 pixels per step with word-wide
 // ORs and shifts).  It takes the images whose three packed masks exceed a
 // block's shared memory; the caller chooses by shape before the launch.
+//
+// `revo_canny_cluster` is K1 and K2 in one launch for images whose three
+// packed masks exceed one block's shared memory (above 1024x576): the
+// counterpart of `_canny_single` at those sizes, and of `_nms_batched` +
+// `_run_batched` (hysteresis.py) where JAX batches them.  It spreads one
+// image over a thread-block cluster of R = 16 or 8 blocks on neighbouring
+// SMs, whose shared memory the others can read (DSMEM): rank r owns a band
+// of ceil(H / R) rows.  It classifies its band from the unpadded gray
+// (REFLECT_101 on the index, K1's arithmetic in 256x16 tiles, 4 pixels a
+// thread) and stores each warp's two ballots straight into its own packed
+// `cand` and state words, so no mask leaves the cluster before the edges.
+// Then it runs K2's synchronous steps on its band in ping-pong word
+// buffers: each step reads the row above and the row below its band from
+// the neighbouring ranks' source buffer, and one cluster barrier a step
+// orders the step's writes before the next step's reads; whether any block
+// grew is ORed into a slot of every rank, so each reads the verdict from its
+// own shared memory.  Trips, early stop and cap are hysteresis_fixpoint's.
+// Bound on the H100: as K2, the serial chain of steps, now of one cluster
+// barrier and a 1/R band each; bytes are the gray image read once and the
+// bool edges written once.  With R = 16 a band of 3840x2160 needs 196 KB of
+// a block's 227 KB.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,31 +127,27 @@ struct ReflectGray {
   }
 };
 
-// K1 on one TX x TYT tile at (y0, x0) by TX * TYT threads: stage the gray
-// tile plus a 2-pixel halo in g_s ((TYT + 4) x GS_W), the magnitudes of the
-// tile plus a 1-pixel ring in m_s ((TYT + 2) x MS_W), then thread `tid`
-// classifies pixel (y0 + tid / TX, x0 + tid % TX): false, false outside the
-// image.
-template <int TYT, typename Gray>
-__device__ __forceinline__ void nms_tile(float* g_s, float* m_s, const Gray& gray,
-                                         int x0, int y0, int H, int W,
-                                         float low_sq, float high_sq, int tid,
-                                         bool& cand, bool& strong) {
-  constexpr int NT = TX * TYT;
+// K1's staging on one TXT x TYT tile at (y0, x0) by NT threads: the gray
+// tile plus a 2-pixel halo in g_s ((TYT + 4) x (TXT + 4)), then the
+// magnitudes of the tile plus a 1-pixel ring in m_s ((TYT + 2) x (TXT + 2)).
+// Every thread of the block calls it; it ends on a barrier.
+template <int TXT, int TYT, int NT, typename Gray>
+__device__ __forceinline__ void stage_tile(float* g_s, float* m_s, const Gray& gray,
+                                           int x0, int y0, int H, int W, int tid) {
+  constexpr int gw = TXT + 4, mw = TXT + 2;
   // g_s[i][j] = gray(y0 - 2 + i, x0 - 2 + j); entries beyond the one-pixel
   // border only feed magnitudes outside the image, which are forced to 0.
-  for (int k = tid; k < (TYT + 4) * GS_W; k += NT) {
-    const int i = k / GS_W, j = k % GS_W;
+  for (int k = tid; k < (TYT + 4) * gw; k += NT) {
+    const int i = k / gw, j = k % gw;
     g_s[k] = gray(y0 - 2 + i, x0 - 2 + j);
   }
   __syncthreads();
 
-#define G(i, j) g_s[(i) * GS_W + (j)]
-#define M(i, j) m_s[(i) * MS_W + (j)]
-  // M(i, j) = magnitude of image pixel (y0 - 1 + i, x0 - 1 + j), whose
+#define G(i, j) g_s[(i) * gw + (j)]
+  // m_s[i][j] = magnitude of image pixel (y0 - 1 + i, x0 - 1 + j), whose
   // Sobel window is g_s rows i..i+2, cols j..j+2.
-  for (int k = tid; k < (TYT + 2) * MS_W; k += NT) {
-    const int i = k / MS_W, j = k % MS_W;
+  for (int k = tid; k < (TYT + 2) * mw; k += NT) {
+    const int i = k / mw, j = k % mw;
     const int y = y0 - 1 + i, x = x0 - 1 + j;
     float m = 0.0f;
     if (y >= 0 && y < H && x >= 0 && x < W) {
@@ -140,12 +159,20 @@ __device__ __forceinline__ void nms_tile(float* g_s, float* m_s, const Gray& gra
     }
     m_s[k] = m;
   }
+#undef G
   __syncthreads();
+}
 
-  cand = strong = false;
-  const int x = x0 + tid % TX, y = y0 + tid / TX;
-  if (x >= W || y >= H) return;
-  const int i = tid / TX + 1, j = tid % TX + 1;  // m_s coordinates
+// K1's classification of the staged pixel at m_s coordinates (i, j), i.e.
+// tile row i - 1 and column j - 1 (the caller keeps it inside the image).
+template <int TXT>
+__device__ __forceinline__ void classify_pixel(const float* g_s, const float* m_s,
+                                               int i, int j, float low_sq,
+                                               float high_sq, bool& cand,
+                                               bool& strong) {
+  constexpr int gw = TXT + 4, mw = TXT + 2;
+#define G(i, j) g_s[(i) * gw + (j)]
+#define M(i, j) m_s[(i) * mw + (j)]
   // g_s window of this pixel: rows i..i+2, cols j..j+2.
   const float gxv = (G(i, j + 2) + 2.0f * G(i + 1, j + 2) + G(i + 2, j + 2)) -
                     (G(i, j) + 2.0f * G(i + 1, j) + G(i + 2, j));
@@ -167,6 +194,21 @@ __device__ __forceinline__ void nms_tile(float* g_s, float* m_s, const Gray& gra
 #undef M
   cand = keep && (m > low_sq);
   strong = cand && (m > high_sq);
+}
+
+// K1 on one TX x TYT tile at (y0, x0) by TX * TYT threads: stage it, then
+// thread `tid` classifies pixel (y0 + tid / TX, x0 + tid % TX): false,
+// false outside the image.
+template <int TYT, typename Gray>
+__device__ __forceinline__ void nms_tile(float* g_s, float* m_s, const Gray& gray,
+                                         int x0, int y0, int H, int W,
+                                         float low_sq, float high_sq, int tid,
+                                         bool& cand, bool& strong) {
+  stage_tile<TX, TYT, TX * TYT>(g_s, m_s, gray, x0, y0, H, W, tid);
+  cand = strong = false;
+  const int x = x0 + tid % TX, y = y0 + tid / TX;
+  if (x >= W || y >= H) return;
+  classify_pixel<TX>(g_s, m_s, tid / TX + 1, tid % TX + 1, low_sq, high_sq, cand, strong);
 }
 
 // gp: (B, H+2, W+2) REFLECT_101-padded gray.
@@ -364,9 +406,12 @@ __device__ __forceinline__ uint32_t dilate_row(const uint32_t* s, int y, int k,
   return centre | centre << 1 | centre >> 1 | left | right;
 }
 
-// One synchronous step src -> dst on packed words.  A work item is `run`
-// consecutive rows of one word column; items are numbered column-fastest,
-// so a warp reads neighbouring words.  Returns whether this thread grew.
+// One synchronous step src -> dst on packed words of H rows.  A work item
+// is `run` consecutive rows of one word column; items are numbered
+// column-fastest, so a warp reads neighbouring words.  Rows -1 and H are 0;
+// with HALO they are read from src instead (a band's neighbouring rows,
+// which the caller has placed there).  Returns whether this thread grew.
+template <bool HALO>
 __device__ __forceinline__ bool dilate_step_bits(const uint32_t* c,
                                                  const uint32_t* src,
                                                  uint32_t* dst, int H, int wpr,
@@ -377,11 +422,13 @@ __device__ __forceinline__ bool dilate_step_bits(const uint32_t* c,
     const int k = item % wpr;
     const int y0 = (item / wpr) * run, y1 = min(y0 + run, H);
     uint32_t c_cur = src[y0 * wpr + k];
-    uint32_t h_prev = y0 > 0 ? dilate_row(src, y0 - 1, k, wpr, src[(y0 - 1) * wpr + k]) : 0u;
+    uint32_t h_prev = (HALO || y0 > 0)
+                          ? dilate_row(src, y0 - 1, k, wpr, src[(y0 - 1) * wpr + k])
+                          : 0u;
     uint32_t h_cur = dilate_row(src, y0, k, wpr, c_cur);
     for (int y = y0; y < y1; ++y) {
       uint32_t c_next = 0u, h_next = 0u;
-      if (y + 1 < H) {
+      if (HALO || y + 1 < H) {
         c_next = src[(y + 1) * wpr + k];
         h_next = dilate_row(src, y + 1, k, wpr, c_next);
       }
@@ -411,7 +458,8 @@ __device__ __forceinline__ const uint32_t* hysteresis_fixpoint(
   while (trip_grew && it < max_iters) {
     trip_grew = false;
     for (int s = 0; s < UNROLL; ++s) {
-      const bool grew = dilate_step_bits(c, bufs[cur], bufs[cur ^ 1], H, wpr, run);
+      const bool grew =
+          dilate_step_bits<false>(c, bufs[cur], bufs[cur ^ 1], H, wpr, run);
       cur ^= 1;
       // Also orders this step's writes before the next step's reads.
       if (!__syncthreads_or(grew)) break;
@@ -529,6 +577,185 @@ static int launch_canny_fused(const T* gray, uint32_t* words,
   return (int)cudaGetLastError();
 }
 
+// -- K1 + K2 across a thread-block cluster ----------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int CL_TX = 256, CL_TY = 16;  // K1 tile of the cluster kernel
+constexpr int CL_PIX = CL_TX * CL_TY / HYST_THREADS;  // pixels a thread classifies per tile
+constexpr size_t CLUSTER_TILE_BYTES =
+    ((CL_TY + 4) * (CL_TX + 4) + (CL_TY + 2) * (CL_TX + 2)) * sizeof(float);
+constexpr int MAX_CLUSTER = 16;  // Hopper's largest cluster (non-portable above 8)
+
+// Dynamic shared memory of one rank of an R-block cluster on an H x W image:
+// `cand` of its band (rb = ceil(H / R) rows of ceil(W / 32) words), state
+// buffer 0 with a halo row above and below, and state buffer 1 likewise,
+// which K1's tile overlays while buffer 1 is not yet in use.
+static size_t cluster_smem_bytes(int H, int W, int R) {
+  const size_t wpr = (W + 31) / 32, rb = (H + R - 1) / R;
+  const size_t buf = (rb + 2) * wpr * sizeof(uint32_t);
+  return rb * wpr * sizeof(uint32_t) + buf + (buf > CLUSTER_TILE_BYTES ? buf : CLUSTER_TILE_BYTES);
+}
+
+// gray: (B, H, W) unpadded; out: (B, H, W) 0/1 bytes.  Grid (R, 1, B) in
+// clusters of (R, 1, 1): one cluster an image, HYST_THREADS threads a
+// block.  Rank r owns rows [r rb, min((r + 1) rb, H)) (empty for the last
+// ranks when R rb > H + rb - 1).
+template <typename T>
+__global__ void __launch_bounds__(HYST_THREADS)
+canny_cluster_kernel(const T* __restrict__ gray, uint8_t* __restrict__ out, int H,
+                     int W, float low_sq, float high_sq, int max_iters) {
+  extern __shared__ uint32_t cl_smem[];
+  __shared__ uint32_t grew_slot[3];  // step s ORs into slot s % 3 of every rank
+  cg::cluster_group cluster = cg::this_cluster();
+  const int R = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int wpr = (W + 31) / 32, rb = (H + R - 1) / R;
+  const int y0 = min(r * rb, H), y1 = min(y0 + rb, H), n = y1 - y0;
+  uint32_t* cw = cl_smem;  // cand, band row i at cw[i * wpr]
+  // Band row i of buffer j at bufs[j][i * wpr], i = -1 and n the halo rows.
+  uint32_t* bufs[2] = {cl_smem + (rb + 1) * wpr, cl_smem + (2 * rb + 3) * wpr};
+  float* g_s = reinterpret_cast<float*>(bufs[1] - wpr);  // K1's tile, over buffer 1
+  float* m_s = g_s + (CL_TY + 4) * (CL_TX + 4);
+
+  // K1 on the band: CL_TX x CL_TY tiles, CL_PIX pixels a thread.  A warp
+  // classifies 32 pixels of one row, so its two ballots are that row's
+  // words of cand and strong; tile rows that run past the band store nothing
+  // there, and threads past the right edge vote 0.
+  const ReflectGray<T> img{gray + (size_t)b * H * W, H, W};
+  for (int ty = y0; ty < y1; ty += CL_TY) {
+    for (int tx = 0; tx < W; tx += CL_TX) {
+      stage_tile<CL_TX, CL_TY, HYST_THREADS>(g_s, m_s, img, tx, ty, H, W, tid);
+#pragma unroll
+      for (int q = 0; q < CL_PIX; ++q) {
+        const int p = tid + q * HYST_THREADS;
+        const int i = p / CL_TX, j = p % CL_TX;
+        const int y = ty + i, x = tx + j;
+        bool c = false, s = false;
+        if (y < H && x < W)
+          classify_pixel<CL_TX>(g_s, m_s, i + 1, j + 1, low_sq, high_sq, c, s);
+        const uint32_t cbits = __ballot_sync(0xffffffffu, c);
+        const uint32_t sbits = __ballot_sync(0xffffffffu, s);
+        const int k = (tx + j) >> 5;
+        if ((tid & 31) == 0 && y < y1 && k < wpr) {
+          cw[(y - y0) * wpr + k] = cbits;
+          bufs[0][(y - y0) * wpr + k] = sbits;
+        }
+      }
+      __syncthreads();  // the tile is read before the next one is staged
+    }
+  }
+  // Halo rows start at 0: at the image's top and bottom edges they stay so.
+  for (int k = tid; k < wpr; k += HYST_THREADS) {
+    bufs[0][k - wpr] = bufs[1][k - wpr] = 0u;
+    bufs[0][n * wpr + k] = bufs[1][n * wpr + k] = 0u;
+  }
+  if (tid < 3) grew_slot[tid] = 0u;
+  // Every band is classified and every block of the cluster runs before any
+  // reads another's shared memory.
+  cluster.sync();
+
+  // K2: JAX's synchronous steps, one band a rank.  A step first copies the
+  // neighbours' edge rows of the source buffer into this band's halo rows
+  // (DSMEM), dilates the band into the other buffer, ORs whether the block
+  // grew into every rank's slot for this step, and passes one cluster
+  // barrier, which orders this step's writes before the next step's reads.
+  // Slot (step + 1) % 3 is reset during step `step`: its readers passed two
+  // barriers ago and its writers wait for this one.  Trips and cap as
+  // hysteresis_fixpoint.
+  const bool above = n > 0 && r > 0, below = n > 0 && y1 < H;
+  const int run = (n * wpr + HYST_THREADS - 1) / HYST_THREADS;  // rows per work item
+  int cur = 0, step = 0, it = 0;
+  bool trip_grew = true;
+  while (trip_grew && it < max_iters) {
+    trip_grew = false;
+    for (int s = 0; s < UNROLL; ++s) {
+      uint32_t* src = bufs[cur];
+      for (int q = tid; q < 2 * wpr; q += HYST_THREADS) {
+        const bool up = q < wpr;
+        const int k = up ? q : q - wpr;
+        if (up ? above : below) {
+          const uint32_t* nb = cluster.map_shared_rank(src, r + (up ? -1 : 1));
+          src[(up ? -1 : n) * wpr + k] = nb[(up ? rb - 1 : 0) * wpr + k];
+        }
+      }
+      __syncthreads();
+      const bool grew =
+          n > 0 && dilate_step_bits<true>(cw, src, bufs[cur ^ 1], n, wpr, run);
+      if (tid == 0) grew_slot[(step + 1) % 3] = 0u;
+      if (__syncthreads_or(grew) && tid < R)
+        atomicOr(cluster.map_shared_rank(&grew_slot[step % 3], tid), 1u);
+      cluster.sync();
+      const bool any = *reinterpret_cast<volatile uint32_t*>(&grew_slot[step % 3]) != 0u;
+      ++step;
+      cur ^= 1;
+      if (!any) break;
+      trip_grew = true;
+    }
+    it += UNROLL;
+  }
+
+  uint8_t* o = out + (size_t)b * H * W;
+  const bool vec = (W % 32 == 0) && (reinterpret_cast<uintptr_t>(o) % 16 == 0);
+  for (int q = tid; q < n * wpr; q += HYST_THREADS) {
+    const int i = q / wpr, k = q - i * wpr;
+    unpack_word(bufs[cur][i * wpr + k], o, y0 + i, k, W, vec);
+  }
+  // A block's shared memory must outlive every neighbour's reads of it.
+  cluster.sync();
+}
+
+// Launch configuration of an R-block cluster per image, with the kernel's
+// attributes set for `smem` bytes.
+template <typename T>
+static cudaError_t cluster_config(int R, int B, size_t smem, cudaStream_t stream,
+                                  cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(
+      canny_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && R > 8)
+    err = cudaFuncSetAttribute(canny_cluster_kernel<T>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(R, 1, B);
+  cfg->blockDim = dim3(HYST_THREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = R;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// Clusters of R blocks the device can hold at once (0: none), or an error.
+template <typename T>
+static cudaError_t max_clusters(int R, size_t smem, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<T>(R, 1, smem, 0, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(count, canny_cluster_kernel<T>, &cfg);
+}
+
+template <typename T>
+static int launch_canny_cluster(const T* gray, uint8_t* out, int B, int H, int W,
+                                float low_sq, float high_sq, int max_iters, int R,
+                                cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_config<T>(R, B, cluster_smem_bytes(H, W, R), stream, &cfg, &attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, canny_cluster_kernel<T>, gray, out, H, W, low_sq,
+                             high_sq, max_iters);
+  // Also clears a refusal, so that it is not reported again by the next
+  // launch's cudaGetLastError.
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
 }  // namespace
 
 extern "C" int revo_canny_nms(const float* gp, uint8_t* cand, uint8_t* strong,
@@ -596,4 +823,47 @@ extern "C" int revo_canny_hysteresis_global(const uint8_t* cand,
   canny_hysteresis_global_kernel<<<B, HYST_THREADS, 0, stream>>>(
       cand, strong, out, tmp, H, W, max_iters);
   return (int)cudaGetLastError();
+}
+
+// Blocks per image the cluster kernel takes for an H x W image on the
+// current device: the largest of 16 and 8 whose band fits a block's opt-in
+// shared memory and of which the device can hold a cluster at once, for
+// both gray types; 0 if neither; a CUDA error as its negative.  What
+// decides, with revo_canny_hysteresis_shared_limit, which kernels an image
+// takes.
+extern "C" int revo_canny_cluster_ranks(int H, int W, cudaStream_t) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int choices[2] = {MAX_CLUSTER, 8};
+  for (int R : choices) {
+    const size_t smem = cluster_smem_bytes(H, W, R);
+    if (smem > (size_t)optin) continue;
+    int n_u8 = 0, n_f32 = 0;
+    err = max_clusters<uint8_t>(R, smem, &n_u8);
+    if (err == cudaSuccess) err = max_clusters<float>(R, smem, &n_f32);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch to report
+      return -(int)err;
+    }
+    if (n_u8 > 0 && n_f32 > 0) return R;
+  }
+  return 0;
+}
+
+// K1 + K2 of B images in one launch, an R-block cluster each
+// (revo_canny_cluster_ranks chooses R).  gray is float32, or uint8 with
+// `gray_u8`; H, W >= 2.  A launch the device refuses (a cluster above 16
+// blocks, a band above a block's shared memory) returns its error.
+extern "C" int revo_canny_cluster(const void* gray, int gray_u8, uint8_t* out, int B,
+                                  int H, int W, float low_sq, float high_sq,
+                                  int max_iters, int ranks, cudaStream_t stream) {
+  if (ranks < 1) return (int)cudaErrorInvalidValue;
+  if (gray_u8)
+    return launch_canny_cluster(static_cast<const uint8_t*>(gray), out, B, H, W, low_sq,
+                                high_sq, max_iters, ranks, stream);
+  return launch_canny_cluster(static_cast<const float*>(gray), out, B, H, W, low_sq,
+                              high_sq, max_iters, ranks, stream);
 }

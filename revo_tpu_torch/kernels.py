@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (revo_tpu_torch/csrc/*.cu).
 
 On first use ``library()`` compiles every source in ``csrc/`` with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface and loads it
-with ``ctypes``.  The library lives in ``build/revo_tpu_torch/`` beside the
+for ``sm_90a``, one ``nvcc`` a source, all started together, links the
+objects into one shared library with a plain C interface and loads it with
+``ctypes``.  The library lives in ``build/revo_tpu_torch/`` beside the
 package, named by a hash of the sources and flags, so an unchanged tree
 loads the existing build.  A missing ``nvcc`` or card raises; nothing falls
 back to the CPU.  Nothing is built when this module is imported.
@@ -32,7 +33,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "revo_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # Exported C functions: argument kinds ("p" pointer, "i" int, "f" float);
@@ -43,6 +44,8 @@ SIGNATURES = {
     "revo_canny_hysteresis_global": "ppppiiii",
     "revo_canny_hysteresis_shared_limit": "",
     "revo_canny_fused": "pipppiiiffi",
+    "revo_canny_cluster": "pipiiiffii",
+    "revo_canny_cluster_ranks": "ii",
     "revo_lgsx_reduce": "pppppi",
     "revo_residual_lgsx": "piipipipipipffffiiffiiippp",
 }
@@ -94,14 +97,26 @@ def library() -> KernelLibrary:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [path.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc = _nvcc()
+        try:
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(sources, objs)]
+            said = [proc.communicate()[0] for proc in procs]  # every one has ended
+            for proc, out in zip(procs, said):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
         os.replace(tmp, path)
         built = True
     lib = ctypes.CDLL(str(path))

@@ -13,11 +13,14 @@ Each kernel has a plain PyTorch version beside it (``canny_nms_ref``,
 ``hysteresis_ref``, ``canny_fused_ref``).  A wrapper runs the plain version
 for a tensor on the CPU and the CUDA kernel (revo_tpu_torch/csrc/canny.cu)
 for a tensor on the card; for any other tensor it raises.  ``launches`` on
-each wrapper counts its kernel launches.  ``canny_batched`` takes
-``canny_fused`` for every image whose packed masks fit one block's shared
-memory (``hysteresis_fits_shared``: all pyramid levels of a 640x480 frame)
-and ``canny_nms`` + ``canny_hysteresis`` (its global-memory kernel) for
-larger ones, by shape, before any launch.
+each wrapper counts its kernel launches.  ``canny_batched`` routes each
+image by shape, before any launch (``canny_route`` is the arithmetic):
+``canny_fused`` where the packed masks fit one block's shared memory
+(``hysteresis_fits_shared``: up to 1024x576, all pyramid levels of a
+640x480 frame), ``canny_cluster`` where they fit a thread-block cluster's
+(``hysteresis_fits_cluster``: 1280x720 up to about 9.7 Mpx, 3840x2160
+included), and ``canny_nms`` + ``canny_hysteresis`` (its global-memory
+kernel) above that.
 
 Sector test: the Pallas form ``ay > ax * f32(tan22.5 + 2)`` (the constant
 folded in double, then rounded to f32), where revo_tpu/ops/canny.py writes
@@ -39,6 +42,10 @@ _TAN22 = 0.4142135623730950488  # tan(pi/8)
 _TG22 = float(torch.tensor(_TAN22, dtype=torch.float32))
 _TG67 = float(torch.tensor(_TAN22 + 2.0, dtype=torch.float32))
 _UNROLL = 8  # dilation steps per fixpoint trip (hysteresis.py:27)
+CLUSTER_RANKS = (16, 8)  # blocks per image canny_cluster may take, the largest first
+# K1's tile in canny_cluster (256 x 16 pixels): staged gray with a 2-pixel
+# halo and magnitudes with a 1-pixel ring, float32 (csrc/canny.cu).
+_CLUSTER_TILE_BYTES = ((16 + 4) * (256 + 4) + (16 + 2) * (256 + 2)) * 4
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -163,13 +170,62 @@ def _shared_limit(device: torch.device) -> int:
     return limit
 
 
+def fused_smem_bytes(h: int, w: int) -> int:
+    """Shared memory of the one-block fixpoint on an (h, w) image: cand and
+    the two state masks, one bit a pixel in rows of whole 32-bit words
+    (3 * h * ceil(w / 32) * 4 bytes: 640x480 needs 115200 and 1024x576
+    221184 of an H100's 232448; 1280x720 needs 345600)."""
+    return 3 * h * (-(-w // 32)) * 4
+
+
+def cluster_smem_bytes(h: int, w: int, ranks: int) -> int:
+    """Shared memory of one block of ``canny_cluster`` with ``ranks`` blocks
+    an image: for its band of ceil(h / ranks) rows, cand and two state
+    buffers with a halo row above and below, K1's tile overlaying the
+    second buffer (csrc/canny.cu ``cluster_smem_bytes``)."""
+    wpr, band = -(-w // 32), -(-h // ranks)
+    buf = (band + 2) * wpr * 4
+    return band * wpr * 4 + buf + max(buf, _CLUSTER_TILE_BYTES)
+
+
+def canny_route(h: int, w: int, smem_limit: int) -> str:
+    """Which kernels an (h, w) image takes on a card whose blocks may opt in
+    to ``smem_limit`` bytes of shared memory: "fused" (``canny_fused``),
+    "cluster" (``canny_cluster``, one of ``CLUSTER_RANKS`` blocks an image)
+    or "split" (``canny_nms`` + ``canny_hysteresis``).  The card adds one
+    condition to "cluster": that it can hold a cluster of that many blocks
+    at once (``hysteresis_fits_cluster``)."""
+    if fused_smem_bytes(h, w) <= smem_limit:
+        return "fused"
+    if any(cluster_smem_bytes(h, w, r) <= smem_limit for r in CLUSTER_RANKS):
+        return "cluster"
+    return "split"
+
+
 def hysteresis_fits_shared(device, h: int, w: int) -> bool:
     """Whether an (h, w) image takes K2's shared-memory kernel on
-    ``device``: cand and the two state masks, one bit a pixel in rows of
-    whole 32-bit words, must fit in one block's shared memory
-    (3 * h * ceil(w / 32) * 4 bytes: 640x480 needs 115200 and 1024x576
-    221184 of an H100's 232448; 1280x720 needs 345600 and does not fit)."""
-    return 3 * h * (-(-w // 32)) * 4 <= _shared_limit(torch.device(device))
+    ``device``: ``fused_smem_bytes`` within one block's shared memory."""
+    return fused_smem_bytes(h, w) <= _shared_limit(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_ranks(device: torch.device, h: int, w: int) -> int:
+    """Blocks per image ``canny_cluster`` takes for an (h, w) image on
+    ``device``, as the CUDA runtime admits them (the largest of
+    ``CLUSTER_RANKS`` whose ``cluster_smem_bytes`` fit a block and of which
+    the card holds a whole cluster at once), or 0 where none does."""
+    ranks = kernels.call("revo_canny_cluster_ranks", h, w, device=device)
+    if ranks < 0:
+        raise RuntimeError(f"canny_cluster: CUDA error {-ranks} choosing the cluster size")
+    return ranks
+
+
+def hysteresis_fits_cluster(device, h: int, w: int) -> bool:
+    """Whether an (h, w) image takes ``canny_cluster`` on ``device`` when it
+    does not fit one block (``hysteresis_fits_shared``): its masks spread
+    over a cluster of 16 or 8 blocks fit their shared memory, about 9.7 Mpx
+    on an H100 (3840x2160 needs 196320 bytes a block with 16)."""
+    return _cluster_ranks(torch.device(device), h, w) > 0
 
 
 def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> torch.Tensor:
@@ -180,8 +236,9 @@ def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> to
     memory.  The form follows from the shape and the device alone, before
     the launch, and both give the same bits.  ``canny_batched`` sends every
     image that fits shared memory to ``canny_fused``, which runs the same
-    loop, so it reaches only the global form here; the shared form stays as
-    the contract of the TPU's K2 at those shapes.  ``_form`` ("shared",
+    loop, and every image that fits a cluster to ``canny_cluster``, so it
+    reaches only the global form here, above about 9.7 Mpx; the shared form
+    stays as the contract of the TPU's K2 at those shapes.  ``_form`` ("shared",
     "global") lets a comparison force one; "shared" raises for an image
     that does not fit."""
     if cand.device.type == "cpu":
@@ -235,26 +292,34 @@ def _fused_buffers(device, n_words: int, b: int):
     return words, tickets
 
 
+def _check_gray(gray: torch.Tensor, name: str) -> bool:
+    """Checks of the one-launch kernels' gray; True for a CUDA tensor that
+    goes to the kernel, False for a CPU tensor (the plain version)."""
+    if gray.dim() != 3 or min(gray.shape[-2:]) < 2:
+        raise ValueError(
+            f"{name}: want (B, H, W) with H, W >= 2 (REFLECT_101), got {tuple(gray.shape)}"
+        )
+    if gray.device.type == "cpu":
+        return False
+    if gray.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {gray.device}")
+    if gray.dtype not in (torch.float32, torch.uint8) or not gray.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous float32 or uint8, got {gray.dtype} "
+            f"contiguous={gray.is_contiguous()}"
+        )
+    return True
+
+
 def canny_fused(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
     """K1 + K2 in one launch: (B, H, W) uint8-valued gray, uint8 or float32,
     unpadded -> (B, H, W) bool edges, bit-equal to ``canny_fused_ref``.
     CPU tensor: plain version; CUDA tensor: the kernel, for images that
     ``hysteresis_fits_shared`` admits (others raise: ``canny_batched``
-    routes them to the split kernels).  H and W must be at least 2, as
-    REFLECT_101 needs."""
-    if gray.dim() != 3 or min(gray.shape[-2:]) < 2:
-        raise ValueError(
-            f"canny_fused: want (B, H, W) with H, W >= 2 (REFLECT_101), got {tuple(gray.shape)}"
-        )
-    if gray.device.type == "cpu":
+    routes them to ``canny_cluster`` or the split kernels).  H and W must
+    be at least 2, as REFLECT_101 needs."""
+    if not _check_gray(gray, "canny_fused"):
         return canny_fused_ref(gray, low, high)
-    if gray.device.type != "cuda":
-        raise ValueError(f"canny_fused: unsupported device {gray.device}")
-    if gray.dtype not in (torch.float32, torch.uint8) or not gray.is_contiguous():
-        raise ValueError(
-            f"canny_fused: want contiguous float32 or uint8, got {gray.dtype} "
-            f"contiguous={gray.is_contiguous()}"
-        )
     b, h, w = gray.shape
     if not hysteresis_fits_shared(gray.device, h, w):
         raise ValueError(f"canny_fused: a {h}x{w} image does not fit shared memory")
@@ -272,12 +337,42 @@ def canny_fused(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
 canny_fused.launches = 0
 
 
+def canny_cluster(gray: torch.Tensor, low: float, high: float, _ranks=None) -> torch.Tensor:
+    """K1 + K2 in one launch for images above one block's shared memory:
+    (B, H, W) uint8-valued gray, uint8 or float32, unpadded -> (B, H, W)
+    bool edges, bit-equal to ``canny_fused_ref``.  CPU tensor: plain
+    version; CUDA tensor: the kernel, one thread-block cluster an image,
+    its blocks sharing the masks through distributed shared memory, for
+    images that ``hysteresis_fits_cluster`` admits (others raise).  The
+    cluster size follows from the shape and the card (``_cluster_ranks``);
+    ``_ranks`` (1-16) lets a comparison force one, and a launch the card
+    refuses raises with the CUDA error.  H and W must be at least 2."""
+    if not _check_gray(gray, "canny_cluster"):
+        return canny_fused_ref(gray, low, high)
+    b, h, w = gray.shape
+    ranks = _cluster_ranks(gray.device, h, w) if _ranks is None else int(_ranks)
+    if ranks <= 0:
+        raise ValueError(f"canny_cluster: a {h}x{w} image does not fit a cluster's shared memory")
+    out = torch.empty((b, h, w), dtype=torch.bool, device=gray.device)
+    kernels.launch(
+        "revo_canny_cluster",
+        gray, int(gray.dtype == torch.uint8), out, b, h, w,
+        float(low * low), float(high * high), h + w, ranks,
+    )
+    canny_cluster.launches += 1
+    return out
+
+
+canny_cluster.launches = 0
+
+
 def canny_batched(
     gray: torch.Tensor, threshold1: float = 150.0, threshold2: float = 100.0
 ) -> torch.Tensor:
     """(B, H, W) uint8-valued gray -> (B, H, W) bool edges.  As cv::Canny,
     the smaller threshold is the low (hysteresis) one.  uint8 and float32
-    gray go to the kernel as they are; other types are cast to float32."""
+    gray go to the kernel as they are; other types are cast to float32.  On
+    the card the shape picks the kernels (module docstring)."""
     low = float(min(threshold1, threshold2))
     high = float(max(threshold1, threshold2))
     if gray.dtype not in (torch.float32, torch.uint8):
@@ -285,6 +380,8 @@ def canny_batched(
     gray = gray.contiguous()
     h, w = gray.shape[-2:]
     if gray.device.type == "cuda" and not hysteresis_fits_shared(gray.device, h, w):
+        if hysteresis_fits_cluster(gray.device, h, w):
+            return canny_cluster(gray, low, high)
         gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
         cand, strong = canny_nms(gp, low * low, high * high)
         return canny_hysteresis(cand, strong)

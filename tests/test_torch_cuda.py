@@ -7,7 +7,7 @@ card is:
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: bit-equal for K1/K2 masks (K2 in both its forms), the fused
-Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
+and the cluster Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
 largest entry (reduction order), and bit-identical from run to run (fixed
 order, no atomics); fused K3: good and bad counts equal, floats within 1e-5
 of each output's largest entry, bit-identical from run to run, and over 8
@@ -115,19 +115,101 @@ def test_canny_fused_cap_binds_on_card(cuda, shape):
     assert torch.equal(K12.canny_fused(g.float(), 40.0, 150.0), want)
 
 
+def _canny_counts():
+    return (K12.canny_fused.launches, K12.canny_cluster.launches, K12.canny_nms.launches,
+            K12.canny_hysteresis.launches)
+
+
 def test_canny_large_image_takes_the_split_kernels(cuda):
-    """An image whose packed masks exceed a block's shared memory: chosen by
+    """An image whose packed masks exceed a cluster's shared memory (one
+    row taller than the tallest 3840-wide image 16 blocks hold): chosen by
     shape before any launch, canny_batched runs canny_nms and the
-    global-memory hysteresis, and canny_fused refuses it."""
-    h, w = 720, 1280
+    global-memory hysteresis, and canny_fused and canny_cluster refuse
+    it."""
+    h, w = 2561, 3840
+    assert K12.canny_route(h, w, K12._shared_limit(cuda)) == "split"
     g = torch.from_numpy(_gray(h, w, 3))[None].to(cuda)
-    before = (K12.canny_fused.launches, K12.canny_nms.launches, K12.canny_hysteresis.launches)
+    before = _canny_counts()
     got = K12.canny_batched(g, 150.0, 100.0)
-    assert (K12.canny_fused.launches, K12.canny_nms.launches,
-            K12.canny_hysteresis.launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert _canny_counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
     assert torch.equal(got, K12.canny_fused_ref(g, 100.0, 150.0))
     with pytest.raises(ValueError, match="shared memory"):
         K12.canny_fused(g, 100.0, 150.0)
+    with pytest.raises(ValueError, match="cluster"):
+        K12.canny_cluster(g, 100.0, 150.0)
+
+
+def test_canny_1280x720_takes_the_cluster_kernel(cuda):
+    """A 1280x720 image, above one block's shared memory: canny_batched
+    runs one canny_cluster launch of 16 blocks and nothing else."""
+    g = torch.from_numpy(_gray(720, 1280, 3))[None].to(cuda)
+    assert not K12.hysteresis_fits_shared(cuda, 720, 1280)
+    assert K12.hysteresis_fits_cluster(cuda, 720, 1280) and K12._cluster_ranks(cuda, 720, 1280) == 16
+    before = _canny_counts()
+    got = K12.canny_batched(g, 150.0, 100.0)
+    assert _canny_counts() == (before[0], before[1] + 1, before[2], before[3])
+    assert torch.equal(got, K12.canny_fused_ref(g, 100.0, 150.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(1, 720, 1280), (3, 720, 1280), (1, 1080, 1920),
+                                   (3, 1080, 1920), (1, 1440, 2560)])
+def test_canny_cluster_bit_equal(cuda, shape, dtype):
+    """One cluster launch from unpadded gray, float32 or uint8, at the card's
+    cluster size and at 8 and 16 blocks an image: the plain version's
+    edges, and the same bits from a second launch."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda, dtype)
+    want = K12.canny_fused_ref(imgs, 30.0, 60.0)
+    assert int(want.sum()) > 0
+    for ranks in (None, 8, 16):
+        got = K12.canny_cluster(imgs, 30.0, 60.0, _ranks=ranks)
+        assert got.dtype == torch.bool and torch.equal(got, want)
+        assert torch.equal(K12.canny_cluster(imgs, 30.0, 60.0, _ranks=ranks), got)
+
+
+@pytest.mark.parametrize("shape, ranks", [((2, 29, 70), 16), ((1, 50, 37), 8), ((1, 40, 65), 1),
+                                          ((3, 33, 64), 2), ((1, 721, 1283), 16), ((2, 2, 2), 4)])
+def test_canny_cluster_bands_ragged_and_empty(cuda, shape, ranks):
+    """Bands that do not divide H, ranks whose band is empty, rows that end
+    inside a word, one rank alone: the plain version's edges."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda)
+    for g in (imgs, imgs.to(torch.uint8)):
+        assert torch.equal(K12.canny_cluster(g, 30.0, 60.0, _ranks=ranks),
+                           K12.canny_fused_ref(g, 30.0, 60.0))
+
+
+@pytest.mark.parametrize("shape", [(720, 1280), (1080, 1920), (1440, 2560)])
+def test_canny_cluster_cap_binds_on_card(cuda, shape):
+    """A gray serpentine whose weak contour is longer than H+W from one
+    strong stretch, across every band: the cluster stops where the plain
+    loop's cap stops."""
+    g = torch.from_numpy(serpentine_gray(*shape))[None].to(cuda)
+    want = K12.canny_fused_ref(g, 40.0, 150.0)
+    cand = K12.canny_nms_ref(_reflect_pad(g.float(), 1, 1), 1600.0, 22500.0)[0]
+    assert 0 < int(want.sum()) < int(cand.sum())
+    for ranks in (None, 8):
+        assert torch.equal(K12.canny_cluster(g, 40.0, 150.0, _ranks=ranks), want)
+        assert torch.equal(K12.canny_cluster(g.float(), 40.0, 150.0, _ranks=ranks), want)
+
+
+def test_canny_route_on_card_follows_the_byte_count(cuda):
+    """The card's routing agrees with ``canny_route`` on its shared-memory
+    limit, and a cluster launch the card refuses raises."""
+    limit = K12._shared_limit(cuda)
+    for h, w in ((480, 640), (576, 1024), (720, 1280), (1080, 1920), (2160, 3840),
+                 (2560, 3840), (2561, 3840), (2880, 5120)):
+        route = K12.canny_route(h, w, limit)
+        assert K12.hysteresis_fits_shared(cuda, h, w) == (route == "fused")
+        if route != "fused":
+            assert K12.hysteresis_fits_cluster(cuda, h, w) == (route == "cluster")
+    g = torch.from_numpy(_gray(720, 1280, 1))[None].to(cuda)
+    with pytest.raises(RuntimeError, match="status"):
+        K12.canny_cluster(g, 30.0, 60.0, _ranks=17)  # above Hopper's 16
+    big = torch.zeros((1, 2880, 5120), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="status"):
+        K12.canny_cluster(big, 30.0, 60.0, _ranks=16)  # a band above a block's memory
 
 
 @pytest.mark.parametrize("shape", [(24, 40), (23, 41)])
@@ -296,10 +378,9 @@ def test_build_frame_on_card_matches_cpu(cuda):
     g, d = render_frame(SyntheticScene(), cam, np.eye(4, dtype=np.float32), seed=5)
     g8 = torch.from_numpy(g.astype(np.uint8))
     d16 = torch.from_numpy((d * 5000.0).astype(np.uint16))
-    before = (K12.canny_fused.launches, K12.canny_nms.launches, K12.canny_hysteresis.launches)
+    before = _canny_counts()
     f_card = frontend.build_frame(g8.to(cuda), d16.to(cuda), cfg)
-    assert (K12.canny_fused.launches, K12.canny_nms.launches,
-            K12.canny_hysteresis.launches) == (before[0] + 3, before[1], before[2])
+    assert _canny_counts() == (before[0] + 3, *before[1:])
     f_cpu = frontend.build_frame(g8, d16, cfg)
     for a, b in zip(f_card.levels, f_cpu.levels):
         assert torch.equal(a.edges.cpu(), b.edges)
