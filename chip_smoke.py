@@ -12,8 +12,9 @@ frame 0's pose with the motion prior poisoned (so the jump gate fires and
 the keyframe ring relocalizes), then the SLAM back end (loop closure over
 four keyframes of a small loop, checkpoint and scan-state resume) and one
 1280x720 frame, whose level 0 is too large for the fused Canny and takes the
-cluster Canny (a 5120x2880 image, too large for that too, takes the split
-kernels); then the rest of the SLAM back end: windowed joint BA over six
+cluster Canny (5120x2880 and 7680x4320 images, too large for that too, take
+the grid Canny, one cooperative launch over the whole card; a 12288x8192
+image, too large for that, the split kernels); then the rest of the SLAM back end: windowed joint BA over six
 pan keyframes and over the loop keyframes with their loop edge, segment-
 parallel tracking of the pan, and a distorted capture of the pan through
 undistortion and PLY export; then the live entry point (the viewer, the
@@ -34,10 +35,12 @@ them.  Phases, one line each:
              frames at B=1 and B=8, from float32 and from uint8 gray, at
              ragged widths (37, 65), on three gray serpentines where the H+W
              cap binds, a second launch bit-identical; K1 + K2 alone bit-equal
-             on the same levels, K2 in both its forms (bit-packed
-             in shared memory, and byte masks in
-             global memory), also on a serpentine where the H+W cap binds and
-             at a width that is no multiple of 32; K3 on every level's
+             on the same levels, K2 in all its forms (bit-packed in one
+             block's shared memory; byte masks in global memory in one
+             block; the grid form over every resident block with the packed
+             state in shared and in global memory), also on serpentines
+             where the H+W cap binds, at a width that is no multiple of 32,
+             and with 5 blocks an image in the grid forms; K3 on every level's
              residual inputs at identity and at the tracked pose, within 1e-5
              of the largest entry of each output; fused K3 (residual_lgsx,
              what the solver launches) on 3 levels x {identity, tracked, a
@@ -57,8 +60,9 @@ them.  Phases, one line each:
 6. times     CUDA-event times per stage and per kernel against its plain
              version at the shape its path gives it (level 0 of a 640x480
              frame; for the cluster Canny level 0 of phase 11's 1280x720
-             frame; for K1 and K2 alone phase 11's 5120x2880 image, K2 in
-             its global-memory form), beside the kernel's bound (bytes
+             frame; for the grid Canny phase 11's 5120x2880 image; for K1
+             and K2 alone phase 11's 12288x8192 image, K2 in its grid form
+             with the state in global memory), beside the kernel's bound (bytes
              over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
              larger), its device time alone (launches queued behind a spin
              kernel, CUDA events) and the launch floor (K1 on a 16x16
@@ -68,7 +72,12 @@ them.  Phases, one line each:
              of the 1280x720 frame through the split kernels and through the
              cluster Canny in turns, and build_frame at 1280x720 both ways,
              the cluster at 16 and 8 blocks an image,
-             and at 640x480 beside canny_fused (a route no path takes); ms
+             and at 640x480 beside canny_fused (a route no path takes); the
+             5120x2880 image through the split path as it ran before (pad,
+             K1, the one-block K2) and through canny_grid in turns, the grid
+             at the card's G and at half of it, from float32, at B = 2; K2
+             alone on its masks, the one-block form against both grid
+             forms in turns; ms
              per frame of VOSystem and vo_scan, and the seconds each part
              of this phase took;
 7. vo        VOSystem.run on the card over pan + teleport: at least one
@@ -110,9 +119,17 @@ them.  Phases, one line each:
              bit-identical; a cluster launch the card refuses raises; K1 and
              K2 alone on level 0's padded gray and masks; then a 5120x2880
              image (the frame tiled 4 x 4), above a cluster's shared memory,
-             through canny_batched: canny_nms and the global-memory
-             canny_hysteresis, equal to the plain version, and K1 and K2
-             alone on it bit-equal to theirs;
+             through canny_batched: one canny_grid launch and no other
+             kernel, also for it and its mirror image at B = 2 (each lane
+             bit-equal to B = 1), bit-equal to the plain version from uint8
+             and float32, at the card's G and at half of it, on a gray
+             serpentine where the cap binds, and at 7680x4320 (the frame
+             6 x 6); refused grid launches raise and the next one runs; K2
+             alone on its masks in every form; then a 12288x8192 image (~101
+             Mpx, the frame tiled), above the grid's shared memory, through
+             canny_batched: canny_nms and K2's grid form with the state in
+             global memory, equal to the plain version, and K1 and K2 alone
+             on it bit-equal to theirs;
 12. ba       (a) pan frames 0, 2, .. 10 made keyframes whose stored poses
              are perturbed by exp(N(0, 0.008)) (frame 0 exact: the gauge,
              tests/test_windowed.py:328-370 at full size):
@@ -216,8 +233,8 @@ Launch counts are set to 0 just before each path (phases 5, 7 to 18, each
 form of 17 and each path of 18 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
-alone; the cluster Canny on the 1280x720 frames; K1 and K2 on the
-5120x2880 image; the unfused K3 ``lgsx_reduce`` is
+alone; the cluster Canny on the 1280x720 frames; the grid Canny on the
+5120x2880 and 7680x4320 images; K1 and K2 on the 12288x8192 image; the unfused K3 ``lgsx_reduce`` is
 the TPU kernel's own contract, which the solver no longer calls, so its
 count is 0 and the kernel JSON lists it under ``kernels_off_path``, as it
 does K2's shared-memory form, whose loop every 640x480 path runs inside
@@ -697,7 +714,8 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 # shows launches made through ctypes only now and then, so it counts the
 # kernels torch launches and the wrappers' launch counts count these.
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
-                "canny_cluster_kernel", "lgsx_reduce_kernel", "residual_lgsx_kernel")
+                "canny_cluster_kernel", "canny_grid_kernel", "lgsx_reduce_kernel",
+                "residual_lgsx_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -954,16 +972,17 @@ def main() -> int:
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
-    counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_nms, K12.canny_hysteresis,
-                 K3.lgsx_reduce, K3.residual_lgsx)
+    counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
+                 K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx)
     vga_kernels = ["canny_fused", "residual_lgsx"]  # of every 640x480 path
-    split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above a cluster's memory
+    split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above the grid's memory
+    large_kernels = split_kernels + ["canny_cluster", "canny_grid"]  # no 640x480 path's
 
     def require_vga(phase, counts, names=vga_kernels):
         """A 640x480 path went through the fused kernels, and through
-        neither the cluster Canny nor K1 or K2 alone."""
+        neither the cluster nor the grid Canny nor K1 or K2 alone."""
         _require_launched(phase, counts, names)
-        if any(counts[n] for n in split_kernels + ["canny_cluster"]):
+        if any(counts[n] for n in large_kernels):
             raise RuntimeError(f"{phase}: a 640x480 path launched another Canny: {counts}")
 
     gpu, launches = _path_launches(counters_, lambda: {
@@ -1050,24 +1069,28 @@ def main() -> int:
                 raise RuntimeError(f"K2: level {lvl} does not take the shared-memory form")
             n_diff = int((c_k != c_p).sum() + (s_k != s_p).sum())
             h_diff = sum(int((K12.canny_hysteresis(c_p, s_p, _form=form) != r_p).sum())
-                         for form in (None, "shared", "global"))
+                         for form in (None, *K12.K2_FORMS))
             if n_diff or h_diff:
                 raise RuntimeError(
                     f"K1/K2 differ from plain at level {lvl} B={batch.shape[0]}: "
                     f"{n_diff} NMS, {h_diff} hysteresis pixels"
                 )
             k12_diff = max(k12_diff, n_diff, h_diff)
-    # K2 where the cap binds (the snake is not covered) and on ragged rows.
+    # K2 where the cap binds (the snake is not covered) and on ragged rows;
+    # the grid forms also with 5 blocks an image (bands of 5, 5 and 24 rows).
+    k2_grid_cases = 0
     for shape in ((24, 64), (23, 41), (120, 200)):
         c_p, s_p = (torch.from_numpy(m).to(dev) for m in serpentine(*shape))
         r_p = K12.hysteresis_ref(c_p, s_p)
         if not 0 < int(r_p.sum()) < int(c_p.sum()):
             raise RuntimeError(f"K2: the cap does not bind on the {shape} serpentine")
-        for form in ("shared", "global"):
-            h_diff = int((K12.canny_hysteresis(c_p, s_p, _form=form) != r_p).sum())
+        for form, blocks in (("shared", None), ("global", None), ("grid", None), ("grid", 5),
+                             ("grid_global", None), ("grid_global", 5)):
+            h_diff = int((K12.canny_hysteresis(c_p, s_p, _form=form, _blocks=blocks) != r_p).sum())
+            k2_grid_cases += form.startswith("grid")
             if h_diff:
-                raise RuntimeError(f"K2 ({form}) differs from plain on the {shape} "
-                                   f"serpentine: {h_diff} pixels")
+                raise RuntimeError(f"K2 ({form}, {blocks} blocks) differs from plain on the "
+                                   f"{shape} serpentine: {h_diff} pixels")
     canny_fused_err = float(min(fused_px["differing"], 1))  # max |kernel - plain| of 0/1 masks
     opt = cfg.tracker.optimizer
     cams = cfg.camera_pyramid()
@@ -1195,7 +1218,8 @@ def main() -> int:
     _phase("kernels", canny_fused_cases=fused_px["cases"],
            canny_fused_differing_pixels=fused_px["differing"],
            canny_fused_edge_pixels=fused_edges,
-           k1_k2_differing_pixels=k12_diff, k3_max_abs_err=k3_err,
+           k1_k2_differing_pixels=k12_diff, k2_forms=list(K12.K2_FORMS),
+           k2_grid_serpentine_cases=k2_grid_cases, k3_max_abs_err=k3_err,
            k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL, fused_k3_cases=k3_cases,
            fused_k3_max_abs_err=fused_err, fused_k3_max_rel_err=fused_rel,
            fused_k3_good_bad=fused_counts, batched_k3_lanes=K3_LANES,
@@ -1423,7 +1447,7 @@ def main() -> int:
         raise RuntimeError("large: a 1280x720 image should take the cluster kernel")
     f_hd, launches = _path_launches(counters_, lambda: build_hd(dev))
     _require_launched("large", launches, ["canny_cluster", "canny_fused"])
-    if launches["canny_cluster"] != 1 or any(launches[n] for n in split_kernels):
+    if launches["canny_cluster"] != 1 or any(launches[n] for n in split_kernels + ["canny_grid"]):
         raise RuntimeError(f"large: level 0 should take one canny_cluster and no split kernel: "
                            f"{launches}")
     add_launches(launches)
@@ -1441,7 +1465,7 @@ def main() -> int:
                     for x in (hd_g, hd_d))
     f_hd2, launches = _path_launches(
         counters_, lambda: frontend.build_frame_batched(hd_g2, hd_d2, cfg_hd))
-    if launches["canny_cluster"] != 1 or any(launches[n] for n in split_kernels):
+    if launches["canny_cluster"] != 1 or any(launches[n] for n in split_kernels + ["canny_grid"]):
         raise RuntimeError(f"large: B = 2 should take one canny_cluster launch: {launches}")
     add_launches(launches)
     for i in range(2):
@@ -1515,35 +1539,134 @@ def main() -> int:
     if nms_hd_diff or hys_hd_diff or not torch.equal(r_hd[0], f_hd.levels[0].edges_orig):
         raise RuntimeError(f"large: K1/K2 differ from plain at 1280x720: {nms_hd_diff} NMS, "
                            f"{hys_hd_diff} hysteresis pixels")
-    # An image above a cluster's shared memory (5120x2880): canny_batched
-    # takes the split kernels, the path that keeps them; then K1 and K2
-    # alone on its padded gray and masks.
-    if K12.hysteresis_fits_cluster(dev, *big.shape[1:]):
-        raise RuntimeError("large: a 5120x2880 image should exceed a cluster's shared memory")
+    # An image above a cluster's shared memory (5120x2880, the frame 4 x 4):
+    # canny_batched takes one canny_grid launch and nothing else, bit-equal
+    # to the plain version; at B = 2 (the image and its mirror) one launch,
+    # each lane bit-equal to B = 1.
+    if K12.hysteresis_fits_cluster(dev, *big.shape[1:]) or not K12.canny_fits_grid(dev, *big.shape[1:]):
+        raise RuntimeError("large: a 5120x2880 image should take the grid kernel")
+    grid_px = {"cases": 0, "differing": 0, "edge_pixels": 0}
+
+    def grid_diff(got, want, what):
+        n = int((got != want).sum())
+        grid_px["cases"] += 1
+        grid_px["differing"] += n
+        if n:
+            raise RuntimeError(f"canny_grid differs from plain on {what}: {n} pixels")
+
     e_big, launches = _path_launches(counters_, lambda: K12.canny_batched(
         big, pyr.canny_threshold1, pyr.canny_threshold2))
-    _require_launched("large", launches, split_kernels)
-    if launches["canny_cluster"] or launches["canny_fused"]:
-        raise RuntimeError(f"large: the 5120x2880 image should take the split kernels: {launches}")
+    if launches["canny_grid"] != 1 or any(v for k, v in launches.items() if k != "canny_grid"):
+        raise RuntimeError(f"large: the 5120x2880 image should take one canny_grid launch: {launches}")
     add_launches(launches)
-    large["above_cluster_launches"] = launches
-    gp_big = _reflect_pad(big.float(), 1, 1).contiguous()
+    large["grid_launches"] = launches
+    want_big = K12.canny_fused_ref(big, t_lo, t_hi)
+    grid_diff(e_big, want_big, "5120x2880 uint8")
+    grid_px["edge_pixels"] += int(want_big.sum())
+    big2 = torch.stack([big[0], big[0].flip(-1)]).contiguous()
+    e_big2, launches = _path_launches(counters_, lambda: K12.canny_batched(
+        big2, pyr.canny_threshold1, pyr.canny_threshold2))
+    if launches["canny_grid"] != 1 or any(v for k, v in launches.items() if k != "canny_grid"):
+        raise RuntimeError(f"large: B = 2 at 5120x2880 should take one canny_grid launch: {launches}")
+    add_launches(launches)
+    large["grid_batched_launches"] = launches
+    for i in range(2):
+        alone = K12.canny_batched(big2[i:i + 1].contiguous(), pyr.canny_threshold1,
+                                  pyr.canny_threshold2)
+        if not torch.equal(e_big2[i:i + 1], alone):
+            raise RuntimeError(f"large: lane {i} of the B = 2 grid Canny differs from B = 1")
+    grid_diff(e_big2[:1], want_big, "5120x2880 B=2 lane 0")
+    # canny_grid from float32 gray, at the card's G and at half of it, a
+    # second launch bit-identical; 7680x4320 (the frame 6 x 6) through
+    # canny_batched; a gray serpentine at 5120x2880 where the H+W cap binds.
+    grid_g = K12._grid_blocks(dev, *big.shape[1:], 1)
+    big_f = big.float()
+    for g_ in (None, grid_g // 2):
+        got = K12.canny_grid(big_f, t_lo, t_hi, _blocks=g_)
+        grid_diff(got, want_big, f"5120x2880 float32 G={g_}")
+        if not torch.equal(K12.canny_grid(big_f, t_lo, t_hi, _blocks=g_), got):
+            raise RuntimeError(f"canny_grid: a second launch differs at G={g_}")
+    huge = torch.from_numpy(np.tile(hd_g, (6, 6)))[None].to(dev)  # 7680x4320
+    e_huge, launches = _path_launches(counters_, lambda: K12.canny_batched(
+        huge, pyr.canny_threshold1, pyr.canny_threshold2))
+    if launches["canny_grid"] != 1 or any(v for k, v in launches.items() if k != "canny_grid"):
+        raise RuntimeError(f"large: 7680x4320 should take one canny_grid launch: {launches}")
+    add_launches(launches)
+    want_huge = K12.canny_fused_ref(huge, t_lo, t_hi)
+    grid_diff(e_huge, want_huge, "7680x4320 uint8")
+    grid_diff(K12.canny_grid(huge.float(), t_lo, t_hi), want_huge, "7680x4320 float32")
+    grid_px["edge_pixels"] += int(want_huge.sum())
+    snake_big = torch.from_numpy(serpentine_gray(2880, 5120))[None].to(dev)
+    want_snake = K12.canny_fused_ref(snake_big, 40.0, 150.0)
+    cand_snake = K12.canny_nms_ref(_reflect_pad(snake_big.float(), 1, 1), 40.0 ** 2, 150.0 ** 2)[0]
+    if not 0 < int(want_snake.sum()) < int(cand_snake.sum()):
+        raise RuntimeError("canny_grid: the cap does not bind on the 5120x2880 serpentine")
+    for g_ in (snake_big, snake_big.float()):
+        grid_diff(K12.canny_grid(g_, 40.0, 150.0), want_snake, f"serpentine 5120x2880 {g_.dtype}")
+    grid_err = float(min(grid_px["differing"], 1))  # max |kernel - plain| of 0/1 masks
+    large["canny_grid_check"] = grid_px
+    # Launches the card refuses raise, and the next launch runs: more blocks
+    # than it holds at once, and a band above a block's shared memory.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    large["refused_grid_launches"] = []
+    for what, blocks in ((f"{2 * n_sm + 1} blocks", 2 * n_sm + 1), ("bands of 1440 rows", 2)):
+        try:
+            K12.canny_grid(big, t_lo, t_hi, _blocks=blocks)
+        except RuntimeError as err:
+            large["refused_grid_launches"].append(f"{what}: {err}")
+        else:
+            raise RuntimeError(f"canny_grid: a launch of {what} did not raise")
+    grid_diff(K12.canny_grid(big, t_lo, t_hi), want_big, "5120x2880 after a refused launch")
+    # K2 alone on the 5120x2880 image's masks, in every form: the grid form
+    # (state in shared and in global memory), the one-block byte-mask form
+    # that the split path ran before, and the default (the grid form).
+    gp_5k = _reflect_pad(big.float(), 1, 1).contiguous()
+    c_5k, s_5k = K12.canny_nms_ref(gp_5k, lo, hi)
+    r_5k, trips_5k = K12.hysteresis_steps_ref(c_5k, s_5k)
+    k2_5k_diff = {form: int((K12.canny_hysteresis(c_5k, s_5k, _form=form) != r_5k).sum())
+                  for form in (None, "grid", "grid_global", "global")}
+    if any(k2_5k_diff.values()) or not torch.equal(r_5k, want_big):
+        raise RuntimeError(f"large: K2 differs from plain at 5120x2880: {k2_5k_diff}")
+    # An image above the shared memory of every block the card holds at
+    # once (12288x8192, ~101 Mpx, the frame tiled): canny_batched takes
+    # canny_nms and K2's grid form with its state in global memory, bit-equal;
+    # then K1 and K2 alone on its padded gray and masks.
+    top = torch.from_numpy(np.ascontiguousarray(np.tile(hd_g, (12, 10))[:8192, :12288]))[None].to(dev)
+    if K12.canny_fits_grid(dev, *top.shape[1:]) or K12._grid_blocks(dev, *top.shape[1:], 1, "grid"):
+        raise RuntimeError("large: a 12288x8192 image should exceed the grid's shared memory")
+    e_top, launches = _path_launches(counters_, lambda: K12.canny_batched(
+        top, pyr.canny_threshold1, pyr.canny_threshold2))
+    _require_launched("large", launches, split_kernels)
+    if (launches["canny_nms"], launches["canny_hysteresis"]) != (1, 1) or any(
+            launches[n] for n in ("canny_grid", "canny_cluster", "canny_fused")):
+        raise RuntimeError(f"large: the 12288x8192 image should take the split kernels: {launches}")
+    add_launches(launches)
+    large["above_grid_launches"] = launches
+    gp_big = _reflect_pad(top.float(), 1, 1).contiguous()
+    del top
     c_big, s_big = K12.canny_nms_ref(gp_big, lo, hi)
     r_big, big_trips = K12.hysteresis_steps_ref(c_big, s_big)
     c_k, s_k = K12.canny_nms(gp_big, lo, hi)
     nms_big_diff = int((c_k != c_big).sum() + (s_k != s_big).sum())
     hys_big_diff = int((K12.canny_hysteresis(c_big, s_big) != r_big).sum())
-    if nms_big_diff or hys_big_diff or not torch.equal(e_big, r_big):
-        raise RuntimeError(f"large: K1/K2 differ from plain at 5120x2880: {nms_big_diff} NMS, "
+    del c_k, s_k
+    if nms_big_diff or hys_big_diff or not torch.equal(e_top, r_big):
+        raise RuntimeError(f"large: K1/K2 differ from plain at 12288x8192: {nms_big_diff} NMS, "
                            f"{hys_big_diff} hysteresis pixels")
+    del e_top
     nms_big_err = float(min(nms_big_diff + nms_hd_diff, 1))
-    hys_big_err = float(min(hys_big_diff + hys_hd_diff, 1))
+    hys_big_err = float(min(hys_big_diff + hys_hd_diff + sum(k2_5k_diff.values()), 1))
     _phase("large", shape=[720, 1280], edge_pixels=[int(lv.edges.sum()) for lv in f_hd.levels],
            cloud_counts=[int(lv.cloud.count) for lv in f_hd.levels],
            cluster_ranks=K12._cluster_ranks(dev, 720, 1280),
+           grid_blocks={"5120x2880": grid_g, "5120x2880 B=2": K12._grid_blocks(dev, 2880, 5120, 2),
+                        "7680x4320": K12._grid_blocks(dev, 4320, 7680, 1),
+                        "12288x8192 K2 global state": K12._grid_blocks(
+                            dev, 8192, 12288, 1, "grid_global")},
            k1_differing_pixels=nms_hd_diff + nms_big_diff,
-           k2_global_differing_pixels=hys_hd_diff + hys_big_diff,
-           above_cluster_shape=list(big.shape[1:]), **large)
+           k2_differing_pixels=hys_hd_diff + hys_big_diff + sum(k2_5k_diff.values()),
+           grid_shapes=[[2880, 5120], [4320, 7680]], above_grid_shape=[8192, 12288],
+           **large)
 
     # -- 12. ba: windowed joint BA over pan keyframes and over the loop --------
     import collections
@@ -2585,6 +2708,7 @@ def main() -> int:
     k2_steps = steps_needed(K12.hysteresis_steps_ref(c0, s0)[1], c0)
     k2_steps_hd, n_pix_hd = steps_needed(hd_trips, c_hd), c_hd.numel()
     k2_steps_big, n_pix_big = steps_needed(big_trips, c_big), c_big.numel()
+    k2_steps_5k, n_pix_5k = steps_needed(trips_5k, c_5k), c_5k.numel()
     fused0 = (kf_lm.quads[0], frames_lm[-1].levels[0].cloud, cams[0],
               results_lm[-1].R, results_lm[-1].t,
               opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter)
@@ -2622,17 +2746,25 @@ def main() -> int:
          lambda: K12.canny_fused_ref(gray_hd, t_lo, t_hi), cluster_err,
          _bound(_nbytes(gray_hd) + n_pix_hd,
                 K1_OPS_PER_PIXEL * n_pix_hd + K2_OPS_PER_WORD_STEP * (n_pix_hd / 32) * k2_steps_hd)),
+        # The grid Canny at what the path gives it: phase 11's 5120x2880
+        # uint8 image, unpadded; bound as canny_fused's.
+        ("canny_grid", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
+         lambda: K12.canny_grid(big, t_lo, t_hi),
+         lambda: K12.canny_fused_ref(big, t_lo, t_hi), grid_err,
+         _bound(_nbytes(big) + n_pix_5k,
+                K1_OPS_PER_PIXEL * n_pix_5k + K2_OPS_PER_WORD_STEP * (n_pix_5k / 32) * k2_steps_5k),
+         20),
         # K1 and K2 alone at the one shape a path gives them: phase 11's
-        # 5120x2880 image, above a cluster's shared memory, K2 in its
-        # global-memory form.
+        # 12288x8192 image, above the grid's shared memory, K2 in its grid
+        # form with the packed state in global memory.
         ("canny_nms", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:148",
          lambda: K12.canny_nms(gp_big, lo, hi),
          lambda: K12.canny_nms_ref(gp_big, lo, hi), nms_big_err,
-         _bound(_nbytes(gp_big) + 2 * n_pix_big, K1_OPS_PER_PIXEL * n_pix_big)),
+         _bound(_nbytes(gp_big) + 2 * n_pix_big, K1_OPS_PER_PIXEL * n_pix_big), 5),
         ("canny_hysteresis", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
          lambda: K12.canny_hysteresis(c_big, s_big),
          lambda: K12.hysteresis_ref(c_big, s_big), hys_big_err,
-         _bound(3 * n_pix_big, K2_OPS_PER_WORD_STEP * (n_pix_big / 32) * k2_steps_big)),
+         _bound(3 * n_pix_big, K2_OPS_PER_WORD_STEP * (n_pix_big / 32) * k2_steps_big), 5),
         # K2's shared-memory form at 640x480: launched by no path (such
         # images take canny_fused, which runs the same loop), listed apart.
         ("canny_hysteresis_shared", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
@@ -2650,9 +2782,10 @@ def main() -> int:
                 K3_FUSED_OPS_PER_POINT * n_pts)),
     ]
     rows = []
-    for name, src, replaces, fk, fp, err, (bound_ms, bound_by) in kern:
-        ms_k, ms_p = _time_ms(fk, 50), _time_ms(fp, 50)
-        ms_k2, ms_p2 = _time_ms(fk, 50), _time_ms(fp, 50)
+    for name, src, replaces, fk, fp, err, (bound_ms, bound_by), *reps in kern:
+        n_reps = reps[0] if reps else 50  # fewer for the plain versions above 10 Mpx
+        ms_k, ms_p = _time_ms(fk, 50), _time_ms(fp, n_reps)
+        ms_k2, ms_p2 = _time_ms(fk, 50), _time_ms(fp, n_reps)
         rows.append({
             "name": name, "route": "cuda", "source": f"revo_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launch_total.get(name, 0),
@@ -2709,12 +2842,13 @@ def main() -> int:
     part_done("canny_level0")
 
     # Level 0 of the 1280x720 frame as it ran before the cluster kernel
-    # (pad, K1, K2's global form) and as the cluster kernel runs it, in
-    # turns; the cluster kernel at 16 and at 8 blocks an image; and at
-    # 640x480 level 0 beside canny_fused, a route no path takes.
+    # (pad, K1, K2's one-block form on byte masks) and as the cluster kernel
+    # runs it, in turns; the cluster kernel at 16 and at 8 blocks an image;
+    # the grid Canny there and at 640x480 level 0, and the cluster Canny at
+    # 640x480 beside canny_fused: routes no path takes.
     def canny_split_hd():
         gp = _reflect_pad(gray_hd.to(torch.float32), 1, 1).contiguous()
-        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi))
+        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi), _form="global")
 
     def cluster_hd(ranks=None):
         return lambda: K12.canny_cluster(gray_hd, t_lo, t_hi, _ranks=ranks)
@@ -2736,20 +2870,69 @@ def main() -> int:
         canny_hd["640x480"].setdefault(f"{key}_device_ms", []).append(_queued_ms(fn))
     if not torch.equal(K12.canny_cluster(gray0, t_lo, t_hi), kern[0][4]()):
         raise RuntimeError("times: canny_cluster differs from plain at 640x480")
+    for key, gray_, ref_ in (("grid_device_ms", gray_hd, kern[1][4]),
+                             ("640x480_grid_device_ms", gray0, kern[0][4])):
+        if not torch.equal(K12.canny_grid(gray_, t_lo, t_hi), ref_()):
+            raise RuntimeError(f"times: canny_grid differs from plain at {tuple(gray_.shape)}")
+        canny_hd[key] = [_queued_ms(lambda: K12.canny_grid(gray_, t_lo, t_hi)) for _ in range(2)]
 
-    def build_hd_split():  # build_frame at 1280x720 routed as before the cluster kernel
-        fits = K12.hysteresis_fits_cluster
-        K12.hysteresis_fits_cluster = lambda *_: False
+    def build_hd_split():  # build_frame at 1280x720, level 0 routed as before the cluster kernel
+        def canny_as_before(gray, threshold1, threshold2):
+            if tuple(gray.shape[-2:]) != (720, 1280):
+                return K12.canny_batched(gray, threshold1, threshold2)
+            gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
+            return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi), _form="global")
+
+        frontend.canny_batched = canny_as_before
         try:
             return build_hd(dev)
         finally:
-            K12.hysteresis_fits_cluster = fits
+            frontend.canny_batched = K12.canny_batched
 
     canny_hd["build_frame_ms"] = {"split": [], "cluster": []}
     for key, fn in (("split", build_hd_split), ("cluster", lambda: build_hd(dev)),
                     ("cluster", lambda: build_hd(dev)), ("split", build_hd_split)):
         canny_hd["build_frame_ms"][key].append(_time_ms(fn, 10))
     part_done("canny_1280x720")
+
+    # Phase 11's 5120x2880 image through the split path as it ran before
+    # the grid kernel (pad, canny_nms, the one-block K2 on byte masks) and
+    # through canny_grid, in turns; canny_grid at the card's G and at half
+    # of it, in turns; from float32 gray; B = 2 in one launch; and K2 alone
+    # on the image's masks, the one-block form against the grid forms
+    # (state in shared and in global memory), in turns.
+    def canny_split_5k():
+        gp = _reflect_pad(big.to(torch.float32), 1, 1).contiguous()
+        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi), _form="global")
+
+    def grid_5k(blocks=None, gray=big):
+        return lambda: K12.canny_grid(gray, t_lo, t_hi, _blocks=blocks)
+
+    if not torch.equal(canny_split_5k(), want_big):
+        raise RuntimeError("times: the split path differs from plain at 5120x2880")
+    canny_5k = {"blocks": grid_g, "split_ms": [], "grid_ms": [],
+                "split_launches_per_call": 2, "grid_launches_per_call": 1}
+    for key, fn in (("split_ms", canny_split_5k), ("grid_ms", grid_5k()),
+                    ("grid_ms", grid_5k()), ("split_ms", canny_split_5k)):
+        canny_5k[key].append(_time_ms(fn, 5 if key == "split_ms" else 50))
+    canny_5k["grid_device_ms"] = [_queued_ms(grid_5k(), 20) for _ in range(2)]
+    canny_5k["by_blocks"] = [  # in turns: G, G / 2, G / 2, G
+        {"blocks": g_, "ms": _time_ms(grid_5k(g_), 50), "device_ms": _queued_ms(grid_5k(g_), 20)}
+        for g_ in (grid_g, grid_g // 2, grid_g // 2, grid_g)]
+    canny_5k["f32_device_ms"] = _queued_ms(grid_5k(gray=big_f), 20)
+    canny_5k["b2"] = {"blocks": K12._grid_blocks(dev, 2880, 5120, 2),
+                      "ms": _time_ms(lambda: K12.canny_grid(big2, t_lo, t_hi), 50),
+                      "device_ms": _queued_ms(lambda: K12.canny_grid(big2, t_lo, t_hi), 20)}
+    k2_5k = {"steps": k2_steps_5k,
+             "bound": _bound(3 * n_pix_5k, K2_OPS_PER_WORD_STEP * (n_pix_5k / 32) * k2_steps_5k),
+             "plain_ms": _time_ms(lambda: K12.hysteresis_ref(c_5k, s_5k), 5)}
+    for form in ("global", "grid", "grid_global", "grid_global", "grid", "global"):
+        k2_5k.setdefault(f"{form}_ms", []).append(_time_ms(
+            lambda: K12.canny_hysteresis(c_5k, s_5k, _form=form), 5 if form == "global" else 50))
+    for form in ("grid", "grid_global"):
+        k2_5k[f"{form}_device_ms"] = _queued_ms(
+            lambda: K12.canny_hysteresis(c_5k, s_5k, _form=form), 20)
+    part_done("canny_5120x2880")
 
     def kernels_of(fn):
         before = K3.residual_lgsx.launches
@@ -2770,15 +2953,16 @@ def main() -> int:
            bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},
            device_ms={r["name"]: r["device_ms"] for r in rows},
            launch_floor_ms=launch_floor_ms, canny_hysteresis_global_ms=k2_global_ms,
-           canny_level0=canny_ab, canny_1280x720=canny_hd,
-           k2_steps=k2_steps, k2_steps_1280x720=k2_steps_hd,
-           k2_steps_5120x2880=k2_steps_big, kernels_per_evaluation=eval_kernels,
+           canny_level0=canny_ab, canny_1280x720=canny_hd, canny_5120x2880=canny_5k,
+           k2_5120x2880=k2_5k, k2_steps=k2_steps, k2_steps_1280x720=k2_steps_hd,
+           k2_steps_5120x2880=k2_steps_5k, k2_steps_12288x8192=k2_steps_big,
+           kernels_per_evaluation=eval_kernels,
            launches_per_pan_frame={k: v / (N_PAN + 1) for k, v in vo_summary["launches"].items()})
 
     # "kernels": those of the paths, each launched there; the unfused K3 is
     # held against its plain version and timed like them, but no path
     # launches it any more, so it is listed apart.
-    on_path = vga_kernels + ["canny_cluster"] + split_kernels
+    on_path = vga_kernels + ["canny_cluster", "canny_grid"] + split_kernels
     if any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]:
         raise RuntimeError(f"launch totals do not match the paths: {launch_total}")
     print(json.dumps({"kernels": [r for r in rows if r["name"] in on_path],

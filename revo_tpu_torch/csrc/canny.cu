@@ -86,6 +86,31 @@
 // barrier and a 1/R band each; bytes are the gray image read once and the
 // bool edges written once.  With R = 16 a band of 3840x2160 needs 196 KB of
 // a block's 227 KB.
+//
+// `revo_canny_grid` is the same K1 + K2 for images above a cluster's shared
+// memory (about 9.7 Mpx): the counterpart of `_canny_single` there, and of
+// `_nms_batched` + `_run_batched` batched.  One cooperative launch spreads
+// the image over every co-resident block of the card (132 on an H100, one
+// 1024-thread block an SM; B images share them), block g owning a band of
+// ceil(H / G) rows in its shared memory, classified from the unpadded gray
+// as the cluster kernel's ranks do.  Blocks that are not in one cluster
+// cannot read each other's shared memory, so a step publishes each band's
+// first and last row to a halo array in global memory (a few KB, which
+// stays in L2), passes one grid-wide barrier (cooperative groups'
+// grid.sync), and the next step reads its neighbours' rows from there;
+// "grew" goes by atomicOr into one of three slots in global memory in
+// rotation (grid_fixpoint).  Bound on the H100: as K2, the serial chain of
+// steps, now of one grid barrier and a 1/G band each; bytes are the gray
+// image read once and the bool edges written once.  The bands of G = 132
+// blocks hold about 80 Mpx (7680x4320 needs 98 KB a block).
+//
+// `revo_canny_hysteresis_grid` is K2 alone on byte masks over the same
+// cooperative grid, the multi-SM form of the global K2: each block packs
+// its band by ballots, steps it with grid_fixpoint and unpacks it; its
+// packed state lives in shared memory where the bands fit, else in global
+// memory (3 bits a pixel, in L2 up to about 130 Mpx), where every block
+// reads its neighbours' rows in place.  `revo_canny_hysteresis_global`, the
+// one-block form above, is kept for comparison only: no route takes it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -398,11 +423,20 @@ __device__ __forceinline__ void unpack_word(uint32_t bits, uint8_t* m, int y,
 // neighbour and `>> 1` the right one; bit 31 of word k - 1 and bit 0 of
 // word k + 1 carry across.  Column 0 and the last word have no outside
 // neighbour, and padding bits are 0, so pixel W - 1 sees none either.
+// A load of a packed word: from L2 with CG (state in global memory that
+// other blocks write between grid barriers; L1 is not coherent), else plain.
+template <bool CG>
+__device__ __forceinline__ uint32_t ld_word(const uint32_t* p) {
+  if constexpr (CG) return __ldcg(p);
+  else return *p;
+}
+
+template <bool CG = false>
 __device__ __forceinline__ uint32_t dilate_row(const uint32_t* s, int y, int k,
                                                int wpr, uint32_t centre) {
   const uint32_t* row = s + y * wpr;
-  const uint32_t left = k > 0 ? row[k - 1] >> 31 : 0u;
-  const uint32_t right = k < wpr - 1 ? row[k + 1] << 31 : 0u;
+  const uint32_t left = k > 0 ? ld_word<CG>(row + k - 1) >> 31 : 0u;
+  const uint32_t right = k < wpr - 1 ? ld_word<CG>(row + k + 1) << 31 : 0u;
   return centre | centre << 1 | centre >> 1 | left | right;
 }
 
@@ -410,8 +444,9 @@ __device__ __forceinline__ uint32_t dilate_row(const uint32_t* s, int y, int k,
 // is `run` consecutive rows of one word column; items are numbered
 // column-fastest, so a warp reads neighbouring words.  Rows -1 and H are 0;
 // with HALO they are read from src instead (a band's neighbouring rows,
-// which the caller has placed there).  Returns whether this thread grew.
-template <bool HALO>
+// which the caller has placed there).  CG: every load from L2 (ld_word).
+// Returns whether this thread grew.
+template <bool HALO, bool CG = false>
 __device__ __forceinline__ bool dilate_step_bits(const uint32_t* c,
                                                  const uint32_t* src,
                                                  uint32_t* dst, int H, int wpr,
@@ -421,18 +456,20 @@ __device__ __forceinline__ bool dilate_step_bits(const uint32_t* c,
   for (int item = threadIdx.x; item < items; item += HYST_THREADS) {
     const int k = item % wpr;
     const int y0 = (item / wpr) * run, y1 = min(y0 + run, H);
-    uint32_t c_cur = src[y0 * wpr + k];
-    uint32_t h_prev = (HALO || y0 > 0)
-                          ? dilate_row(src, y0 - 1, k, wpr, src[(y0 - 1) * wpr + k])
-                          : 0u;
-    uint32_t h_cur = dilate_row(src, y0, k, wpr, c_cur);
+    uint32_t c_cur = ld_word<CG>(src + y0 * wpr + k);
+    uint32_t h_prev =
+        (HALO || y0 > 0)
+            ? dilate_row<CG>(src, y0 - 1, k, wpr, ld_word<CG>(src + (y0 - 1) * wpr + k))
+            : 0u;
+    uint32_t h_cur = dilate_row<CG>(src, y0, k, wpr, c_cur);
     for (int y = y0; y < y1; ++y) {
       uint32_t c_next = 0u, h_next = 0u;
       if (HALO || y + 1 < H) {
-        c_next = src[(y + 1) * wpr + k];
-        h_next = dilate_row(src, y + 1, k, wpr, c_next);
+        c_next = ld_word<CG>(src + (y + 1) * wpr + k);
+        h_next = dilate_row<CG>(src, y + 1, k, wpr, c_next);
       }
-      const uint32_t out = c_cur | (c[y * wpr + k] & (h_prev | h_cur | h_next));
+      const uint32_t out =
+          c_cur | (ld_word<CG>(c + y * wpr + k) & (h_prev | h_cur | h_next));
       grew |= out != c_cur;
       dst[y * wpr + k] = out;
       h_prev = h_cur; h_cur = h_next; c_cur = c_next;
@@ -587,14 +624,54 @@ constexpr size_t CLUSTER_TILE_BYTES =
     ((CL_TY + 4) * (CL_TX + 4) + (CL_TY + 2) * (CL_TX + 2)) * sizeof(float);
 constexpr int MAX_CLUSTER = 16;  // Hopper's largest cluster (non-portable above 8)
 
-// Dynamic shared memory of one rank of an R-block cluster on an H x W image:
-// `cand` of its band (rb = ceil(H / R) rows of ceil(W / 32) words), state
-// buffer 0 with a halo row above and below, and state buffer 1 likewise,
-// which K1's tile overlays while buffer 1 is not yet in use.
-static size_t cluster_smem_bytes(int H, int W, int R) {
+// Dynamic shared memory of one block that owns a band of an H x W image
+// split over R blocks: `cand` of its band (rb = ceil(H / R) rows of
+// ceil(W / 32) words), state buffer 0 with a halo row above and below, and
+// state buffer 1 likewise, which a K1 tile of `tile` bytes overlays while
+// buffer 1 is not yet in use.
+static size_t band_smem_bytes(int H, int W, int R, size_t tile) {
   const size_t wpr = (W + 31) / 32, rb = (H + R - 1) / R;
   const size_t buf = (rb + 2) * wpr * sizeof(uint32_t);
-  return rb * wpr * sizeof(uint32_t) + buf + (buf > CLUSTER_TILE_BYTES ? buf : CLUSTER_TILE_BYTES);
+  return rb * wpr * sizeof(uint32_t) + buf + (buf > tile ? buf : tile);
+}
+
+static size_t cluster_smem_bytes(int H, int W, int R) {
+  return band_smem_bytes(H, W, R, CLUSTER_TILE_BYTES);
+}
+
+// K1 on rows [y0, y1) of one image by the HYST_THREADS threads of a block:
+// CL_TX x CL_TY tiles from row y0 over the whole width, CL_PIX pixels a
+// thread, the tile staged in g_s / m_s (CLUSTER_TILE_BYTES).  A warp
+// classifies 32 pixels of one row, so its two ballots are that row's words
+// of cand and strong, stored at cw / sw [(y - y0) * wpr + k]; tile rows that
+// run past the band store nothing, and threads past the right edge vote 0.
+template <typename T>
+__device__ __forceinline__ void classify_band(const ReflectGray<T>& img, int y0, int y1,
+                                              int H, int W, int wpr, uint32_t* cw,
+                                              uint32_t* sw, float* g_s, float* m_s,
+                                              float low_sq, float high_sq, int tid) {
+  for (int ty = y0; ty < y1; ty += CL_TY) {
+    for (int tx = 0; tx < W; tx += CL_TX) {
+      stage_tile<CL_TX, CL_TY, HYST_THREADS>(g_s, m_s, img, tx, ty, H, W, tid);
+#pragma unroll
+      for (int q = 0; q < CL_PIX; ++q) {
+        const int p = tid + q * HYST_THREADS;
+        const int i = p / CL_TX, j = p % CL_TX;
+        const int y = ty + i, x = tx + j;
+        bool c = false, s = false;
+        if (y < H && x < W)
+          classify_pixel<CL_TX>(g_s, m_s, i + 1, j + 1, low_sq, high_sq, c, s);
+        const uint32_t cbits = __ballot_sync(0xffffffffu, c);
+        const uint32_t sbits = __ballot_sync(0xffffffffu, s);
+        const int k = (tx + j) >> 5;
+        if ((tid & 31) == 0 && y < y1 && k < wpr) {
+          cw[(y - y0) * wpr + k] = cbits;
+          sw[(y - y0) * wpr + k] = sbits;
+        }
+      }
+      __syncthreads();  // the tile is read before the next one is staged
+    }
+  }
 }
 
 // gray: (B, H, W) unpadded; out: (B, H, W) 0/1 bytes.  Grid (R, 1, B) in
@@ -618,33 +695,8 @@ canny_cluster_kernel(const T* __restrict__ gray, uint8_t* __restrict__ out, int 
   float* g_s = reinterpret_cast<float*>(bufs[1] - wpr);  // K1's tile, over buffer 1
   float* m_s = g_s + (CL_TY + 4) * (CL_TX + 4);
 
-  // K1 on the band: CL_TX x CL_TY tiles, CL_PIX pixels a thread.  A warp
-  // classifies 32 pixels of one row, so its two ballots are that row's
-  // words of cand and strong; tile rows that run past the band store nothing
-  // there, and threads past the right edge vote 0.
-  const ReflectGray<T> img{gray + (size_t)b * H * W, H, W};
-  for (int ty = y0; ty < y1; ty += CL_TY) {
-    for (int tx = 0; tx < W; tx += CL_TX) {
-      stage_tile<CL_TX, CL_TY, HYST_THREADS>(g_s, m_s, img, tx, ty, H, W, tid);
-#pragma unroll
-      for (int q = 0; q < CL_PIX; ++q) {
-        const int p = tid + q * HYST_THREADS;
-        const int i = p / CL_TX, j = p % CL_TX;
-        const int y = ty + i, x = tx + j;
-        bool c = false, s = false;
-        if (y < H && x < W)
-          classify_pixel<CL_TX>(g_s, m_s, i + 1, j + 1, low_sq, high_sq, c, s);
-        const uint32_t cbits = __ballot_sync(0xffffffffu, c);
-        const uint32_t sbits = __ballot_sync(0xffffffffu, s);
-        const int k = (tx + j) >> 5;
-        if ((tid & 31) == 0 && y < y1 && k < wpr) {
-          cw[(y - y0) * wpr + k] = cbits;
-          bufs[0][(y - y0) * wpr + k] = sbits;
-        }
-      }
-      __syncthreads();  // the tile is read before the next one is staged
-    }
-  }
+  classify_band(ReflectGray<T>{gray + (size_t)b * H * W, H, W}, y0, y1, H, W, wpr, cw,
+                bufs[0], g_s, m_s, low_sq, high_sq, tid);
   // Halo rows start at 0: at the image's top and bottom edges they stay so.
   for (int k = tid; k < wpr; k += HYST_THREADS) {
     bufs[0][k - wpr] = bufs[1][k - wpr] = 0u;
@@ -754,6 +806,264 @@ static int launch_canny_cluster(const T* gray, uint8_t* out, int B, int H, int W
   // launch's cudaGetLastError.
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+
+// -- K1 + K2 across the whole card: one cooperative launch ------------------
+
+// Halo row e (0: the band's first row, 1: its last) of block g of image b,
+// for steps of parity p, in the grid kernels' global halo array of
+// 2 x B x G x 2 rows of wpr words.
+__device__ __forceinline__ uint32_t* halo_row(uint32_t* halo, int p, int g, int e, int wpr) {
+  return halo + ((((size_t)p * gridDim.z + blockIdx.z) * gridDim.x + g) * 2 + e) * wpr;
+}
+
+// K2's fixpoint over a cooperative grid of (G, 1, B) blocks, block g of
+// image b stepping its band of n rows (n = 0 for the empty bands at the
+// bottom).  Every block of the grid calls it after its band's `cw` and
+// `bufs[0]` (strong) are complete, and it returns the buffer index that
+// holds the result.  JAX's synchronous steps: a step reads the whole
+// image's previous state, so one grid barrier a step orders its writes
+// before the next step's reads.  "Grew" goes by atomicOr into slot
+// step % 3 of the launch's three slots, and every block reads the slot
+// after the barrier, so all stop at the same step: one verdict for the
+// whole launch, because every block must reach every barrier.  For an
+// image that has stopped growing, the extra steps change nothing, so the
+// result is each image's own fixpoint.  Slot (step + 1) % 3 is reset by
+// block (0, 0, 0) during step `step`: its readers passed the barrier before
+// and its writers wait for this one.  Trips, early stop and cap as
+// hysteresis_fixpoint.
+//
+// GSTATE false: `cw` and the buffers are in shared memory, each buffer with
+// a halo row above and below its band.  A step copies the neighbours' edge
+// rows of the source buffer from the global halo array (parity step & 1)
+// into the halo rows, dilates, and publishes the band's own first and last
+// row of the result at parity (step + 1) & 1, read after the barrier.  A
+// parity is written again two steps later, after every reader's barrier.
+// GSTATE true: `cw` and the buffers are the band's rows of whole-image
+// arrays in global memory, whose rows -1 and H are zero, so a band reads its
+// neighbours' rows where they lie; every load goes to L2 (ld_word<true>).
+template <bool GSTATE>
+__device__ int grid_fixpoint(const uint32_t* cw, uint32_t* const bufs[2], uint32_t* halo,
+                             unsigned int* slots, int n, int wpr, bool above, bool below,
+                             int max_iters) {
+  cg::grid_group grid = cg::this_grid();
+  const int g = blockIdx.x, tid = threadIdx.x;
+  const bool lead = tid == 0 && blockIdx.x == 0 && blockIdx.z == 0;
+  if constexpr (!GSTATE) {
+    // Halo rows start at 0: at the image's top and bottom edges they stay so.
+    for (int k = tid; k < wpr; k += HYST_THREADS) {
+      bufs[0][k - wpr] = bufs[1][k - wpr] = 0u;
+      bufs[0][n * wpr + k] = bufs[1][n * wpr + k] = 0u;
+      if (n > 0) {
+        __stcg(halo_row(halo, 0, g, 0, wpr) + k, bufs[0][k]);
+        __stcg(halo_row(halo, 0, g, 1, wpr) + k, bufs[0][(n - 1) * wpr + k]);
+      }
+    }
+  }
+  if (lead) slots[0] = 0u;
+  grid.sync();
+
+  const int run = (n * wpr + HYST_THREADS - 1) / HYST_THREADS;  // rows per work item
+  int cur = 0, step = 0, it = 0;
+  bool trip_grew = true;
+  while (trip_grew && it < max_iters) {
+    trip_grew = false;
+    for (int s = 0; s < UNROLL; ++s) {
+      uint32_t* src = bufs[cur];
+      uint32_t* dst = bufs[cur ^ 1];
+      const int p = step & 1;
+      if constexpr (!GSTATE) {
+        for (int q = tid; q < 2 * wpr; q += HYST_THREADS) {
+          const bool up = q < wpr;
+          const int k = up ? q : q - wpr;
+          if (up ? above : below)
+            src[(up ? -1 : n) * wpr + k] =
+                __ldcg(halo_row(halo, p, g + (up ? -1 : 1), up ? 1 : 0, wpr) + k);
+        }
+        __syncthreads();
+      }
+      const bool grew = n > 0 && dilate_step_bits<true, GSTATE>(cw, src, dst, n, wpr, run);
+      const bool block_grew = __syncthreads_or(grew);  // also: dst is complete
+      if constexpr (!GSTATE) {
+        for (int q = tid; n > 0 && q < 2 * wpr; q += HYST_THREADS) {
+          const int e = q < wpr ? 0 : 1, k = q - e * wpr;
+          __stcg(halo_row(halo, p ^ 1, g, e, wpr) + k, dst[(e ? n - 1 : 0) * wpr + k]);
+        }
+      }
+      if (lead) slots[(step + 1) % 3] = 0u;
+      if (tid == 0 && block_grew) atomicOr(slots + step % 3, 1u);
+      grid.sync();
+      const bool any = __ldcg(slots + step % 3) != 0u;
+      ++step;
+      cur ^= 1;
+      if (!any) break;
+      trip_grew = true;
+    }
+    it += UNROLL;
+  }
+  return cur;
+}
+
+// gray: (B, H, W) unpadded; out: (B, H, W) 0/1 bytes; halo: 4 B G wpr
+// words; slots: 3 words.  A cooperative grid of (G, 1, B) blocks of
+// HYST_THREADS threads, all co-resident: block g of image b owns rows
+// [g rb, min((g + 1) rb, H)), rb = ceil(H / G) (empty for the last blocks
+// when G rb > H + rb - 1), classifies them from the unpadded gray as the
+// cluster kernel's ranks do, steps them with grid_fixpoint<false> and
+// writes their edges.  Shared memory as the cluster kernel's
+// (band_smem_bytes with K1's tile over buffer 1).
+template <typename T>
+__global__ void __launch_bounds__(HYST_THREADS)
+canny_grid_kernel(const T* __restrict__ gray, uint8_t* __restrict__ out, uint32_t* halo,
+                  unsigned int* slots, int H, int W, float low_sq, float high_sq,
+                  int max_iters) {
+  extern __shared__ uint32_t gr_smem[];
+  const int G = gridDim.x, g = blockIdx.x, b = blockIdx.z, tid = threadIdx.x;
+  const int wpr = (W + 31) / 32, rb = (H + G - 1) / G;
+  const int y0 = min(g * rb, H), y1 = min(y0 + rb, H), n = y1 - y0;
+  uint32_t* cw = gr_smem;
+  uint32_t* const bufs[2] = {gr_smem + (rb + 1) * wpr, gr_smem + (2 * rb + 3) * wpr};
+  float* g_s = reinterpret_cast<float*>(bufs[1] - wpr);  // K1's tile, over buffer 1
+  float* m_s = g_s + (CL_TY + 4) * (CL_TX + 4);
+  classify_band(ReflectGray<T>{gray + (size_t)b * H * W, H, W}, y0, y1, H, W, wpr, cw,
+                bufs[0], g_s, m_s, low_sq, high_sq, tid);
+  __syncthreads();  // the tile is dead before grid_fixpoint zeroes buffer 1's halo
+  const int cur = grid_fixpoint<false>(cw, bufs, halo, slots, n, wpr, n > 0 && g > 0,
+                                       n > 0 && y1 < H, max_iters);
+  uint8_t* o = out + (size_t)b * H * W;
+  const bool vec = (W % 32 == 0) && (reinterpret_cast<uintptr_t>(o) % 16 == 0);
+  for (int q = tid; q < n * wpr; q += HYST_THREADS) {
+    const int i = q / wpr, k = q - i * wpr;
+    unpack_word(bufs[cur][i * wpr + k], o, y0 + i, k, W, vec);
+  }
+}
+
+// K2 alone over a cooperative grid, on (B, H, W) 0/1 byte masks: block g of
+// image b packs its band of cand and strong by warp ballots (lane j votes
+// pixel 32 k + j of a row), steps it with grid_fixpoint<GSTATE> and unpacks
+// it.  GSTATE false: the band in shared memory (band_smem_bytes without a
+// tile); `words` unused.  GSTATE true: per image, `words` holds cand (H rows
+// of wpr words) and two state buffers of H + 2 rows whose first and last
+// rows block 0 zeroes (3 H + 4 rows); no shared memory; `halo` unused.
+template <bool GSTATE>
+__global__ void __launch_bounds__(HYST_THREADS)
+canny_hysteresis_grid_kernel(const uint8_t* __restrict__ cand,
+                             const uint8_t* __restrict__ strong, uint8_t* __restrict__ out,
+                             uint32_t* words, uint32_t* halo, unsigned int* slots, int H,
+                             int W, int max_iters) {
+  extern __shared__ uint32_t hg_smem[];
+  const int G = gridDim.x, g = blockIdx.x, b = blockIdx.z, tid = threadIdx.x;
+  const int wpr = (W + 31) / 32, rb = (H + G - 1) / G;
+  const int y0 = min(g * rb, H), y1 = min(y0 + rb, H), n = y1 - y0;
+  uint32_t* cw;
+  uint32_t* bufs[2];
+  if constexpr (GSTATE) {
+    uint32_t* img = words + (size_t)b * (3 * H + 4) * wpr;
+    cw = img + (size_t)y0 * wpr;
+    bufs[0] = img + (size_t)(H + 1 + y0) * wpr;
+    bufs[1] = img + (size_t)(2 * H + 3 + y0) * wpr;
+    if (g == 0) {
+      for (int k = tid; k < wpr; k += HYST_THREADS) {
+        img[(size_t)H * wpr + k] = img[(size_t)(2 * H + 1) * wpr + k] = 0u;
+        img[(size_t)(2 * H + 2) * wpr + k] = img[(size_t)(3 * H + 3) * wpr + k] = 0u;
+      }
+    }
+  } else {
+    cw = hg_smem;
+    bufs[0] = hg_smem + (rb + 1) * wpr;
+    bufs[1] = hg_smem + (2 * rb + 3) * wpr;
+  }
+  const size_t off = (size_t)b * H * W;
+  const int lane = tid & 31;
+  for (int q = tid >> 5; q < n * wpr; q += HYST_THREADS / 32) {
+    const int i = q / wpr, k = q - i * wpr, x = 32 * k + lane;
+    const size_t px = off + (size_t)(y0 + i) * W + x;
+    const uint32_t cbits = __ballot_sync(0xffffffffu, x < W && cand[px]);
+    const uint32_t sbits = __ballot_sync(0xffffffffu, x < W && strong[px]);
+    if (lane == 0) {
+      cw[q] = cbits;
+      bufs[0][q] = sbits;
+    }
+  }
+  __syncthreads();
+  const int cur = grid_fixpoint<GSTATE>(cw, bufs, halo, slots, n, wpr, n > 0 && g > 0,
+                                        n > 0 && y1 < H, max_iters);
+  uint8_t* o = out + off;
+  const bool vec = (W % 32 == 0) && (reinterpret_cast<uintptr_t>(o) % 16 == 0);
+  for (int q = tid; q < n * wpr; q += HYST_THREADS)
+    unpack_word(ld_word<GSTATE>(bufs[cur] + q), o, y0 + q / wpr, q % wpr, W, vec);
+}
+
+// One cooperative launch of `kernel` over (G, 1, B) blocks with `smem`
+// bytes of dynamic shared memory.  A launch the device refuses (more blocks
+// than can be co-resident, a band above a block's opt-in shared memory)
+// returns its error, and the error is cleared so that the next launch's
+// cudaGetLastError does not report it again.
+template <typename... Params, typename... Args>
+static int launch_cooperative(void (*kernel)(Params...), int G, int B, size_t smem,
+                              cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = dim3(G, 1, B);
+    cfg.blockDim = dim3(HYST_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// Blocks of `kernel` with `smem` bytes that the device holds at once, or an
+// error.
+template <typename... Params>
+static cudaError_t resident_blocks(void (*kernel)(Params...), size_t smem, int sms,
+                                   int* count) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, HYST_THREADS, smem);
+  *count = per_sm * sms;
+  return err;
+}
+
+// Blocks an image (G) of a cooperative launch over B images of H x W: the
+// largest G whose band (band_smem_bytes with a `tile`-byte K1 tile; no
+// shared memory at all with `no_smem`) fits a block's opt-in shared memory
+// and with which all B G blocks of both kernels are co-resident; 0 if none;
+// a CUDA error as its negative.
+template <typename KA, typename KB>
+static int grid_blocks(int H, int W, int B, size_t tile, bool no_smem, KA ka, KB kb) {
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  // A 1024-thread block leaves room for at most 2 an SM (2048 threads).
+  for (int G = B >= 1 ? 2 * sms / B : 0; G >= 1; --G) {
+    const size_t smem = no_smem ? 0 : band_smem_bytes(H, W, G, tile);
+    if (smem > (size_t)optin) return 0;  // a smaller G has a larger band
+    int na = 0, nb = 0;
+    err = resident_blocks(ka, smem, sms, &na);
+    if (err == cudaSuccess) err = resident_blocks(kb, smem, sms, &nb);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch to report
+      return -(int)err;
+    }
+    if ((long)G * B <= (long)(na < nb ? na : nb)) return G;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -866,4 +1176,63 @@ extern "C" int revo_canny_cluster(const void* gray, int gray_u8, uint8_t* out, i
                                 high_sq, max_iters, ranks, stream);
   return launch_canny_cluster(static_cast<const float*>(gray), out, B, H, W, low_sq,
                               high_sq, max_iters, ranks, stream);
+}
+
+// Blocks an image (G) canny_grid takes for B images of H x W on the current
+// device (grid_blocks, with K1's tile, for both gray types); 0 if none; a
+// CUDA error as its negative.  What decides, beside
+// revo_canny_cluster_ranks, which kernels an image takes, and how many
+// images one launch takes.
+extern "C" int revo_canny_grid_blocks(int H, int W, int B, cudaStream_t) {
+  return grid_blocks(H, W, B, CLUSTER_TILE_BYTES, false, canny_grid_kernel<uint8_t>,
+                     canny_grid_kernel<float>);
+}
+
+// K1 + K2 of B images in one cooperative launch of G blocks an image
+// (revo_canny_grid_blocks chooses G).  gray is float32, or uint8 with
+// `gray_u8`; H, W >= 2; halo: 4 B G ceil(W / 32) words and slots: 3 words,
+// neither needing any content.  A launch the device refuses returns its
+// error.
+extern "C" int revo_canny_grid(const void* gray, int gray_u8, uint8_t* out, uint32_t* halo,
+                               unsigned int* slots, int B, int H, int W, float low_sq,
+                               float high_sq, int max_iters, int blocks,
+                               cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = band_smem_bytes(H, W, blocks, CLUSTER_TILE_BYTES);
+  if (gray_u8)
+    return launch_cooperative(canny_grid_kernel<uint8_t>, blocks, B, smem, stream,
+                              static_cast<const uint8_t*>(gray), out, halo, slots, H, W,
+                              low_sq, high_sq, max_iters);
+  return launch_cooperative(canny_grid_kernel<float>, blocks, B, smem, stream,
+                            static_cast<const float*>(gray), out, halo, slots, H, W, low_sq,
+                            high_sq, max_iters);
+}
+
+// Blocks an image (G) K2's grid form takes for B images of H x W: with the
+// packed state in shared memory (`state_global` 0) or in global memory (1).
+extern "C" int revo_canny_hysteresis_grid_blocks(int H, int W, int B, int state_global,
+                                                 cudaStream_t) {
+  if (state_global)
+    return grid_blocks(H, W, B, 0, true, canny_hysteresis_grid_kernel<true>,
+                       canny_hysteresis_grid_kernel<true>);
+  return grid_blocks(H, W, B, 0, false, canny_hysteresis_grid_kernel<false>,
+                     canny_hysteresis_grid_kernel<false>);
+}
+
+// K2 of B images of 0/1 byte masks in one cooperative launch of G blocks an
+// image.  state_global 0: halo holds 4 B G ceil(W / 32) words, `words` is
+// unused; 1: words holds B (3 H + 4) ceil(W / 32) words, `halo` is unused.
+// slots: 3 words.  None needs any content.
+extern "C" int revo_canny_hysteresis_grid(const uint8_t* cand, const uint8_t* strong,
+                                          uint8_t* out, uint32_t* words, uint32_t* halo,
+                                          unsigned int* slots, int B, int H, int W,
+                                          int max_iters, int blocks, int state_global,
+                                          cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  if (state_global)
+    return launch_cooperative(canny_hysteresis_grid_kernel<true>, blocks, B, 0, stream, cand,
+                              strong, out, words, halo, slots, H, W, max_iters);
+  return launch_cooperative(canny_hysteresis_grid_kernel<false>, blocks, B,
+                            band_smem_bytes(H, W, blocks, 0), stream, cand, strong, out, words,
+                            halo, slots, H, W, max_iters);
 }

@@ -46,6 +46,10 @@ SIGNATURES = {
     "revo_canny_fused": "pipppiiiffi",
     "revo_canny_cluster": "pipiiiffii",
     "revo_canny_cluster_ranks": "ii",
+    "revo_canny_grid": "pipppiiiffii",
+    "revo_canny_grid_blocks": "iii",
+    "revo_canny_hysteresis_grid": "ppppppiiiiii",
+    "revo_canny_hysteresis_grid_blocks": "iiii",
     "revo_lgsx_reduce": "pppppi",
     "revo_residual_lgsx": "piipipipipipffffiiffiiippp",
 }

@@ -19,8 +19,11 @@ image by shape, before any launch (``canny_route`` is the arithmetic):
 (``hysteresis_fits_shared``: up to 1024x576, all pyramid levels of a
 640x480 frame), ``canny_cluster`` where they fit a thread-block cluster's
 (``hysteresis_fits_cluster``: 1280x720 up to about 9.7 Mpx, 3840x2160
-included), and ``canny_nms`` + ``canny_hysteresis`` (its global-memory
-kernel) above that.
+included), ``canny_grid`` where they fit the shared memory of every block
+the card holds at once, one cooperative launch (``canny_fits_grid``: up to
+about 80 Mpx on an H100, 5120x2880 and 7680x4320 included), and
+``canny_nms`` + ``canny_hysteresis`` above that, whose K2 then runs over
+the same cooperative grid with its packed state in global memory.
 
 Sector test: the Pallas form ``ay > ax * f32(tan22.5 + 2)`` (the constant
 folded in double, then rounded to f32), where revo_tpu/ops/canny.py writes
@@ -43,6 +46,10 @@ _TG22 = float(torch.tensor(_TAN22, dtype=torch.float32))
 _TG67 = float(torch.tensor(_TAN22 + 2.0, dtype=torch.float32))
 _UNROLL = 8  # dilation steps per fixpoint trip (hysteresis.py:27)
 CLUSTER_RANKS = (16, 8)  # blocks per image canny_cluster may take, the largest first
+# Blocks an H100 holds at once for the cooperative kernels: one 1024-thread
+# block on each of its 132 SMs (the routing arithmetic's default; on the
+# card the CUDA runtime's occupancy query decides).
+H100_RESIDENT_BLOCKS = 132
 # K1's tile in canny_cluster (256 x 16 pixels): staged gray with a 2-pixel
 # halo and magnitudes with a 1-pixel ring, float32 (csrc/canny.cu).
 _CLUSTER_TILE_BYTES = ((16 + 4) * (256 + 4) + (16 + 2) * (256 + 2)) * 4
@@ -178,27 +185,52 @@ def fused_smem_bytes(h: int, w: int) -> int:
     return 3 * h * (-(-w // 32)) * 4
 
 
+def band_smem_bytes(h: int, w: int, blocks: int, tile: int = 0) -> int:
+    """Shared memory of one block that owns a band of an (h, w) image split
+    over ``blocks`` blocks: for its ceil(h / blocks) rows, cand and two state
+    buffers with a halo row above and below, a K1 tile of ``tile`` bytes
+    overlaying the second buffer (csrc/canny.cu ``band_smem_bytes``)."""
+    wpr, band = -(-w // 32), -(-h // blocks)
+    buf = (band + 2) * wpr * 4
+    return band * wpr * 4 + buf + max(buf, tile)
+
+
 def cluster_smem_bytes(h: int, w: int, ranks: int) -> int:
     """Shared memory of one block of ``canny_cluster`` with ``ranks`` blocks
-    an image: for its band of ceil(h / ranks) rows, cand and two state
-    buffers with a halo row above and below, K1's tile overlaying the
-    second buffer (csrc/canny.cu ``cluster_smem_bytes``)."""
-    wpr, band = -(-w // 32), -(-h // ranks)
-    buf = (band + 2) * wpr * 4
-    return band * wpr * 4 + buf + max(buf, _CLUSTER_TILE_BYTES)
+    an image, and of ``canny_grid`` with as many: the band with K1's
+    256 x 16 tile."""
+    return band_smem_bytes(h, w, ranks, _CLUSTER_TILE_BYTES)
 
 
-def canny_route(h: int, w: int, smem_limit: int) -> str:
+def grid_blocks(h: int, w: int, b: int, smem_limit: int,
+                resident: int = H100_RESIDENT_BLOCKS) -> int:
+    """Blocks an image (G) of one ``canny_grid`` launch over ``b`` (h, w)
+    images on a card that holds ``resident`` blocks at once, each of which
+    may opt in to ``smem_limit`` bytes: G = resident // b, where its band
+    (``cluster_smem_bytes``) fits; else 0.  A smaller G would have a larger
+    band, so none fits then.  The card answers the same question with the
+    CUDA runtime's occupancy query (``_grid_blocks``)."""
+    blocks = resident // b if b >= 1 else 0
+    return blocks if blocks >= 1 and cluster_smem_bytes(h, w, blocks) <= smem_limit else 0
+
+
+def canny_route(h: int, w: int, smem_limit: int,
+                resident: int = H100_RESIDENT_BLOCKS) -> str:
     """Which kernels an (h, w) image takes on a card whose blocks may opt in
-    to ``smem_limit`` bytes of shared memory: "fused" (``canny_fused``),
-    "cluster" (``canny_cluster``, one of ``CLUSTER_RANKS`` blocks an image)
-    or "split" (``canny_nms`` + ``canny_hysteresis``).  The card adds one
-    condition to "cluster": that it can hold a cluster of that many blocks
-    at once (``hysteresis_fits_cluster``)."""
+    to ``smem_limit`` bytes of shared memory and which holds ``resident``
+    1024-thread blocks at once: "fused" (``canny_fused``), "cluster"
+    (``canny_cluster``, one of ``CLUSTER_RANKS`` blocks an image), "grid"
+    (``canny_grid``, one cooperative launch over every resident block) or
+    "split" (``canny_nms`` + ``canny_hysteresis``).  The card adds to
+    "cluster" that it can hold a cluster of that many blocks at once
+    (``hysteresis_fits_cluster``), and counts its resident blocks for
+    "grid" by occupancy (``canny_fits_grid``)."""
     if fused_smem_bytes(h, w) <= smem_limit:
         return "fused"
     if any(cluster_smem_bytes(h, w, r) <= smem_limit for r in CLUSTER_RANKS):
         return "cluster"
+    if grid_blocks(h, w, 1, smem_limit, resident):
+        return "grid"
     return "split"
 
 
@@ -228,19 +260,66 @@ def hysteresis_fits_cluster(device, h: int, w: int) -> bool:
     return _cluster_ranks(torch.device(device), h, w) > 0
 
 
-def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _grid_blocks(device: torch.device, h: int, w: int, b: int, k2_form=None) -> int:
+    """Blocks an image one cooperative launch over ``b`` (h, w) images takes
+    on ``device``, as the CUDA runtime admits them (``grid_blocks``'s rule,
+    with the card's occupancy for both gray types), or 0 where none fits:
+    for ``canny_grid``, or with ``k2_form`` "grid" / "grid_global" for K2's
+    grid form with its packed state in shared or in global memory."""
+    if k2_form is None:
+        blocks = kernels.call("revo_canny_grid_blocks", h, w, b, device=device)
+    else:
+        blocks = kernels.call("revo_canny_hysteresis_grid_blocks", h, w, b,
+                              int(k2_form == "grid_global"), device=device)
+    if blocks < 0:
+        raise RuntimeError(f"canny grid: CUDA error {-blocks} counting the co-resident blocks")
+    return blocks
+
+
+def _grid_group(device: torch.device, h: int, w: int, b: int, k2_form=None) -> int:
+    """Images one cooperative launch takes out of ``b``: the most, up to
+    ``b``, whose blocks fit the card at once with a band that fits a block
+    (at least 1 where one image fits; 0 where none does)."""
+    group = min(b, _grid_blocks(device, h, w, 1, k2_form))
+    while group > 0 and not _grid_blocks(device, h, w, group, k2_form):
+        group -= 1
+    return group
+
+
+def canny_fits_grid(device, h: int, w: int) -> bool:
+    """Whether an (h, w) image takes ``canny_grid`` on ``device`` when it
+    fits neither one block nor a cluster: its masks spread over every block
+    the card holds at once fit their shared memory, about 80 Mpx on an H100
+    (132 blocks; 7680x4320 needs 104656 bytes a block)."""
+    return _grid_blocks(torch.device(device), h, w, 1) > 0
+
+
+K2_FORMS = ("shared", "global", "grid", "grid_global")
+
+
+def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None,
+                     _blocks=None) -> torch.Tensor:
     """K2 wrapper: (B, H, W) bool cand/strong -> (B, H, W) bool edges.
-    CPU tensor: plain version; CUDA tensor: the kernel, on bit-packed masks
-    in shared memory where the image fits there (``hysteresis_fits_shared``:
-    every pyramid level of a 640x480 frame), else on byte masks in global
-    memory.  The form follows from the shape and the device alone, before
-    the launch, and both give the same bits.  ``canny_batched`` sends every
-    image that fits shared memory to ``canny_fused``, which runs the same
-    loop, and every image that fits a cluster to ``canny_cluster``, so it
-    reaches only the global form here, above about 9.7 Mpx; the shared form
-    stays as the contract of the TPU's K2 at those shapes.  ``_form`` ("shared",
-    "global") lets a comparison force one; "shared" raises for an image
-    that does not fit."""
+    CPU tensor: plain version; CUDA tensor: a kernel on bit-packed masks,
+    all forms giving the same bits.  The form follows from the shape and
+    the device alone, before any launch: "shared", one block an image with
+    the masks in its shared memory, where they fit there
+    (``hysteresis_fits_shared``: every pyramid level of a 640x480 frame);
+    else "grid", one cooperative launch over every block the card holds at
+    once, each a band of rows in its shared memory, where the bands fit
+    (about 80 Mpx on an H100); else "grid_global", the same launch with the
+    packed state in global memory (3 bits a pixel).  The grid forms take as
+    many images a launch as fit the card at once (``_grid_group``), so B
+    images may take several launches.  ``canny_batched`` sends every image
+    up to about 80 Mpx to ``canny_fused``, ``canny_cluster`` or
+    ``canny_grid``, which run the same loop, so it reaches only
+    "grid_global" here; the other forms stay as the contract of the TPU's
+    K2 at those shapes.  ``_form`` (one of ``K2_FORMS``; "global" is the
+    one-block kernel on byte masks in global memory, which no route takes)
+    and ``_blocks`` (a grid form's blocks an image, all B images in one
+    launch) let a comparison force one; a form that does not fit raises
+    ValueError, a launch the card refuses RuntimeError."""
     if cand.device.type == "cpu":
         return hysteresis_ref(cand, strong)
     if cand.device.type != "cuda":
@@ -250,16 +329,38 @@ def canny_hysteresis(cand: torch.Tensor, strong: torch.Tensor, _form=None) -> to
     if strong.shape != cand.shape or strong.device != cand.device:
         raise ValueError("canny_hysteresis: cand and strong differ in shape/device")
     b, h, w = cand.shape
-    fits = hysteresis_fits_shared(cand.device, h, w)
-    if _form not in (None, "shared", "global") or (_form == "shared" and not fits):
+    device = cand.device
+    if _form is None:
+        if hysteresis_fits_shared(device, h, w):
+            _form = "shared"
+        else:
+            _form = "grid" if _grid_blocks(device, h, w, 1, "grid") else "grid_global"
+    if _form not in K2_FORMS or (_form == "shared" and not hysteresis_fits_shared(device, h, w)):
         raise ValueError(f"canny_hysteresis: form {_form!r} not available for {h}x{w}")
     out = torch.empty_like(cand)
-    if _form == "shared" or (_form is None and fits):
+    if _form == "shared":
         kernels.launch("revo_canny_hysteresis", cand, strong, out, b, h, w, h + w)
-    else:
+        canny_hysteresis.launches += 1
+        return out
+    if _form == "global":
         tmp = torch.empty_like(cand)
         kernels.launch("revo_canny_hysteresis_global", cand, strong, out, tmp, b, h, w, h + w)
-    canny_hysteresis.launches += 1
+        canny_hysteresis.launches += 1
+        return out
+    group = b if _blocks is not None else _grid_group(device, h, w, b, _form)
+    if group <= 0:
+        raise ValueError(f"canny_hysteresis: form {_form!r} not available for {h}x{w}")
+    wpr = -(-w // 32)
+    for i in range(0, b, group):
+        n = min(group, b - i)
+        blocks = int(_blocks) if _blocks is not None else _grid_blocks(device, h, w, n, _form)
+        state_global = _form == "grid_global"
+        n_words = n * (3 * h + 4) * wpr if state_global else 4 * n * blocks * wpr
+        words, slots = _grid_buffers(device, n_words)
+        kernels.launch("revo_canny_hysteresis_grid", cand[i:i + n], strong[i:i + n],
+                       out[i:i + n], words, words, slots, n, h, w, h + w, blocks,
+                       int(state_global))
+        canny_hysteresis.launches += 1
     return out
 
 
@@ -275,6 +376,23 @@ def canny_fused_ref(gray: torch.Tensor, low: float, high: float) -> torch.Tensor
 
 
 _fused_scratch = {}  # (device, stream) -> (packed mask words, tickets)
+_grid_scratch = {}  # (device, stream) -> (halo rows or packed state, grew slots)
+
+
+def _grid_buffers(device, n_words: int):
+    """The grid kernels' halo rows (or K2's packed state) and their three
+    "grew" slots on the current stream of ``device``.  Launches on one
+    stream run in order and each writes what it reads before reading it
+    (block 0 resets the slots), so they share the buffers; the first grows
+    when a call needs more."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    words, slots = _grid_scratch.get(key, (None, None))
+    if words is None or words.numel() < n_words:
+        words = torch.empty(n_words, dtype=torch.int32, device=device)
+    if slots is None:
+        slots = torch.empty(3, dtype=torch.int32, device=device)
+    _grid_scratch[key] = (words, slots)
+    return words, slots
 
 
 def _fused_buffers(device, n_words: int, b: int):
@@ -366,6 +484,39 @@ def canny_cluster(gray: torch.Tensor, low: float, high: float, _ranks=None) -> t
 canny_cluster.launches = 0
 
 
+def canny_grid(gray: torch.Tensor, low: float, high: float, _blocks=None) -> torch.Tensor:
+    """K1 + K2 in one cooperative launch for images above a cluster's shared
+    memory: (B, H, W) uint8-valued gray, uint8 or float32, unpadded ->
+    (B, H, W) bool edges, bit-equal to ``canny_fused_ref``.  CPU tensor:
+    plain version; CUDA tensor: the kernel, G blocks an image over every
+    block the card holds at once, each a band of rows in its shared memory,
+    halo rows through global memory and one grid-wide barrier a step, for B
+    images that ``_grid_blocks`` admits together (others raise:
+    ``canny_batched`` launches images in groups where all B do not fit).
+    ``_blocks`` lets a comparison force G; a launch the card refuses (more
+    blocks than it holds at once, a band above a block's memory) raises
+    with the CUDA error.  H and W must be at least 2."""
+    if not _check_gray(gray, "canny_grid"):
+        return canny_fused_ref(gray, low, high)
+    b, h, w = gray.shape
+    blocks = _grid_blocks(gray.device, h, w, b) if _blocks is None else int(_blocks)
+    if blocks <= 0:
+        raise ValueError(f"canny_grid: {b} images of {h}x{w} do not fit the shared memory "
+                         "of the blocks the card holds at once")
+    halo, slots = _grid_buffers(gray.device, 4 * b * blocks * (-(-w // 32)))
+    out = torch.empty((b, h, w), dtype=torch.bool, device=gray.device)
+    kernels.launch(
+        "revo_canny_grid",
+        gray, int(gray.dtype == torch.uint8), out, halo, slots, b, h, w,
+        float(low * low), float(high * high), h + w, blocks,
+    )
+    canny_grid.launches += 1
+    return out
+
+
+canny_grid.launches = 0
+
+
 def canny_batched(
     gray: torch.Tensor, threshold1: float = 150.0, threshold2: float = 100.0
 ) -> torch.Tensor:
@@ -382,6 +533,12 @@ def canny_batched(
     if gray.device.type == "cuda" and not hysteresis_fits_shared(gray.device, h, w):
         if hysteresis_fits_cluster(gray.device, h, w):
             return canny_cluster(gray, low, high)
+        if canny_fits_grid(gray.device, h, w):
+            group = _grid_group(gray.device, h, w, gray.shape[0])
+            if group == gray.shape[0]:
+                return canny_grid(gray, low, high)
+            return torch.cat([canny_grid(gray[i:i + group], low, high)
+                              for i in range(0, gray.shape[0], group)])
         gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
         cand, strong = canny_nms(gp, low * low, high * high)
         return canny_hysteresis(cand, strong)

@@ -196,8 +196,8 @@ class TestRouting:
         (480, 640, "fused"), (576, 1024, "fused"),
         (720, 1280, "cluster"), (1080, 1920, "cluster"), (2160, 3840, "cluster"),
         (2560, 3840, "cluster"),  # the tallest 3840-wide image 16 blocks hold
-        (2561, 3840, "split"),    # one row more
-        (7713, 1280, "split"), (2880, 5120, "split"),
+        (2561, 3840, "grid"),     # one row more: every block of the card
+        (7713, 1280, "grid"), (2880, 5120, "grid"),
     ])
     def test_route_by_shape(self, h, w, route):
         assert K12.canny_route(h, w, H100_SMEM) == route

@@ -6,8 +6,8 @@ card is:
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: bit-equal for K1/K2 masks (K2 in both its forms), the fused
-and the cluster Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
+Tolerances: bit-equal for K1/K2 masks (K2 in all its forms), the fused,
+the cluster and the grid Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
 largest entry (reduction order), and bit-identical from run to run (fixed
 order, no atomics); fused K3: good and bad counts equal, floats within 1e-5
 of each output's largest entry, bit-identical from run to run, and over 8
@@ -78,7 +78,7 @@ def test_canny_kernels_bit_equal(cuda, shape):
     assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p)
     want = K12.hysteresis_ref(c_p, s_p)
     assert K12.hysteresis_fits_shared(cuda, h, w)
-    for form in (None, "shared", "global"):
+    for form in (None, *K12.K2_FORMS):
         assert torch.equal(K12.canny_hysteresis(c_p, s_p, _form=form), want)
 
 
@@ -117,26 +117,44 @@ def test_canny_fused_cap_binds_on_card(cuda, shape):
 
 def _canny_counts():
     return (K12.canny_fused.launches, K12.canny_cluster.launches, K12.canny_nms.launches,
-            K12.canny_hysteresis.launches)
+            K12.canny_hysteresis.launches, K12.canny_grid.launches)
 
 
 def test_canny_large_image_takes_the_split_kernels(cuda):
-    """An image whose packed masks exceed a cluster's shared memory (one
-    row taller than the tallest 3840-wide image 16 blocks hold): chosen by
-    shape before any launch, canny_batched runs canny_nms and the
-    global-memory hysteresis, and canny_fused and canny_cluster refuse
-    it."""
-    h, w = 2561, 3840
-    assert K12.canny_route(h, w, K12._shared_limit(cuda)) == "split"
+    """An image whose packed masks exceed a cluster's shared memory
+    (5120x2880), which took the split kernels before the grid kernel:
+    chosen by shape before any launch, canny_batched runs one canny_grid
+    launch and neither canny_nms nor canny_hysteresis, and canny_fused and
+    canny_cluster refuse it.  The split kernels' own case is
+    test_canny_above_the_grid_takes_the_split_kernels."""
+    h, w = 2880, 5120
+    assert K12.canny_route(h, w, K12._shared_limit(cuda)) == "grid"
     g = torch.from_numpy(_gray(h, w, 3))[None].to(cuda)
     before = _canny_counts()
     got = K12.canny_batched(g, 150.0, 100.0)
-    assert _canny_counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    assert _canny_counts() == (*before[:4], before[4] + 1)
     assert torch.equal(got, K12.canny_fused_ref(g, 100.0, 150.0))
     with pytest.raises(ValueError, match="shared memory"):
         K12.canny_fused(g, 100.0, 150.0)
     with pytest.raises(ValueError, match="cluster"):
         K12.canny_cluster(g, 100.0, 150.0)
+
+
+def test_canny_above_the_grid_takes_the_split_kernels(cuda):
+    """An image above the shared memory of every block the card holds at
+    once (12288x8192, ~101 Mpx): canny_batched runs canny_nms and one
+    launch of K2's grid form with its state in global memory, and
+    canny_grid refuses it."""
+    h, w = 8192, 12288
+    assert K12.canny_route(h, w, K12._shared_limit(cuda)) == "split"
+    assert not K12.canny_fits_grid(cuda, h, w)
+    g = torch.from_numpy(np.tile(_gray(1024, 1536, 4), (8, 8)))[None].to(cuda, torch.uint8)
+    before = _canny_counts()
+    got = K12.canny_batched(g, 150.0, 100.0)
+    assert _canny_counts() == (before[0], before[1], before[2] + 1, before[3] + 1, before[4])
+    assert torch.equal(got, K12.canny_fused_ref(g, 100.0, 150.0))
+    with pytest.raises(ValueError, match="do not fit"):
+        K12.canny_grid(g, 100.0, 150.0)
 
 
 def test_canny_1280x720_takes_the_cluster_kernel(cuda):
@@ -147,7 +165,7 @@ def test_canny_1280x720_takes_the_cluster_kernel(cuda):
     assert K12.hysteresis_fits_cluster(cuda, 720, 1280) and K12._cluster_ranks(cuda, 720, 1280) == 16
     before = _canny_counts()
     got = K12.canny_batched(g, 150.0, 100.0)
-    assert _canny_counts() == (before[0], before[1] + 1, before[2], before[3])
+    assert _canny_counts() == (before[0], before[1] + 1, *before[2:])
     assert torch.equal(got, K12.canny_fused_ref(g, 100.0, 150.0))
 
 
@@ -199,11 +217,15 @@ def test_canny_route_on_card_follows_the_byte_count(cuda):
     limit, and a cluster launch the card refuses raises."""
     limit = K12._shared_limit(cuda)
     for h, w in ((480, 640), (576, 1024), (720, 1280), (1080, 1920), (2160, 3840),
-                 (2560, 3840), (2561, 3840), (2880, 5120)):
-        route = K12.canny_route(h, w, limit)
+                 (2560, 3840), (2561, 3840), (2880, 5120), (4320, 7680), (15708, 5120),
+                 (15709, 5120), (8192, 12288)):
+        route = K12.canny_route(h, w, limit, resident=torch.cuda.get_device_properties(
+            cuda).multi_processor_count)
         assert K12.hysteresis_fits_shared(cuda, h, w) == (route == "fused")
         if route != "fused":
             assert K12.hysteresis_fits_cluster(cuda, h, w) == (route == "cluster")
+        if route not in ("fused", "cluster"):
+            assert K12.canny_fits_grid(cuda, h, w) == (route == "grid")
     g = torch.from_numpy(_gray(720, 1280, 1))[None].to(cuda)
     with pytest.raises(RuntimeError, match="status"):
         K12.canny_cluster(g, 30.0, 60.0, _ranks=17)  # above Hopper's 16
@@ -226,8 +248,9 @@ def test_hysteresis_cap_binds_on_card(cuda, shape):
     strong[0, 1] = True
     cand, strong = cand[None].to(cuda), strong[None].to(cuda)
     want = K12.hysteresis_ref(cand, strong)
-    for form in ("shared", "global"):
-        got = K12.canny_hysteresis(cand, strong, _form=form)
+    for form, blocks in (("shared", None), ("global", None), ("grid", None), ("grid", 5),
+                         ("grid_global", None), ("grid_global", 7)):
+        got = K12.canny_hysteresis(cand, strong, _form=form, _blocks=blocks)
         assert torch.equal(got, want)
         assert 0 < int(got.sum()) < int(cand.sum())
 
@@ -246,6 +269,109 @@ def test_hysteresis_form_follows_the_shape(cuda):
     assert torch.equal(K12.canny_hysteresis(cand, strong), K12.hysteresis_ref(cand, strong))
     with pytest.raises(ValueError):
         K12.canny_hysteresis(cand, strong, _form="shared")
+
+
+def _grid_cases(shape):
+    """(uint8 images, G of one launch of all of them or None, images a
+    launch takes) on the card."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(torch.uint8)
+    return imgs, K12._grid_blocks(torch.device("cuda"), h, w, b), \
+        K12._grid_group(torch.device("cuda"), h, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(1, 3072, 4096), (2, 3072, 4096), (3, 3072, 4096),
+                                   (1, 2880, 5120), (2, 2880, 5120), (3, 2880, 5120),
+                                   (1, 4320, 7680), (2, 4320, 7680), (3, 4320, 7680)])
+def test_canny_grid_bit_equal(cuda, shape, dtype):
+    """canny_batched on images above a cluster's memory: as many
+    cooperative launches as groups of images the card holds at once (one
+    at B = 1 and 2), nothing else, the plain version's edges; canny_grid
+    at the card's G and at half of it where the band still fits a block
+    (else that launch raises), a second launch bit-identical."""
+    b, h, w = shape
+    imgs, blocks, group = _grid_cases(shape)
+    imgs = imgs.to(cuda, dtype)
+    want = K12.canny_fused_ref(imgs, 30.0, 60.0)
+    assert int(want.sum()) > 0 and group >= min(b, 2)
+    before = _canny_counts()
+    got = K12.canny_batched(imgs, 60.0, 30.0)
+    assert _canny_counts() == (*before[:4], before[4] + -(-b // group))
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    if blocks:
+        for g in (None, blocks // 2):
+            if g and K12.cluster_smem_bytes(h, w, g) > K12._shared_limit(cuda):
+                with pytest.raises(RuntimeError, match="status"):
+                    K12.canny_grid(imgs, 30.0, 60.0, _blocks=g)
+                continue
+            got = K12.canny_grid(imgs, 30.0, 60.0, _blocks=g)
+            assert torch.equal(got, want)
+            assert torch.equal(K12.canny_grid(imgs, 30.0, 60.0, _blocks=g), got)
+    else:
+        with pytest.raises(ValueError, match="do not fit"):
+            K12.canny_grid(imgs, 30.0, 60.0)
+
+
+@pytest.mark.parametrize("shape, blocks", [((2, 29, 70), 40), ((1, 50, 37), 8), ((1, 40, 65), 1),
+                                           ((3, 33, 64), 2), ((1, 721, 1283), 100),
+                                           ((2, 2, 2), 4), ((1, 2880, 5120), 40)])
+def test_canny_grid_bands_ragged_and_empty(cuda, shape, blocks):
+    """A forced G: bands that do not divide H, blocks whose band is empty
+    (G > H), rows that end inside a word, one block alone: the plain
+    version's edges."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda)
+    for g in (imgs, imgs.to(torch.uint8)):
+        assert torch.equal(K12.canny_grid(g, 30.0, 60.0, _blocks=blocks),
+                           K12.canny_fused_ref(g, 30.0, 60.0))
+
+
+@pytest.mark.parametrize("shape, blocks", [((120, 200), 7), ((2880, 5120), None)])
+def test_canny_grid_cap_binds_on_card(cuda, shape, blocks):
+    """A gray serpentine whose weak contour is longer than H+W from one
+    strong stretch, across every band: the grid stops where the plain
+    loop's cap stops."""
+    g = torch.from_numpy(serpentine_gray(*shape))[None].to(cuda)
+    want = K12.canny_fused_ref(g, 40.0, 150.0)
+    cand = K12.canny_nms_ref(_reflect_pad(g.float(), 1, 1), 1600.0, 22500.0)[0]
+    assert 0 < int(want.sum()) < int(cand.sum())
+    assert torch.equal(K12.canny_grid(g, 40.0, 150.0, _blocks=blocks), want)
+    assert torch.equal(K12.canny_grid(g.float(), 40.0, 150.0, _blocks=blocks), want)
+
+
+def test_canny_grid_refused_launch_raises_and_the_next_runs(cuda):
+    """More blocks than the card holds at once, and a band above a block's
+    shared memory: the launch raises with its status, and the next launch
+    runs and is right."""
+    g = torch.from_numpy(_gray(720, 1280, 1))[None].to(cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    with pytest.raises(RuntimeError, match="status"):
+        K12.canny_grid(g, 30.0, 60.0, _blocks=2 * n_sm + 1)
+    big = torch.zeros((1, 2880, 5120), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="status"):
+        K12.canny_grid(big, 30.0, 60.0, _blocks=2)
+    with pytest.raises(RuntimeError, match="status"):
+        K12.canny_hysteresis(big.bool(), big.bool(), _form="grid_global", _blocks=2 * n_sm + 1)
+    assert torch.equal(K12.canny_grid(g, 30.0, 60.0), K12.canny_fused_ref(g, 30.0, 60.0))
+
+
+@pytest.mark.parametrize("shape, blocks", [((1, 2880, 5120), None), ((2, 720, 1280), None),
+                                           ((3, 37, 53), 8), ((2, 29, 70), 40),
+                                           ((1, 1000, 1000), 3)])
+def test_hysteresis_grid_forms_bit_equal(cuda, shape, blocks):
+    """K2's grid form with its state in shared and in global memory, at the
+    card's G and at a forced one (empty bands, ragged rows): the plain
+    version's reach, one launch where the images fit together."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda)
+    c_p, s_p = K12.canny_nms_ref(_reflect_pad(imgs, 1, 1), 100.0, 3600.0)
+    want = K12.hysteresis_ref(c_p, s_p)
+    assert int(want.sum()) > int(s_p.sum())
+    for form in ("grid", "grid_global"):
+        before = K12.canny_hysteresis.launches
+        assert torch.equal(K12.canny_hysteresis(c_p, s_p, _form=form, _blocks=blocks), want)
+        assert K12.canny_hysteresis.launches == before + 1
 
 
 def test_lgsx_kernel_close_and_deterministic(cuda):
