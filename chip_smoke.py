@@ -34,8 +34,9 @@ them.  Phases, one line each:
              from unpadded gray) bit-equal on the 3 pyramid levels of the 8
              frames at B=1 and B=8, from float32 and from uint8 gray, at
              ragged widths (37, 65), on three gray serpentines where the H+W
-             cap binds, a second launch bit-identical; K1 + K2 alone bit-equal
-             on the same levels, K2 in all its forms (bit-packed in one
+             cap binds, a second launch bit-identical; K1 (from the unpadded
+             float32 and uint8 gray) + K2 alone bit-equal on the same levels,
+             K2 in all its forms (bit-packed in one
              block's shared memory; byte masks in global memory in one
              block; the grid form over every resident block with the packed
              state in shared and in global memory), also on serpentines
@@ -61,20 +62,25 @@ them.  Phases, one line each:
              version at the shape its path gives it (level 0 of a 640x480
              frame; for the cluster Canny level 0 of phase 11's 1280x720
              frame; for the grid Canny phase 11's 5120x2880 image; for K1
-             and K2 alone phase 11's 12288x8192 image, K2 in its grid form
-             with the state in global memory), beside the kernel's bound (bytes
+             and K2 alone phase 11's 12288x8192 image, K1 on its uint8 gray
+             as given, K2 in its grid form with the state in global memory),
+             beside the kernel's bound (bytes
              over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
              larger), its device time alone (launches queued behind a spin
              kernel, CUDA events) and the launch floor (K1 on a 16x16
-             image), the kernels torch launches per evaluation and per
-             tracked frame (torch.profiler, over the chain's first 2
+             image); K1's persistent blocks per launch, its device time
+             from float32 gray, and the cast + pad the split route ran before
+             it, alone; K3's blocks per launch, its device time on contiguous
+             inputs beside that on residual_terms' strided outputs, and an
+             empty kernel's device time; the kernels torch launches per
+             evaluation and per tracked frame (torch.profiler, over the chain's first 2
              frames) beside the hand-written kernels' launch counts; level 0
              of the 1280x720 frame through the split kernels and through the
              cluster Canny in turns, and build_frame at 1280x720 both ways,
              the cluster at 16 and 8 blocks an image,
              and at 640x480 beside canny_fused (a route no path takes); the
-             5120x2880 image through the split path as it ran before (pad,
-             K1, the one-block K2) and through canny_grid in turns, the grid
+             5120x2880 image through the split path as it ran before (K1,
+             the one-block K2) and through canny_grid in turns, the grid
              at the card's G and at half of it, from float32, at B = 2; K2
              alone on its masks, the one-block form against both grid
              forms in turns; ms
@@ -116,8 +122,9 @@ them.  Phases, one line each:
              1920x1080 and 2560x1440, uint8 and float32, B = 1 and 3, and on
              gray serpentines where the H+W cap binds, at the cluster size
              the card picks and at 8 and 16 blocks, a second launch
-             bit-identical; a cluster launch the card refuses raises; K1 and
-             K2 alone on level 0's padded gray and masks; then a 5120x2880
+             bit-identical; a cluster launch the card refuses raises; K1 alone
+             on level 0's gray (uint8, float32) and K2 on its masks; then a
+             5120x2880
              image (the frame tiled 4 x 4), above a cluster's shared memory,
              through canny_batched: one canny_grid launch and no other
              kernel, also for it and its mirror image at B = 2 (each lane
@@ -127,9 +134,11 @@ them.  Phases, one line each:
              6 x 6); refused grid launches raise and the next one runs; K2
              alone on its masks in every form; then a 12288x8192 image (~101
              Mpx, the frame tiled), above the grid's shared memory, through
-             canny_batched: canny_nms and K2's grid form with the state in
-             global memory, equal to the plain version, and K1 and K2 alone
-             on it bit-equal to theirs;
+             canny_batched: canny_nms on the uint8 gray as it is (the
+             route's peak memory under 4 bytes a pixel: no padded float32
+             copy) and K2's grid form with the state in global memory, equal
+             to the plain version, and K1 (uint8 and float32, a second launch
+             bit-identical) and K2 alone on it bit-equal to theirs;
 12. ba       (a) pan frames 0, 2, .. 10 made keyframes whose stored poses
              are perturbed by exp(N(0, 0.008)) (frame 0 exact: the gauge,
              tests/test_windowed.py:328-370 at full size):
@@ -1061,13 +1070,14 @@ def main() -> int:
     for lvl in range(cfg.pyramid.n_levels):
         g = torch.stack([f.levels[lvl].gray for f in frames_lm])  # (8, H, W)
         for batch in [g[i:i + 1] for i in range(len(frames_lm))] + [g]:
-            gp = _reflect_pad(batch, 1, 1).contiguous()
-            c_k, s_k = K12.canny_nms(gp, lo, hi)
-            c_p, s_p = K12.canny_nms_ref(gp, lo, hi)
+            c_p, s_p = K12.canny_nms_ref(_reflect_pad(batch, 1, 1), lo, hi)
             r_p = K12.hysteresis_ref(c_p, s_p)
             if not K12.hysteresis_fits_shared(dev, *c_p.shape[1:]):
                 raise RuntimeError(f"K2: level {lvl} does not take the shared-memory form")
-            n_diff = int((c_k != c_p).sum() + (s_k != s_p).sum())
+            n_diff = 0
+            for gray in (batch, batch.to(torch.uint8)):  # K1 reads the unpadded gray
+                c_k, s_k = K12.canny_nms(gray, lo, hi)
+                n_diff += int((c_k != c_p).sum() + (s_k != s_p).sum())
             h_diff = sum(int((K12.canny_hysteresis(c_p, s_p, _form=form) != r_p).sum())
                          for form in (None, *K12.K2_FORMS))
             if n_diff or h_diff:
@@ -1528,13 +1538,15 @@ def main() -> int:
             large["refused_launches"].append(f"{what}: {err}")
         else:
             raise RuntimeError(f"canny_cluster: a launch of {what} did not raise")
-    # K1 and K2 alone on level 0's padded gray and masks, as before the
-    # cluster kernel took this shape.
+    # K1 and K2 alone on level 0's gray (uint8 as the sensor gives it, and
+    # float32) and masks, as before the cluster kernel took this shape.
     gp_hd = _reflect_pad(f_hd.levels[0].gray.float()[None], 1, 1).contiguous()
     c_hd, s_hd = K12.canny_nms_ref(gp_hd, lo, hi)
     r_hd, hd_trips = K12.hysteresis_steps_ref(c_hd, s_hd)
-    c_k, s_k = K12.canny_nms(gp_hd, lo, hi)
-    nms_hd_diff = int((c_k != c_hd).sum() + (s_k != s_hd).sum())
+    nms_hd_diff = 0
+    for gray in (gray_hd, gray_hd.float()):
+        c_k, s_k = K12.canny_nms(gray, lo, hi)
+        nms_hd_diff += int((c_k != c_hd).sum() + (s_k != s_hd).sum())
     hys_hd_diff = int((K12.canny_hysteresis(c_hd, s_hd) != r_hd).sum())
     if nms_hd_diff or hys_hd_diff or not torch.equal(r_hd[0], f_hd.levels[0].edges_orig):
         raise RuntimeError(f"large: K1/K2 differ from plain at 1280x720: {nms_hd_diff} NMS, "
@@ -1629,25 +1641,40 @@ def main() -> int:
         raise RuntimeError(f"large: K2 differs from plain at 5120x2880: {k2_5k_diff}")
     # An image above the shared memory of every block the card holds at
     # once (12288x8192, ~101 Mpx, the frame tiled): canny_batched takes
-    # canny_nms and K2's grid form with its state in global memory, bit-equal;
-    # then K1 and K2 alone on its padded gray and masks.
+    # canny_nms on the uint8 gray as it is (no padded float32 copy: the
+    # route's peak memory above what it started with stays below 4 bytes a
+    # pixel, of which the three byte masks take 3 and K2's packed state 3/8;
+    # the copy alone would add 4) and K2's grid form with its
+    # state in global memory, bit-equal; then K1 on it (uint8 and float32)
+    # and K2 on its masks alone, against the plain versions on the padded copy.
     top = torch.from_numpy(np.ascontiguousarray(np.tile(hd_g, (12, 10))[:8192, :12288]))[None].to(dev)
     if K12.canny_fits_grid(dev, *top.shape[1:]) or K12._grid_blocks(dev, *top.shape[1:], 1, "grid"):
         raise RuntimeError("large: a 12288x8192 image should exceed the grid's shared memory")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
     e_top, launches = _path_launches(counters_, lambda: K12.canny_batched(
         top, pyr.canny_threshold1, pyr.canny_threshold2))
+    split_peak = torch.cuda.max_memory_allocated(dev) - mem0
     _require_launched("large", launches, split_kernels)
     if (launches["canny_nms"], launches["canny_hysteresis"]) != (1, 1) or any(
             launches[n] for n in ("canny_grid", "canny_cluster", "canny_fused")):
         raise RuntimeError(f"large: the 12288x8192 image should take the split kernels: {launches}")
+    if not split_peak < 4 * top.numel():
+        raise RuntimeError(f"large: the split route took {split_peak} bytes above its start "
+                           f"for {top.numel()} pixels: a padded copy?")
     add_launches(launches)
     large["above_grid_launches"] = launches
+    large["above_grid_peak_bytes"] = split_peak
     gp_big = _reflect_pad(top.float(), 1, 1).contiguous()
-    del top
     c_big, s_big = K12.canny_nms_ref(gp_big, lo, hi)
     r_big, big_trips = K12.hysteresis_steps_ref(c_big, s_big)
-    c_k, s_k = K12.canny_nms(gp_big, lo, hi)
-    nms_big_diff = int((c_k != c_big).sum() + (s_k != s_big).sum())
+    nms_big_diff = 0
+    for gray in (top, top.float()):
+        c_k, s_k = K12.canny_nms(gray, lo, hi)
+        nms_big_diff += int((c_k != c_big).sum() + (s_k != s_big).sum())
+        if not all(torch.equal(a, b) for a, b in zip(K12.canny_nms(gray, lo, hi), (c_k, s_k))):
+            raise RuntimeError(f"large: a second canny_nms launch differs ({gray.dtype})")
     hys_big_diff = int((K12.canny_hysteresis(c_big, s_big) != r_big).sum())
     del c_k, s_k
     if nms_big_diff or hys_big_diff or not torch.equal(e_top, r_big):
@@ -2712,7 +2739,7 @@ def main() -> int:
     fused0 = (kf_lm.quads[0], frames_lm[-1].levels[0].cloud, cams[0],
               results_lm[-1].R, results_lm[-1].t,
               opt.edge_distance_lvl[0], opt.huber_edge, opt.use_edge_filter)
-    terms0 = K3.residual_terms(*fused0)[:4]
+    terms0 = K3.residual_terms(*fused0)[:4]  # r is a column of samp: the wrapper copies it
     cloud0 = fused0[1]
     n_pix, n_pts = c0.numel(), cloud0.points.shape[0]
     # Bounds: each input read once, each output written once; the fused form
@@ -2720,7 +2747,7 @@ def main() -> int:
     # read no row), at most the whole table.
     n_inside0 = int(K3.residual_terms(*fused0[:7], False)[5])  # edge filter off
     gathered = _gathered_bytes(fused0[0], n_inside0)
-    floor_gp = torch.zeros((1, 18, 18), device=dev)
+    floor_gray = torch.zeros((1, 16, 16), dtype=torch.uint8, device=dev)
     # The fused Canny at what the main path gives it at level 0: the sensor's
     # uint8 gray, unpadded.  Bound: gray read once, bool edges written once;
     # K1's operations per pixel plus K2's per word and needed step.
@@ -2729,9 +2756,8 @@ def main() -> int:
         raise RuntimeError("times: level 0 of the main path is not the sensor's uint8 gray")
     gray0_f = gray0.float()
 
-    def canny_split():  # what one Canny was before the fused kernel
-        gp = _reflect_pad(gray0.to(torch.float32), 1, 1).contiguous()
-        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi))
+    def canny_split():  # one Canny as the split kernels run it (K1, then K2)
+        return K12.canny_hysteresis(*K12.canny_nms(gray0, lo, hi))
 
     kern = [
         ("canny_fused", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
@@ -2755,12 +2781,14 @@ def main() -> int:
                 K1_OPS_PER_PIXEL * n_pix_5k + K2_OPS_PER_WORD_STEP * (n_pix_5k / 32) * k2_steps_5k),
          20),
         # K1 and K2 alone at the one shape a path gives them: phase 11's
-        # 12288x8192 image, above the grid's shared memory, K2 in its grid
-        # form with the packed state in global memory.
+        # 12288x8192 image, above the grid's shared memory, K1 on its uint8
+        # gray as it is (its bound: that gray read once, two byte masks
+        # written once; the plain version takes the padded float32 copy),
+        # K2 in its grid form with the packed state in global memory.
         ("canny_nms", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:148",
-         lambda: K12.canny_nms(gp_big, lo, hi),
+         lambda: K12.canny_nms(top, lo, hi),
          lambda: K12.canny_nms_ref(gp_big, lo, hi), nms_big_err,
-         _bound(_nbytes(gp_big) + 2 * n_pix_big, K1_OPS_PER_PIXEL * n_pix_big), 5),
+         _bound(_nbytes(top) + 2 * n_pix_big, K1_OPS_PER_PIXEL * n_pix_big), 5),
         ("canny_hysteresis", "canny.cu", "revo_tpu/ops/pallas/hysteresis.py:102",
          lambda: K12.canny_hysteresis(c_big, s_big),
          lambda: K12.hysteresis_ref(c_big, s_big), hys_big_err,
@@ -2796,6 +2824,26 @@ def main() -> int:
             # spin); "ms" above is the rate at which the host can launch it.
             "device_ms": _queued_ms(fk),
         })
+    # K1's persistent blocks per launch (the occupancy query's count, at
+    # most one a tile), its device time from float32 gray, and the cast +
+    # pad that the split route no longer runs, alone; K3's blocks per
+    # launch, its device time on contiguous copies of its inputs (the row
+    # above times it on residual_terms' outputs as they come, strided r
+    # included, as earlier runs did), and the device time of an empty kernel
+    # queued the same way (torch.cuda._sleep(0)), the floor its time is held to.
+    nms_row = next(r for r in rows if r["name"] == "canny_nms")
+    nms_row["blocks"] = K12._nms_blocks(dev, *top.shape, 1)
+    nms_row["tiles"] = K12.nms_tiles(*top.shape)
+    top_f = top.float()
+    nms_row["f32_device_ms"] = _queued_ms(lambda: K12.canny_nms(top_f, lo, hi), 20)
+    del top_f
+    nms_row["pad_ms"] = min(_time_ms(lambda: _reflect_pad(top.float(), 1, 1), 10) for _ in range(2))
+    nms_row["pad_device_ms"] = _queued_ms(lambda: _reflect_pad(top.float(), 1, 1), 10)
+    k3_row = next(r for r in rows if r["name"] == "lgsx_reduce")
+    k3_row["blocks"] = K3.reduce_blocks(n_pts)
+    terms0_c = [x.contiguous() for x in terms0]
+    k3_row["contiguous_device_ms"] = _queued_ms(lambda: K3.lgsx_reduce(*terms0_c))
+    k3_row["floor_device_ms"] = _queued_ms(lambda: torch.cuda._sleep(0))
     # The fused K3 at its batched shape: phase 4's K3_LANES lanes of level
     # 0, each with its own cloud and pose.  Bound: B times one lane's.
     quads_b, cloud_b, _, R_b, t_b = k3b_args["own"][:5]
@@ -2823,9 +2871,9 @@ def main() -> int:
     # The launch floor (K1 on a 16x16 image: what one launch through ctypes
     # costs), K2's global-memory form beside the shared one, and how many
     # device kernels one evaluation is now and was as torch ops.
-    launch_floor_ms = min(_time_ms(lambda: K12.canny_nms(floor_gp, lo, hi), 50) for _ in range(2))
-    # One Canny at level 0 as it was (pad, K1, K2: two hand launches and the
-    # torch ops between) and as it is, in turns inside this run; and the fused
+    launch_floor_ms = min(_time_ms(lambda: K12.canny_nms(floor_gray, lo, hi), 50) for _ in range(2))
+    # One Canny at level 0 through the split kernels (K1, K2: two hand
+    # launches) and as it is, in turns inside this run; and the fused
     # kernel from float32 gray, what levels 1-2 give it.
     canny_ab = {
         "split_ms": [_time_ms(canny_split, 50)], "fused_ms": [_time_ms(kern[0][3], 50)],
@@ -2842,13 +2890,12 @@ def main() -> int:
     part_done("canny_level0")
 
     # Level 0 of the 1280x720 frame as it ran before the cluster kernel
-    # (pad, K1, K2's one-block form on byte masks) and as the cluster kernel
+    # (K1, K2's one-block form on byte masks) and as the cluster kernel
     # runs it, in turns; the cluster kernel at 16 and at 8 blocks an image;
     # the grid Canny there and at 640x480 level 0, and the cluster Canny at
     # 640x480 beside canny_fused: routes no path takes.
     def canny_split_hd():
-        gp = _reflect_pad(gray_hd.to(torch.float32), 1, 1).contiguous()
-        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi), _form="global")
+        return K12.canny_hysteresis(*K12.canny_nms(gray_hd, lo, hi), _form="global")
 
     def cluster_hd(ranks=None):
         return lambda: K12.canny_cluster(gray_hd, t_lo, t_hi, _ranks=ranks)
@@ -2880,8 +2927,8 @@ def main() -> int:
         def canny_as_before(gray, threshold1, threshold2):
             if tuple(gray.shape[-2:]) != (720, 1280):
                 return K12.canny_batched(gray, threshold1, threshold2)
-            gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
-            return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi), _form="global")
+            return K12.canny_hysteresis(*K12.canny_nms(gray.contiguous(), lo, hi),
+                                        _form="global")
 
         frontend.canny_batched = canny_as_before
         try:
@@ -2896,14 +2943,13 @@ def main() -> int:
     part_done("canny_1280x720")
 
     # Phase 11's 5120x2880 image through the split path as it ran before
-    # the grid kernel (pad, canny_nms, the one-block K2 on byte masks) and
+    # the grid kernel (canny_nms, the one-block K2 on byte masks) and
     # through canny_grid, in turns; canny_grid at the card's G and at half
     # of it, in turns; from float32 gray; B = 2 in one launch; and K2 alone
     # on the image's masks, the one-block form against the grid forms
     # (state in shared and in global memory), in turns.
     def canny_split_5k():
-        gp = _reflect_pad(big.to(torch.float32), 1, 1).contiguous()
-        return K12.canny_hysteresis(*K12.canny_nms(gp, lo, hi), _form="global")
+        return K12.canny_hysteresis(*K12.canny_nms(big, lo, hi), _form="global")
 
     def grid_5k(blocks=None, gray=big):
         return lambda: K12.canny_grid(gray, t_lo, t_hi, _blocks=blocks)

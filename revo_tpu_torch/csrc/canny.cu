@@ -2,17 +2,25 @@
 // on bit-packed masks in shared memory, in one block or across a cluster,
 // and on byte masks in global memory).
 //
-// K1 `revo_canny_nms` replaces the Pallas kernels of
-// revo_tpu/ops/pallas/canny_kernel.py (`_nms_core` run by `_canny_single` /
-// `_nms_batched`).  One thread per output pixel, 32x8 pixels per block.  The
-// block stages its gray tile plus a 2-pixel halo in shared memory (NMS needs
-// the magnitude of 8 neighbours, each of which needs its own 3x3 Sobel
-// window), computes the magnitude of the tile plus a 1-pixel ring into
-// shared memory, then each thread classifies its pixel.  Bound on the H100:
-// memory traffic, 4 B of gray in and 2 B of masks out per pixel (~1.8 MB
-// at 640x480, i.e. ~1 us of HBM time); at these sizes the launch dominates.
-// The design keeps every intermediate (gx, gy, magnitude) in registers and
-// shared memory, so the image is read once and written once.
+// K1 `revo_canny_nms` replaces the Pallas kernel of
+// revo_tpu/ops/pallas/canny_kernel.py (`_nms_core` run by `_nms_batched`)
+// where K1 runs alone: images above the grid kernel's shared memory (~80
+// Mpx on an H100).  It reads the unpadded gray, uint8 or float32, as the
+// one-launch kernels do, so no padded float32 copy exists.  Bound on the
+// H100: bytes, the gray read once (1 B a pixel for uint8) and the two byte
+// masks written once; 37 operations a pixel sit below that.  So the design
+// streams: persistent blocks, as many as the card holds at once, walk the
+// 128x64 tiles in a fixed stride; a ring of two stages in shared memory
+// holds this tile's gray and the next one's, whose copy (cp.async, 16-byte
+// chunks, where rows are whole aligned chunks) is in flight while this one
+// is classified.  Interior tiles are read with no bounds test; a tile
+// within 2 px of an edge reads the chunks outside the image through
+// ReflectGray (TMA would zero-fill, not reflect).  A warp streams down 8
+// rows of the tile, a lane 4 columns: the Sobel runs once a pixel as
+// smoothings that roll in registers, the neighbours' magnitudes come by
+// warp shuffle, and each row leaves as one 4-byte store a lane and mask
+// (128 contiguous bytes a warp).  What bounds it in practice is the
+// instructions a pixel (PERF.md), not the bytes.
 //
 // Arithmetic is the Pallas kernel's float32 expressions: gray is
 // uint8-valued, so Sobel and the squared magnitude are exact integers, and
@@ -118,24 +126,11 @@
 namespace {
 
 constexpr int TX = 32;
-constexpr int TY = 8;
 constexpr float TG22 = 0.41421356237309504880f;  // tan(pi/8) as float
 constexpr float TG67 = 2.41421356237309504880f;  // tan(pi/8) + 2 as float
 
 constexpr int GS_W = TX + 4;  // row of the staged gray tile
 constexpr int MS_W = TX + 2;  // row of the staged magnitudes
-
-// Gray at image coordinates (gy, gx), read from the (H+2, W+2)
-// REFLECT_101-padded copy; 0 beyond the padding.
-struct PaddedGray {
-  const float* img;
-  int Hp, Wp;
-  __device__ __forceinline__ float operator()(int gy, int gx) const {
-    const int py = gy + 1, px = gx + 1;
-    return (py >= 0 && py < Hp && px >= 0 && px < Wp) ? img[(size_t)py * Wp + px]
-                                                      : 0.0f;
-  }
-};
 
 // Gray at image coordinates (gy, gx), read from the unpadded (H, W) image
 // with REFLECT_101 on the index (-1 -> 1, H -> H - 2); 0 further out, where
@@ -144,13 +139,48 @@ template <typename T>
 struct ReflectGray {
   const T* img;
   int H, W;
-  __device__ __forceinline__ float operator()(int gy, int gx) const {
-    if (gy < -1 || gy > H || gx < -1 || gx > W) return 0.0f;
+  __device__ __forceinline__ T raw(int gy, int gx) const {
+    if (gy < -1 || gy > H || gx < -1 || gx > W) return T(0);
     gy = gy < 0 ? -gy : (gy >= H ? 2 * H - 2 - gy : gy);
     gx = gx < 0 ? -gx : (gx >= W ? 2 * W - 2 - gx : gx);
-    return (float)img[(size_t)gy * W + gx];
+    return img[(size_t)gy * W + gx];
+  }
+  __device__ __forceinline__ float operator()(int gy, int gx) const {
+    return (float)raw(gy, gx);
   }
 };
+
+// K1's arithmetic, the one copy every Canny kernel calls.  Sobel of the 3x3
+// window with rows (a0 a1 a2), (b0 . b2), (c0 c1 c2), in the plain
+// version's order; on uint8-valued gray every value is an exact integer.
+__device__ __forceinline__ void sobel(float a0, float a1, float a2, float b0, float b2,
+                                      float c0, float c1, float c2, float& gx, float& gy) {
+  gx = (a2 + 2.0f * b2 + c2) - (a0 + 2.0f * b0 + c0);
+  gy = (c0 + 2.0f * c1 + c2) - (a0 + 2.0f * a1 + a2);
+}
+
+// The gradient's sector: 0 horizontal (compare left / right), 1 vertical
+// (up / down), 2 the "\" diagonal, 3 the "/" one.
+// All three tests run, so that the lanes of a warp do not diverge.
+__device__ __forceinline__ int sector_of(float gx, float gy) {
+  const float ax = fabsf(gx), ay = fabsf(gy);
+  const bool horizontal = ay < __fmul_rn(ax, TG22);
+  const bool vertical = ay > __fmul_rn(ax, TG67);
+  const bool falling = __fmul_rn(gx, gy) >= 0.0f;
+  return horizontal ? 0 : (vertical ? 1 : (falling ? 2 : 3));
+}
+
+// Offset, in a row-major magnitude array of rows of `mw`, from a pixel to
+// the neighbour its NMS compares first (left, up, up-left, up-right); the
+// second is the opposite neighbour.
+__device__ __forceinline__ int nms_offset(int sector, int mw) {
+  return sector == 0 ? 1 : (sector == 1 ? mw : (sector == 2 ? mw + 1 : mw - 1));
+}
+
+// OpenCV's asymmetry: `>` then `>=` along the axes, strict on the diagonals.
+__device__ __forceinline__ bool nms_keep(int sector, float m, float first, float second) {
+  return (m > first) & (sector <= 1 ? m >= second : m > second);
+}
 
 // K1's staging on one TXT x TYT tile at (y0, x0) by NT threads: the gray
 // tile plus a 2-pixel halo in g_s ((TYT + 4) x (TXT + 4)), then the
@@ -176,10 +206,9 @@ __device__ __forceinline__ void stage_tile(float* g_s, float* m_s, const Gray& g
     const int y = y0 - 1 + i, x = x0 - 1 + j;
     float m = 0.0f;
     if (y >= 0 && y < H && x >= 0 && x < W) {
-      const float gxv = (G(i, j + 2) + 2.0f * G(i + 1, j + 2) + G(i + 2, j + 2)) -
-                        (G(i, j) + 2.0f * G(i + 1, j) + G(i + 2, j));
-      const float gyv = (G(i + 2, j) + 2.0f * G(i + 2, j + 1) + G(i + 2, j + 2)) -
-                        (G(i, j) + 2.0f * G(i, j + 1) + G(i, j + 2));
+      float gxv, gyv;
+      sobel(G(i, j), G(i, j + 1), G(i, j + 2), G(i + 1, j), G(i + 1, j + 2), G(i + 2, j),
+            G(i + 2, j + 1), G(i + 2, j + 2), gxv, gyv);
       m = gxv * gxv + gyv * gyv;  // exact integer < 2^24
     }
     m_s[k] = m;
@@ -197,27 +226,16 @@ __device__ __forceinline__ void classify_pixel(const float* g_s, const float* m_
                                                bool& strong) {
   constexpr int gw = TXT + 4, mw = TXT + 2;
 #define G(i, j) g_s[(i) * gw + (j)]
-#define M(i, j) m_s[(i) * mw + (j)]
   // g_s window of this pixel: rows i..i+2, cols j..j+2.
-  const float gxv = (G(i, j + 2) + 2.0f * G(i + 1, j + 2) + G(i + 2, j + 2)) -
-                    (G(i, j) + 2.0f * G(i + 1, j) + G(i + 2, j));
-  const float gyv = (G(i + 2, j) + 2.0f * G(i + 2, j + 1) + G(i + 2, j + 2)) -
-                    (G(i, j) + 2.0f * G(i, j + 1) + G(i, j + 2));
-  const float m = M(i, j);
-  const float ax = fabsf(gxv), ay = fabsf(gyv);
-  bool keep;
-  if (ay < __fmul_rn(ax, TG22)) {  // horizontal gradient: compare left/right
-    keep = (m > M(i, j - 1)) && (m >= M(i, j + 1));
-  } else if (ay > __fmul_rn(ax, TG67)) {  // vertical: compare up/down
-    keep = (m > M(i - 1, j)) && (m >= M(i + 1, j));
-  } else if (__fmul_rn(gxv, gyv) >= 0.0f) {  // "\" diagonal
-    keep = (m > M(i - 1, j - 1)) && (m > M(i + 1, j + 1));
-  } else {  // "/" diagonal
-    keep = (m > M(i - 1, j + 1)) && (m > M(i + 1, j - 1));
-  }
+  float gxv, gyv;
+  sobel(G(i, j), G(i, j + 1), G(i, j + 2), G(i + 1, j), G(i + 1, j + 2), G(i + 2, j),
+        G(i + 2, j + 1), G(i + 2, j + 2), gxv, gyv);
 #undef G
-#undef M
-  cand = keep && (m > low_sq);
+  const int sector = sector_of(gxv, gyv);
+  const float* mp = m_s + i * mw + j;
+  const int d = nms_offset(sector, mw);
+  const float m = *mp;
+  cand = nms_keep(sector, m, mp[-d], mp[d]) && (m > low_sq);
   strong = cand && (m > high_sq);
 }
 
@@ -234,26 +252,6 @@ __device__ __forceinline__ void nms_tile(float* g_s, float* m_s, const Gray& gra
   const int x = x0 + tid % TX, y = y0 + tid / TX;
   if (x >= W || y >= H) return;
   classify_pixel<TX>(g_s, m_s, tid / TX + 1, tid % TX + 1, low_sq, high_sq, cand, strong);
-}
-
-// gp: (B, H+2, W+2) REFLECT_101-padded gray.
-__global__ void canny_nms_kernel(const float* __restrict__ gp,
-                                 uint8_t* __restrict__ cand,
-                                 uint8_t* __restrict__ strong, int H, int W,
-                                 float low_sq, float high_sq) {
-  __shared__ float g_s[(TY + 4) * GS_W];
-  __shared__ float m_s[(TY + 2) * MS_W];
-  const int b = blockIdx.z;
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const PaddedGray gray{gp + (size_t)b * (H + 2) * (W + 2), H + 2, W + 2};
-  bool c, s;
-  nms_tile<TY>(g_s, m_s, gray, blockIdx.x * TX, blockIdx.y * TY, H, W, low_sq,
-               high_sq, tid, c, s);
-  const int x = blockIdx.x * TX + threadIdx.x, y = blockIdx.y * TY + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const size_t o = (size_t)b * H * W + (size_t)y * W + x;
-  cand[o] = c ? 1 : 0;
-  strong[o] = s ? 1 : 0;
 }
 
 constexpr int HYST_THREADS = 1024;
@@ -533,6 +531,328 @@ canny_hysteresis_kernel(const uint8_t* __restrict__ cand,
     const int y = q / wpr, k = q - y * wpr;
     unpack_word(reach[q], out + off, y, k, W, vec);
   }
+}
+
+// -- K1 alone: persistent blocks over pipelined tiles ------------------------
+
+// A warp owns the tile's 128 columns on a strip of NMS_ROWS rows, a lane 4
+// adjacent columns; the strip's Sobel also covers one ring row above and
+// below, and the two columns either side of the tile (a lane a row).
+constexpr int NMS_WARPS = 8, NMS_ROWS = 8;
+constexpr int NMS_THREADS = 32 * NMS_WARPS;
+constexpr int NMS_TX = 128, NMS_TY = NMS_ROWS * NMS_WARPS;  // output tile
+constexpr int NMS_STRIP = NMS_ROWS + 2;
+static_assert(NMS_STRIP <= 32, "a lane a row of the outer columns");
+enum NmsPath { NMS_BORDER = 0, NMS_VECTOR = 1, NMS_SCALAR = 2 };
+
+// The staged gray of one tile, in the image's own type: rows y0 - 2 ..
+// y0 + NMS_TY + 1 and columns x0 - A .. x0 + NMS_TX + A - 1, where A is one
+// 16-byte chunk of elements, so an interior row is whole aligned chunks
+// when W * sizeof(T) is a multiple of 16.
+template <typename T>
+struct NmsStage {
+  static constexpr int A = 16 / (int)sizeof(T);
+  static constexpr int SW = NMS_TX + 2 * A;
+  static constexpr int ROWS = NMS_TY + 4;
+  static constexpr int CHUNKS = SW * (int)sizeof(T) / 16;  // 16-byte chunks a row
+  static constexpr size_t BYTES = 2 * (size_t)ROWS * SW * sizeof(T);  // the ring of two
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The staging path of the tile at (y0, x0) (the host-side model in
+// tests/test_torch_canny_nms.py mirrors it): a tile whose staged rows and
+// columns lie inside the image is interior and is read with no bounds
+// test, by cp.async 16-byte chunks where `vec` (rows of whole aligned
+// chunks), else by plain loads; any other tile is a border tile.
+template <typename T>
+__device__ __forceinline__ int nms_path(int y0, int x0, int H, int W, bool vec) {
+  constexpr int A = NmsStage<T>::A;
+  const bool interior = y0 >= 2 && y0 + NMS_TY + 2 <= H && x0 >= A && x0 + NMS_TX + A <= W;
+  return interior ? (vec ? NMS_VECTOR : NMS_SCALAR) : NMS_BORDER;
+}
+
+// Start staging tile (y0, x0) of `img` into `st` by the block's threads,
+// one 16-byte chunk of the staged window a work item.  Copies by cp.async
+// are left in flight (the caller commits them as a group); the others store
+// before returning, their loads unrolled so that they are in flight
+// together.  Interior tiles test no bound; a border tile copies the chunks
+// that lie inside the image by cp.async where `vec`, and reads the others
+// element by element through ReflectGray.
+template <typename T>
+__device__ __forceinline__ void nms_stage(T* st, const T* __restrict__ img, int y0, int x0,
+                                          int H, int W, int path, bool vec, int tid) {
+  using S = NmsStage<T>;
+  constexpr int per = 16 / (int)sizeof(T);
+  const T* src = img + (size_t)(y0 - 2) * W + (x0 - S::A);
+  const ReflectGray<T> gray{img, H, W};
+  for (int k = tid; k < S::ROWS * S::CHUNKS; k += NMS_THREADS) {
+    const int i = k / S::CHUNKS, c = k - i * S::CHUNKS;
+    T* dst = st + i * S::SW + c * per;
+    if (path == NMS_VECTOR) {
+      cp_async16(dst, src + (size_t)i * W + c * per);
+    } else if (path == NMS_SCALAR) {
+      const T* from = src + (size_t)i * W + c * per;
+#pragma unroll
+      for (int e = 0; e < per; ++e) dst[e] = __ldg(from + e);
+    } else {
+      const int gy = y0 - 2 + i, gx = x0 - S::A + c * per;
+      if (vec && gy >= 0 && gy < H && gx >= 0 && gx + per <= W) {
+        cp_async16(dst, img + (size_t)gy * W + gx);
+      } else {
+        T v[per];
+#pragma unroll
+        for (int e = 0; e < per; ++e) v[e] = gray.raw(gy, gx + e);
+#pragma unroll
+        for (int e = 0; e < per; ++e) dst[e] = v[e];
+      }
+    }
+  }
+}
+
+// A staged gray value as float: uint8 through the float's mantissa (exact,
+// at the full FP32 rate where I2F runs at a quarter of it).
+__device__ __forceinline__ float gray_float(uint8_t v) {
+  return __uint_as_float(0x4B000000u | v) - 8388608.0f;
+}
+__device__ __forceinline__ float gray_float(float v) { return v; }
+
+// Staged row `row` at the 6 columns a lane's window spans: its own 4 (from
+// staged column 4 lane + A, one aligned 4- or 16-byte load) and one either
+// side.
+__device__ __forceinline__ void load_row6(const uint8_t* row, int lane, float (&p)[6]) {
+  constexpr int A = NmsStage<uint8_t>::A;
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + 4 * lane + A);
+  p[0] = gray_float(row[4 * lane + A - 1]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)  // byte k into the mantissa of 2^23
+    p[1 + k] = __uint_as_float(__byte_perm(w, 0x4B00u, k | 0x5440)) - 8388608.0f;
+  p[5] = gray_float(row[4 * lane + A + 4]);
+}
+__device__ __forceinline__ void load_row6(const float* row, int lane, float (&p)[6]) {
+  constexpr int A = NmsStage<float>::A;
+  const float4 v = *reinterpret_cast<const float4*>(row + 4 * lane + A);
+  p[0] = row[4 * lane + A - 1];
+  p[1] = v.x; p[2] = v.y; p[3] = v.z; p[4] = v.w;
+  p[5] = row[4 * lane + A + 4];
+}
+
+// The two neighbours the NMS of a pixel of `sector` compares (nms_offset's
+// first and second), from its 3x3 magnitudes held in registers.
+__device__ __forceinline__ void nms_pick(int sector, float ul, float u, float ur, float l,
+                                         float r, float dl, float d, float dr, float& first,
+                                         float& second) {
+  first = sector == 0 ? l : (sector == 1 ? u : (sector == 2 ? ul : ur));
+  second = sector == 0 ? r : (sector == 1 ? d : (sector == 2 ? dr : dl));
+}
+
+// gray: (B, H, W) unpadded, H, W >= 2; cand, strong: (B, H, W) 0/1 bytes.
+// A persistent grid: block g classifies tiles g, g + gridDim.x, ... of the
+// B x ceil(H / NMS_TY) x ceil(W / NMS_TX) tiles (column fastest), staging
+// the next tile while it classifies this one (a ring of two stages in
+// dynamic shared memory).  Warp w streams down its strip of NMS_ROWS rows,
+// lane l owning columns 4 l .. 4 l + 3: per row, one load of its 4 staged
+// values and one either side, the Sobel as vertical and horizontal
+// smoothings that roll in registers (sobel()'s operations in its order),
+// the magnitudes (0 outside the image) and sectors; its neighbours'
+// magnitudes come by warp shuffle (the columns either side of the tile from
+// the first NMS_STRIP lanes, which run their Sobel first), and the row above
+// is classified and stored as one 4-byte word a mask and lane (a warp: 128
+// contiguous bytes), or byte by byte where `st4` is 0 (rows not whole
+// words, or unaligned masks).  `vec`: the gray's rows are whole aligned
+// 16-byte chunks.  __launch_bounds__ asks for 3 resident blocks an SM,
+// which measured faster on an H100 than the registers the compiler picks
+// unasked (2 blocks).
+template <typename T>
+__global__ void __launch_bounds__(NMS_THREADS, 3)
+canny_nms_kernel(const T* __restrict__ gray, uint8_t* __restrict__ cand,
+                 uint8_t* __restrict__ strong, int B, int H, int W, float low_sq,
+                 float high_sq, int vec, int st4) {
+  using S = NmsStage<T>;
+  extern __shared__ __align__(16) unsigned char nms_smem[];
+  T* const ring = reinterpret_cast<T*>(nms_smem);  // stage s at ring + s * ROWS * SW
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntx = (W + NMS_TX - 1) / NMS_TX, nty = (H + NMS_TY - 1) / NMS_TY;
+  const int per_img = ntx * nty, n = B * per_img;
+  const int i0 = warp * NMS_ROWS;  // the strip's first ring row
+
+  int t = blockIdx.x;
+  int cur = 0;
+  auto stage = [&](int tile, T* st) {
+    const int b = tile / per_img, rem = tile - b * per_img, ty = rem / ntx;
+    const int y0 = ty * NMS_TY, x0 = (rem - ty * ntx) * NMS_TX;
+    nms_stage(st, gray + (size_t)b * H * W, y0, x0, H, W, nms_path<T>(y0, x0, H, W, vec != 0),
+              vec != 0, tid);
+  };
+  if (t < n) stage(t, ring);
+  cp_async_commit();
+  for (; t < n; t += gridDim.x) {
+    if (t + (int)gridDim.x < n) stage(t + gridDim.x, ring + (cur ^ 1) * S::ROWS * S::SW);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed; the next tile's fly
+    __syncthreads();
+
+    const int b = t / per_img, rem = t - b * per_img, ty = rem / ntx;
+    const int y0 = ty * NMS_TY, x0 = (rem - ty * ntx) * NMS_TX;
+    const T* st = ring + cur * S::ROWS * S::SW;
+    // Ring pixel (i, j) is image pixel (y0 - 1 + i, x0 - 1 + j); its window
+    // is staged rows i..i+2, columns j + A - 2 .. j + A.  Lane l < NMS_STRIP
+    // first takes ring row i0 + l of the columns either side of the tile,
+    // j = 0 and NMS_TX + 1.
+    float outer[2] = {0.0f, 0.0f};
+    if (lane < NMS_STRIP) {
+      const int i = i0 + lane, y = y0 - 1 + i;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = e ? NMS_TX + 1 : 0, xo = x0 - 1 + j;
+        const T* w = st + i * S::SW + j + S::A - 2;
+        float gxv, gyv;
+        sobel(gray_float(w[0]), gray_float(w[1]), gray_float(w[2]), gray_float(w[S::SW]),
+              gray_float(w[S::SW + 2]), gray_float(w[2 * S::SW]), gray_float(w[2 * S::SW + 1]),
+              gray_float(w[2 * S::SW + 2]), gxv, gyv);
+        outer[e] = (y >= 0 && y < H && xo >= 0 && xo < W) ? gxv * gxv + gyv * gyv : 0.0f;
+      }
+    }
+    bool col_in[4];
+    const int x = x0 + 4 * lane;  // this lane's first column
+#pragma unroll
+    for (int k = 0; k < 4; ++k) col_in[k] = x + k < W;
+    const size_t img = (size_t)b * H * W;
+
+    // The rolling state: staged rows a (top) and b (middle) of the window
+    // at the lane's 6 columns, their horizontal smoothings, and the
+    // magnitudes (with the neighbours') and sectors of the last two rows.
+    float ra[6], rb[6], ha[4], hb[4], mu[6], mm[6];
+    int sec_m = 0;
+    load_row6(st + i0 * S::SW, lane, ra);
+    load_row6(st + (i0 + 1) * S::SW, lane, rb);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ha[k] = ra[k] + 2.0f * ra[k + 1] + ra[k + 2];
+      hb[k] = rb[k] + 2.0f * rb[k + 1] + rb[k + 2];
+    }
+#pragma unroll
+    for (int r = 0; r < NMS_STRIP; ++r) {
+      float rc[6];
+      load_row6(st + (i0 + r + 2) * S::SW, lane, rc);
+      float v[6], md[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) v[k] = ra[k] + 2.0f * rb[k] + rc[k];
+      const int y = y0 - 1 + i0 + r;
+      const bool row_in = y >= 0 && y < H;
+      int sec = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float hc = rc[k] + 2.0f * rc[k + 1] + rc[k + 2];
+        // sobel()'s gx and gy: (a2 + 2 b2 + c2) - (a0 + 2 b0 + c0) and
+        // (c0 + 2 c1 + c2) - (a0 + 2 a1 + a2).
+        const float gxv = v[k + 2] - v[k], gyv = hc - ha[k];
+        md[k + 1] = row_in && col_in[k] ? gxv * gxv + gyv * gyv : 0.0f;  // exact integer < 2^24
+        if (r >= 1 && r <= NMS_ROWS) sec |= sector_of(gxv, gyv) << (2 * k);
+        ha[k] = hb[k];
+        hb[k] = hc;
+      }
+      const float left = __shfl_up_sync(0xffffffffu, md[4], 1);
+      const float right = __shfl_down_sync(0xffffffffu, md[1], 1);
+      const float o_left = __shfl_sync(0xffffffffu, outer[0], r);
+      const float o_right = __shfl_sync(0xffffffffu, outer[1], r);
+      md[0] = lane == 0 ? o_left : left;
+      md[5] = lane == 31 ? o_right : right;
+      if (r >= 2) {  // classify ring row r - 1: image row y - 1
+        const int yo = y - 1;
+        uint32_t cw = 0, sw = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int sector = (sec_m >> (2 * k)) & 3;
+          const float m = mm[k + 1];
+          float first, second;
+          nms_pick(sector, mu[k], mu[k + 1], mu[k + 2], mm[k], mm[k + 2], md[k], md[k + 1],
+                   md[k + 2], first, second);
+          const bool c = nms_keep(sector, m, first, second) & (m > low_sq);
+          const bool s = c & (m > high_sq);
+          cw |= (uint32_t)c << (8 * k);
+          sw |= (uint32_t)s << (8 * k);
+        }
+        if (yo < H) {
+          const size_t o = img + (size_t)yo * W + x;
+          if (st4) {
+            if (col_in[0]) {
+              *reinterpret_cast<uint32_t*>(cand + o) = cw;
+              *reinterpret_cast<uint32_t*>(strong + o) = sw;
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (col_in[k]) {
+                cand[o + k] = (cw >> (8 * k)) & 1u;
+                strong[o + k] = (sw >> (8 * k)) & 1u;
+              }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        ra[k] = rb[k];
+        rb[k] = rc[k];
+        mu[k] = mm[k];
+        mm[k] = md[k];
+      }
+      sec_m = sec;
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    cur ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T>
+static int launch_canny_nms(const T* gray, uint8_t* cand, uint8_t* strong, int B, int H,
+                            int W, float low_sq, float high_sq, int blocks,
+                            cudaStream_t stream) {
+  const int vec = (W * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(gray) % 16 == 0;
+  const uintptr_t out = reinterpret_cast<uintptr_t>(cand) | reinterpret_cast<uintptr_t>(strong);
+  const int st4 = W % 4 == 0 && out % 4 == 0;
+  const size_t smem = NmsStage<T>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      canny_nms_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  canny_nms_kernel<T><<<blocks, NMS_THREADS, smem, stream>>>(gray, cand, strong, B, H, W,
+                                                             low_sq, high_sq, vec, st4);
+  return (int)cudaGetLastError();
+}
+
+// Persistent blocks of K1 for B images of H x W: as many as the card holds
+// at once (the occupancy query), at most one a tile; a CUDA error as its
+// negative.
+template <typename T>
+static int nms_blocks(int B, int H, int W) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(canny_nms_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)NmsStage<T>::BYTES);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, canny_nms_kernel<T>,
+                                                        NMS_THREADS, NmsStage<T>::BYTES);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  const long tiles = (long)B * ((H + NMS_TY - 1) / NMS_TY) * ((W + NMS_TX - 1) / NMS_TX);
+  const long resident = (long)per_sm * sms;
+  return (int)(tiles < resident ? tiles : resident);
 }
 
 // -- K1 + K2 in one launch ----------------------------------------------------
@@ -1068,15 +1388,27 @@ static int grid_blocks(int H, int W, int B, size_t tile, bool no_smem, KA ka, KB
 
 }  // namespace
 
-extern "C" int revo_canny_nms(const float* gp, uint8_t* cand, uint8_t* strong,
-                              int B, int H, int W, float low_sq, float high_sq,
+// K1 of B images of H x W (H, W >= 2), gray float32 or, with `gray_u8`,
+// uint8, unpadded, over `blocks` persistent blocks (revo_canny_nms_blocks
+// gives the card's count).
+extern "C" int revo_canny_nms(const void* gray, int gray_u8, uint8_t* cand, uint8_t* strong,
+                              int B, int H, int W, float low_sq, float high_sq, int blocks,
                               cudaStream_t stream) {
-  dim3 block(TX, TY);
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  canny_nms_kernel<<<grid, block, 0, stream>>>(gp, cand, strong, H, W, low_sq,
-                                               high_sq);
-  return (int)cudaGetLastError();
+  if (blocks < 1 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  if (gray_u8)
+    return launch_canny_nms(static_cast<const uint8_t*>(gray), cand, strong, B, H, W, low_sq,
+                            high_sq, blocks, stream);
+  return launch_canny_nms(static_cast<const float*>(gray), cand, strong, B, H, W, low_sq,
+                          high_sq, blocks, stream);
 }
+
+extern "C" int revo_canny_nms_blocks(int B, int H, int W, int gray_u8, cudaStream_t) {
+  return gray_u8 ? nms_blocks<uint8_t>(B, H, W) : nms_blocks<float>(B, H, W);
+}
+
+// K1's tile as (NMS_TY << 16) | NMS_TX: the wrapper's copy (ops/canny.py
+// NMS_TILE) is held to it.
+extern "C" int revo_canny_nms_tile(cudaStream_t) { return (NMS_TY << 16) | NMS_TX; }
 
 // Shared memory the packed form needs for one H x W image: cand and two
 // state buffers of H * ceil(W / 32) words.

@@ -6,11 +6,14 @@
 // weights w (P,) (0 on dead lanes) it forms the Jacobian row J (6) of every
 // point (optimizer.cpp:216-228) and reduces
 //   A = sum w J J^T (6x6),  g = sum w J r (6),  s = sum w r^2,
-// unnormalized; the caller divides by the good count.  One block of 1024
-// threads strides over P; each thread keeps 28 running sums in registers
-// (the 21 entries of A's upper triangle, g and s); the block reduces them
-// with a fixed warp-shuffle tree and a fixed-order pass over the 32 warp
-// partials in shared memory.
+// unnormalized; the caller divides by the good count.  Bound on the H100:
+// launch latency (0.46 MB at P = 16384 is ~0.14 us of HBM time), so the
+// design spreads the points over the card as `revo_residual_lgsx` does:
+// 128-thread blocks, two points a thread (faster than one or four on an
+// H100), ceil(P / 256) blocks (64 at P = 16384); each block reduces its 28
+// sums to one partial row, and the block that draws the last ticket sums
+// the rows in block-index order (lgsx.cuh's block_row, last_block and
+// sum_rows, which both kernels call).
 //
 // `revo_residual_lgsx` is the form the solver launches: the whole residual
 // pass of one evaluation and its reduction in one kernel.  The TPU kernel
@@ -58,44 +61,40 @@ namespace {
 
 using lgsx::NSUM;
 
-constexpr int THREADS = 1024;
+constexpr int RD_THREADS = 128, RD_POINTS = 2;  // threads a block, points a thread
+constexpr int RD_BLOCK_POINTS = RD_THREADS * RD_POINTS;
 
-__global__ void __launch_bounds__(THREADS)
+// partial: ceil(P / RD_BLOCK_POINTS) rows of lgsx::ROW floats; ticket: one
+// zeroed uint32 that every launch leaves at 0; out: 43 floats.  Grid
+// max(ceil(P / RD_BLOCK_POINTS), 1); point q RD_THREADS + threadIdx.x of a
+// block's RD_BLOCK_POINTS is the thread's q-th.
+__global__ void __launch_bounds__(RD_THREADS)
 lgsx_reduce_kernel(const float* __restrict__ wxp, const float* __restrict__ grads,
                    const float* __restrict__ res, const float* __restrict__ wts,
-                   float* __restrict__ out, int P) {
+                   float* __restrict__ out, int P, float* partial, unsigned int* ticket) {
   float acc[NSUM];
 #pragma unroll
   for (int k = 0; k < NSUM; ++k) acc[k] = 0.0f;
-
-  for (int p = threadIdx.x; p < P; p += THREADS)
-    lgsx::accumulate(acc, wxp[3 * p], wxp[3 * p + 1], wxp[3 * p + 2],
-                     grads[2 * p], grads[2 * p + 1], res[p], wts[p]);
-
-  // Fixed-order reduction: shuffle tree inside each warp, then warp 0 sums
-  // the 32 warp partials in index order.
 #pragma unroll
-  for (int k = 0; k < NSUM; ++k) acc[k] = lgsx::warp_sum(acc[k]);
-  __shared__ float part[THREADS / 32][NSUM];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NSUM; ++k) part[warp][k] = acc[k];
+  for (int q = 0; q < RD_POINTS; ++q) {
+    const int p = blockIdx.x * RD_BLOCK_POINTS + q * RD_THREADS + threadIdx.x;
+    if (p < P)
+      lgsx::accumulate(acc, wxp[3 * p], wxp[3 * p + 1], wxp[3 * p + 2], grads[2 * p],
+                       grads[2 * p + 1], res[p], wts[p]);
   }
-  __syncthreads();
-  if (threadIdx.x < NSUM) {
-    const int k = threadIdx.x;
-    float s = 0.0f;
-    for (int wi = 0; wi < THREADS / 32; ++wi) s += part[wi][k];
-    lgsx::store_sum(out, k, s);
-  }
+  __shared__ float stage[lgsx::CHUNK * lgsx::ROW];
+  lgsx::block_row<RD_THREADS, NSUM, 0>(acc, nullptr, stage,
+                                       partial + (size_t)blockIdx.x * lgsx::ROW);
+  if (!lgsx::last_block(ticket, gridDim.x)) return;
+  float fs;
+  int is;
+  lgsx::sum_rows<RD_THREADS, NSUM, 0>(partial, gridDim.x, stage, fs, is);
+  if (threadIdx.x < NSUM) lgsx::store_sum(out, threadIdx.x, fs);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 constexpr int RL_THREADS = 128;
-constexpr int RL_WARPS = RL_THREADS / 32;
-constexpr int NF = NSUM + 1;  // float sums: the 28 of K3 and sum_unw
-constexpr int ROW = 32;       // partial row: NF floats, 2 int counts, 1 pad
-constexpr int CHUNK = 128;    // partial rows the last block stages per pass
+constexpr int NF = NSUM + 1;  // float sums: the 28 of K3 and sum_unw; a row adds 2 int counts
 
 // float32(q * scale + shift) rounded once: the double product of two
 // floats is exact, so only the double sum and the final conversion round.
@@ -126,7 +125,7 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
   valid += batch * valid_stride;
   Rp += batch * R_stride;
   tp += batch * t_stride;
-  partial += batch * gridDim.x * ROW;
+  partial += batch * gridDim.x * lgsx::ROW;
   ticket += batch;
   out += batch * 46;
   // Quad rows of this lane (quad_stride counts rows of 4 taps).
@@ -199,57 +198,16 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
     n_bad = good ? 0 : 1;
   }
 
-  // Block reduction: shuffle tree inside each warp, warp partials summed in
-  // warp order, one partial row per block.
-#pragma unroll
-  for (int k = 0; k < NF; ++k) acc[k] = lgsx::warp_sum(acc[k]);
-  n_good = __reduce_add_sync(0xffffffffu, n_good);
-  n_bad = __reduce_add_sync(0xffffffffu, n_bad);
-  __shared__ float stage[CHUNK * ROW];
-  __shared__ bool last;
-  int* stage_i = reinterpret_cast<int*>(stage);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NF; ++k) stage[warp * ROW + k] = acc[k];
-    stage_i[warp * ROW + NF] = n_good;
-    stage_i[warp * ROW + NF + 1] = n_bad;
-  }
-  __syncthreads();
-  if (tid < NF) {
-    float s = 0.0f;
-    for (int wi = 0; wi < RL_WARPS; ++wi) s += stage[wi * ROW + tid];
-    partial[(size_t)blockIdx.x * ROW + tid] = s;
-  } else if (tid < NF + 2) {
-    int s = 0;
-    for (int wi = 0; wi < RL_WARPS; ++wi) s += stage_i[wi * ROW + tid];
-    reinterpret_cast<int*>(partial)[(size_t)blockIdx.x * ROW + tid] = s;
-  }
-  __threadfence();  // the row is visible before the ticket is taken
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-
-  // Last block: sum the rows in block-index order.  All threads stage a
-  // chunk of rows in shared memory (loads in flight together, past L1),
-  // then one thread per output adds them in order.
-  float fs = 0.0f;
-  int is = 0;
-  const int nb = gridDim.x;
-  for (int base = 0; base < nb; base += CHUNK) {
-    const int n = min(CHUNK, nb - base);
-    __syncthreads();
-    for (int i = tid; i < n * ROW; i += RL_THREADS)
-      stage[i] = __ldcg(partial + (size_t)base * ROW + i);
-    __syncthreads();
-    if (tid < NF) {
-      for (int b = 0; b < n; ++b) fs += stage[b * ROW + tid];
-    } else if (tid < NF + 2) {
-      for (int b = 0; b < n; ++b) is += stage_i[b * ROW + tid];
-    }
-  }
+  // Block reduction to one partial row, the ticket, and in the last block
+  // the rows summed in block-index order (lgsx.cuh).
+  int cnt[2] = {n_good, n_bad};
+  __shared__ float stage[lgsx::CHUNK * lgsx::ROW];
+  lgsx::block_row<RL_THREADS, NF, 2>(acc, cnt, stage, partial + (size_t)blockIdx.x * lgsx::ROW);
+  if (!lgsx::last_block(ticket, gridDim.x)) return;
+  float fs;
+  int is;
+  lgsx::sum_rows<RL_THREADS, NF, 2>(partial, gridDim.x, stage, fs, is);
+  const int tid = threadIdx.x;
   // out: A (36), g (6), sum_w, sum_unw, then n_good and n_bad as int32.
   if (tid < NSUM) {
     lgsx::store_sum(out, tid, fs);
@@ -263,10 +221,15 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
 
 }  // namespace
 
-extern "C" int revo_lgsx_reduce(const float* wxp, const float* grads,
-                                const float* r, const float* w, float* out,
-                                int P, cudaStream_t stream) {
-  lgsx_reduce_kernel<<<1, THREADS, 0, stream>>>(wxp, grads, r, w, out, P);
+// partial: max(ceil(P / RD_BLOCK_POINTS), 1) rows of 32 floats; ticket:
+// one zeroed uint32 that every launch leaves at 0.  P = 0 launches one
+// block, which writes zeros.
+extern "C" int revo_lgsx_reduce(const float* wxp, const float* grads, const float* r,
+                                const float* w, float* out, int P, float* partial,
+                                unsigned int* ticket, cudaStream_t stream) {
+  const int blocks = P > 0 ? (P + RD_BLOCK_POINTS - 1) / RD_BLOCK_POINTS : 1;
+  lgsx_reduce_kernel<<<blocks, RD_THREADS, 0, stream>>>(wxp, grads, r, w, out, P, partial,
+                                                        ticket);
   return (int)cudaGetLastError();
 }
 

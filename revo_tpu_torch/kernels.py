@@ -39,7 +39,9 @@ NVCC_FLAGS = (
 # Exported C functions: argument kinds ("p" pointer, "i" int, "f" float);
 # every function also takes the stream as its last argument.
 SIGNATURES = {
-    "revo_canny_nms": "pppiiiff",
+    "revo_canny_nms": "pippiiiffi",
+    "revo_canny_nms_blocks": "iiii",
+    "revo_canny_nms_tile": "",
     "revo_canny_hysteresis": "pppiiii",
     "revo_canny_hysteresis_global": "ppppiiii",
     "revo_canny_hysteresis_shared_limit": "",
@@ -50,7 +52,7 @@ SIGNATURES = {
     "revo_canny_grid_blocks": "iii",
     "revo_canny_hysteresis_grid": "ppppppiiiiii",
     "revo_canny_hysteresis_grid_blocks": "iiii",
-    "revo_lgsx_reduce": "pppppi",
+    "revo_lgsx_reduce": "pppppipp",
     "revo_residual_lgsx": "piipipipipipffffiiffiiippp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

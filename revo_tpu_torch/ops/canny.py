@@ -145,26 +145,54 @@ def _check_cuda(x: torch.Tensor, dtype, ndim: int, name: str):
         )
 
 
-def canny_nms(gray_pad: torch.Tensor, low_sq: float, high_sq: float):
-    """K1 wrapper: (B, H+2, W+2) float32 padded gray -> (cand, strong)
-    (B, H, W) bool.  CPU tensor: plain version; CUDA tensor: the kernel."""
-    if gray_pad.device.type == "cpu":
-        return canny_nms_ref(gray_pad, low_sq, high_sq)
-    if gray_pad.device.type != "cuda":
-        raise ValueError(f"canny_nms: unsupported device {gray_pad.device}")
-    _check_cuda(gray_pad, torch.float32, 3, "canny_nms")
-    b, hp, wp = gray_pad.shape
-    cand = torch.empty((b, hp - 2, wp - 2), dtype=torch.bool, device=gray_pad.device)
+# K1's tile (rows, columns): persistent blocks walk the (B, ceil(H / 64),
+# ceil(W / 128)) tiles, column fastest.  csrc/canny.cu's NMS_TY and NMS_TX
+# set it; the built kernel reports them (revo_canny_nms_tile), and
+# ``_nms_blocks`` raises where they differ from this copy, which the CPU's
+# model of the tile walk uses.
+NMS_TILE = (64, 128)
+
+
+def canny_nms(gray: torch.Tensor, low_sq: float, high_sq: float):
+    """K1 wrapper: (B, H, W) unpadded uint8-valued gray, uint8 or float32 ->
+    (cand, strong) (B, H, W) bool, bit-equal to ``canny_nms_ref`` on the
+    REFLECT_101-padded float32 copy.  CPU tensor: that copy and the plain
+    version; CUDA tensor: the kernel, which applies REFLECT_101 on the index
+    and so makes no copy, over as many persistent blocks as the card holds
+    at once (``_nms_blocks``).  H and W must be at least 2."""
+    if not _check_gray(gray, "canny_nms"):
+        return canny_nms_ref(_reflect_pad(gray.to(torch.float32), 1, 1), low_sq, high_sq)
+    b, h, w = gray.shape
+    u8 = int(gray.dtype == torch.uint8)
+    cand = torch.empty((b, h, w), dtype=torch.bool, device=gray.device)
     strong = torch.empty_like(cand)
-    kernels.launch(
-        "revo_canny_nms",
-        gray_pad, cand, strong, b, hp - 2, wp - 2, float(low_sq), float(high_sq),
-    )
+    kernels.launch("revo_canny_nms", gray, u8, cand, strong, b, h, w, float(low_sq),
+                   float(high_sq), _nms_blocks(gray.device, b, h, w, u8))
     canny_nms.launches += 1
     return cand, strong
 
 
 canny_nms.launches = 0
+
+
+def nms_tiles(b: int, h: int, w: int) -> int:
+    """K1's tiles over ``b`` (h, w) images."""
+    return b * -(-h // NMS_TILE[0]) * -(-w // NMS_TILE[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _nms_blocks(device: torch.device, b: int, h: int, w: int, u8: int) -> int:
+    """Persistent blocks of K1 for ``b`` (h, w) images on ``device``: as many
+    as the card holds at once (the CUDA runtime's occupancy query), at most
+    one a tile."""
+    tile = kernels.call("revo_canny_nms_tile", device=device)
+    if (tile >> 16, tile & 0xFFFF) != NMS_TILE:
+        raise RuntimeError(f"canny_nms: the kernel's tile is {tile >> 16}x{tile & 0xFFFF}, "
+                           f"NMS_TILE says {NMS_TILE[0]}x{NMS_TILE[1]}")
+    blocks = kernels.call("revo_canny_nms_blocks", b, h, w, u8, device=device)
+    if blocks < 0:
+        raise RuntimeError(f"canny_nms: CUDA error {-blocks} counting the resident blocks")
+    return blocks
 
 
 @functools.lru_cache(maxsize=None)
@@ -411,8 +439,9 @@ def _fused_buffers(device, n_words: int, b: int):
 
 
 def _check_gray(gray: torch.Tensor, name: str) -> bool:
-    """Checks of the one-launch kernels' gray; True for a CUDA tensor that
-    goes to the kernel, False for a CPU tensor (the plain version)."""
+    """Checks of the gray the kernels read unpadded (K1 and the one-launch
+    Cannys); True for a CUDA tensor that goes to the kernel, False for a CPU
+    tensor (the plain version)."""
     if gray.dim() != 3 or min(gray.shape[-2:]) < 2:
         raise ValueError(
             f"{name}: want (B, H, W) with H, W >= 2 (REFLECT_101), got {tuple(gray.shape)}"
@@ -539,9 +568,7 @@ def canny_batched(
                 return canny_grid(gray, low, high)
             return torch.cat([canny_grid(gray[i:i + group], low, high)
                               for i in range(0, gray.shape[0], group)])
-        gp = _reflect_pad(gray.to(torch.float32), 1, 1).contiguous()
-        cand, strong = canny_nms(gp, low * low, high * high)
-        return canny_hysteresis(cand, strong)
+        return canny_hysteresis(*canny_nms(gray, low * low, high * high))
     return canny_fused(gray, low, high)
 
 

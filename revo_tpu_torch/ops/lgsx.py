@@ -67,7 +67,10 @@ def lgsx_reduce_ref(wxp, grads, r, w):
 
 
 def lgsx_reduce(wxp, grads, r, w):
-    """K3 wrapper.  CPU tensors: plain version; CUDA tensors: the kernel."""
+    """K3 wrapper.  CPU tensors: plain version; CUDA tensors: the kernel,
+    two points a thread over ``reduce_blocks(P)`` blocks of 128 threads,
+    partial rows summed in block order by the last block (no float atomics:
+    two launches on the same inputs give the same bits)."""
     if wxp.device.type == "cpu":
         return lgsx_reduce_ref(wxp, grads, r, w)
     if wxp.device.type != "cuda":
@@ -75,13 +78,15 @@ def lgsx_reduce(wxp, grads, r, w):
     p = wxp.shape[0]
     shapes = ((wxp, (p, 3)), (grads, (p, 2)), (r, (p,)), (w, (p,)))
     for x, shape in shapes:
-        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != wxp.device:
             raise ValueError(
-                f"lgsx_reduce: want float32 {shape}, got {x.dtype} {tuple(x.shape)}"
+                f"lgsx_reduce: want float32 {shape} on {wxp.device}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}"
             )
     wxp, grads, r, w = (x.contiguous() for x, _ in shapes)
+    partial, ticket, _ = _stream_scratch(_reduce_scratch, wxp.device, reduce_blocks(p), 1)
     out = torch.empty(43, dtype=torch.float32, device=wxp.device)
-    kernels.launch("revo_lgsx_reduce", wxp, grads, r, w, out, p)
+    kernels.launch("revo_lgsx_reduce", wxp, grads, r, w, out, p, partial, ticket)
     lgsx_reduce.launches += 1
     return out[:36].view(6, 6), out[36:42], out[42]
 
@@ -164,25 +169,35 @@ def residual_lgsx_batched_ref(quad, cloud, cam, R, t, edge_distance, huber, use_
     return _lane_outputs(out)
 
 
-_RL_THREADS = 128  # points per block (csrc/lgsx.cu RL_THREADS)
-_RL_ROW = 32  # words per block's partial row (csrc/lgsx.cu ROW)
-_scratch = {}  # (device, stream) -> (partial rows, tickets, all-lanes mask)
+_RL_THREADS = 128  # threads a block (csrc/lgsx.cu RL_THREADS and RD_THREADS)
+_RL_ROW = 32  # words per block's partial row (csrc/lgsx.cuh ROW)
+# (device, stream) -> (partial rows, tickets, all-lanes mask): the fused
+# kernel's and lgsx_reduce's, apart.
+_scratch = {}
+_reduce_scratch = {}
 
 
-def _residual_scratch(device, rows: int, lanes: int):
-    """The fused kernel's partial rows, per-lane tickets and an all-true
-    lane mask on the current stream of ``device``.  Launches on one stream
+def reduce_blocks(p: int) -> int:
+    """Blocks of one ``lgsx_reduce`` launch over ``p`` points: two points a
+    thread, 128 threads a block (csrc/lgsx.cu RD_POINTS, RD_THREADS), and one
+    block (which writes zeros) at p = 0."""
+    return max(-(-p // (2 * _RL_THREADS)), 1)
+
+
+def _stream_scratch(table: dict, device, rows: int, lanes: int):
+    """Partial rows, per-lane tickets and an all-true lane mask from
+    ``table`` for the current stream of ``device``.  Launches on one stream
     run in order and each leaves the tickets of its lanes at 0, so they
     share one buffer; it grows when a call needs more rows or lanes."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    held = _scratch.get(key)
+    held = table.get(key)
     if held is None or held[0].shape[0] < rows * _RL_ROW or held[1].shape[0] < lanes:
         held = (
             torch.empty(rows * _RL_ROW, dtype=torch.float32, device=device),
             torch.zeros(lanes, dtype=torch.int32, device=device),
             torch.ones(lanes, dtype=torch.bool, device=device),
         )
-        _scratch[key] = held
+        table[key] = held
     return held
 
 
@@ -238,7 +253,7 @@ def lane_operands(quad, cloud, cam, lanes: int) -> LaneOperands:
     if quad.data_ptr() % 16:
         raise ValueError("residual_lgsx: the quad table must be 16-byte aligned")
     blocks = max(-(-p // _RL_THREADS), 1)
-    partial, ticket, every_lane = _residual_scratch(device, lanes * blocks, lanes)
+    partial, ticket, every_lane = _stream_scratch(_scratch, device, lanes * blocks, lanes)
     return LaneOperands(quad, EdgeCloud(points=points, valid=valid, count=None), cam, lanes,
                         (quad_s // 4, pts_s, valid_s), (partial, ticket, every_lane[:lanes]))
 

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from revo_tpu_torch import frontend, lanes, solver
+from revo_tpu_torch import frontend, kernels, lanes, solver
 from revo_tpu_torch.config import CameraConfig, SystemConfig
 from revo_tpu_torch.io.synthetic import SyntheticScene, render_frame
 from revo_tpu_torch.ops import canny as K12
@@ -71,15 +71,58 @@ def _gray(h, w, seed):
 @pytest.mark.parametrize("shape", [(1, 480, 640), (8, 120, 160), (3, 37, 53)])
 def test_canny_kernels_bit_equal(cuda, shape):
     b, h, w = shape
-    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)]))
-    gp = _reflect_pad(imgs, 1, 1).contiguous().to(cuda)
-    c_k, s_k = K12.canny_nms(gp, 1e4, 2.25e4)
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda)
+    gp = _reflect_pad(imgs, 1, 1).contiguous()
     c_p, s_p = K12.canny_nms_ref(gp, 1e4, 2.25e4)
-    assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p)
+    for g in (imgs, imgs.to(torch.uint8)):
+        c_k, s_k = K12.canny_nms(g, 1e4, 2.25e4)
+        assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p)
     want = K12.hysteresis_ref(c_p, s_p)
     assert K12.hysteresis_fits_shared(cuda, h, w)
     for form in (None, *K12.K2_FORMS):
         assert torch.equal(K12.canny_hysteresis(c_p, s_p, _form=form), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(1, 480, 640), (3, 37, 53), (2, 1027, 2051), (1, 2160, 3840)])
+def test_canny_nms_unpadded_bit_equal(cuda, shape, dtype):
+    """K1 from unpadded gray, uint8 and float32: whole-chunk rows (vector
+    reads, 16-byte stores), ragged rows (scalar reads, byte stores), tiles
+    that are all border, and 3840x2160, whose 4,050 tiles are more than one
+    wave of the persistent blocks: bit-equal to the plain version on the
+    padded float32 copy, and the same bits from a second launch."""
+    b, h, w = shape
+    imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda, dtype)
+    c_p, s_p = K12.canny_nms_ref(_reflect_pad(imgs.float(), 1, 1), 1e4, 2.25e4)
+    assert int(c_p.sum()) > 0
+    blocks = K12._nms_blocks(cuda, b, h, w, int(dtype == torch.uint8))
+    assert 1 <= blocks <= K12.nms_tiles(b, h, w)
+    if h > 1000:
+        assert blocks < K12.nms_tiles(b, h, w)
+    before = K12.canny_nms.launches
+    c_k, s_k = K12.canny_nms(imgs, 1e4, 2.25e4)
+    assert K12.canny_nms.launches == before + 1
+    assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p)
+    again = K12.canny_nms(imgs, 1e4, 2.25e4)
+    assert torch.equal(again[0], c_k) and torch.equal(again[1], s_k)
+
+
+def test_canny_nms_unaligned_gray_and_refusals(cuda):
+    """A uint8 view that starts one byte into its storage takes the scalar
+    reads, bit-equal; the kernel's tile is the wrapper's NMS_TILE; H or W
+    below 2 raises, and a launch of 0 blocks raises with its status."""
+    flat = torch.from_numpy(_gray(64, 640, 0)).to(cuda, torch.uint8).reshape(-1)
+    g = torch.cat([flat.new_zeros(1), flat])[1:].view(1, 64, 640)
+    assert g.data_ptr() % 16 == 1
+    c_p, s_p = K12.canny_nms_ref(_reflect_pad(g.float(), 1, 1), 1e4, 2.25e4)
+    c_k, s_k = K12.canny_nms(g, 1e4, 2.25e4)
+    assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p)
+    tile = kernels.call("revo_canny_nms_tile", device=cuda)
+    assert (tile >> 16, tile & 0xFFFF) == K12.NMS_TILE
+    with pytest.raises(ValueError):
+        K12.canny_nms(torch.zeros((1, 1, 64), dtype=torch.uint8, device=cuda), 1.0, 4.0)
+    with pytest.raises(RuntimeError, match="status"):
+        kernels.launch("revo_canny_nms", g, 1, c_k, s_k, 1, 64, 640, 1e4, 2.25e4, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
@@ -374,22 +417,37 @@ def test_hysteresis_grid_forms_bit_equal(cuda, shape, blocks):
         assert K12.canny_hysteresis.launches == before + 1
 
 
-def test_lgsx_kernel_close_and_deterministic(cuda):
+@pytest.mark.parametrize("p", [0, 1, 3000, 16384, 65536])
+def test_lgsx_kernel_close_and_deterministic(cuda, p):
+    """K3 over ceil(P / 256) blocks (one at P = 0, which writes zeros):
+    within rtol 1e-4 / atol 1e-5 of each output's largest entry of the
+    plain version (reduction order), and the same bits from a second launch
+    and from launches on two other streams, each with its own scratch."""
     rng = np.random.default_rng(2)
-    p = 16384
     wxp = rng.normal(size=(p, 3)).astype(np.float32)
     wxp[:, 2] = np.abs(wxp[:, 2]) + 0.5
     grads = (rng.normal(size=(p, 2)) * 50).astype(np.float32)
     r = rng.uniform(0, 3, p).astype(np.float32)
     w = np.where(rng.random(p) < 0.8, np.minimum(1.0, 0.3 / r), 0.0).astype(np.float32)
     args = [torch.from_numpy(x).to(cuda) for x in (wxp, grads, r, w)]
+    before = K3.lgsx_reduce.launches
     got = K3.lgsx_reduce(*args)
+    assert K3.lgsx_reduce.launches == before + 1
     want = K3.lgsx_reduce_ref(*args)
     for a, b in zip(got, want):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5 * np.abs(b).max())
     again = K3.lgsx_reduce(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize(cuda)
+    outs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append(K3.lgsx_reduce(*args))
+    torch.cuda.synchronize(cuda)
+    for out in outs:
+        assert all(torch.equal(a, b) for a, b in zip(got, out))
 
 
 @pytest.mark.parametrize("quad_form", ["dt4bf", "dt4"])

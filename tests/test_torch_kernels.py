@@ -257,7 +257,7 @@ class TestWrappers:
         with pytest.raises(ValueError):
             K12.canny_hysteresis(m, m)
         with pytest.raises(ValueError):
-            K12.canny_nms(torch.zeros(1, 6, 6, device="meta"), 1.0, 4.0)
+            K12.canny_nms(torch.zeros(1, 4, 4, dtype=torch.uint8, device="meta"), 1.0, 4.0)
         with pytest.raises(ValueError):
             K12.canny_fused(torch.zeros(1, 6, 6, device="meta"), 1.0, 2.0)
         x = torch.zeros(8, 3, device="meta")
