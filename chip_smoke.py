@@ -23,7 +23,8 @@ box, column and sparse scene families with a loop trajectory; then the
 multi-device layer: the sharded forms on a mesh of slots, the two-stage
 pipeline, a one-process NCCL group and two processes over gloo; then the
 batched step, B sequences in one lane axis as the JAX package's vmap runs
-them.  Phases, one line each:
+them; then the reference-gradient tracker (the 12-component quad tables and
+the structure sampled directly).  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
@@ -234,12 +235,31 @@ them.  Phases, one line each:
              host syncs (sync debug mode "warn") equal to the flag reads;
              (e) CUDA-event ms per batched step at B = 1, 8, 16, 32 (lm at
              1, 8) against B one-lane steps in the same call, with the
-             profiler's kernels per step and device-busy share.
+             profiler's kernels per step and device-busy share;
+19. quadforms the reference-gradient tracker (the JAX package's 12-component
+             quad forms and its structure samplers): (a) the 8-frame chain
+             with quad_form "flat", "flatbf" and bilinear_impl "take4", each
+             under lm and gn_fixed, on the card (counts from 0 just before,
+             each of the fused K3's three new table layouts launched) and on
+             the CPU: promotion flags equal, poses within 1e-4 m / 1e-4 rad,
+             ATE < 2 mm; (b) each new layout at level 0 (P = 16384) at
+             identity, the tracked pose and a pose that throws most points
+             out: counts equal to the plain version, floats within 1e-4 of
+             each output's largest entry, a second launch bit-identical, no
+             host sync; and at B = 8 (the chain frames' own tables, clouds
+             and poses): each lane bit-equal to its B = 1 launch, counts
+             equal, floats within 1e-4; (c) VOSystem over the pan + teleport
+             in "flatbf": a relocalization through track_ring, never lost,
+             ATE under 1.5x the JAX package's on the CPU in "flatbf" (phase
+             7's rule); (d) CUDA-event ms of each layout
+             (the kernel alone, through the wrapper, the plain version, at
+             B = 8) beside its bytes bound; its three rows join the kernel
+             JSON.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
-host_libraries, 15, 16, 17, 18, 6.
-Launch counts are set to 0 just before each path (phases 5, 7 to 18, each
-form of 17 and each path of 18 on its own)
+host_libraries, 15, 16, 17, 18, 19, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 19, each
+form of 17 and each path of 18 and 19 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
 alone; the cluster Canny on the 1280x720 frames; the grid Canny on the
@@ -325,6 +345,24 @@ WORKER_TIMEOUT_S = 300
 # seed-11 walk (its first 14 poses, then its frame 0 again), with a jump gate
 # between the pan's 4 cm steps and that teleport.
 N_TELEPORT, SCAN_JUMP_M = 14, 0.07
+# Phase 19: the reference-gradient tracker's forms (name, quad_form,
+# bilinear_impl), the kernel JSON's row for each table layout the fused K3
+# gathers in them, their tolerance against the plain version (of each
+# output's largest entry) and the pan frames its VOSystem run takes before
+# the teleport frame.
+QUAD_CASES = (("flat", "flat", "quad_lf"), ("flatbf", "flatbf", "quad_lf"),
+              ("take4", "dt4bf", "take4"))
+LAYOUT_ROWS = {2: "residual_lgsx_quad12", 3: "residual_lgsx_quad12_bf16",
+               4: "residual_lgsx_struct3"}
+QUAD_RTOL = 1e-4
+N_PAN_QUAD = N_PAN
+# Phase 19's VOSystem limit, by phase 7's rule: 1.5 times the JAX package's
+# own ATE on the pan + teleport in "flatbf", VOSystem on the CPU
+# (scripts/pan_teleport_ate.py flatbf).  The reference gradient tracks this
+# 4 cm-a-frame pan 2.7x worse than "dt4bf" in both packages, so phase 7's
+# limit, made for "dt4bf", would fail the reference itself.
+JAX_CPU_ATE_FLATBF_M = 0.0030241994575132274
+VO_FLATBF_ATE_LIMIT_M = 1.5 * JAX_CPU_ATE_FLATBF_M
 # Phase 4's batched fused K3 and phase 18: the JAX headline's lanes (bench.py
 # B = 8) at the margin-0.65 capacities of ROADMAP P8, and the lane counts timed.
 K3_LANES = 8
@@ -518,11 +556,14 @@ def _bound(n_bytes: float, n_ops: float):
 
 
 def _gathered_bytes(quad, n_inside: int) -> int:
-    """Bytes of one lane's quad table (H*W, 4) that K3 must read: one row
-    (8 B for dt4bf, 16 B for dt4) per point inside the image, and no more
-    than the whole table, each row read once."""
+    """Bytes of one lane's table (H*W, C) that K3 must read: what one point
+    inside the image gathers (a quad row: 8 B for dt4bf, 16 B for dt4, 24 B
+    for flatbf, 48 B for the float32 12-component forms; four structure
+    rows of 12 B for a take4 table) per such point, and no more than the
+    whole table, each byte read once."""
     row = quad.shape[-1] * quad.element_size()
-    return min(quad.shape[-2] * row, n_inside * row)
+    per_point = 4 * row if quad.shape[-1] == 3 else row
+    return min(quad.shape[-2] * row, n_inside * per_point)
 
 
 def _nbytes(*tensors) -> int:
@@ -2656,6 +2697,218 @@ def main() -> int:
     batched_summary["step_times"] = timing
     _phase("batched", **batched_summary)
 
+    # -- 19. quadforms: the reference-gradient tracker --------------------------
+    from revo_tpu_torch.ops.lgsx import table_layout
+
+    def form_cfg(base, quad_form, impl):
+        return dataclasses.replace(base, tracker=dataclasses.replace(
+            base.tracker, optimizer=dataclasses.replace(
+                base.tracker.optimizer, quad_form=quad_form, bilinear_impl=impl)))
+
+    def level_table(kf_, lvl, cfg_):  # what the tracker hands the solver
+        if solver.uses_quad_table(cfg_.tracker.optimizer):
+            return kf_.quads[lvl]
+        return kf_.structs[lvl].flatten(-3, -2)
+
+    def chain_on(frames_, cfg_):  # keyframe from frame 0, frames 1.. chained
+        device = frames_[0].levels[0].gray.device
+        kf_ = frontend.make_keyframe(frames_[0], torch.eye(4, device=device), cfg_)
+        R, t = torch.eye(3, device=device), torch.zeros(3, device=device)
+        est, res_ = [np.eye(4)], []
+        for f in frames_[1:]:
+            r = tracker.track_frames(kf_, f, R, t, cfg_)
+            R, t = r.R, r.t
+            T = np.eye(4)
+            T[:3, :3], T[:3, 3] = R.cpu().numpy(), t.cpu().numpy()
+            est.append(T)
+            res_.append(r)
+        return kf_, np.stack(est), res_
+
+    def layout_path(fn):  # _path_launches with the by-layout counts too
+        K3.residual_lgsx.layout_launches[:] = [0] * len(K3.residual_lgsx.layout_launches)
+        out_, counts = _path_launches(counters_, fn)
+        return out_, counts, list(K3.residual_lgsx.layout_launches)
+
+    form_cfgs = {name: form_cfg(cfg, qf, impl) for name, qf, impl in QUAD_CASES}
+
+    def card_chains():
+        frames_c = [frontend.build_frame(torch.from_numpy(g).to(dev),
+                                         torch.from_numpy(d).to(dev), cfg)
+                    for g, d in zip(grays, depths)]
+        return frames_c, {(name, s_): chain_on(frames_c, _with_solver(c_, s_))
+                          for name, c_ in form_cfgs.items() for s_ in ("lm", "gn_fixed")}
+
+    # (a) the 8-frame chain in each form under both solvers, on the card
+    # (counts from 0 just before) and on the CPU.
+    (frames_q, chains_q), launches, by_layout = layout_path(card_chains)
+    require_vga("quadforms", launches)
+    add_launches(launches)
+    quad_launches = {LAYOUT_ROWS[k]: by_layout[k] for k in LAYOUT_ROWS}
+    if any(n <= 0 for n in quad_launches.values()):
+        raise RuntimeError(f"quadforms: a table layout never launched: {quad_launches}")
+    frames_h = [frontend.build_frame(torch.from_numpy(g), torch.from_numpy(d), cfg)
+                for g, d in zip(grays, depths)]
+    quad_summary = {"launches": launches, "layout_launches": quad_launches, "chains": {}}
+    for (name, s_), (_, est, res_) in chains_q.items():
+        _, est_h, res_h = chain_on(frames_h, _with_solver(form_cfgs[name], s_))
+        dt_, dr_ = _max_pose_diff(est, est_h)
+        flags = [bool(r.new_kf) for r in res_]
+        ate = absolute_trajectory_error(est, gt).rmse
+        quad_summary["chains"][f"{name}_{s_}"] = {"ate_m": ate, "vs_cpu_m": dt_,
+                                                  "vs_cpu_rad": dr_}
+        if flags != [bool(r.new_kf) for r in res_h]:
+            raise RuntimeError(f"quadforms {name} {s_}: card flags differ from CPU")
+        if not (dt_ <= POSE_TOL and dr_ <= POSE_TOL and np.isfinite(est).all()):
+            raise RuntimeError(f"quadforms {name} {s_}: card poses differ from CPU by "
+                               f"{dt_} m, {dr_} rad")
+        if not ate < ATE_LIMIT_M:
+            raise RuntimeError(f"quadforms {name} {s_}: ATE {ate} m >= {ATE_LIMIT_M} m")
+    # (b) each new layout against its plain version at level 0 (P = 16384)
+    # at identity, the tracked pose and one that throws most points out, and
+    # over K3_LANES lanes (the chain frames' own tables, clouds and poses).
+    from revo_tpu_torch import lie
+
+    out_pose = tuple(x.to(dev) for x in lie.exp_se3(
+        torch.tensor([0.9, -0.3, 0.1, 0.03, 0.4, -0.08])))
+    quad_rows, quad_checks = [], {}
+    for name, cfg_ in form_cfgs.items():
+        kf_, _, res_ = chains_q[(name, "lm")]
+        table0 = level_table(kf_, 0, cfg_)
+        layout = table_layout(table0)
+        cloud0 = frames_q[-1].levels[0].cloud
+        errs, rels, counts_ = [], [], []
+        for R, t in ((torch.eye(3, device=dev), torch.zeros(3, device=dev)),
+                     (res_[-1].R, res_[-1].t), out_pose):
+            args = (table0, cloud0, cams[0], R, t, opt.edge_distance_lvl[0], opt.huber_edge,
+                    opt.use_edge_filter)
+            before = K3.residual_lgsx.launches
+            torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+            got = solver._residual_sums(*args)
+            torch.cuda.set_sync_debug_mode("default")
+            if K3.residual_lgsx.launches != before + 1:
+                raise RuntimeError(f"quadforms {name}: an evaluation is not one launch")
+            again = K3.residual_lgsx(*args)
+            want = K3.residual_lgsx_ref(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"quadforms {name}: two launches differ")
+            counts_.append([int(got[4]), int(got[5])])
+            if counts_[-1] != [int(want[4]), int(want[5])]:
+                raise RuntimeError(f"quadforms {name}: (good, bad) {counts_[-1]} != plain "
+                                   f"{[int(want[4]), int(want[5])]}")
+            for a, b in zip(got[:4], want[:4]):
+                err = float((a - b).abs().max())
+                errs.append(err)
+                rels.append(err / max(float(b.abs().max()), 1e-30))
+        if not max(rels) <= QUAD_RTOL:
+            raise RuntimeError(f"quadforms {name}: differs from plain by {max(rels)} > {QUAD_RTOL}")
+        if not counts_[2][1] > counts_[2][0]:
+            raise RuntimeError(f"quadforms {name}: the out pose keeps most points: {counts_}")
+        kfs_b = frontend.make_keyframe_batched(
+            lane_tree.stack_lanes(frames_q), torch.eye(4, device=dev).expand(N_FRAMES, 4, 4), cfg_)
+        table_b = level_table(kfs_b, 0, cfg_)[:K3_LANES]
+        cloud_b = lane_tree.stack_lanes([f.levels[0].cloud for f in frames_q[:K3_LANES]])
+        R8 = torch.stack([torch.eye(3, device=dev), res_[-1].R, out_pose[0]] * 3)[:K3_LANES]
+        t8 = torch.stack([torch.zeros(3, device=dev), res_[-1].t, out_pose[1]] * 3)[:K3_LANES]
+        args_b = (table_b, cloud_b, cams[0], R8, t8, opt.edge_distance_lvl[0], opt.huber_edge,
+                  opt.use_edge_filter)
+        out = torch.empty((K3_LANES, 46), device=dev)
+        K3.residual_lgsx_batched(*args_b, None, out)
+        rows_b = out.clone()
+        K3.residual_lgsx_batched(*args_b, None, out)
+        if not torch.equal(out.view(torch.int32), rows_b.view(torch.int32)):
+            raise RuntimeError(f"quadforms {name}: two batched launches differ")
+        want_b = K3.residual_lgsx_batched_ref(*args_b)
+        for i in range(K3_LANES):
+            one = torch.empty((1, 46), device=dev)
+            K3.residual_lgsx_batched(
+                table_b[i:i + 1], EdgeCloud(cloud_b.points[i:i + 1], cloud_b.valid[i:i + 1], None),
+                cams[0], R8[i:i + 1], t8[i:i + 1], *args_b[5:], None, one)
+            if not torch.equal(one[0].view(torch.int32), rows_b[i].view(torch.int32)):
+                raise RuntimeError(f"quadforms {name}: lane {i} differs from its B=1 launch")
+            if rows_b[i, 44:46].view(torch.int32).tolist() != [int(want_b[4][i]),
+                                                               int(want_b[5][i])]:
+                raise RuntimeError(f"quadforms {name}: lane {i} counts differ from plain")
+            for a, b in zip((rows_b[i, :36], rows_b[i, 36:42], rows_b[i, 42:44]),
+                            (want_b[0][i].reshape(-1), want_b[1][i],
+                             torch.stack([want_b[2][i], want_b[3][i]]))):
+                rels.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        if not max(rels) <= QUAD_RTOL:
+            raise RuntimeError(f"quadforms {name}: batched differs from plain by {max(rels)}")
+        quad_checks[name] = {"layout": layout, "good_bad": counts_, "max_rel_err": max(rels)}
+        # (d) times: the kernel alone on the device (CUDA events behind a
+        # spin), through the wrapper, and the plain version; the bound counts
+        # what these points gather (one row, or four structure rows, per
+        # point inside the image), the cloud, the pose and the outputs.
+        fused_q = (table0, cloud0, cams[0], res_[-1].R, res_[-1].t, opt.edge_distance_lvl[0],
+                   opt.huber_edge, opt.use_edge_filter)
+        n_inside = int(K3.residual_terms(*fused_q[:7], False)[5])
+        n_pts_q = cloud0.points.shape[0]
+        bound_q = _bound(_nbytes(cloud0.points, cloud0.valid, fused_q[3], fused_q[4])
+                         + _gathered_bytes(table0, n_inside) + 46 * 4,
+                         K3_FUSED_OPS_PER_POINT * n_pts_q)
+        gathered_b = sum(_gathered_bytes(table_b[i], int(K3.residual_terms(
+            table_b[i], EdgeCloud(cloud_b.points[i], cloud_b.valid[i], None), cams[0], R8[i],
+            t8[i], opt.edge_distance_lvl[0], opt.huber_edge, False)[5])) for i in range(K3_LANES))
+        bound_b = _bound(_nbytes(cloud_b.points, cloud_b.valid, R8, t8) + gathered_b
+                         + K3_LANES * 46 * 4,
+                         K3_FUSED_OPS_PER_POINT * cloud_b.points.shape[1] * K3_LANES)
+
+        def fk(a=fused_q):
+            return K3.residual_lgsx(*a)
+
+        def fp(a=fused_q):
+            return K3.residual_lgsx_ref(*a)
+
+        def fk_b(a=args_b):
+            return K3.residual_lgsx_batched(*a)
+
+        quad_rows.append({
+            "name": LAYOUT_ROWS[layout], "route": "cuda",
+            "source": "revo_tpu_torch/csrc/lgsx.cu", "replaces": "revo_tpu/ops/pallas/lgsx.py:103",
+            "launches": 0, "max_abs_err": max(errs),
+            "ms": min(_time_ms(fk, 50), _time_ms(fk, 50)),
+            "plain_ms": min(_time_ms(fp, 10), _time_ms(fp, 10)),
+            "bound_ms": bound_q[0], "bound_by": bound_q[1], "library_ms": None,
+            "device_ms": _queued_ms(fk), "form": name, "points": n_pts_q,
+            "points_inside": n_inside, "table_row_bytes": table0.shape[-1] * table0.element_size(),
+            "batched": {"lanes": K3_LANES, "device_ms": _queued_ms(fk_b),
+                        "ms": min(_time_ms(fk_b, 50), _time_ms(fk_b, 50)),
+                        "bound_ms": bound_b[0], "bound_by": bound_b[1]},
+        })
+    # (c) VOSystem over phase 7's pan + teleport in "flatbf": never lost, a
+    # relocalization through track_ring, ATE under 1.5x the JAX package's.
+    cfg_bf = form_cfgs["flatbf"]
+
+    def card_vo_bf():
+        vo = VOSystem(cfg_bf, device=dev)
+        return vo, run_teleport(vo, p_grays[:N_PAN_QUAD] + p_grays[-1:],
+                                p_depths[:N_PAN_QUAD] + p_depths[-1:], None,
+                                lambda a: torch.from_numpy(a).to(dev))
+
+    (vo_bf, (poses_bf, flags_bf, _)), launches, by_layout = layout_path(card_vo_bf)
+    require_vga("quadforms vo", launches)
+    add_launches(launches)
+    if by_layout[table_layout(vo_bf.kf.quads[0])] <= 0:
+        raise RuntimeError(f"quadforms vo: flatbf tables never launched: {by_layout}")
+    for k in LAYOUT_ROWS:
+        quad_launches[LAYOUT_ROWS[k]] += by_layout[k]
+    gt_bf = np.concatenate([p_gt[:N_PAN_QUAD], p_gt[-1:]])
+    ate_bf = absolute_trajectory_error(poses_bf, gt_bf).rmse
+    quad_summary["vo_flatbf"] = {
+        "frames": len(poses_bf), "ate_m": ate_bf, "ate_limit_m": VO_FLATBF_ATE_LIMIT_M,
+        "keyframes": vo_bf.n_keyframes, "relocalized": vo_bf.n_relocalized,
+        "lost": vo_bf.n_tracking_lost, "launches": launches}
+    if not (flags_bf[:, 1].sum() >= 1 and flags_bf[:, 2].sum() == 0):
+        raise RuntimeError(f"quadforms vo: want a relocalization and none lost: {flags_bf.tolist()}")
+    if not ate_bf < VO_FLATBF_ATE_LIMIT_M:
+        raise RuntimeError(f"quadforms vo: ATE {ate_bf} m >= {VO_FLATBF_ATE_LIMIT_M} m")
+    for row in quad_rows:
+        row["launches"] = quad_launches[row["name"]]
+    quad_summary.update(checks=quad_checks, rtol=QUAD_RTOL, smi=smi, times={
+        r["name"]: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "batched")} for r in quad_rows})
+    _phase("quadforms", **quad_summary)
+
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")
     spent_s, t_part = {}, time.perf_counter()
@@ -2994,6 +3247,7 @@ def main() -> int:
         "residual_system": kernels_of(lambda: solver.residual_system(*fused0)),
     }
     part_done("kernels_per_evaluation")
+    rows += quad_rows  # phase 19's rows: the fused K3's reference-gradient layouts
     _phase("times", smi=smi, seconds_per_part=spent_s, stage_ms_per_frame=stage_ms,
            kernel_ms={r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
            bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},
@@ -3011,6 +3265,9 @@ def main() -> int:
     on_path = vga_kernels + ["canny_cluster", "canny_grid"] + split_kernels
     if any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]:
         raise RuntimeError(f"launch totals do not match the paths: {launch_total}")
+    on_path += [r["name"] for r in quad_rows]
+    if any(r["launches"] <= 0 for r in quad_rows):
+        raise RuntimeError(f"phase 19's layouts never launched: {quad_launches}")
     print(json.dumps({"kernels": [r for r in rows if r["name"] in on_path],
                       "kernels_off_path": [r for r in rows if r["name"] not in on_path]}))
     print(smi)

@@ -15,9 +15,9 @@ a tuple item, joined from the root, e.g. ``.kf.frame.levels[0].cloud.points``
 or ``.past.n``; a field that is ``None`` (``kf_ring`` without
 ``scan_relocalization``) has no key.  The port's host-side counts and flags
 (``n``, ``n_keyframes``, ``just_added_kf``) are stored as the int32 / bool
-scalars JAX keeps there.  npz has no bfloat16, so ``dt4bf`` quad tables are
-stored as their uint16 bits and viewed back through the template leaf's
-dtype.
+scalars JAX keeps there.  npz has no bfloat16, so the bfloat16 quad tables
+("dt4bf", "flatbf") are written as their uint16 bits, as the JAX package
+writes them; on load every quad table is rebuilt from the structures.
 """
 from __future__ import annotations
 
@@ -222,7 +222,10 @@ def load_scan_state(path: str, cfg, device="cuda"):
     package) onto ``device``.  The structure comes from
     ``scan_state_template(cfg)``: the config must be the one the state was
     captured under (same shapes, same ``scan_relocalization``); a missing
-    leaf raises KeyError and a shape mismatch ValueError."""
+    leaf raises KeyError and a shape mismatch ValueError.  The quad tables
+    are rebuilt from the stored structures with the config's ``quad_form``
+    (revo_tpu/checkpoint.py:228 rebuilds them so), which also maps the JAX
+    package's storage layouts ("hw12", "t", "flat16") onto the port's."""
     from revo_tpu_torch.parallel.batch import scan_state_template
 
     template = scan_state_template(cfg, device)
@@ -231,6 +234,9 @@ def load_scan_state(path: str, cfg, device="cuda"):
     for key, tmpl in _flatten(template):
         if key not in z:
             raise KeyError(f"checkpoint {path} missing leaf {key}: config mismatch?")
+        if ".quads[" in key:  # rebuilt from the structures below
+            leaves.append(None)
+            continue
         arr = z[key]
         if not isinstance(tmpl, torch.Tensor):
             if arr.shape != ():
@@ -241,9 +247,14 @@ def load_scan_state(path: str, cfg, device="cuda"):
             raise ValueError(
                 f"leaf {key}: checkpoint shape {arr.shape} != config shape {tuple(tmpl.shape)}"
             )
-        if tmpl.dtype == torch.bfloat16:
-            leaf = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-        else:
-            leaf = torch.from_numpy(np.array(arr)).to(tmpl.dtype)
-        leaves.append(leaf.to(device))
-    return _rebuild(template, iter(leaves))
+        leaves.append(torch.from_numpy(np.array(arr)).to(tmpl.dtype).to(device))
+    state = _rebuild(template, iter(leaves))
+    form = cfg.tracker.optimizer.quad_form
+
+    def tables(holder):  # a Keyframe or KeyframeRing
+        return holder._replace(quads=tuple(quad_structure(s, form) for s in holder.structs))
+
+    state = state._replace(kf=tables(state.kf))
+    if state.kf_ring is not None:
+        state = state._replace(kf_ring=tables(state.kf_ring))
+    return state

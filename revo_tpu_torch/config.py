@@ -3,10 +3,19 @@
 Field names and defaults are identical to ``revo_tpu.config`` so one
 configuration drives both packages (``convert.config_from_jax``).  The YAML
 loader imports ``yaml`` only when called.  revo_tpu/config.py documents
-each knob and its measured history on the TPU.  The port implements the
-per-frame tracking step at the defaults, plus ``solver`` "gn_fixed",
-``quad_form`` "dt4", ``solve6_impl`` "linalg"; other values of the JAX
-package's gather/layout knobs do not change its results.
+each knob and its measured history on the TPU.  The port implements every
+value of ``solver``, ``solve6_impl``, ``quad_form`` and ``bilinear_impl``
+that the JAX package knows, and raises ValueError for others.  Two of them
+change the result: a ``bilinear_impl`` that is not "quad*" samples the
+(gx, gy, dt) structure, and "quad*" samples the quad table of
+``quad_form``, where "dt4" / "dt4bf" differentiate the bilinear dt surface
+and the 12-component forms ("hw12", "flat", "t", "flat16", "flatbf")
+interpolate the reference's central differences, as the structure does;
+"dt4bf" and "flatbf" store the table in bfloat16.  The forms of one kind
+differ in the JAX package only in storage layout, and the port holds them
+as one table (``ops.edt.QUAD_FORMS``).  The other gather and layout knobs
+(``lane_select``, ``proj_impl``, ``compaction``, ``use_pallas_*``) pick
+how the TPU program is built and change nothing in the port.
 
 Mirrors the reference's two-file YAML config split (algorithm settings +
 dataset/sensor settings) parsed by ``REVOConfig`` (system.h:32-83),

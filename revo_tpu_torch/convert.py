@@ -77,11 +77,35 @@ def frame_from_numpy(tree, device) -> Frame:
     return Frame(levels=tuple(levels), timestamp=_tensor(tree.timestamp, device))
 
 
+def quad_from_numpy(quad, struct_shape) -> np.ndarray:
+    """A JAX quad table (``revo_tpu.ops.edt.quad_structure``, any leading
+    lane or slot axes) in the port's (..., H*W, C) rows, given the shape
+    (..., H, W, 3) of the structure it was built from: "hw12" (H, W, 12) is
+    reshaped, "t" (12, H*W) transposed, "flat16" (H*W, 16) loses its pad
+    lane a tap; "flat", "flatbf", "dt4" and "dt4bf" are the port's rows
+    already.  The dtype (bfloat16 for "flatbf" / "dt4bf") is kept."""
+    a = np.asarray(quad)
+    lead, (h, w) = tuple(struct_shape[:-3]), tuple(struct_shape[-3:-1])
+    if a.shape == (*lead, h, w, 12):
+        return a.reshape(*lead, h * w, 12)
+    if a.shape == (*lead, 12, h * w):
+        return np.ascontiguousarray(np.swapaxes(a, -1, -2))
+    if a.shape == (*lead, h * w, 16):
+        return a.reshape(*lead, h * w, 4, 4)[..., :3].reshape(*lead, h * w, 12)
+    return a
+
+
+def _quads(tree, device):
+    return tuple(_tensor(quad_from_numpy(q, np.shape(s)), device)
+                 for q, s in zip(tree.quads, tree.structs))
+
+
 def keyframe_from_numpy(tree, device) -> Keyframe:
-    """A JAX ``Keyframe`` with numpy leaves -> the port's Keyframe."""
+    """A JAX ``Keyframe`` with numpy leaves -> the port's Keyframe (quad
+    tables in the port's rows, ``quad_from_numpy``)."""
     return Keyframe(
         structs=tuple(_tensor(s, device) for s in tree.structs),
-        quads=tuple(_tensor(q, device) for q in tree.quads),
+        quads=_quads(tree, device),
         frame=frame_from_numpy(tree.frame, device),
         T_w_k=_tensor(tree.T_w_k, device),
     )
@@ -101,7 +125,7 @@ def ring_from_numpy(tree, device) -> KeyframeRing:
     """A JAX ``KeyframeRing`` with numpy leaves -> the port's KeyframeRing."""
     return KeyframeRing(
         structs=tuple(_tensor(s, device) for s in tree.structs),
-        quads=tuple(_tensor(q, device) for q in tree.quads),
+        quads=_quads(tree, device),
         T_w_k=_tensor(tree.T_w_k, device),
         n=int(tree.n),
     )

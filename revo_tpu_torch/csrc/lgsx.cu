@@ -18,18 +18,22 @@
 // `revo_residual_lgsx` is the form the solver launches: the whole residual
 // pass of one evaluation and its reduction in one kernel.  The TPU kernel
 // reduces only what XLA prepared, because Mosaic could not gather inside a
-// kernel (lgsx.py:8-11); on this card a thread gathers its own quad row.  Per
-// point, one thread transforms and projects the point, bounds-checks it,
-// loads the four dt taps of its pixel as one 8-byte (bf16) or 16-byte (f32)
-// row, forms dt, the gradients, the edge filter, the Huber weight and the
-// Jacobian row, and adds to 29 float sums and 2 int counts in registers.
-// The grid covers P with 128-thread blocks (128 blocks at P = 16384, so
-// level 0 spreads over the card's 132 SMs).  Inside a block: the fixed
-// shuffle tree, then the 4 warp partials summed in warp order; each block
-// writes one 32-word partial row to a scratch buffer, fences and takes an
-// atomic ticket; the last block to arrive sums the rows in block-index
-// order, writes the 46 outputs and resets the ticket, so no memset is
-// needed between launches.
+// kernel (lgsx.py:8-11); on this card a thread gathers its own table row.
+// Per point, one thread transforms and projects the point, bounds-checks
+// it, gathers the keyframe table at its pixel in the layout the kernel is
+// instantiated for (`Layout`: the dt-only quad row, 8 bytes in bf16 or 16
+// in f32; the 12-component quad row of the reference-gradient forms, 24
+// bytes in bf16 as three 8-byte loads or 48 in f32 as three 16-byte loads;
+// or the (gx, gy, dt) structure's four 12-byte taps at base, base+1,
+// base+W, base+W+1), forms dt and the gradients, the edge filter, the Huber
+// weight and the Jacobian row, and adds to 29 float sums and 2 int counts
+// in registers.  The grid covers P with 128-thread blocks (128 blocks at
+// P = 16384, so level 0 spreads over the card's 132 SMs).  Inside a block:
+// the fixed shuffle tree, then the 4 warp partials summed in warp order;
+// each block writes one 32-word partial row to a scratch buffer, fences and
+// takes an atomic ticket; the last block to arrive sums the rows in
+// block-index order, writes the 46 outputs and resets the ticket, so no
+// memset is needed between launches.
 //
 // blockIdx.y is the lane: B independent evaluations in one launch (the JAX
 // package vmaps the solver over sequences, ring slots and loop pairs).
@@ -43,15 +47,19 @@
 //
 // Neither form uses float atomics: the summation order is fixed, so the
 // same inputs give bit-identical sums run after run.  Bound on the H100:
-// launch latency; the fused form moves 13 B per point plus one 32-byte
-// sector per gathered row (~0.7 MB at P = 16384, ~0.2 us of HBM time).
+// launch latency; the fused form moves 13 B per point plus one table row
+// (8-48 B) per point inside the image (~0.3-1.0 MB at P = 16384, under
+// 0.3 us of HBM time).
 //
-// The fused form's arithmetic up to the residual is written with
-// __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn so that it rounds where the
-// plain PyTorch version (one op per rounding) does: floor(u), the bounds
-// test and the edge filter decide the good and bad counts, which must be
-// equal, not close.  u = q * fx + cx is rounded once, through double, like
-// the plain version's `scale_shift`.
+// The fused form's arithmetic up to the residual rounds where the jitted
+// JAX pass on the CPU rounds, which the plain PyTorch version reproduces:
+// __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn for a single rounding and
+// __fmaf_rn where XLA contracts a sum of products into fused multiply-adds
+// (the point transform, the bilinear sums, the dt4 gradients).  floor(u),
+// the bounds test and the edge filter decide the good and bad counts, which
+// must be equal, not close, and the per-point terms (r, w, gradients) are
+// the JAX package's bit for bit.  u = q * fx + cx is rounded once, through
+// double, like the plain version's `scale_shift`.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,13 +110,88 @@ __device__ __forceinline__ float scale_shift(float q, float scale, float shift) 
   return (float)__dadd_rn(__dmul_rn((double)q, (double)scale), (double)shift);
 }
 
-// floor(u) as an index clamped to [0, hi]; NaN goes to 0 (interp.py:29-30).
+// floor(u) as an index clamped to [0, hi]; NaN goes to 0 (interp.py ``_taps_at``).
 __device__ __forceinline__ int clamp_index(float fu, int hi) {
   const float c = isnan(fu) ? 0.0f : fu;
   return (int)fminf(fmaxf(c, 0.0f), (float)hi);
 }
 
-template <bool BF16>
+// Row layouts of the keyframe table (ops/lgsx.py ``table_layout``): the
+// dt-only quad table, the 12-component quad table (taps 00, 01, 10, 11 of
+// (gx, gy, dt)), each in float32 or bfloat16, and the (gx, gy, dt)
+// structure itself, whose four taps are rows base, base+1, base+W, base+W+1.
+enum Layout : int { DT4 = 0, DT4_BF16 = 1, QUAD12 = 2, QUAD12_BF16 = 3, STRUCT3 = 4 };
+
+// bf16 is the upper half of a float: the two of a little-endian word
+// upcast by a shift and a mask.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// The reference's 4-tap formula (optimizer.h:173-185) rounded as jitted XLA
+// rounds the JAX sum (interp.py ``_bilinear``): the second product rounded,
+// the other three fused onto it in order.
+__device__ __forceinline__ float bilinear(float i00, float i01, float i10, float i11,
+                                          float dx, float dy, float dxdy) {
+  float acc = __fmul_rn(__fsub_rn(dy, dxdy), i10);
+  acc = __fmaf_rn(dxdy, i11, acc);
+  acc = __fmaf_rn(__fsub_rn(dx, dxdy), i01, acc);
+  return __fmaf_rn(__fadd_rn(__fsub_rn(__fsub_rn(1.0f, dx), dy), dxdy), i00, acc);
+}
+
+// (gx, gy, dt) at fractions (dx, dy) of the pixel whose top-left tap is
+// table row `row` (interp.py ``sample_table``).  DT4: dt and the negated
+// analytic gradients of the bilinear dt surface (interp.py
+// ``bilinear_sample_dtquad``); the others: each channel interpolated.
+template <int L>
+__device__ __forceinline__ void sample(const void* __restrict__ table, size_t row, int W,
+                                       float dx, float dy, float& gx, float& gy, float& r) {
+  const float dxdy = __fmul_rn(dx, dy);
+  if (L == DT4 || L == DT4_BF16) {
+    float i00, i01, i10, i11;
+    if (L == DT4_BF16) {  // one 8-byte row
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(table) + row);
+      i00 = bf16_lo(q.x); i01 = bf16_hi(q.x); i10 = bf16_lo(q.y); i11 = bf16_hi(q.y);
+    } else {  // one 16-byte row
+      const float4 q = __ldg(reinterpret_cast<const float4*>(table) + row);
+      i00 = q.x; i01 = q.y; i10 = q.z; i11 = q.w;
+    }
+    r = bilinear(i00, i01, i10, i11, dx, dy, dxdy);
+    gx = -__fmaf_rn(dy, __fsub_rn(i11, i10),
+                    __fmul_rn(__fsub_rn(1.0f, dy), __fsub_rn(i01, i00)));
+    gy = -__fmaf_rn(dx, __fsub_rn(i11, i01),
+                    __fmul_rn(__fsub_rn(1.0f, dx), __fsub_rn(i10, i00)));
+  } else {
+    float s[12];  // taps 00, 01, 10, 11, three channels each
+    if (L == QUAD12) {  // one 48-byte row as three 16-byte loads
+      const float4* q = reinterpret_cast<const float4*>(table) + 3 * row;
+      const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+      s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+      s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+      s[8] = c.x; s[9] = c.y; s[10] = c.z; s[11] = c.w;
+    } else if (L == QUAD12_BF16) {  // one 24-byte row as three 8-byte loads
+      const uint2* q = reinterpret_cast<const uint2*>(table) + 3 * row;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const uint2 w = __ldg(q + k);
+        s[4 * k] = bf16_lo(w.x); s[4 * k + 1] = bf16_hi(w.x);
+        s[4 * k + 2] = bf16_lo(w.y); s[4 * k + 3] = bf16_hi(w.y);
+      }
+    } else {  // STRUCT3: four 12-byte taps
+      const float* q = static_cast<const float*>(table);
+      const size_t tap[4] = {row, row + 1, row + W, row + W + 1};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) s[3 * k + c] = __ldg(q + 3 * tap[k] + c);
+      }
+    }
+    gx = bilinear(s[0], s[3], s[6], s[9], dx, dy, dxdy);
+    gy = bilinear(s[1], s[4], s[7], s[10], dx, dy, dxdy);
+    r = bilinear(s[2], s[5], s[8], s[11], dx, dy, dxdy);
+  }
+}
+
+template <int L>
 __global__ void __launch_bounds__(RL_THREADS)
 residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
                      const float* __restrict__ pts, int pts_stride,
@@ -128,7 +211,7 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
   partial += batch * gridDim.x * lgsx::ROW;
   ticket += batch;
   out += batch * 46;
-  // Quad rows of this lane (quad_stride counts rows of 4 taps).
+  // Table rows of this lane (quad_stride counts rows of the layout's width).
   const size_t quad_row0 = batch * quad_stride;
 
   float acc[NF];
@@ -139,15 +222,15 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
   const int p = blockIdx.x * RL_THREADS + threadIdx.x;
   if (p < P && valid[p]) {
     const float x = pts[3 * p], y = pts[3 * p + 1], z = pts[3 * p + 2];
-    // R p + t, nine products and sums, each rounded once, left to right.
+    // R p + t as jitted XLA rounds R0 x + R1 y + R2 z + t (project.py
+    // ``apply_rt_cols``): the second product rounded, the first and third
+    // fused onto it, then the translation added.
     float w3[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const float r0 = __ldg(Rp + 3 * i), r1 = __ldg(Rp + 3 * i + 1);
       const float r2 = __ldg(Rp + 3 * i + 2), ti = __ldg(tp + i);
-      w3[i] = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(r0, x), __fmul_rn(r1, y)), __fmul_rn(r2, z)),
-          ti);
+      w3[i] = __fadd_rn(__fmaf_rn(r2, z, __fmaf_rn(r0, x, __fmul_rn(r1, y))), ti);
     }
     const float px = w3[0], py = w3[1], pz = w3[2];
     const float pzs = (pz == 0.0f) ? 1e-12f : pz;
@@ -160,35 +243,13 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
       const float fu = floorf(u), fv = floorf(v);
       const float dx = __fsub_rn(u, fu), dy = __fsub_rn(v, fv);
       const int ix = clamp_index(fu, W - 2), iy = clamp_index(fv, H - 2);
-      const size_t row = quad_row0 + (size_t)iy * W + ix;
-      float i00, i01, i10, i11;
-      if (BF16) {  // bf16 is the upper half of a float: upcast by a shift
-        const uint2 q = __ldg(reinterpret_cast<const uint2*>(quad) + row);
-        i00 = __uint_as_float(q.x << 16);
-        i01 = __uint_as_float(q.x & 0xffff0000u);
-        i10 = __uint_as_float(q.y << 16);
-        i11 = __uint_as_float(q.y & 0xffff0000u);
-      } else {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(quad) + row);
-        i00 = q.x; i01 = q.y; i10 = q.z; i11 = q.w;
-      }
-      // dt and the negated analytic gradients of the bilinear surface
-      // (interp.py:35-43), one rounding per operation.
-      const float dxdy = __fmul_rn(dx, dy);
-      const float r = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(dxdy, i11),
-                              __fmul_rn(__fsub_rn(dy, dxdy), i10)),
-                    __fmul_rn(__fsub_rn(dx, dxdy), i01)),
-          __fmul_rn(__fadd_rn(__fsub_rn(__fsub_rn(1.0f, dx), dy), dxdy), i00));
-      const float gx = -__fadd_rn(__fmul_rn(dy, __fsub_rn(i11, i10)),
-                                  __fmul_rn(__fsub_rn(1.0f, dy), __fsub_rn(i01, i00)));
-      const float gy = -__fadd_rn(__fmul_rn(dx, __fsub_rn(i11, i01)),
-                                  __fmul_rn(__fsub_rn(1.0f, dx), __fsub_rn(i10, i00)));
+      float gx, gy, r;
+      sample<L>(quad, quad_row0 + (size_t)iy * W + ix, W, dx, dy, gx, gy, r);
       if (use_edge_filter) good = r <= edge_distance;  // optimizer.cpp:108
       if (good) {
-        // Huber weight (optimizer.h:156-160), as reciprocal times huber.
+        // Huber weight (optimizer.h:156-160), a true division.
         const float r_safe = (r == 0.0f) ? 1.0f : r;
-        const float w = (r <= huber) ? 1.0f : __fmul_rn(__frcp_rn(r_safe), huber);
+        const float w = (r <= huber) ? 1.0f : __fdiv_rn(huber, r_safe);
         lgsx::accumulate(acc, px, py, pz, __fmul_rn(fx, gx),
                          __fmul_rn(fy, gy), r, w);
         acc[NSUM] += r * r;
@@ -235,8 +296,10 @@ extern "C" int revo_lgsx_reduce(const float* wxp, const float* grads, const floa
 
 // B lanes; per lane: partial, ceil(P / 128) rows of 32 floats; ticket, one
 // zeroed uint32 that every launch leaves at 0; out, 46 floats.  Strides are
-// in elements of each operand (rows of 4 taps for quad), 0 for a shared one.
-extern "C" int revo_residual_lgsx(const void* quad, int quad_bf16, int quad_stride,
+// in elements of each operand (rows of the layout's width for quad), 0 for
+// a shared one.  layout: a `Layout`; any other value returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int revo_residual_lgsx(const void* quad, int layout, int quad_stride,
                                   const float* pts, int pts_stride,
                                   const uint8_t* valid, int valid_stride,
                                   const float* R, int R_stride, const float* t,
@@ -248,16 +311,19 @@ extern "C" int revo_residual_lgsx(const void* quad, int quad_bf16, int quad_stri
                                   cudaStream_t stream) {
   if (B <= 0) return 0;
   const dim3 grid(P > 0 ? (P + RL_THREADS - 1) / RL_THREADS : 1, B);
-  if (quad_bf16) {
-    residual_lgsx_kernel<true><<<grid, RL_THREADS, 0, stream>>>(
-        quad, quad_stride, pts, pts_stride, valid, valid_stride, R, R_stride, t,
-        t_stride, active, fx, fy, cx, cy, W, H, edge_distance, huber,
-        use_edge_filter, P, partial, ticket, out);
-  } else {
-    residual_lgsx_kernel<false><<<grid, RL_THREADS, 0, stream>>>(
-        quad, quad_stride, pts, pts_stride, valid, valid_stride, R, R_stride, t,
-        t_stride, active, fx, fy, cx, cy, W, H, edge_distance, huber,
-        use_edge_filter, P, partial, ticket, out);
+#define REVO_RESIDUAL_LGSX(L)                                                       \
+  residual_lgsx_kernel<L><<<grid, RL_THREADS, 0, stream>>>(                         \
+      quad, quad_stride, pts, pts_stride, valid, valid_stride, R, R_stride, t,      \
+      t_stride, active, fx, fy, cx, cy, W, H, edge_distance, huber,                 \
+      use_edge_filter, P, partial, ticket, out)
+  switch (layout) {
+    case DT4: REVO_RESIDUAL_LGSX(DT4); break;
+    case DT4_BF16: REVO_RESIDUAL_LGSX(DT4_BF16); break;
+    case QUAD12: REVO_RESIDUAL_LGSX(QUAD12); break;
+    case QUAD12_BF16: REVO_RESIDUAL_LGSX(QUAD12_BF16); break;
+    case STRUCT3: REVO_RESIDUAL_LGSX(STRUCT3); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef REVO_RESIDUAL_LGSX
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@ clouds, and keyframes (counterpart of revo_tpu/frontend.py).
 fill-in when patch occupancy is low, and back-projection of edge pixels with
 valid depth into a fixed-capacity cloud; levels > 0 come from pyrDown gray
 and hole-aware depth subsampling.  ``make_keyframe`` adds the per-level DT
-structures and dt-only quad tables the solver samples.  Outputs live on the
+structures and the quad tables of ``OptimizerConfig.quad_form``
+(``ops.edt.quad_structure``) the solver samples.  Outputs live on the
 device of the inputs.
 
 Both run B sequences' frames at once (``build_frame_batched``,
@@ -54,7 +55,7 @@ class Keyframe(NamedTuple):
     (makeKeyframe, imgpyramidrgbd.cpp:231-252)."""
 
     structs: Tuple[torch.Tensor, ...]  # per level (H, W, 3): (gx, gy, dt)
-    quads: Tuple[torch.Tensor, ...]  # per level (H*W, 4) dt taps
+    quads: Tuple[torch.Tensor, ...]  # per level (H*W, C) taps, ``ops.edt.quad_structure``
     frame: Frame
     T_w_k: torch.Tensor  # (4, 4) keyframe-to-world
 

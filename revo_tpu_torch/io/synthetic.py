@@ -225,6 +225,7 @@ def _exp_so3_host(omega):
     import torch
 
     from revo_tpu_torch import lie
+    from revo_tpu_torch.ops.project import sqrt_rn
 
     sinf, cosf = _libm_sincos()
     theta_sq = torch.sum(omega * omega, dim=-1)
@@ -232,7 +233,7 @@ def _exp_so3_host(omega):
     if float(theta_sq) < lie._EPS:
         a, b = 1.0 - theta_sq / 6.0, 0.5 - theta_sq / 24.0
     else:
-        theta = torch.sqrt(theta_sq)
+        theta = sqrt_rn(theta_sq)
         a = torch.tensor(sinf(float(theta))) / theta
         b = (1.0 - torch.tensor(cosf(float(theta)))) / (theta * theta)
     return torch.eye(3) + a * W + b * (W @ W)

@@ -24,6 +24,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from revo_tpu_torch.ops.project import sqrt_rn
+
 _EPS = 1e-8
 
 
@@ -53,7 +55,7 @@ def vee_so3(Omega: torch.Tensor) -> torch.Tensor:
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues' formula with Taylor fallback (so3.hpp ``SO3::exp``)."""
     theta_sq = torch.sum(omega * omega, dim=-1)
-    theta = torch.sqrt(theta_sq)
+    theta = sqrt_rn(theta_sq)
     small = theta_sq < _EPS
     theta_safe = torch.where(small, torch.ones_like(theta), theta)
     a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta_safe) / theta_safe)
@@ -111,7 +113,7 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
 def _so3_left_jacobian_terms(omega: torch.Tensor):
     """Coefficients (b, c) of V = I + b W + c W^2 (se3.hpp:741-766)."""
     theta_sq = torch.sum(omega * omega, dim=-1)
-    theta = torch.sqrt(theta_sq)
+    theta = sqrt_rn(theta_sq)
     small = theta_sq < _EPS
     theta_safe = torch.where(small, torch.ones_like(theta), theta)
     b = torch.where(
@@ -146,7 +148,7 @@ def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     omega = log_so3(R)
     theta_sq = torch.sum(omega * omega, dim=-1)
     small = theta_sq < _EPS
-    theta_safe = torch.where(small, torch.ones_like(theta_sq), torch.sqrt(theta_sq))
+    theta_safe = torch.where(small, torch.ones_like(theta_sq), sqrt_rn(theta_sq))
     half = theta_safe * 0.5
     e = torch.where(
         small,

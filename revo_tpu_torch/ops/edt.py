@@ -12,7 +12,8 @@ banded algorithm written with torch ops:
 3. row pass: D(x) = min_i ((x - i)^2 + g(i)^2) over offsets |x - i| <= R.
 
 Every squared distance below the 1e9 sentinel is an exact float32 integer
-and sqrt rounds correctly, so the result is bit-equal to any exact EDT.  R
+and ``project.sqrt_rn`` rounds its square root correctly (PyTorch's CPU
+sqrt does not), so the result is bit-equal to any exact EDT.  R
 is read on the host (one sync per level per keyframe).
 """
 from __future__ import annotations
@@ -21,6 +22,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from revo_tpu_torch.ops.project import sqrt_rn
 
 _BIG = 1e9
 
@@ -87,7 +90,7 @@ def distance_transform_batched(edges: torch.Tensor) -> torch.Tensor:
     bound = torch.clamp(_row_linear_bound(g), max=_BIG)
     r = min(int(math.ceil(float(bound.max()))), w)
     gsq = torch.clamp(g * g, max=_BIG)
-    return torch.sqrt(_row_edt_sq(gsq, r))
+    return sqrt_rn(_row_edt_sq(gsq, r))
 
 
 def distance_transform(edges: torch.Tensor) -> torch.Tensor:
@@ -124,16 +127,39 @@ def keyframe_structure(edges: torch.Tensor) -> torch.Tensor:
     return build_optimization_structure(dt.reshape(edges.shape))
 
 
+# Quad forms (OptimizerConfig.quad_form) -> (row width, dtype) of the port's
+# table.  The JAX package's 12-component forms differ only in the storage
+# layout its TPU gather preferred ("hw12" (H, W, 12), "flat" (H*W, 12), "t"
+# (12, H*W), "flat16" (H*W, 16) with a pad lane a tap); the port holds every
+# one as the same (H*W, 12) rows, which ``convert`` maps them onto.
+QUAD_FORMS = {
+    "hw12": (12, torch.float32),
+    "flat": (12, torch.float32),
+    "t": (12, torch.float32),
+    "flat16": (12, torch.float32),
+    "flatbf": (12, torch.bfloat16),
+    "dt4": (4, torch.float32),
+    "dt4bf": (4, torch.bfloat16),
+}
+
+
 def quad_structure(struct: torch.Tensor, form: str = "dt4bf") -> torch.Tensor:
-    """(..., H, W, 3) structure -> (..., H*W, 4) dt-only 2x2 tap table
-    [dt(y, x), dt(y, x+1), dt(y+1, x), dt(y+1, x+1)] with edge-padded last
-    row/column; "dt4bf" stores it in bfloat16 (round to nearest even, as
-    XLA), "dt4" in float32.  The solver upcasts after the gather."""
-    if form not in ("dt4", "dt4bf"):
-        raise ValueError(f"quad form {form!r} is not ported; use 'dt4' or 'dt4bf'")
-    dt = struct[..., 2]
-    q = torch.stack(
-        [dt, _edge_shift(dt, 0, 1), _edge_shift(dt, 1, 0), _edge_shift(dt, 1, 1)],
-        dim=-1,
-    ).reshape(*dt.shape[:-2], -1, 4)
-    return q.to(torch.bfloat16) if form == "dt4bf" else q.contiguous()
+    """(..., H, W, 3) structure -> (..., H*W, C) packed 2x2-neighbourhood
+    table (revo_tpu/ops/edt.py ``quad_structure``): row (y, x) holds the
+    taps [S(y, x), S(y, x+1), S(y+1, x), S(y+1, x+1)] with edge-padded last
+    row and column, so the solver's sample gathers one row.  "dt4" / "dt4bf"
+    keep only the dt channel (C = 4; the solver differentiates the bilinear
+    dt surface); the other forms keep (gx, gy, dt) a tap, tap-major and
+    channel-minor (C = 12; the reference's interpolated central
+    differences).  "dt4bf" and "flatbf" store bfloat16 (round to nearest
+    even, as XLA), the others float32.  The solver upcasts after the
+    gather."""
+    if form not in QUAD_FORMS:
+        raise ValueError(f"unknown quad form {form!r}; one of {sorted(QUAD_FORMS)}")
+    width, dtype = QUAD_FORMS[form]
+    planes = struct[..., 2:3] if width == 4 else struct
+    planes = planes.movedim(-1, -3)  # (..., C, H, W): shift over the last two axes
+    taps = [planes, _edge_shift(planes, 0, 1), _edge_shift(planes, 1, 0),
+            _edge_shift(planes, 1, 1)]
+    q = torch.cat([tap.movedim(-3, -1) for tap in taps], dim=-1)
+    return q.reshape(*q.shape[:-3], -1, width).to(dtype).contiguous()

@@ -10,12 +10,18 @@ good count).  This is the TPU kernel's own contract.
 
 ``residual_lgsx`` is what the solver calls once per evaluation: the whole
 residual pass (``residual_terms``: transform, project, bounds-check, sample
-the dt quad table, edge filter, Huber weight) and that reduction, plus the
-unweighted error sum and the good and bad counts, in one kernel launch that
-reads the pose from device memory and needs no host sync.
+the keyframe level's table, edge filter, Huber weight) and that reduction,
+plus the unweighted error sum and the good and bad counts, in one kernel
+launch that reads the pose from device memory and needs no host sync.  The
+table is any of the three the JAX solver samples (``table_layout``): the
+dt-only quad table ("dt4" / "dt4bf", gradients of the bilinear dt
+surface), the 12-component quad table (the other quad forms, "flatbf" in
+bfloat16) or the (H, W, 3) structure itself as (H*W, 3) rows (a
+``bilinear_impl`` that is not "quad*"); the last two interpolate the
+reference's central differences.
 ``residual_lgsx_batched`` is the same over B lanes in one launch (the JAX
 package vmaps the solver); ``residual_lgsx`` is its B = 1 case.  A solver
-level checks its cloud and quad table once (``lane_operands``) and launches
+level checks its cloud and table once (``lane_operands``) and launches
 with each evaluation's pose (``residual_lgsx_lanes``).
 
 Each has a plain PyTorch version beside it (``lgsx_reduce_ref``, the JAX
@@ -33,7 +39,7 @@ import torch
 from revo_tpu_torch import kernels
 from revo_tpu_torch.config import CameraConfig
 from revo_tpu_torch.ops.backproject import EdgeCloud
-from revo_tpu_torch.ops.interp import bilinear_sample_dtquad
+from revo_tpu_torch.ops.interp import sample_table
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 
 
@@ -95,11 +101,15 @@ lgsx_reduce.launches = 0
 
 
 def residual_terms(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter):
-    """Per-point residual pass up to the reduction: returns the inputs of
-    K3 (warped points (P, 3), fx/fy-scaled gradients (P, 2), residuals r
-    (P,), weights w (P,), 0 on dead lanes) plus the good mask and the good
-    and bad counts.  ``quad`` is a keyframe level's (H*W, 4) dt table,
-    ``cloud`` an EdgeCloud, ``cam`` that level's CameraConfig."""
+    """Per-point residual pass up to the reduction (revo_tpu/solver.py
+    ``_residual_sums`` up to its ``lgsx_reduce`` call): returns the inputs
+    of K3 (warped points (P, 3), fx/fy-scaled gradients (P, 2), residuals
+    r (P,), weights w (P,), 0 on dead lanes) plus the good mask and the
+    good and bad counts.  ``quad`` is a keyframe level's table as (H*W, C)
+    rows (``interp.sample_table``: the dt-only quad table, the
+    12-component one, or the structure), ``cloud`` an EdgeCloud, ``cam``
+    that level's CameraConfig.  Every term rounds as the jitted JAX pass
+    does, so each is bit-equal to the JAX package's."""
     px, py, pz = apply_rt_cols(cloud.points, R, t)
     pz_safe = torch.where(pz == 0, 1e-12, pz)
     u = scale_shift(px / pz_safe, cam.fx, cam.cx)
@@ -108,7 +118,7 @@ def residual_terms(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter
     in_bounds = (u > 1.0) & (v > 1.0) & (u < cam.width - 2.0) & (v < cam.height - 2.0)
     in_bounds = in_bounds & cloud.valid
 
-    samp = bilinear_sample_dtquad(quad, u, v, cam.height, cam.width)
+    samp = sample_table(quad, u, v, cam.height, cam.width)
     r = samp[:, 2]
     grads = torch.stack([cam.fx * samp[:, 0], cam.fy * samp[:, 1]], dim=-1)
 
@@ -116,9 +126,11 @@ def residual_terms(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter
     n_bad = (cloud.valid & ~good).sum().to(torch.int32)
     n_good = good.sum().to(torch.int32)
 
-    # Huber weight (optimizer.h:156-160): 1 for r <= huber, else huber / r.
+    # Huber weight (optimizer.h:156-160): 1 for r <= huber, else huber / r,
+    # a true division (a Python number over a tensor would be a reciprocal
+    # and a product, two roundings).
     r_safe = torch.where(r == 0, 1.0, r)
-    w_r = torch.where(r <= huber, 1.0, huber / r_safe)
+    w_r = torch.where(r <= huber, 1.0, torch.full_like(r, huber) / r_safe)
     gm = good.to(torch.float32)
     wxp = torch.stack([px, py, pz], dim=-1)
     return wxp, grads, r, w_r * gm, gm, n_good, n_bad
@@ -221,12 +233,35 @@ def _lane_operand(x: torch.Tensor, b: int, lane_shape, dtypes, device, name):
     return x, (0 if x.shape[0] == 1 else x.stride(0))
 
 
+# Row layouts of the tables the fused kernel gathers, by (row width, dtype)
+# (csrc/lgsx.cu ``Layout``), and the alignment in bytes of each one's loads.
+_LAYOUTS = {
+    (4, torch.float32): 0,  # "dt4": dt taps, one 16-byte load
+    (4, torch.bfloat16): 1,  # "dt4bf": one 8-byte load
+    (12, torch.float32): 2,  # 12-component quad rows: three 16-byte loads
+    (12, torch.bfloat16): 3,  # "flatbf": three 8-byte loads
+    (3, torch.float32): 4,  # the (gx, gy, dt) structure: four 12-byte taps
+}
+_ALIGN = (16, 8, 16, 8, 4)
+
+
+def table_layout(table: torch.Tensor) -> int:
+    """The kernel's layout code of a keyframe level's (..., H*W, C) table;
+    raises for a width or dtype no sampler reads."""
+    layout = _LAYOUTS.get((table.shape[-1], table.dtype))
+    if layout is None:
+        raise ValueError(
+            f"residual_lgsx: no table layout of rows ({table.shape[-1]},) {table.dtype}: "
+            "want (4,) or (12,) float32 / bfloat16, or (3,) float32")
+    return layout
+
+
 class LaneOperands(NamedTuple):
     """The operands of a solver level's fused K3 launches that stay fixed
     while the poses change, checked and laid out once by ``lane_operands``.
     On the CPU ``strides`` and ``scratch`` are None."""
 
-    quad: torch.Tensor  # (B or 1, H*W, 4) float32 / bfloat16
+    quad: torch.Tensor  # (B or 1, H*W, C) table, ``table_layout``
     cloud: EdgeCloud  # points (B or 1, P, 3), valid (B or 1, P)
     cam: CameraConfig
     lanes: int
@@ -236,26 +271,28 @@ class LaneOperands(NamedTuple):
 
 def lane_operands(quad, cloud, cam, lanes: int) -> LaneOperands:
     """Check the pose-independent operands of ``residual_lgsx_lanes`` once:
-    ``quad`` (B, H*W, 4), ``cloud`` points (B, P, 3) and valid (B, P), each
-    shareable by the ``lanes`` lanes through ``expand``.  On the card the
-    scratch is that of the current stream, where the launches must run."""
+    ``quad`` (B, H*W, C) (``table_layout``), ``cloud`` points (B, P, 3) and
+    valid (B, P), each shareable by the ``lanes`` lanes through ``expand``.
+    On the card the scratch is that of the current stream, where the
+    launches must run."""
     device = cloud.points.device
+    layout = table_layout(quad)
     if device.type == "cpu":
         return LaneOperands(quad, cloud, cam, lanes, None, None)
     if device.type != "cuda":
         raise ValueError(f"residual_lgsx: unsupported device {device}")
-    p = cloud.points.shape[-2]
-    quad, quad_s = _lane_operand(quad, lanes, (cam.height * cam.width, 4),
-                                 (torch.float32, torch.bfloat16), device, "quad")
+    p, c = cloud.points.shape[-2], quad.shape[-1]
+    quad, quad_s = _lane_operand(quad, lanes, (cam.height * cam.width, c), (quad.dtype,),
+                                 device, "quad")
     points, pts_s = _lane_operand(cloud.points, lanes, (p, 3), (torch.float32,), device,
                                   "points")
     valid, valid_s = _lane_operand(cloud.valid, lanes, (p,), (torch.bool,), device, "valid")
-    if quad.data_ptr() % 16:
-        raise ValueError("residual_lgsx: the quad table must be 16-byte aligned")
+    if quad.data_ptr() % _ALIGN[layout]:
+        raise ValueError(f"residual_lgsx: the table must be {_ALIGN[layout]}-byte aligned")
     blocks = max(-(-p // _RL_THREADS), 1)
     partial, ticket, every_lane = _stream_scratch(_scratch, device, lanes * blocks, lanes)
     return LaneOperands(quad, EdgeCloud(points=points, valid=valid, count=None), cam, lanes,
-                        (quad_s // 4, pts_s, valid_s), (partial, ticket, every_lane[:lanes]))
+                        (quad_s // c, pts_s, valid_s), (partial, ticket, every_lane[:lanes]))
 
 
 def residual_lgsx_lanes(ops: LaneOperands, R, t, edge_distance, huber, use_edge_filter,
@@ -280,14 +317,16 @@ def residual_lgsx_lanes(ops: LaneOperands, R, t, edge_distance, huber, use_edge_
     elif out.shape != (b, 46) or out.dtype != torch.float32 or not out.is_contiguous():
         raise ValueError(f"residual_lgsx: out want contiguous float32 ({b}, 46)")
     quad_s, pts_s, valid_s = ops.strides
+    layout = table_layout(ops.quad)
     kernels.launch(
         "revo_residual_lgsx",
-        ops.quad, int(ops.quad.dtype == torch.bfloat16), quad_s, ops.cloud.points, pts_s,
+        ops.quad, layout, quad_s, ops.cloud.points, pts_s,
         ops.cloud.valid, valid_s, R, R_s, t, t_s, active, cam.fx, cam.fy, cam.cx, cam.cy,
         cam.width, cam.height, edge_distance, huber, int(bool(use_edge_filter)),
         ops.cloud.points.shape[-2], b, partial, ticket, out,
     )
     residual_lgsx.launches += 1
+    residual_lgsx.layout_launches[layout] += 1
     return _lane_outputs(out)
 
 
@@ -296,7 +335,8 @@ def residual_lgsx_batched(quad, cloud, cam, R, t, edge_distance, huber, use_edge
     """Fused K3 over B lanes: each lane's unnormalized sums (A (B, 6, 6),
     g (B, 6), sum_w (B,), sum_unw (B,), n_good, n_bad (B,) int32) over its
     cloud at its pose (R (B, 3, 3), t (B, 3)) against its keyframe level's
-    (H*W, 4) dt quad table, float32 or bfloat16 (``quad`` (B, H*W, 4)).
+    table (``quad`` (B, H*W, C), ``table_layout``: the dt-only or the
+    12-component quad table, float32 or bfloat16, or the float32 structure).
     Any operand may be shared by the lanes through ``expand`` (stride 0).
     ``active`` (B,) bool selects the lanes to evaluate; the rows of ``out``
     (B, 46) of the others stay as they were.  The outputs are views of
@@ -309,9 +349,10 @@ def residual_lgsx_batched(quad, cloud, cam, R, t, edge_distance, huber, use_edge
 def residual_lgsx(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter):
     """Fused K3 wrapper, one lane: one evaluation's unnormalized sums
     (A (6, 6), g (6,), sum_w, sum_unw, n_good, n_bad (int32)) over the cloud
-    at pose (R, t) against a keyframe level's (H*W, 4) dt quad table,
-    float32 or bfloat16: ``residual_lgsx_batched`` at B = 1.  ``launches``
-    counts the kernel's launches at any B."""
+    at pose (R, t) against a keyframe level's (H*W, C) table
+    (``table_layout``): ``residual_lgsx_batched`` at B = 1.  ``launches``
+    counts the kernel's launches at any B, ``layout_launches`` the same by
+    table layout."""
     lane = EdgeCloud(points=cloud.points[None], valid=cloud.valid[None], count=None)
     outs = residual_lgsx_batched(
         quad[None], lane, cam, R[None], t[None], edge_distance, huber, use_edge_filter
@@ -320,3 +361,5 @@ def residual_lgsx(quad, cloud, cam, R, t, edge_distance, huber, use_edge_filter)
 
 
 residual_lgsx.launches = 0
+# Launches by table layout (``table_layout``'s code), beside the total.
+residual_lgsx.layout_launches = [0] * len(_ALIGN)

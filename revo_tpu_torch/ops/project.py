@@ -10,36 +10,43 @@ import numpy as np
 import torch
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, like the fused multiply-add that
+    jitted XLA emits on the CPU (and ``__fmaf_rn`` on the card).  Taken in
+    float64, where the product of two float32 values is exact; the float64
+    sum and the float32 rounding disagree with one rounding only where the
+    exact sum lies within 2^-29 of a float32 tie."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA's and numpy's.  CUDA's
+    ``sqrtf`` is IEEE already; PyTorch's CPU kernel is not (on an AVX-512
+    host about one float32 integer in five below 2^22 comes out an ulp
+    off), so a CPU tensor goes through float64, whose square root of a
+    float32 value rounds to the correctly rounded float32 one."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
 def apply_rt_cols(pts, R, t):
     """(R @ p + t) for (..., P, 3) points as (x, y, z) columns, (...) the
-    lanes of R (..., 3, 3) and t (..., 3): nine float32 multiply-adds per
-    point, never a (possibly TF32) matmul."""
+    lanes of R (..., 3, 3) and t (..., 3), rounded as jitted XLA on the CPU
+    rounds the JAX expression ``R00 x + R01 y + R02 z + t0``
+    (revo_tpu/solver.py ``_apply_rt_cols``): the second product is rounded
+    to float32, the first and third are fused multiply-adds onto it, and
+    the translation is a plain add; never a (possibly TF32) matmul.  The
+    residual pass, the cost-only evaluation and windowed BA's pair pass
+    hold bounds, floor() and bilinear weights against the JAX package to
+    the last bit with it."""
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
 
     def row(r):
-        return (R[..., r, 0, None] * x + R[..., r, 1, None] * y + R[..., r, 2, None] * z
-                + t[..., r, None])
-
-    return row(0), row(1), row(2)
-
-
-def apply_rt_cols_fma(pts, R, t):
-    """``apply_rt_cols`` rounded as jitted XLA on the CPU rounds the JAX
-    expression ``R00 x + R01 y + R02 z + t0``: the second product is rounded
-    to float32, the first and third are fused multiply-adds onto it, and the
-    translation is a plain add.  Each FMA is taken in float64 (the product
-    of two float32 values is exact there), so the result is the same on
-    every device.  For passes that hold bounds and bilinear weights against
-    the JAX package to the last bit, where ``apply_rt_cols``' separately
-    rounded products differ by an ulp in one coordinate of eight."""
-    x, y, z = (pts[..., k].double() for k in range(3))
-    Rd = R.double()
-
-    def row(r):
-        acc = (Rd[..., r, 1] * y).float()
-        acc = (Rd[..., r, 0] * x + acc.double()).float()
-        acc = (Rd[..., r, 2] * z + acc.double()).float()
-        return acc + t[..., r]
+        acc = R[..., r, 1, None] * y
+        acc = fma_f32(R[..., r, 0, None], x, acc)
+        acc = fma_f32(R[..., r, 2, None], z, acc)
+        return acc + t[..., r, None]
 
     return row(0), row(1), row(2)
 

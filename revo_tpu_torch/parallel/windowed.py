@@ -36,7 +36,7 @@ solve is ``torch.linalg.solve`` (float32 LU, as JAX leaves it to XLA's).
 Rounding.  The projection decides bounds and bilinear weights, so it rounds
 as jitted JAX on the CPU does: the W pose inverses are ``lie.inv_lu`` (on
 the host, one small copy each way per evaluation, beside the flag read),
-T_rel is an FMA chain, the point transform is ``apply_rt_cols_fma`` and the
+T_rel is an FMA chain, the point transform is ``apply_rt_cols`` and the
 pinhole map ``scale_shift``; (u, v) then equal JAX's bit for bit.
 
 Scatter order.  The block scatters are ``index_put_(accumulate=True)``:
@@ -58,7 +58,7 @@ import torch
 from revo_tpu_torch import lie
 from revo_tpu_torch.config import CameraConfig, OptimizerConfig
 from revo_tpu_torch.ops.interp import bilinear_sample_stacked
-from revo_tpu_torch.ops.project import apply_rt_cols_fma, scale_shift
+from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 from revo_tpu_torch.parallel.mesh import local_slots, psum, replicate, shard
 
 
@@ -101,8 +101,7 @@ def _pair_system(
     T_inv = lie.inv_lu(poses)  # (W, 4, 4), once per frame, on the host
     Ti_inv = T_inv[pi]
     T_rel = lie.matmul_fma(Ti_inv, poses[pj])
-    R, t = T_rel[:, None, :3, :3], T_rel[:, None, :3, 3]
-    wx, wy, wz = apply_rt_cols_fma(points[pj], R, t)
+    wx, wy, wz = apply_rt_cols(points[pj], T_rel[:, :3, :3], T_rel[:, :3, 3])
     pz = torch.where(wz == 0, 1e-12, wz)
     u = scale_shift(wx / pz, cam.fx, cam.cx)
     v = scale_shift(wy / pz, cam.fy, cam.cy)

@@ -2,7 +2,8 @@
 (counterpart of revo_tpu/solver.py, the hot path).
 
 One evaluation (``residual_system``) transforms and projects the (P, 3)
-edge cloud, samples the keyframe's dt quad table bilinearly, Huber-weights
+edge cloud, samples the keyframe level's table bilinearly (the dt-only or
+12-component quad table, or the structure: ``uses_quad_table``), Huber-weights
 and masks the residuals, and reduces the 6x6 normal equations: one launch
 of the fused kernel K3 (``ops.lgsx.residual_lgsx``), whose plain version
 is ``ops.lgsx.residual_terms`` and the einsums.  Sign conventions follow the
@@ -34,6 +35,7 @@ from revo_tpu_torch import lie
 from revo_tpu_torch.config import CameraConfig, OptimizerConfig
 from revo_tpu_torch.lanes import lane
 from revo_tpu_torch.ops.backproject import EdgeCloud
+from revo_tpu_torch.ops.edt import QUAD_FORMS
 from revo_tpu_torch.ops.lgsx import lane_operands, residual_lgsx, residual_lgsx_lanes
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 from revo_tpu_torch.parallel.mesh import psum, replicate, shard
@@ -179,13 +181,27 @@ def _damped_step(sys: LevelSystem, lam, R, t, impl: str):
     return inc, Rn, tn
 
 
-def _check_quad(quad: torch.Tensor, opt: OptimizerConfig):
-    if not opt.bilinear_impl.startswith("quad") or quad.dim() != 3 or quad.shape[-1] != 4:
-        raise ValueError(
-            "the port samples (B, H*W, 4) dt quad tables only: needs a quad "
-            f"bilinear_impl and quad_form 'dt4'/'dt4bf' (got {opt.bilinear_impl!r}, "
-            f"table {tuple(quad.shape)})"
-        )
+# OptimizerConfig.bilinear_impl names of the JAX package (solver.py
+# ``_BILINEAR`` and the "quad*" gather forms of ``_residual_sums``).  They
+# differ only in how its TPU gathers; in the port a "quad*" impl samples the
+# keyframe's quad table and any other the (H, W, 3) structure itself, by one
+# formula each (``ops.interp.sample_table``).
+BILINEAR_IMPLS = (
+    "take4", "taps", "window", "pair", "take4_rm", "window_rm", "window_ob",
+    "window_ob_rm", "quad", "quad_ob", "quad_fr", "quad_lf", "quad_lf12",
+)
+
+
+def uses_quad_table(opt: OptimizerConfig) -> bool:
+    """Whether the solver samples the keyframe's quad table (a "quad*"
+    ``bilinear_impl``) or its structure (revo_tpu/tracker.py:65-74).
+    Raises ValueError for a ``bilinear_impl`` or ``quad_form`` that the JAX
+    package does not know."""
+    if opt.bilinear_impl not in BILINEAR_IMPLS:
+        raise ValueError(f"unknown bilinear_impl {opt.bilinear_impl!r}; one of {BILINEAR_IMPLS}")
+    if opt.quad_form not in QUAD_FORMS:
+        raise ValueError(f"unknown quad_form {opt.quad_form!r}; one of {sorted(QUAD_FORMS)}")
+    return opt.bilinear_impl.startswith("quad")
 
 
 def _evaluate(ops, R, t, edge_distance, opt: OptimizerConfig, active=None) -> LevelSystem:
@@ -246,7 +262,8 @@ def _active(live, dev):
 def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
                      max_inner: int = 32):
     """One pyramid level of LM (Optimizer::trackFrames,
-    optimizer.cpp:235-311) over B lanes (quad (B, H*W, 4), cloud points
+    optimizer.cpp:235-311) over B lanes (quad (B, H*W, C), the keyframe level's
+    table as ``ops.lgsx.table_layout`` takes it; cloud points
     (B, P, 3), any operand shareable by ``expand``; R0 (B, 3, 3), t0 (B, 3)):
     accept on error decrease (lambda *= success factor, converge when
     err/last_err > eps); on reject raise lambda by fail_fac^inc_try, stop
@@ -255,7 +272,6 @@ def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
     active lane: the JAX package's nested while loops, vmapped, unrolled
     into one loop of per-lane state, which the host keeps from the flags it
     reads.  Returns (R, t, last_err, info), each with the lane axis."""
-    _check_quad(quad, opt)
     max_its = opt.max_its_per_lvl[lvl]
     edge_dist = opt.edge_distance_lvl[lvl]
     conv_eps = opt.convergence_eps[lvl]
@@ -317,7 +333,6 @@ def gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: 
     step is tiny or the candidate is barely worse (err/last_err < 2 - eps).
     Lanes step together; a stopped lane is frozen.  Returns (R, t, err,
     info), each with the lane axis."""
-    _check_quad(quad, opt)
     iters = opt.fixed_iters[lvl]
     edge_dist = opt.edge_distance_lvl[lvl]
     conv_eps = opt.convergence_eps[lvl]
@@ -386,7 +401,7 @@ def _one_lane(fn, quad, cloud, cam, R0, t0, *args):
 
 
 def lm_level(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, max_inner: int = 32):
-    """``lm_level_batched`` for one lane: quad (H*W, 4), cloud (P, 3),
+    """``lm_level_batched`` for one lane: quad (H*W, C), cloud (P, 3),
     R0 (3, 3), t0 (3,).  Returns (R, t, last_err, info)."""
     return _one_lane(lm_level_batched, quad, cloud, cam, R0, t0, opt, lvl, max_inner)
 

@@ -77,9 +77,13 @@ def track_frames_batched(
 
     info = None
     err = None
+    # A "quad*" bilinear_impl samples the quad table, any other the
+    # structure itself as (H*W, 3) rows (revo_tpu/tracker.py:65-74).
+    use_quad = solver.uses_quad_table(opt)
     for lvl in range(pyr.pyr_min_lvl, pyr.pyr_max_lvl - 1, -1):
+        table = kf.quads[lvl] if use_quad else kf.structs[lvl].flatten(-3, -2)
         R, t, err, info = solver.solve_level_batched(
-            kf.quads[lvl], frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl
+            table, frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl
         )
     good_f = info.good.to(torch.float32)
     bad_f = torch.clamp(info.bad, min=1).to(torch.float32)
@@ -292,7 +296,7 @@ class KeyframeRing(NamedTuple):
     ``n`` counts the active slots."""
 
     structs: Tuple[torch.Tensor, ...]  # per level (K, H, W, 3)
-    quads: Tuple[torch.Tensor, ...]  # per level (K, H*W, 4)
+    quads: Tuple[torch.Tensor, ...]  # per level (K, H*W, C), ``ops.edt.quad_structure``
     T_w_k: torch.Tensor  # (K, 4, 4) keyframe-to-world poses
     n: int
 

@@ -1,6 +1,7 @@
-"""Seeded inputs of the residual pass for the port's tests: a dt quad table,
-an edge cloud back-projected from integer pixels, and a pose, at 160x120
-unless a camera is given.  Imports no jax, so the tests that run where the
+"""Seeded inputs of the residual pass for the port's tests: a keyframe table
+(dt quad, 12-component quad or structure rows), an edge cloud
+back-projected from integer pixels, and a pose, at 160x120 unless a camera
+is given.  Imports no jax, so the tests that run where the
 card is can use it.
 """
 import numpy as np
@@ -14,9 +15,27 @@ CAM = dict(fx=150.0, fy=152.5, cx=79.5, cy=60.25, width=160, height=120)
 EDGE_DISTANCE, HUBER = 6.0, 0.3
 
 
+# The table forms the residual pass reads (ops.lgsx.table_layout): the dt
+# quad table, the 12-component quad table ("flat"; "flatbf" in bfloat16) and
+# the (gx, gy, dt) structure as rows ("take4", a bilinear_impl that is not
+# "quad*").
+TABLE_FORMS = ("dt4", "dt4bf", "flat", "flatbf", "take4")
+BF16_FORMS = ("dt4bf", "flatbf")
+
+
+def _taps(plane: np.ndarray) -> np.ndarray:
+    """(H, W, C) -> (H*W, 4C) rows [S(y, x), S(y, x+1), S(y+1, x), S(y+1, x+1)],
+    edge-padded (ops.edt.quad_structure)."""
+    pad = np.pad(plane, ((0, 1), (0, 1), (0, 0)), mode="edge")
+    taps = [pad[:-1, :-1], pad[:-1, 1:], pad[1:, :-1], pad[1:, 1:]]
+    return np.concatenate(taps, -1).reshape(-1, 4 * plane.shape[-1])
+
+
 def make_inputs(seed: int, p: int, quad_form: str, cam=None):
-    """(quad (H*W, 4) float32 holding the table's values, points (P, 3),
-    valid (P,)) from a seed; "dt4bf" values are rounded to bfloat16."""
+    """(table (H*W, C) float32 holding the values of ``quad_form``'s table,
+    points (P, 3), valid (P,)) from a seed; the bfloat16 forms' values are
+    rounded to bfloat16.  The structure's gradients are the negated
+    central differences of the seeded dt (imgpyramidrgbd.cpp:255-276)."""
     cam = cam or CAM
     rng = np.random.default_rng(seed)
     h, w = cam["height"], cam["width"]
@@ -24,9 +43,15 @@ def make_inputs(seed: int, p: int, quad_form: str, cam=None):
     dt = (9.0 * np.abs(np.sin(xx / 9.0 + seed) * np.cos(yy / 7.0))
           + rng.uniform(0, 0.5, (h, w))).astype(np.float32)
     dt[rng.random((h, w)) < 0.02] = 0.0  # on-edge pixels: r == 0 taps
-    pad = np.pad(dt, ((0, 1), (0, 1)), mode="edge")
-    quad = np.stack([pad[:-1, :-1], pad[:-1, 1:], pad[1:, :-1], pad[1:, 1:]], -1).reshape(-1, 4)
-    if quad_form == "dt4bf":
+    if quad_form in ("dt4", "dt4bf"):
+        quad = _taps(dt[..., None])
+    else:
+        e = np.pad(dt, 1, mode="edge")
+        gx = np.float32(0.5) * (e[1:-1, :-2] - e[1:-1, 2:])
+        gy = np.float32(0.5) * (e[:-2, 1:-1] - e[2:, 1:-1])
+        struct = np.stack([gx, gy, dt], -1).astype(np.float32)
+        quad = struct.reshape(-1, 3) if quad_form == "take4" else _taps(struct)
+    if quad_form in BF16_FORMS:
         quad = torch.from_numpy(quad).to(torch.bfloat16).float().numpy()
     # Points over integer pixels of the whole image (borders included), as
     # backproject_edges forms them.
@@ -55,7 +80,7 @@ def make_pose(kind: str):
 
 def torch_args(quad, pts, valid, R, t, quad_form, device="cpu", cam=None):
     q = torch.from_numpy(quad)
-    if quad_form == "dt4bf":
+    if quad_form in BF16_FORMS:
         q = q.to(torch.bfloat16)
     cloud = EdgeCloud(
         points=torch.from_numpy(pts).to(device), valid=torch.from_numpy(valid).to(device),

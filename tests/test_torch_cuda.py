@@ -9,9 +9,10 @@ card is:
 Tolerances: bit-equal for K1/K2 masks (K2 in all its forms), the fused,
 the cluster and the grid Canny's edges and the front end's edges/clouds; K3 within rtol 1e-4 / atol 1e-5 of each output's
 largest entry (reduction order), and bit-identical from run to run (fixed
-order, no atomics); fused K3: good and bad counts equal, floats within 1e-5
-of each output's largest entry, bit-identical from run to run, and over 8
-lanes each lane bit-equal to its one-lane launch; a batched track on the
+order, no atomics); fused K3, in each of its table layouts: good and bad
+counts equal, floats within 1e-5 of each output's largest entry,
+bit-identical from run to run, and over 8 lanes each lane bit-equal to its
+one-lane launch; a batched track on the
 card: each lane bit-equal to the lane tracked alone; VOSystem on
 the card: the CPU run's per-frame flags, poses within 1e-4; loop closure on
 the card: the CPU's verdicts, corrected poses within 1e-4; a run resumed on
@@ -39,7 +40,7 @@ from revo_tpu_torch.ops import lgsx as K3
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.filters import _reflect_pad
 
-from _torch_inputs import CAM, make_inputs, make_pose, torch_args
+from _torch_inputs import BF16_FORMS, CAM, TABLE_FORMS, make_inputs, make_pose, torch_args
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import serpentine_gray  # noqa: E402
@@ -450,13 +451,14 @@ def test_lgsx_kernel_close_and_deterministic(cuda, p):
         assert all(torch.equal(a, b) for a, b in zip(got, out))
 
 
-@pytest.mark.parametrize("quad_form", ["dt4bf", "dt4"])
+@pytest.mark.parametrize("quad_form", TABLE_FORMS)
 @pytest.mark.parametrize("pose", ["identity", "tracked", "out"])
 @pytest.mark.parametrize("size", [(640, 480, 16384), (320, 240, 4864), (160, 120, 1000)])
 def test_residual_lgsx_kernel_counts_equal_sums_close_deterministic(cuda, size, pose, quad_form):
-    """The fused kernel against its plain version on the card: one launch,
-    no other work; counts equal; floats within 1e-5 of the largest entry;
-    the same bits from a second launch."""
+    """The fused kernel against its plain version on the card, in every
+    row layout (dt quad f32 / bf16, 12-component quad f32 / bf16,
+    structure): one launch, no other work; counts equal; floats within 1e-5
+    of the largest entry; the same bits from a second launch."""
     w, h, p = size
     cam = dict(CAM, width=w, height=h, fx=CAM["fx"] * w / 160, fy=CAM["fy"] * w / 160,
                cx=CAM["cx"] * w / 160, cy=CAM["cy"] * w / 160)
@@ -478,7 +480,7 @@ def test_residual_lgsx_kernel_counts_equal_sums_close_deterministic(cuda, size, 
 
 
 @pytest.mark.parametrize("shared_cloud", [True, False])
-@pytest.mark.parametrize("quad_form", ["dt4bf", "dt4"])
+@pytest.mark.parametrize("quad_form", TABLE_FORMS)
 def test_residual_lgsx_batched_lanes_equal_one_lane_launches(cuda, quad_form, shared_cloud):
     """The fused kernel over 8 lanes (poses cycling identity / tracked /
     out, a table per lane, one cloud shared by stride 0 or one per lane):
@@ -489,7 +491,7 @@ def test_residual_lgsx_batched_lanes_equal_one_lane_launches(cuda, quad_form, sh
     kinds = ("identity", "tracked", "out")
     tables = [make_inputs(seed, p, quad_form)[0] for seed in range(b)]
     clouds = [make_inputs(10 + seed, p, quad_form)[1:] for seed in range(b)]
-    dtype = torch.bfloat16 if quad_form == "dt4bf" else torch.float32
+    dtype = torch.bfloat16 if quad_form in BF16_FORMS else torch.float32
     quad = torch.from_numpy(np.stack(tables)).to(dtype).to(cuda)
     if shared_cloud:
         pts, valid = (torch.from_numpy(x).to(cuda) for x in clouds[0])

@@ -2,11 +2,14 @@
 seeded inputs (CPU).
 
 Tolerances: bit-equal for bool/int outputs (edges, counts, cloud validity,
-count and slot order) and for ops that are exact in float32 on
-uint8-valued input (pyrDown, Sobel, depth subsampling, EDT structures);
-rtol 1e-6 / atol 1e-5 for EDT-derived floats; cloud points rtol 1e-6.
+count and slot order), for ops that are exact in float32 on uint8-valued
+input (pyrDown, Sobel, depth subsampling), for the EDT (exact squared
+distances and correctly rounded roots), its structure and the dt sampler
+against jitted JAX; rtol 1e-6 / atol 1e-5 where a test also holds the EDT
+to OpenCV's; cloud points rtol 1e-6.
 """
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from revo_tpu_torch.ops import edge_hist as thist
 from revo_tpu_torch.ops import edt as tedt
 from revo_tpu_torch.ops import filters as tfilt
 from revo_tpu_torch.ops.interp import bilinear_sample_dtquad as t_dtquad
+from revo_tpu_torch.ops.project import sqrt_rn
 
 from test_ops import synthetic_depth, synthetic_gray
 
@@ -127,6 +131,8 @@ class TestEDT:
 
 @pytest.mark.parametrize("form", ["dt4", "dt4bf"])
 def test_bilinear_sample_dtquad_matches(form):
+    """Against the jitted JAX sampler (as the solver runs it: XLA fuses its
+    sums of products into FMAs, which the port reproduces), bit for bit."""
     e = _edges(10)
     s = jops.keyframe_structure(jnp.asarray(e))
     qj = jops.quad_structure(s, form)
@@ -135,9 +141,37 @@ def test_bilinear_sample_dtquad_matches(form):
     u = rng.uniform(1.0, 157.9, 4096).astype(np.float32)
     v = rng.uniform(1.0, 117.9, 4096).astype(np.float32)
     u[:64] = np.round(u[:64])  # integer coordinates: the floor knife edge
-    want = np.asarray(j_dtquad(qj, jnp.asarray(u), jnp.asarray(v), h=120, w=160))
+    sample = jax.jit(lambda q, u_, v_: j_dtquad(q, u_, v_, h=120, w=160))
+    want = np.asarray(sample(qj, jnp.asarray(u), jnp.asarray(v)))
     got = t_dtquad(qt, _t(u), _t(v), 120, 160).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sqrt_rn_matches_numpy():
+    """project.sqrt_rn, the port's square root on the CPU, bit-equal to
+    numpy's correctly rounded one: every float32 integer below 2^24 (the
+    EDT's squared distances) and 1e6 seeded random float32 values."""
+    chunk = 1 << 22
+    for lo in range(0, 1 << 24, chunk):
+        x = np.arange(lo, lo + chunk, dtype=np.float32)
+        np.testing.assert_array_equal(sqrt_rn(_t(x)).numpy(), np.sqrt(x))
+    rng = np.random.default_rng(21)
+    x = np.concatenate([rng.random(500_000, np.float32),
+                        np.exp(rng.uniform(-80, 80, 500_000)).astype(np.float32)])
+    got = sqrt_rn(_t(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(x))
+
+
+@pytest.mark.parametrize("seed", [2, 8, 10])
+def test_edt_bit_equal_to_jax(seed):
+    """The 160x120 EDT and keyframe structure bit-equal to the JAX
+    package's (exact squared distances, correctly rounded roots)."""
+    e = _edges(seed)
+    np.testing.assert_array_equal(tedt.distance_transform(_t(e)).numpy(),
+                                  np.asarray(jops.distance_transform(jnp.asarray(e))))
+    np.testing.assert_array_equal(tedt.keyframe_structure(_t(e)).numpy(),
+                                  np.asarray(jops.keyframe_structure(jnp.asarray(e))))
 
 
 class TestBackproject:

@@ -2,8 +2,10 @@
 CPU tensors, i.e. its plain version, against the JAX package's jitted
 ``solver._residual_sums`` with the Pallas K3 in interpret mode.
 
-Both sides get the same numpy-seeded inputs at 160x120: a dt quad table
-(float32 "dt4" or bfloat16 "dt4bf"), an edge cloud back-projected from
+Both sides get the same numpy-seeded inputs at 160x120: a keyframe table
+(the dt quad table, float32 "dt4" or bfloat16 "dt4bf"; the 12-component
+quad table, "flat" or bfloat16 "flatbf"; the structure, sampled by
+"take4"), an edge cloud back-projected from
 integer pixels (so the identity pose projects onto pixel corners, where
 floor() and the bounds test are knife edges) with dead lanes, and a pose.
 Tolerances: good and bad counts equal; every float output within 1e-5 of
@@ -22,7 +24,9 @@ from revo_tpu.ops.backproject import EdgeCloud as JCloud
 from revo_tpu_torch import solver
 from revo_tpu_torch.ops import lgsx as K3
 
-from _torch_inputs import CAM, EDGE_DISTANCE, HUBER, make_inputs, make_pose, torch_args
+from _torch_inputs import (
+    BF16_FORMS, CAM, EDGE_DISTANCE, HUBER, TABLE_FORMS, make_inputs, make_pose, torch_args,
+)
 
 torch.set_num_threads(1)
 
@@ -31,18 +35,22 @@ RTOL = 1e-5  # of the largest entry of each output
 
 @pytest.mark.parametrize("p", [4096, 1000])
 @pytest.mark.parametrize("pose", ["identity", "tracked"])
-@pytest.mark.parametrize("quad_form", ["dt4", "dt4bf"])
+@pytest.mark.parametrize("quad_form", TABLE_FORMS)
 def test_residual_lgsx_matches_jax(quad_form, pose, p):
     quad, pts, valid = make_inputs(p + len(pose), p, quad_form)
     R, t = make_pose(pose)
     jcam = JCamera(**CAM)
     # Jitted, as inside track_frames: XLA fuses u = x / z * fx + cx into one
-    # FMA, which the port reproduces.
+    # FMA, which the port reproduces.  "take4" samples the (H, W, 3)
+    # structure, the other forms their quad table.
+    impl = "take4" if quad_form == "take4" else "quad"
     jsums = jax.jit(lambda q, pts_, valid_, R_, t_: jsolver._residual_sums(
         q, JCloud(pts_, valid_, jnp.sum(valid_).astype(jnp.int32)), jcam, R_, t_,
-        EDGE_DISTANCE, HUBER, True, True, "quad"))
+        EDGE_DISTANCE, HUBER, True, True, impl))
     jq = jnp.asarray(quad)
-    if quad_form == "dt4bf":
+    if quad_form == "take4":
+        jq = jq.reshape(CAM["height"], CAM["width"], 3)
+    if quad_form in BF16_FORMS:
         jq = jq.astype(jnp.bfloat16)
     want = jsums(jq, jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(R), jnp.asarray(t))
     got = K3.residual_lgsx(*torch_args(quad, pts, valid, R, t, quad_form))

@@ -9,10 +9,11 @@ Tolerances:
 - point-sharded system: good and bad counts equal, A and g within rtol 1e-4 /
   atol 1e-6 of JAX's sharded system and of the port's unsharded one
   (tests/test_lgsx_sharded.py:62-80), and bit-equal to the port's own
-  per-shard ``_residual_sums`` added in slot order.  The port samples only
-  dt quad tables (the tracker's form), so JAX's function runs with its
-  ``_residual_sums`` bound to the "quad" sampler, jitted as inside its
-  tracker;
+  per-shard ``_residual_sums`` added in slot order.  JAX's function samples
+  the (H, W, 3) structure with its take4 sampler, and so does the port's
+  with the same structure as rows (the "take4" case, like against like);
+  for the port's dt quad tables JAX's ``_residual_sums`` is bound to its
+  "quad" sampler.  JAX runs jitted, as inside its tracker;
 - candidates: verdicts and T_ab bit-equal to the port's mesh-less run (the
   same program per pair); against JAX's mesh form verdicts equal and T_ab
   within 1e-4;
@@ -75,12 +76,22 @@ def wireframe():
     return keyframe_structure(torch.from_numpy(edges)), cloud
 
 
-def _jax_point_sharded(quad, cloud, R, t, mesh, quad_form):
-    jq = jnp.asarray(quad.float().numpy())
-    if quad_form == "dt4bf":
-        jq = jq.astype(jnp.bfloat16)
+def _jax_point_sharded(table, cloud, R, t, mesh, form, struct=None):
+    """JAX's ``residual_system_point_sharded``, jitted as inside its tracker.
+    "take4": JAX's own form, the (H, W, 3) ``struct`` sampled by its take4
+    sampler (the port gets the same structure as (H*W, 3) rows); "dt4" /
+    "dt4bf": the port's dt quad ``table``, for which JAX's
+    ``_residual_sums`` is bound to its "quad" sampler."""
+    if form == "take4":
+        jq = jnp.asarray(struct.numpy())
+        bind = {}
+    else:
+        jq = jnp.asarray(table.float().numpy())
+        if form == "dt4bf":
+            jq = jq.astype(jnp.bfloat16)
+        bind = {"bilinear_impl": "quad"}
     orig = jsolver._residual_sums
-    jsolver._residual_sums = functools.partial(orig, bilinear_impl="quad")
+    jsolver._residual_sums = functools.partial(orig, **bind)
     try:
         return jax.jit(lambda q, p, v, R_, t_: jsolver.residual_system_point_sharded(
             q, JCloud(p, v, v.sum().astype(jnp.int32)), JCAM, R_, t_, 30.0, 0.3, True,
@@ -89,23 +100,29 @@ def _jax_point_sharded(quad, cloud, R, t, mesh, quad_form):
         jsolver._residual_sums = orig
 
 
+def _table(struct, form):
+    """The table the port's solver samples for ``form``."""
+    return struct.flatten(0, 1) if form == "take4" else quad_structure(struct, form)
+
+
 def _assert_system_close(a, b):
     assert int(a.info.good) == int(b.info.good) and int(a.info.bad) == int(b.info.bad)
     for x, y in ((a.A, b.A), (a.g, b.g)):
         np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("quad_form", ["dt4", "dt4bf"])
+@pytest.mark.parametrize("quad_form", ["dt4", "dt4bf", "take4"])
 @pytest.mark.parametrize("pose", ["identity", "moved"])
 def test_point_sharded_system(wireframe, quad_form, pose):
     struct, cloud = wireframe
-    quad = quad_structure(struct, quad_form)
+    quad = _table(struct, quad_form)
     xi = torch.tensor([0.01, -0.008, 0.012, 0.004, -0.006, 0.005]) * (pose == "moved")
     R, t = lie.exp_se3(xi)
     mesh = cpu_mesh(8, "pt")
     got = solver.residual_system_point_sharded(quad, cloud, CAM, R, t, 30.0, 0.3, True, mesh)
     assert int(got.info.good) > 400 and got.info.good.dtype == torch.int32
-    _assert_system_close(got, _jax_point_sharded(quad, cloud, R, t, jax_mesh(8, "pt"), quad_form))
+    _assert_system_close(got, _jax_point_sharded(quad, cloud, R, t, jax_mesh(8, "pt"), quad_form,
+                                                 struct))
     _assert_system_close(got, solver.residual_system(quad, cloud, CAM, R, t, 30.0, 0.3, True))
     # Bit-equal to the port's own shards summed in slot order.
     shards = [solver._residual_sums(q, EdgeCloud(p, v, v.sum(dtype=torch.int32)), CAM, R, t,

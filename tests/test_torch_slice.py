@@ -5,8 +5,9 @@ build_frame -> make_keyframe -> track_frames for frames 1..3 chained from
 the previous pose, for solver "lm" and "gn_fixed" and quad_form "dt4" and
 "dt4bf".  Tolerances: bit-equal for images, edges and cloud validity/count;
 rtol 1e-6 for cloud points; rtol 1e-6 / atol 1e-5 for DT structures;
-rtol 1e-4 / atol 1e-5 for the normalized normal equations (reduction
-order); per-frame poses within 1e-5 m and 1e-5 rad.
+one evaluation's per-point terms bit-equal, and its normalized normal
+equations within the float32 summation bound of the float64 sum of those
+terms (reduction order); per-frame poses within 1e-5 m and 1e-5 rad.
 """
 import dataclasses
 import os
@@ -25,9 +26,11 @@ from revo_tpu import tracker as jtracker
 from revo_tpu.config import SystemConfig as JConfig
 from revo_tpu.eval import absolute_trajectory_error as j_ate
 from revo_tpu.io import synthetic as jsyn
+from revo_tpu.ops.pallas import lgsx as jlgsx
 from revo_tpu_torch import convert, frontend, lie, solver, tracker
 from revo_tpu_torch.eval import absolute_trajectory_error as t_ate
 from revo_tpu_torch.io import synthetic as tsyn
+from revo_tpu_torch.ops import lgsx as K3
 
 from test_solver import small_cfg
 
@@ -151,11 +154,90 @@ def test_track_from_jax_keyframe(seq, solver_name):
     assert _angle(rt.R.numpy(), np.asarray(rj.R)) <= POSE_TOL
 
 
+U32 = 2.0 ** -24  # float32 unit roundoff
+SUMMAND_OPS = 16  # float32 operations from one point's terms to its summand
+
+
+def jax_residual_fn(cam, edge_distance, huber, use_edge_filter, bilinear_impl):
+    """The JAX package's residual pass, jitted as inside track_frames, with
+    its Pallas K3 in interpret mode: (table, cloud, R, t) -> (the
+    normalized LevelSystem, the per-point terms (warped points, scaled
+    gradients, r, w) that its reduction receives)."""
+    def fn(table, cloud, R, t):
+        stash = []
+        reduce_ = jlgsx.lgsx_reduce
+
+        def capture(wxp, grads, r, w):
+            stash.append((wxp, grads, r, w))
+            return reduce_(wxp, grads, r, w)
+
+        jlgsx.lgsx_reduce = capture  # _residual_sums imports it when called
+        try:
+            sums = jsolver._residual_sums(table, cloud, cam, R, t, edge_distance, huber,
+                                          use_edge_filter, True, bilinear_impl)
+        finally:
+            jlgsx.lgsx_reduce = reduce_
+        return jsolver._normalize_sums(*sums), stash[0]
+
+    return jax.jit(fn)
+
+
+def float64_system(wxp, grads, r, w, n_good):
+    """(A, g, err) of the per-point terms summed in float64, and beside each
+    the float32 bound gamma_m * sum |summand| / n_good + U32 |value| (m = P +
+    SUMMAND_OPS; each Jacobian entry bounded by its formula in absolute
+    values), which any float32 evaluation of the same terms meets in any
+    order of summation."""
+    wxp, grads, r, w = (np.asarray(x, np.float64) for x in (wxp, grads, r, w))
+    px, py, pz = wxp.T
+    gx, gy = grads.T
+    iz = 1.0 / np.where(pz == 0, 1e-12, pz)
+    iz2 = iz * iz
+    J = np.stack([iz * gx, iz * gy, -px * iz2 * gx - py * iz2 * gy,
+                  -px * py * iz2 * gx - (1 + py * py * iz2) * gy,
+                  (1 + px * px * iz2) * gx + px * py * iz2 * gy, -py * iz * gx + px * iz * gy], -1)
+    a, b, c, d = np.abs(px), np.abs(py), np.abs(gx), np.abs(gy)
+    Jabs = np.stack([iz * c, iz * d, a * iz2 * c + b * iz2 * d,
+                     a * b * iz2 * c + (1 + b * b * iz2) * d,
+                     (1 + a * a * iz2) * c + a * b * iz2 * d, b * iz * c + a * iz * d], -1)
+    Jabs = np.abs(Jabs)
+    live = w != 0  # dead lanes add exact zeros
+    J, Jabs, r, w = J[live], Jabs[live], r[live], w[live]
+    m = len(wxp) + SUMMAND_OPS
+    gamma = m * U32 / (1 - m * U32)
+    n = max(int(n_good), 1)
+    out = []
+    for value, absolute in ((np.einsum("p,pi,pj->ij", w, J, J), np.einsum("p,pi,pj->ij", w, Jabs, Jabs)),
+                            (np.einsum("p,pi->i", w * r, J), np.einsum("p,pi->i", np.abs(w * r), Jabs)),
+                            (np.sum(w * r * r), np.sum(np.abs(w * r * r)))):
+        value = value / n
+        out.append((value, gamma * absolute / n + U32 * np.abs(value)))
+    return out
+
+
+def assert_terms_and_sums(sj, terms_j, st, terms_t):
+    """The port's per-point terms bit-equal to the JAX package's, equal
+    counts, and both packages' normalized sums within the float32 bound of
+    the float64 sum of those terms."""
+    wxp, grads, r, w, _, n_good, n_bad = terms_t
+    for a, b in zip((wxp, grads, r, w), terms_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(n_good) == int(st.info.good) == int(sj.info.good) > 0
+    assert int(n_bad) == int(st.info.bad) == int(sj.info.bad)
+    for (want, bound), port, jx in zip(float64_system(wxp, grads, r, w, n_good),
+                                       (st.A, st.g, st.err), (sj.A, sj.g, sj.err)):
+        for got in (port.numpy(), np.asarray(jx)):
+            assert np.all(np.abs(got - want) <= bound), (np.abs(got - want) / bound).max()
+
+
 @pytest.mark.parametrize("lvl", [0, 1, 2])
 def test_level_system_matches_jax(seq, lvl):
-    """One residual evaluation (with JAX's Pallas K3 in interpret mode) at a
-    seeded pose and at the identity, where projections land on integer
-    pixels."""
+    """One residual evaluation at a seeded pose and at the identity, where
+    projections land on integer pixels: the per-point terms (warped
+    points, gradients, r, w) bit-equal and the counts equal to the jitted
+    JAX pass's; A, g and err of both packages within the float32
+    summation bound of the float64 sum of those terms (each package sums
+    in its own order, so neither matches the other entry by entry)."""
     cfg = _cfg()
     opt, cam = cfg.tracker.optimizer, cfg.camera_pyramid()[lvl]
     tcam = convert.config_from_jax(cfg).camera_pyramid()[lvl]
@@ -165,23 +247,15 @@ def test_level_system_matches_jax(seq, lvl):
     ft = convert.frame_from_numpy(_numpy_tree(fj[1]), device="cpu")
     xi = (np.random.default_rng(lvl).normal(size=6) * 0.004).astype(np.float32)
     R, t = lie.exp_se3(torch.from_numpy(xi))
-    # Jitted, as inside track_frames: XLA then fuses u = x / z * fx + cx
-    # into one FMA, which the port reproduces (eager JAX rounds twice).
-    jsys = jax.jit(lambda q, cloud, R_, t_: jsolver.residual_system(
-        q, cloud, cam, R_, t_, opt.edge_distance_lvl[lvl], opt.huber_edge,
-        opt.use_edge_filter, True, opt.bilinear_impl,
-    ))
+    jsys = jax_residual_fn(cam, opt.edge_distance_lvl[lvl], opt.huber_edge,
+                           opt.use_edge_filter, opt.bilinear_impl)
     for R_, t_ in ((torch.eye(3), torch.zeros(3)), (R, t)):
-        sj = jsys(kj.quads[lvl], fj[1].levels[lvl].cloud,
-                  jnp.asarray(R_.numpy()), jnp.asarray(t_.numpy()))
-        st = solver.residual_system(
-            kt.quads[lvl], ft.levels[lvl].cloud, tcam, R_, t_,
-            opt.edge_distance_lvl[lvl], opt.huber_edge, opt.use_edge_filter,
-        )
-        assert int(st.info.good) == int(sj.info.good)
-        assert int(st.info.bad) == int(sj.info.bad)
-        for a, b in ((st.err, sj.err), (st.A, sj.A), (st.g, sj.g)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
+        sj, terms_j = jsys(kj.quads[lvl], fj[1].levels[lvl].cloud,
+                           jnp.asarray(R_.numpy()), jnp.asarray(t_.numpy()))
+        args = (kt.quads[lvl], ft.levels[lvl].cloud, tcam, R_, t_,
+                opt.edge_distance_lvl[lvl], opt.huber_edge, opt.use_edge_filter)
+        assert_terms_and_sums(sj, terms_j, solver.residual_system(*args),
+                              K3.residual_terms(*args))
 
 
 def _numpy_tree(tree):

@@ -3,7 +3,8 @@ run on the port and against the JAX package on the same frames (160x120,
 CPU): tests/test_system.py:89-110 (depth holes, the init-check margin) and
 tests/test_autotune.py:24-74 (undersized capacities, the capacity-0.5
 point).  Flags identical and poses within 1e-4 m / 1e-4 rad of the JAX
-package's, and the JAX tests' own ATE gates.
+package's (on the 30-frame cap50 chain over its first frames), and the JAX
+tests' own ATE gates.
 """
 import dataclasses
 
@@ -12,12 +13,13 @@ import pytest
 import torch
 
 from revo_tpu import autotune as jautotune
+from revo_tpu import system as jsystem
 from revo_tpu_torch import autotune, convert, system
 from revo_tpu_torch.io import synthetic as tsyn
 
 from test_solver import small_cfg
 from test_torch_robustness import _ate, _both, _sequence, _tracker
-from test_torch_vo import run_host
+from test_torch_vo import assert_poses_close, run_host
 
 torch.set_num_threads(1)
 
@@ -69,9 +71,24 @@ def test_undersized_capacity_still_tracks(walk25):
     assert int(vo.prev_frame.levels[0].cloud.count) > tight.pyramid.edge_capacity[0]  # overflowed
 
 
+# The frames of the cap50 chain over which the port's poses stay within
+# 1e-4 of the JAX package's.  Both packages compute every per-point term
+# of the residual pass bit for bit alike (test_torch_slice.py); what parts
+# them is the float32 order of the normal-equation sums, which the motion
+# prior carries from frame to frame: the gap passes 1e-5 m at frame 12
+# (1.12e-5) and grows by 1-2e-6 m a frame, and frame 26 sits on a chaotic
+# LM level (2.0e-4 m there, 4.8e-5 m on the next frame).  Taking the JAX
+# package's own damped step (LDL^T, exp map, compose) in the port moves
+# frame 12's gap only to 1.06e-5 m, so no op of the step opens it.
+CAP50_POSE_FRAMES = 13
+
+
 def test_cap50_operating_point_fast_motion():
     """The capacity-0.5 point (margin 0.5: deliberate uniform decimation)
-    under 5x-handheld motion on the occlusion scene."""
+    under 5x-handheld motion on the occlusion scene.  A 30-frame chain, so
+    gated as ROADMAP gates long runs: per-frame flags identical and both
+    packages' ATE under the JAX test's 2 cm, poses within 1e-4 m / 1e-4 rad
+    over the first ``CAP50_POSE_FRAMES`` frames."""
     cfg = small_cfg()
     scene = tsyn.box_scene()
     traj = scene.trajectory(30, seed=6, translation_step=0.04, rotation_step=0.015)
@@ -81,6 +98,10 @@ def test_cap50_operating_point_fast_motion():
     got = autotune.calibrate_capacities(convert.config_from_jax(cfg), [seq[0][0]], [seq[0][1]],
                                         margin=0.5, device="cpu")
     assert got == convert.config_from_jax(want)
-    poses, _, vo = _both(want, frames)
+    pj, fj = run_host(jsystem.VOSystem(want), frames)
+    vo = system.VOSystem(convert.config_from_jax(want), device="cpu")
+    poses, flags = run_host(vo, frames)
+    np.testing.assert_array_equal(flags, fj)
+    assert_poses_close(poses[:CAP50_POSE_FRAMES], pj[:CAP50_POSE_FRAMES])
     assert vo.n_tracking_lost == 0
-    assert _ate(poses, traj) < 0.02
+    assert _ate(poses, traj) < 0.02 and _ate(pj, traj) < 0.02
