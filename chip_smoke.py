@@ -24,12 +24,14 @@ multi-device layer: the sharded forms on a mesh of slots, the two-stage
 pipeline, a one-process NCCL group and two processes over gloo; then the
 batched step, B sequences in one lane axis as the JAX package's vmap runs
 them; then the reference-gradient tracker (the 12-component quad tables and
-the structure sampled directly).  Phases, one line each:
+the structure sampled directly); then the long-run deployment path (320
+frames with ring eviction, a teleport, depth drift, online loop closure and
+post-run BA, and a scan checkpointed mid-run).  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
 3. frames    render every phase's synthetic frames (numpy, one pool of
-             worker processes);
+             worker processes; phase 20's 320 take most of its time);
 4. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at main-path shapes: the fused Canny (canny_fused, one launch
              from unpadded gray) bit-equal on the 3 pyramid levels of the 8
@@ -254,12 +256,38 @@ the structure sampled directly).  Phases, one line each:
              7's rule); (d) CUDA-event ms of each layout
              (the kernel alone, through the wrapper, the plain version, at
              B = 8) beside its bytes bound; its three rows join the kernel
-             JSON.
+             JSON;
+20. soak     the JAX package's long runs (tests/test_soak.py) at 640x480 on
+             one render of loop_trajectory(320, radius=0.7, wobble=0.004,
+             seed=5, circuits=2) in box_scene, uint8 / uint16 frames: (a)
+             TestSoak640's combined run in VOSystem (frames 0..179, then the
+             teleport back to 110 and on to 229; depth x 1.08 on frames
+             60..129 before it; a ring of 8 keyframes, online loop closure
+             every 40 frames, jump gate 0.12 m / 0.4 rad): _check_soak's
+             gates at 0.08 m (final-graph ATE, a relocalization, the tail,
+             ring eviction, refine_keyframes over the ring finite, every
+             ring slot pruned), card memory (the bytes live tensors
+             requested, after a garbage collection and once cuBLAS and
+             cuSOLVER have run) growing after the first eviction by under
+             2% of the first half's peak above the phase's start, host RSS
+             (peak and current) under 10% over the second half;
+             process_frame p50 / p95 / p99
+             / max, each online closure's frame and ms, refine_keyframes'
+             ms, allocated and reserved memory; (b) TestSoakScan1000's scan
+             soak cut to these 320 frames: vo_scan_from_state in chunks of
+             32 under scan relocalization, the state saved to a file at
+             frame 160 and loaded onto the card: more than 8 promotions,
+             ATE < 0.08 m, frames 161..319 resumed bit-equal, card memory
+             (read as in (a)) at every chunk's end within 1 MiB of the first
+             chunk's,
+             host RSS under 10% over the second half; both parts from
+             launch counts of 0: 3 canny_fused launches a frame built and
+             a residual_lgsx launch for every solver evaluation.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
-host_libraries, 15, 16, 17, 18, 19, 6.
-Launch counts are set to 0 just before each path (phases 5, 7 to 19, each
-form of 17 and each path of 18 and 19 on its own)
+host_libraries, 15, 16, 17, 18, 19, 20, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 20, each
+form of 17, each path of 18 and 19 and each part of 20 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
 alone; the cluster Canny on the 1280x720 frames; the grid Canny on the
@@ -367,6 +395,26 @@ VO_FLATBF_ATE_LIMIT_M = 1.5 * JAX_CPU_ATE_FLATBF_M
 # B = 8) at the margin-0.65 capacities of ROADMAP P8, and the lane counts timed.
 K3_LANES = 8
 BATCH_LANES, BATCH_CAPS, BATCH_TIMED = 8, (8192, 4864, 2304), (1, 8, 16, 32)
+# Phase 20 (soak): tests/test_soak.py's long runs at 640x480, on one render of
+# loop_trajectory(320, radius=0.7, wobble=0.004, seed=5, circuits=2) in
+# box_scene.  (a) TestSoak640's combined run in VOSystem: frames 0..179, then
+# the teleport back to frame 110 and the 120 frames to 229, depth x 1.08 on
+# frames 60..129 before the teleport; a ring of 8 keyframes, online loop
+# closure every 40 frames, jump gate 0.12 m / 0.4 rad (_soak_cfg).  (b)
+# TestSoakScan1000's scan soak, cut from 1000 frames to the 320 that (a)
+# renders: vo_scan_from_state in chunks of 32, the state saved at frame 160.
+SOAK_FRAMES, SOAK_RADIUS, SOAK_CIRCUITS, SOAK_SEED = 320, 0.7, 2, 5
+SOAK_RING, SOAK_CLOSE_EVERY, SOAK_JUMP_M, SOAK_JUMP_RAD = 8, 40, 0.12, 0.4
+SOAK_TELEPORT_FROM, SOAK_TELEPORT_TO, SOAK_REPLAY = 180, 110, 120
+SOAK_DRIFT, SOAK_DRIFT_SCALE = (60, 130), 1.08
+SOAK_ATE_M = 0.08  # TestSoak640's and TestSoakScan1000's bound
+SOAK_SLOT_SLACK_B, SOAK_PRUNE_RATIO = 4096, 0.8  # _check_soak's slot-bytes gates
+SOAK_CHUNK, SOAK_CKPT = 32, 160
+# Memory (the bytes live tensors requested on the card): growth after the
+# first eviction against the first half's peak above the phase's start; host
+# RSS growth over the second half (tests/test_soak.py:290-293); the scan's
+# memory against the first chunk's (its state has a fixed shape).
+SOAK_ALLOC_GROWTH, SOAK_RSS_GROWTH, SOAK_SCAN_ALLOC_B = 0.02, 0.10, 1 << 20
 
 
 _T0 = time.perf_counter()
@@ -882,12 +930,13 @@ def _busy(fn):
 
 
 def _tensor_leaves(tree):
+    """The tensors of a tree of tuples and lists (host scalars and None hold none)."""
     import torch
 
-    if tree is None:
-        return []
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if not isinstance(tree, (tuple, list)):
+        return []
     return [x for sub in tree for x in _tensor_leaves(sub)]
 
 
@@ -1004,7 +1053,14 @@ def main() -> int:
     jobs += [(families["box"], cam, T, 5000 + i) for i, T in enumerate(loop_traj)]
     jobs += [(scene, cam, T, 6000 + i)
              for i, T in enumerate(scene.trajectory(N_TELEPORT, seed=11))]
+    # Phase 20's long run, the last SOAK_FRAMES jobs: tests/test_soak.py
+    # renders its 640x480 soaks so (render_trajectory, seed 5: frame seeds 5000 + i).
+    soak_traj = syn.loop_trajectory(SOAK_FRAMES, radius=SOAK_RADIUS, wobble=0.004,
+                                    seed=SOAK_SEED, circuits=SOAK_CIRCUITS)
+    jobs += [(families["box"], cam, T, 1000 * SOAK_SEED + i) for i, T in enumerate(soak_traj)]
     rendered_all = render_jobs(jobs, workers=max(os.cpu_count() - 1, 1))
+    soak = _sensor_frames(rendered_all[-SOAK_FRAMES:], cfg)
+    del rendered_all[-SOAK_FRAMES:]  # keep the long run as uint8 / uint16 only
     rendered = rendered_all[:n_default]
     family_frames = {
         name: _sensor_frames(rendered_all[n_default + k:n_default + k + 1], cfg)
@@ -1018,7 +1074,7 @@ def main() -> int:
     pan_next = _sensor_frames(rendered[-5:-4], cfg)
     pan_ideal = rendered[N_FRAMES:N_FRAMES + N_UNDISTORT]  # float gray, metric depth
     loop_rendered = [(g, d) for g, d, _, _ in rendered[-4:]]
-    _phase("frames", n=len(rendered_all), shape=list(grays[0].shape),
+    _phase("frames", n=len(rendered_all) + SOAK_FRAMES, shape=list(grays[0].shape),
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
@@ -2908,6 +2964,271 @@ def main() -> int:
         r["name"]: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                       "batched")} for r in quad_rows})
     _phase("quadforms", **quad_summary)
+
+    # -- 20. soak: the long-run deployment path at full width --------------------
+    import gc
+    import resource
+
+    from revo_tpu_torch.checkpoint import load_scan_state, save_scan_state
+    from revo_tpu_torch.frontend import prune_keyframe
+    from revo_tpu_torch.parallel.windowed import refine_keyframes
+
+    s_grays, s_depths, s_gt = soak
+    trk_soak = dataclasses.replace(
+        cfg.tracker, kf_history_size=SOAK_RING, online_loop_closure=True,
+        loop_closure_every=SOAK_CLOSE_EVERY, max_jump_translation=SOAK_JUMP_M,
+        max_jump_rotation=SOAK_JUMP_RAD)
+    cfg_soak = dataclasses.replace(cfg, tracker=trk_soak)
+    cfg_soak_scan = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        trk_soak, scan_relocalization=True, online_loop_closure=False))
+
+    def rss_kb():
+        """Host memory, kB: (peak RSS, as tests/test_soak.py reads it; RSS
+        now, which the earlier phases' peak does not hide)."""
+        with open("/proc/self/statm") as f:
+            now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss, now
+
+    def memory():
+        """Card memory after a garbage collection, bytes: (allocated, the
+        bytes the live tensors requested, reserved).  The gates read the
+        second: tensors that only unreachable cycles still hold are not a
+        growing state, and ``memory_allocated`` counts the
+        caching allocator's blocks, which keep up to 1 MiB of unsplit slack
+        each above 1 MiB (phase 20 alone on an NVIDIA H100 80GB HBM3 at
+        700 W: its fixed-size scan state read 1,032,192 B apart between two
+        chunk ends)."""
+        gc.collect()
+        return (torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
+                torch.cuda.memory_reserved(dev))
+
+    def tree_nbytes(tree):
+        return sum(x.nbytes for x in _tensor_leaves(tree))
+
+    def storage_bytes(tree):  # bytes of the distinct storages the tree holds
+        return sum({x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+                    for x in _tensor_leaves(tree)}.values())
+
+    # The earlier phases' tensors stay allocated: memory is read against the
+    # phase's start, after the libraries' one-time costs are paid (cuBLAS
+    # keeps 32 MiB of workspace from its first call on: run alone on an
+    # NVIDIA H100 80GB HBM3 at 700 W, phase 20 showed it as a 33,587,712 B
+    # step at its first pose-graph solve; a library's first call also loads
+    # its code into host memory).
+    before_warmup = memory()[0], rss_kb()[1]
+    eye8 = torch.eye(8, device=dev)
+    torch.linalg.solve(eye8 @ eye8, eye8)
+    mem_start = memory()
+    warmup = {"allocated_b": mem_start[0] - before_warmup[0],
+              "rss_kb": rss_kb()[1] - before_warmup[1]}
+
+    def soak_path(name, fn, n_built):
+        """``fn`` with the launch counts from 0 and solver evaluations
+        counted: 3 canny_fused launches a frame built, a residual_lgsx launch
+        at least every evaluation."""
+        evals = [0]
+        real = solver._evaluate
+
+        def counted(*a, **k):
+            evals[0] += 1
+            return real(*a, **k)
+
+        solver._evaluate = counted
+        try:
+            out, counts = _path_launches(counters_, fn)
+        finally:
+            solver._evaluate = real
+        require_vga(f"soak {name}", counts)
+        add_launches(counts)
+        if counts["canny_fused"] != 3 * n_built:
+            raise RuntimeError(f"soak {name}: {counts['canny_fused']} canny_fused launches for "
+                               f"{n_built} frames built, want 3 a frame")
+        if not counts["residual_lgsx"] >= evals[0] > 0:
+            raise RuntimeError(f"soak {name}: {counts['residual_lgsx']} residual_lgsx launches "
+                               f"for {evals[0]} evaluations")
+        return out, {"canny_fused": counts["canny_fused"], "frames_built": n_built,
+                     "residual_lgsx": counts["residual_lgsx"], "evaluations": evals[0]}
+
+    # (a) TestSoak640's combined run through VOSystem.process_frame.
+    order = list(range(SOAK_TELEPORT_FROM)) + list(
+        range(SOAK_TELEPORT_TO, SOAK_TELEPORT_TO + SOAK_REPLAY))
+    drifted = [k < SOAK_TELEPORT_FROM and SOAK_DRIFT[0] <= i < SOAK_DRIFT[1]
+               for k, i in enumerate(order)]
+    a_depths = [np.round(s_depths[i] * SOAK_DRIFT_SCALE).astype(np.uint16) if d
+                else s_depths[i] for i, d in zip(order, drifted)]
+    soak_log = {"frame_ms": [], "closures": [], "memory": [], "rss_kb": {}}
+
+    def soak_vo():
+        vo = VOSystem(cfg_soak, device=dev)
+        close = vo._online_loop_closure
+        at = [0]
+
+        def timed_close():  # the frame, device-synchronized ms and loops of each closure
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = close()
+            torch.cuda.synchronize()
+            soak_log["closures"].append({"frame": at[0], "loops": n,
+                                         "ms": (time.perf_counter() - t) * 1e3})
+            return n
+
+        vo._online_loop_closure = timed_close
+        est, evicted = [], None
+        for k, i in enumerate(order):
+            at[0] = k
+            t = time.perf_counter()
+            est.append(vo.process_frame(s_grays[i], a_depths[k], k / 30.0))
+            soak_log["frame_ms"].append((time.perf_counter() - t) * 1e3)
+            if evicted is None and vo.n_keyframes > SOAK_RING:
+                evicted = k
+                soak_log["memory"].append((k, *memory()))
+            elif k % SOAK_CLOSE_EVERY == SOAK_CLOSE_EVERY - 1:
+                soak_log["memory"].append((k, *memory()))
+            if k == len(order) // 2:
+                soak_log["rss_kb"]["mid"] = rss_kb()
+        if soak_log["memory"][-1][0] != len(order) - 1:
+            soak_log["memory"].append((len(order) - 1, *memory()))
+        soak_log["rss_kb"]["end"] = rss_kb()
+        return vo, np.stack(est), evicted
+
+    (vo_s, est_s, evicted), a_launches = soak_path("vo", soak_vo, len(order))
+    gt_s = s_gt[order]
+    ate_live = absolute_trajectory_error(est_s, gt_s).rmse
+    ate_final = absolute_trajectory_error(
+        np.stack([n.T_w_curr for n in vo_s.pose_graph]), gt_s).rmse
+    tail_m = float(np.linalg.norm(est_s[-10:, :3, 3] - gt_s[-10:, :3, 3], axis=-1).mean())
+    torch.cuda.synchronize()
+    t_ba = time.perf_counter()
+    refined = refine_keyframes([kf for _, kf in vo_s.kf_history], cfg_soak, pairs="overlap")
+    torch.cuda.synchronize()
+    ba_ms = (time.perf_counter() - t_ba) * 1e3
+    full_b = tree_nbytes(vo_s.kf)  # the live keyframe stays unpruned
+    pruned_b = tree_nbytes(prune_keyframe(vo_s.kf))
+    slots_b = [tree_nbytes(kf) for _, kf in vo_s.kf_history]
+    mem_a = soak_log["memory"]
+    half_peak = max(m[2] for m in mem_a if m[0] < len(order) // 2) - mem_start[1]
+    after = [m[2] for m in mem_a if evicted is not None and m[0] >= evicted]
+    growth_b = max(after) - after[0] if after else None
+    rss_a = soak_log["rss_kb"]
+    frame_ms = np.asarray(soak_log["frame_ms"])
+    soak_summary = {"smi": smi, "vo": {
+        "frames": len(order), "ate_final_m": ate_final, "ate_live_m": ate_live,
+        "ate_limit_m": SOAK_ATE_M, "tail_m": tail_m, "keyframes": vo_s.n_keyframes,
+        "relocalized": vo_s.n_relocalized, "lost": vo_s.n_tracking_lost,
+        "ring": len(vo_s.kf_history), "first_eviction_frame": evicted,
+        "process_frame_ms_p50_p95_p99_max": [
+            *np.percentile(frame_ms, [50.0, 95.0, 99.0]).tolist(), float(frame_ms.max())],
+        "slowest_frame": int(frame_ms.argmax()),
+        "closures": soak_log["closures"], "refine_keyframes_ms": ba_ms,
+        "keyframe_bytes": {"full": full_b, "pruned": pruned_b, "largest_slot": max(slots_b),
+                           "ring_total": sum(slots_b)},
+        "memory_start_b": mem_start, "library_warmup": warmup,
+        "memory_frame_allocated_requested_reserved": mem_a,
+        "requested_growth_b": growth_b, "first_half_peak_above_start_b": half_peak,
+        "rss_kb_peak_now": rss_a, "launches": a_launches}}
+    # tests/test_soak.py _check_soak at ate_bound 0.08, and the memory gates.
+    if not ate_final < SOAK_ATE_M:
+        raise RuntimeError(f"soak vo: final-graph ATE {ate_final} m (live {ate_live})")
+    if not vo_s.n_relocalized >= 1:
+        raise RuntimeError("soak vo: the teleport did not relocalize")
+    if not tail_m < 1.5 * SOAK_ATE_M:
+        raise RuntimeError(f"soak vo: tail error {tail_m} m")
+    if not len(vo_s.kf_history) <= SOAK_RING < vo_s.n_keyframes:
+        raise RuntimeError(f"soak vo: ring {len(vo_s.kf_history)}, {vo_s.n_keyframes} "
+                           f"promotions: no eviction")
+    if not np.isfinite(refined).all():
+        raise RuntimeError("soak vo: refine_keyframes over the ring is not finite")
+    if not max(slots_b) <= pruned_b + SOAK_SLOT_SLACK_B:
+        raise RuntimeError(f"soak vo: a ring slot holds {max(slots_b)} B, pruned {pruned_b} B")
+    if not pruned_b < SOAK_PRUNE_RATIO * full_b:
+        raise RuntimeError(f"soak vo: pruning saved too little: {pruned_b} / {full_b} B")
+    if not sum(slots_b) <= SOAK_RING * (pruned_b + SOAK_SLOT_SLACK_B):
+        raise RuntimeError(f"soak vo: the ring holds {sum(slots_b)} B")
+    if not (growth_b is not None and growth_b < SOAK_ALLOC_GROWTH * half_peak):
+        raise RuntimeError(f"soak vo: card memory grew {growth_b} B after the first "
+                           f"eviction (first-half peak {half_peak} B above the start): {mem_a}")
+    if not all(e - m < SOAK_RSS_GROWTH * m for m, e in zip(rss_a["mid"], rss_a["end"])):
+        raise RuntimeError(f"soak vo: host RSS (peak, now) grew {rss_a['mid']} -> "
+                           f"{rss_a['end']} kB")
+    del vo_s
+
+    # (b) the scan soak: frames 0..319 in order, chunks of SOAK_CHUNK, the
+    # state saved at frame SOAK_CKPT and resumed from the file.
+    def scan_from(state, start, on_chunk=None):
+        poses, flags = [], []
+        for a in range(start, SOAK_FRAMES, SOAK_CHUNK):
+            b = min(a + SOAK_CHUNK, SOAK_FRAMES)
+            T_w, outs, state = batch.vo_scan_from_state(
+                state, torch.from_numpy(np.stack(s_grays[a:b])).to(dev),
+                torch.from_numpy(np.stack(s_depths[a:b])).to(dev), cfg_soak_scan)
+            poses.append(T_w.cpu().numpy())
+            flags.append(torch.stack([outs.promoted, outs.relocalized, outs.lost], 1).cpu().numpy())
+            del T_w, outs
+            if on_chunk is not None:
+                on_chunk(b, state)
+        return state, np.concatenate(poses), np.concatenate(flags)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "scan_soak.npz")
+        scan_log = {"memory": [], "rss_kb": [], "save_ms": None}
+
+        def on_chunk(b, state):
+            scan_log["memory"].append((b - 1, *memory(), storage_bytes(state)))
+            scan_log["rss_kb"].append(rss_kb())
+            if b == SOAK_CKPT + 1:
+                t = time.perf_counter()
+                save_scan_state(ckpt, state)
+                scan_log["save_ms"] = (time.perf_counter() - t) * 1e3
+                scan_log["file_bytes"] = os.path.getsize(ckpt)
+
+        def soak_scan():
+            t = time.perf_counter()
+            frame0 = frontend.build_frame(torch.from_numpy(s_grays[0]).to(dev),
+                                          torch.from_numpy(s_depths[0]).to(dev), cfg_soak_scan)
+            _, poses, flags = scan_from(batch._init_state(frame0, cfg_soak_scan), 1, on_chunk)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3 / SOAK_FRAMES
+            t = time.perf_counter()
+            state_r = load_scan_state(ckpt, cfg_soak_scan, device=dev)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t) * 1e3
+            _, resumed, flags_r = scan_from(state_r, SOAK_CKPT + 1)
+            return poses, flags, resumed, flags_r, ms, load_ms
+
+        # Frames built: the run, the resumed frames and the one frame of zeros
+        # load_scan_state builds its template from (batch.scan_state_template).
+        (poses_b, flags_b, resumed_b, flags_rb, scan_ms, load_ms), b_launches = soak_path(
+            "scan", soak_scan, 2 * SOAK_FRAMES - SOAK_CKPT)
+    poses_b = np.concatenate([np.eye(4, dtype=np.float32)[None], poses_b])
+    ate_b = absolute_trajectory_error(poses_b, s_gt).rmse
+    n_promoted = int(flags_b[:, 0].sum())
+    mem_b = scan_log["memory"]
+    req_spread = max(abs(m[2] - mem_b[0][2]) for m in mem_b)
+    rss_b = scan_log["rss_kb"]
+    rss_mid = rss_b[len(rss_b) // 2]
+    soak_summary["scan"] = {
+        "frames": SOAK_FRAMES, "chunk": SOAK_CHUNK, "checkpoint_frame": SOAK_CKPT,
+        "ate_m": ate_b, "promoted": n_promoted, "relocalized": int(flags_b[:, 1].sum()),
+        "lost": int(flags_b[:, 2].sum()), "ms_per_frame": scan_ms,
+        "save_scan_state_ms": scan_log["save_ms"], "checkpoint_bytes": scan_log.get("file_bytes"),
+        "load_scan_state_ms": load_ms, "resume_bit_equal": bool(np.array_equal(
+            resumed_b, poses_b[SOAK_CKPT + 1:])) and bool(np.array_equal(
+                flags_rb, flags_b[SOAK_CKPT:])),
+        "memory_frame_allocated_requested_reserved_state": mem_b,
+        "requested_spread_b": req_spread, "rss_kb_peak_now": [rss_b[0], rss_mid, rss_b[-1]],
+        "launches": b_launches}
+    if not n_promoted > SOAK_RING:
+        raise RuntimeError(f"soak scan: only {n_promoted} promotions")
+    if not (np.isfinite(poses_b).all() and ate_b < SOAK_ATE_M):
+        raise RuntimeError(f"soak scan: ATE {ate_b} m")
+    if not soak_summary["scan"]["resume_bit_equal"]:
+        raise RuntimeError("soak scan: the run resumed from the checkpoint file differs")
+    if not req_spread <= SOAK_SCAN_ALLOC_B:
+        raise RuntimeError(f"soak scan: card memory moved {req_spread} B: {mem_b}")
+    if not all(e - m < SOAK_RSS_GROWTH * m for m, e in zip(rss_mid, rss_b[-1])):
+        raise RuntimeError(f"soak scan: host RSS (peak, now) grew {rss_b}")
+    _phase("soak", **soak_summary)
 
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")

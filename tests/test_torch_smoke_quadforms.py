@@ -1,5 +1,5 @@
 """chip_smoke.py's phase 19 (quadforms) rehearsed on the CPU at 160x120:
-the text of ``main`` between its marker and phase 6's runs with the device
+the text of ``main`` between its marker and phase 20's runs with the device
 set to the CPU and the card-only pieces stubbed (launch counts, CUDA-event
 times, the sync debug mode), so wrong paths, arguments and control flow of
 the smoke run show here, where there is no card.  The card and the CPU are
@@ -55,7 +55,7 @@ def test_phase_19_rehearses_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setattr(K3, "residual_lgsx_lanes", counted)
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         src = f.read()
-    code = textwrap.dedent(src[src.index("    # -- 19. quadforms"):src.index("    # -- 6. times")])
+    code = textwrap.dedent(src[src.index("    # -- 19. quadforms"):src.index("    # -- 20. soak")])
     for old in ('torch.cuda.set_sync_debug_mode("error")', 'torch.cuda.set_sync_debug_mode("default")'):
         assert code.count(old) == 1, old
         code = code.replace(old, "None")
