@@ -348,6 +348,7 @@ def test_import_loads_no_jax():
         "import revo_tpu_torch.io.native_oracle, revo_tpu_torch.io.associate\n"
         "import revo_tpu_torch.viz, revo_tpu_torch.viz.plot, revo_tpu_torch.viz.debug\n"
         "import revo_tpu_torch.viz.map3d, revo_tpu_torch.viz.live\n"
+        "import revo_tpu_torch.bench, revo_tpu_torch.entry\n"
         "import pkgutil\n"
         "walked = [m.name for m in pkgutil.walk_packages(revo_tpu_torch.__path__, 'revo_tpu_torch.')]\n"
         "missing = [m for m in walked if m not in sys.modules]\n"

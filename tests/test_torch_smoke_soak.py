@@ -1,5 +1,5 @@
 """chip_smoke.py's phase 20 (soak) rehearsed on the CPU at 160x120: the text
-of ``main`` between its marker and phase 6's runs with the device set to the
+of ``main`` between its marker and phase 21's runs with the device set to the
 CPU, the frames rendered at 160x120 by the script's own pool, the card's
 memory reads stubbed by the bytes of the live tensors' storages,
 ``torch.cuda.synchronize`` by a no-op, and the launch counts
@@ -81,7 +81,7 @@ def test_phase_20_rehearses_on_the_cpu(capsys, monkeypatch):
     cs = _chip_smoke()
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         src = f.read()
-    code = textwrap.dedent(src[src.index("    # -- 20. soak"):src.index("    # -- 6. times")])
+    code = textwrap.dedent(src[src.index("    # -- 20. soak"):src.index("    # -- 21. bench")])
     gates = _gate_lines(code)
     assert len(gates) >= 15, gates
 
