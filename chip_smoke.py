@@ -26,7 +26,9 @@ batched step, B sequences in one lane axis as the JAX package's vmap runs
 them; then the reference-gradient tracker (the 12-component quad tables and
 the structure sampled directly); then the long-run deployment path (320
 frames with ring eviction, a teleport, depth drift, online loop closure and
-post-run BA, and a scan checkpointed mid-run).  Phases, one line each:
+post-run BA, and a scan checkpointed mid-run); then the port's multi-device
+dry run on eight slots and the scene families' accuracy and loop-closure
+gates.  Phases, one line each:
 
 1. device    the card, its power limit, TF32 pinned off;
 2. build     nvcc build of revo_tpu_torch/csrc/*.cu (sm_90a);
@@ -294,11 +296,37 @@ post-run BA, and a scan checkpointed mid-run).  Phases, one line each:
              record on stderr: canny_fused launched a multiple of 3 times
              (one launch a level of each pyramid built), no other Canny,
              residual_lgsx launched; then entry()'s 640x480 track step
-             once, its error finite.
+             once, its error finite;
+22. dryrun   entry.dryrun_multichip(8) as a multi-device check calls it,
+             on its default slots (eight slots of cuda:0 on one
+             card): the sequences (64x48 pairs over "seq"), the points
+             (residual_system_point_sharded over "pt"), 17 frames in 8
+             segments, the two-stage pipeline on two streams, the full-system
+             scan (8 pans of 24 frames + 2 teleports at 160x120 over "seq",
+             each equal to its own vo_scan within 1e-5, promoting,
+             relocalizing and back from the teleport to under 2 cm), the
+             loop candidates over "cand" (decisions equal to the mesh-less
+             call, poses within 1e-5), the windowed BA over "pair" (within
+             2e-4 of optimize_window) and the pose graph over "edge", with
+             the JAX dry run's asserts; per-device promotions, relocalizations
+             and loop edges equal to the JAX package's line on 8 virtual CPU
+             devices (MULTICHIP_r05.json); seconds per part, the scan's and
+             the window's deviations, both kernels' launches from 0;
+23. scene_gates  tests/test_scenes.py's slow gates: the sparse scene and the
+             box scene at 640x480 over 22 frames (the box also at the
+             capacities calibrated at margins 0.65 and 0.5), ATE < 5 mm and
+             never lost; TestLoopClosureEndToEnd's four loops at 160x120: the
+             110-frame loop with depth x 1.08 on frames 30-60 (ATE before
+             closure > 1.5 cm, a verified loop spanning >= 5 keyframes,
+             after < 0.75x before), online closure every 20 frames (never
+             lost, final ATE < 0.85x the run without), the 150-frame double
+             circuit (>= 2 spans, < 0.8x) and the broken run with depth
+             noise and holes (every loop edge's error < 0.3); seconds per
+             gate, both kernels' launches from 0.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
-host_libraries, 15, 16, 17, 18, 19, 20, 21, 6.
-Launch counts are set to 0 just before each path (phases 5, 7 to 21, each
+host_libraries, 15, 16, 17, 18, 19, 20, 21, 22, 23, 6.
+Launch counts are set to 0 just before each path (phases 5, 7 to 23, each
 form of 17, each path of 18 and 19 and each part of 20 on its own)
 and read just after; every kernel of the path must have launched (the fused
 Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
@@ -445,6 +473,33 @@ SOAK_CHUNK, SOAK_CKPT = 32, 160
 # RSS growth over the second half (tests/test_soak.py:290-293); the scan's
 # memory against the first chunk's (its state has a fixed shape).
 SOAK_ALLOC_GROWTH, SOAK_RSS_GROWTH, SOAK_SCAN_ALLOC_B = 0.02, 0.10, 1 << 20
+# Phase 22 (dryrun): the port's dryrun_multichip on 8 slots, held to the JAX
+# package's line on 8 virtual CPU devices (MULTICHIP_r05.json): per-device
+# promotions and relocalizations of the full-system scan, and loop edges
+# verified under the mesh.  tests/test_torch_dryrun.py pins both packages to
+# the same constants on the CPU.
+DRYRUN_SLOTS = 8
+DRYRUN_PROMOTIONS = [1, 1, 3, 3, 3, 2, 2, 1]
+DRYRUN_RELOCS = [1] * 8
+DRYRUN_LOOPS = 13
+# Phase 23 (scene_gates): the slow gates of tests/test_scenes.py, which no CPU
+# tier runs.  At 640x480 the box and sparse scenes over 22 frames of
+# render_sequence(seed 2), ATE < 5 mm, never lost, the box scene also at the
+# capacities calibrated on frame 0 at margins 0.65 and 0.5; at 160x120 (the
+# tests' small_cfg, a history of 64 keyframes) TestLoopClosureEndToEnd's four
+# loops with their own gates.
+SCENE_FRAMES, SCENE_SEED, SCENE_ATE_M, SCENE_MARGINS = 22, 2, 5e-3, (0.65, 0.5)
+SMALL_CAM = dict(fx=150.0, fy=150.0, cx=80.0, cy=60.0, width=160, height=120)
+SMALL_CAPS, SMALL_PATCHES, LOOP_HISTORY = (4096, 2048, 1024), (20, 10, 5), 64
+LOOP_RADIUS_M, LOOP_DRIFT_SCALE = 0.8, 1.08  # close_loops' radius, the depth-scale drift
+# (frames, radius, wobble, seed, circuits, drift frames, ATE before closure
+# must exceed, ATE after closure under this share of it, verified loops
+# spanning >= 5 keyframes at least)
+LOOP_RUN = (110, 0.75, 0.004, 5, 1, (30, 60), 0.015, 0.75, 1)
+DOUBLE_RUN = (150, 0.45, 0.004, 7, 2, (25, 55), 0.01, 0.8, 2)
+ONLINE_EVERY, ONLINE_GAIN = 20, 0.85  # online closure every 20 frames, final ATE < 0.85x off
+BROKEN_RUN = (110, 0.75, 0.006, 5, 1)  # box_scene(depth_noise=0.06, depth_hole_frac=0.3)
+BROKEN_NOISE, BROKEN_HOLES, BROKEN_MAX_ERROR = 0.06, 0.3, 0.3
 
 
 _T0 = time.perf_counter()
@@ -3329,6 +3384,158 @@ def main() -> int:
            stderr=[x for x in said if not x.startswith('{"launches"')][-8:],
            entry={"error": float(res_e.error), "good": int(res_e.good),
                   "bad": int(res_e.bad), "launches": launches})
+
+    # -- 22. dryrun: the port's multi-device dry run on 8 slots ------------------
+    from revo_tpu_torch import entry as port_entry
+
+    t0 = time.perf_counter()
+    dry, launches = _path_launches(counters_, lambda: port_entry.dryrun_multichip(
+        DRYRUN_SLOTS, devices=None if dev.type == "cuda" else [dev] * DRYRUN_SLOTS))
+    dry_s = time.perf_counter() - t0
+    require_vga("dryrun", launches)
+    add_launches(launches)
+    dry_summary = {k: dry[k] for k in ("mean_t", "scan_max_dev", "promotions", "relocs",
+                                       "n_loops", "ba_dev", "frames", "slots")}
+    dry_summary.update(seconds={k: round(v, 3) for k, v in dry["seconds"].items()},
+                       total_s=round(dry_s, 1), launches=launches, smi=smi)
+    if not (dry["promotions"] == DRYRUN_PROMOTIONS and dry["relocs"] == DRYRUN_RELOCS
+            and dry["n_loops"] == DRYRUN_LOOPS):
+        raise RuntimeError(f"dryrun: the counts differ from the JAX package's line "
+                           f"({DRYRUN_PROMOTIONS}, {DRYRUN_RELOCS}, {DRYRUN_LOOPS}): {dry_summary}")
+    if not (dry["scan_max_dev"] < port_entry.SCAN_TOL and dry["ba_dev"] < port_entry.BA_TOL):
+        raise RuntimeError(f"dryrun: a sharded form parts from its mesh-less run: {dry_summary}")
+    _phase("dryrun", **dry_summary)
+
+    # -- 23. scene_gates: tests/test_scenes.py's gates at 640x480 and its loops --
+    from revo_tpu_torch.config import CameraConfig
+    from revo_tpu_torch.loopclosure import close_loops
+
+    t0 = time.perf_counter()
+    small = dataclasses.replace(cfg, camera=CameraConfig(**SMALL_CAM), pyramid=dataclasses.replace(
+        cfg.pyramid, pyr_min_lvl=2, pyr_max_lvl=0, edge_capacity=SMALL_CAPS,
+        dist_patch_sizes=SMALL_PATCHES))
+    small = dataclasses.replace(small, tracker=dataclasses.replace(
+        small.tracker, kf_history_size=LOOP_HISTORY))
+    gate_scenes = {"box": syn.box_scene(), "sparse": syn.sparse_scene(),
+                   "broken": syn.box_scene(depth_noise=BROKEN_NOISE,
+                                           depth_hole_frac=BROKEN_HOLES)}
+    gate_trajs = {  # name: (scene, camera, poses, frame seeds from seed * 1000)
+        "box_640": ("box", cam, gate_scenes["box"].trajectory(SCENE_FRAMES, seed=SCENE_SEED),
+                    SCENE_SEED),
+        "sparse_640": ("sparse", cam, gate_scenes["sparse"].trajectory(SCENE_FRAMES,
+                                                                       seed=SCENE_SEED),
+                       SCENE_SEED),
+        "loop": ("box", small.camera, syn.loop_trajectory(*LOOP_RUN[:2], wobble=LOOP_RUN[2],
+                                                          seed=LOOP_RUN[3]), LOOP_RUN[3]),
+        "double": ("box", small.camera, syn.loop_trajectory(
+            *DOUBLE_RUN[:2], wobble=DOUBLE_RUN[2], seed=DOUBLE_RUN[3], circuits=DOUBLE_RUN[4]),
+            DOUBLE_RUN[3]),
+        "broken": ("broken", small.camera, syn.loop_trajectory(
+            *BROKEN_RUN[:2], wobble=BROKEN_RUN[2], seed=BROKEN_RUN[3]), BROKEN_RUN[3]),
+    }
+    gate_jobs = [(gate_scenes[sc], cam_, T, 1000 * seed + i)
+                 for sc, cam_, traj, seed in gate_trajs.values() for i, T in enumerate(traj)]
+    gate_rendered = iter(render_jobs(gate_jobs, workers=max(os.cpu_count() - 1, 1)))
+    gate_frames = {name: [next(gate_rendered)[:2] for _ in traj]
+                   for name, (_, _, traj, _) in gate_trajs.items()}
+    gate_s = {"render": round(time.perf_counter() - t0, 1)}
+
+    def gate_run(cfg_, name, drift=None):
+        """VOSystem over a gate's frames as tests/test_scenes.py feeds them
+        (float gray, metric depth, stamps i / 30), the depth scaled by
+        LOOP_DRIFT_SCALE on the frames of ``drift``."""
+        vo = VOSystem(cfg_, device=dev)
+        est = []
+        for i, (g, d) in enumerate(gate_frames[name]):
+            scale = LOOP_DRIFT_SCALE if drift and drift[0] <= i < drift[1] else 1.0
+            est.append(vo.process_frame(g, d * scale, i / 30.0))
+        return np.stack(est), vo
+
+    def ate_of(est, name):
+        return float(absolute_trajectory_error(est, gate_trajs[name][2]).rmse)
+
+    def closed(vo):
+        """close_loops over the run's keyframe history and the whole
+        trajectory re-anchored on the corrected keyframes."""
+        ords = [o for o, _ in vo.kf_history]
+        corrected, loops = close_loops([kf for _, kf in vo.kf_history], vo.cfg,
+                                       radius=LOOP_RADIUS_M)
+        by_ord = {o: corrected[i] for i, o in enumerate(ords)}
+        full = np.stack([by_ord.get(n.kf_ordinal, n.T_w_kf) @ n.T_kf_curr for n in vo.pose_graph])
+        return full, loops
+
+    def scene_gates():
+        out, failed = {}, []
+
+        def timed(name, fn):
+            t_ = time.perf_counter()
+            out[name] = fn()
+            gate_s[name] = round(time.perf_counter() - t_, 1)
+
+        def full_res(name, cfg_):
+            est, vo = gate_run(cfg_, name)
+            ok = ate_of(est, name) < SCENE_ATE_M and vo.n_tracking_lost == 0
+            failed.extend([] if ok else [name])
+            return {"ate_m": ate_of(est, name), "lost": vo.n_tracking_lost,
+                    "keyframes": vo.n_keyframes, "caps": list(cfg_.pyramid.edge_capacity)}
+
+        timed("sparse_640", lambda: full_res("sparse_640", cfg))
+        timed("box_640_exact", lambda: full_res("box_640", cfg))
+        g0, d0 = gate_frames["box_640"][0]
+        for m in SCENE_MARGINS:
+            timed(f"box_640_margin_{m}", lambda m=m: full_res("box_640", calibrate_capacities(
+                cfg, [g0], [d0], margin=m, device=dev)))
+
+        def loop_gate(name, run):
+            n, _, _, _, _, drift, floor, gain, min_spans = run
+            est, vo = gate_run(small, name, drift)
+            pre = ate_of(est, name)
+            full, loops = closed(vo)
+            post = ate_of(full, name)
+            spans = sorted({(e.a, e.b) for e in loops if e.b - e.a >= 5})
+            ok = pre > floor and len(spans) >= min_spans and post < gain * pre
+            failed.extend([] if ok else [name])
+            return {"frames": n, "ate_before_m": pre, "ate_after_m": post, "gain": gain,
+                    "loops": [[e.a, e.b, round(e.error, 4)] for e in loops], "spans": spans}
+
+        timed("loop", lambda: loop_gate("loop", LOOP_RUN))
+
+        def online():
+            res = {}
+            for on in (False, True):
+                cfg_on = dataclasses.replace(small, tracker=dataclasses.replace(
+                    small.tracker, online_loop_closure=on, loop_closure_every=ONLINE_EVERY))
+                _, vo = gate_run(cfg_on, "loop", LOOP_RUN[5])
+                final = np.stack([n_.T_w_curr for n_ in vo.pose_graph])
+                res["on" if on else "off"] = {"ate_m": ate_of(final, "loop"),
+                                              "lost": vo.n_tracking_lost}
+            ok = (res["on"]["lost"] == 0
+                  and res["on"]["ate_m"] < ONLINE_GAIN * res["off"]["ate_m"])
+            failed.extend([] if ok else ["online"])
+            return res
+
+        timed("online", online)
+        timed("double", lambda: loop_gate("double", DOUBLE_RUN))
+
+        def broken():
+            _, vo = gate_run(small, "broken")
+            _, loops = closed(vo)
+            errors = [round(e.error, 4) for e in loops]
+            failed.extend([] if all(e < BROKEN_MAX_ERROR for e in errors) else ["broken"])
+            return {"loop_errors": errors, "max_error": BROKEN_MAX_ERROR}
+
+        timed("broken", broken)
+        return out, failed
+
+    (gates, gates_failed), launches = _path_launches(counters_, scene_gates)
+    require_vga("scene_gates", launches)
+    add_launches(launches)
+    gate_summary = {**gates, "failed": gates_failed, "seconds": gate_s,
+                    "total_s": round(time.perf_counter() - t0, 1), "launches": launches,
+                    "smi": smi}
+    if gates_failed:
+        raise RuntimeError(f"scene_gates: {gates_failed} failed: {gate_summary}")
+    _phase("scene_gates", **gate_summary)
 
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")

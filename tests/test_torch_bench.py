@@ -389,7 +389,7 @@ def test_entry_matches_graft_entry(cfgs, monkeypatch):
 
 
 def test_phase_21_rehearses_on_the_cpu(cfgs, monkeypatch, capsys):
-    """chip_smoke's phase 21 (the text between its marker and phase 6's) on
+    """chip_smoke's phase 21 (the text between its marker and phase 22's) on
     the CPU: the bench's process stands in as a good line and launch record,
     entry() runs at 160x120; the phase parses both, gates them, adds the
     launches and prints its line."""
@@ -400,7 +400,7 @@ def test_phase_21_rehearses_on_the_cpu(cfgs, monkeypatch, capsys):
     cs = _chip_smoke()
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         src = f.read()
-    code = textwrap.dedent(src[src.index("    # -- 21. bench"):src.index("    # -- 6. times")])
+    code = textwrap.dedent(src[src.index("    # -- 21. bench"):src.index("    # -- 22. dryrun")])
     good, record = _good_line(), _good_launches(pyramids=10)
     ran = []
 
