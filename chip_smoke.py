@@ -39,7 +39,9 @@ gates.  Phases, one line each:
              from unpadded gray) bit-equal on the 3 pyramid levels of the 8
              frames at B=1 and B=8, from float32 and from uint8 gray, at
              ragged widths (37, 65), on three gray serpentines where the H+W
-             cap binds, a second launch bit-identical; K1 (from the unpadded
+             cap binds, a second launch bit-identical, and its dense form
+             (the first design, no route takes it) bit-equal in every case
+             too; K1 (from the unpadded
              float32 and uint8 gray) + K2 alone bit-equal on the same levels,
              K2 in all its forms (bit-packed in one
              block's shared memory; byte masks in global memory in one
@@ -88,7 +90,13 @@ gates.  Phases, one line each:
              the one-block K2) and through canny_grid in turns, the grid
              at the card's G and at half of it, from float32, at B = 2; K2
              alone on its masks, the one-block form against both grid
-             forms in turns; ms
+             forms in turns; canny_fused's frontier design against its
+             dense form, in turns, at each pyramid level of phase 4's frames
+             at B = 1 and B = 8 (level 0 also against canny_cluster), device
+             ms, with its time for K1, the masks' round trip and the
+             unpacking alone (the cap set to 0) and its own account of the
+             fixpoint (steps, largest frontier, words listed, a timeline of
+             the fixpoint's block); ms
              per frame of VOSystem and vo_scan, and the seconds each part
              of this phase took;
 7. vo        VOSystem.run on the card over pan + teleport: at least one
@@ -932,8 +940,8 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 # shows launches made through ctypes only now and then, so it counts the
 # kernels torch launches and the wrappers' launch counts count these.
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
-                "canny_cluster_kernel", "canny_grid_kernel", "lgsx_reduce_kernel",
-                "residual_lgsx_kernel")
+                "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
+                "lgsx_reduce_kernel", "residual_lgsx_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -1250,19 +1258,23 @@ def main() -> int:
     k12_diff = 0  # differing mask pixels; any one fails the phase
     t_lo, t_hi = math.sqrt(lo), math.sqrt(hi)
 
-    fused_px = {"cases": 0, "differing": 0}  # summed over every case below
+    fused_px = {"cases": 0, "differing": 0, "dense_differing": 0}  # summed over every case below
 
     def fused_diff(gray, low, high, what):
-        """canny_fused against its plain version on ``gray``, twice; adds
-        the pixels that differ to ``fused_px`` and returns the edge pixels."""
+        """canny_fused against its plain version on ``gray``, twice, and its
+        dense form (the first design, which no route takes) once; adds the
+        pixels that differ to ``fused_px`` and returns the edge pixels."""
         want = K12.canny_fused_ref(gray, low, high)
         got, again = K12.canny_fused(gray, low, high), K12.canny_fused(gray, low, high)
-        n = int((got != want).sum())
+        dense = K12.canny_fused(gray, low, high, _form="dense")
+        n, n_dense = int((got != want).sum()), int((dense != want).sum())
         fused_px["cases"] += 1
         fused_px["differing"] += n
-        if n or not torch.equal(got, again):
-            raise RuntimeError(f"canny_fused differs from plain on {what}: {n} pixels, "
-                               f"second launch equal: {torch.equal(got, again)}")
+        fused_px["dense_differing"] += n_dense
+        if n or n_dense or not torch.equal(got, again):
+            raise RuntimeError(f"canny_fused differs from plain on {what}: {n} pixels "
+                               f"(dense form {n_dense}), second launch equal: "
+                               f"{torch.equal(got, again)}")
         return int(want.sum())
 
     fused_edges = 0
@@ -1444,6 +1456,7 @@ def main() -> int:
         raise RuntimeError("batched K3: no lane with most points out of bounds")
     _phase("kernels", canny_fused_cases=fused_px["cases"],
            canny_fused_differing_pixels=fused_px["differing"],
+           canny_fused_dense_differing_pixels=fused_px["dense_differing"],
            canny_fused_edge_pixels=fused_edges,
            k1_k2_differing_pixels=k12_diff, k2_forms=list(K12.K2_FORMS),
            k2_grid_serpentine_cases=k2_grid_cases, k3_max_abs_err=k3_err,
@@ -1619,7 +1632,8 @@ def main() -> int:
                 vo_b.process_frame(p_grays[i], p_depths[i], i / 30.0) for i in range(cut, N_PAN)])
             out["resumed_keyframes"] = vo_b.n_keyframes
             path = os.path.join(tmp, "scan.npz")
-            checkpoint.save_scan_state(path, batch.vo_scan(g_pan[:cut], d_pan[:cut], cfg)[2])
+            checkpoint.save_scan_state(path, batch.vo_scan(g_pan[:cut], d_pan[:cut], cfg)[2],
+                                      cfg.tracker.optimizer.quad_form)
             state = checkpoint.load_scan_state(path, cfg, device=device)
             out["scan_tail"] = batch.vo_scan_from_state(state, g_pan[cut:], d_pan[cut:], cfg)[0]
             out["scan_state_bytes"] = os.path.getsize(path)
@@ -3298,7 +3312,7 @@ def main() -> int:
             scan_log["rss_kb"].append(rss_kb())
             if b == SOAK_CKPT + 1:
                 t = time.perf_counter()
-                save_scan_state(ckpt, state)
+                save_scan_state(ckpt, state, cfg_soak_scan.tracker.optimizer.quad_form)
                 scan_log["save_ms"] = (time.perf_counter() - t) * 1e3
                 scan_log["file_bytes"] = os.path.getsize(ckpt)
 
@@ -3640,12 +3654,29 @@ def main() -> int:
     def canny_split():  # one Canny as the split kernels run it (K1, then K2)
         return K12.canny_hysteresis(*K12.canny_nms(gray0, lo, hi))
 
+    def fused_stats(gray):
+        """canny_fused's own account of one launch on ``gray`` (image 0):
+        steps, largest frontier, words evaluated, and the global timer of
+        the block that ran the fixpoint, in us from its start: after its
+        ticket (K1 done), before and after the steps, at its end."""
+        st = torch.zeros((gray.shape[0], 9), dtype=torch.int64, device=dev)
+        K12.canny_fused(gray, t_lo, t_hi, _stats=st)
+        v = st[0].tolist()
+        return {"steps": v[0], "largest_frontier_words": v[1], "words_evaluated": v[2],
+                "steps_over_every_word": v[8], "words": gray.shape[1] * -(-gray.shape[2] // 32),
+                "timer_us": [(t - v[3]) / 1e3 for t in v[4:8]]}
+
+    # The fused Canny's bound counts the words its steps evaluated on this
+    # frame (a step of a word: K2_OPS_PER_WORD_STEP), not every word at
+    # every step: the data decide how many.
+    fused_level0 = fused_stats(gray0)
     kern = [
         ("canny_fused", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
          lambda: K12.canny_fused(gray0, t_lo, t_hi),
          lambda: K12.canny_fused_ref(gray0, t_lo, t_hi), canny_fused_err,
          _bound(_nbytes(gray0) + n_pix,
-                K1_OPS_PER_PIXEL * n_pix + K2_OPS_PER_WORD_STEP * (n_pix / 32) * k2_steps)),
+                K1_OPS_PER_PIXEL * n_pix
+                + K2_OPS_PER_WORD_STEP * fused_level0["words_evaluated"])),
         # The cluster Canny at what the 1280x720 path gives it at level 0:
         # the sensor's uint8 gray, unpadded; bound as canny_fused's.
         ("canny_cluster", "canny.cu", "revo_tpu/ops/pallas/canny_kernel.py:127",
@@ -3770,6 +3801,33 @@ def main() -> int:
         _time_ms(lambda: K12.canny_hysteresis(c0, s0, _form="global"), 50) for _ in range(2))
     part_done("canny_level0")
 
+    # canny_fused's frontier design against its dense form (the first
+    # design, no route takes it) and, at level 0, against canny_cluster, in
+    # turns, device ms at every pyramid level of phase 4's 8 frames, B = 1
+    # (frame 1) and B = 8, each level in the type the main path gives it
+    # (level 0 the sensor's uint8, levels 1-2 float32).  Then the split of
+    # its time at level 0: K1, the masks' round trip and the unpacking alone
+    # (the cap set to 0), and the kernel's own account (fused_stats).
+    fused_ab = {"card": smi, "cases": []}
+    for lvl in range(pyr.n_levels):
+        g8 = torch.stack([f.levels[lvl].gray for f in frames_lm])
+        g8 = g8.to(torch.uint8) if lvl == 0 else g8
+        for g_ in (g8[1:2], g8):
+            case = {"level": lvl, "B": g_.shape[0], "shape": list(g_.shape[1:]),
+                    "dtype": str(g_.dtype).replace("torch.", "")}
+            forms = [("frontier", lambda: K12.canny_fused(g_, t_lo, t_hi)),
+                     ("dense", lambda: K12.canny_fused(g_, t_lo, t_hi, _form="dense"))]
+            if lvl == 0:
+                forms.append(("cluster", lambda: K12.canny_cluster(g_, t_lo, t_hi)))
+            for key, fn in forms + forms[::-1]:
+                case.setdefault(f"{key}_device_ms", []).append(_queued_ms(fn))
+            case["k1_only_device_ms"] = _queued_ms(
+                lambda: K12.canny_fused(g_, t_lo, t_hi, _max_iters=0))
+            case["blocks_an_image"] = K12._fused_blocks(dev, *g_.shape)
+            case["stats"] = fused_stats(g_)
+            fused_ab["cases"].append(case)
+    part_done("canny_fused_ab")
+
     # Level 0 of the 1280x720 frame as it ran before the cluster kernel
     # (K1, K2's one-block form on byte masks) and as the cluster kernel
     # runs it, in turns; the cluster kernel at 16 and at 8 blocks an image;
@@ -3881,7 +3939,8 @@ def main() -> int:
            bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},
            device_ms={r["name"]: r["device_ms"] for r in rows},
            launch_floor_ms=launch_floor_ms, canny_hysteresis_global_ms=k2_global_ms,
-           canny_level0=canny_ab, canny_1280x720=canny_hd, canny_5120x2880=canny_5k,
+           canny_level0=canny_ab, canny_fused_ab=fused_ab, canny_fused_level0=fused_level0,
+           canny_1280x720=canny_hd, canny_5120x2880=canny_5k,
            k2_5120x2880=k2_5k, k2_steps=k2_steps, k2_steps_1280x720=k2_steps_hd,
            k2_steps_5120x2880=k2_steps_5k, k2_steps_12288x8192=k2_steps_big,
            kernels_per_evaluation=eval_kernels,

@@ -15,7 +15,9 @@ a tuple item, joined from the root, e.g. ``.kf.frame.levels[0].cloud.points``
 or ``.past.n``; a field that is ``None`` (``kf_ring`` without
 ``scan_relocalization``) has no key.  The port's host-side counts and flags
 (``n``, ``n_keyframes``, ``just_added_kf``) are stored as the int32 / bool
-scalars JAX keeps there.  npz has no bfloat16, so the bfloat16 quad tables
+scalars JAX keeps there.  Each quad table is written in the JAX package's
+layout for the config's ``quad_form`` ("hw12", "t" and "flat16" differ
+from the port's rows); npz has no bfloat16, so the bfloat16 tables
 ("dt4bf", "flatbf") are written as their uint16 bits, as the JAX package
 writes them; on load every quad table is rebuilt from the structures.
 """
@@ -209,12 +211,43 @@ def _leaf_to_numpy(v) -> np.ndarray:
     return np.asarray(v, np.int32)
 
 
-def save_scan_state(path: str, state) -> None:
-    """Checkpoint a scan state (parallel.batch.ScanVOState): every leaf
-    under its tree path, so that restoring checks the structure against a
-    template built from the config."""
+def quad_to_jax_layout(rows: np.ndarray, struct_shape, quad_form: str) -> np.ndarray:
+    """The port's quad rows (..., H*W, C) of ``quad_form`` in the JAX
+    package's layout (``revo_tpu.ops.edt.quad_structure``), given the shape
+    (..., H, W, 3) of the structure they were built from: "hw12" becomes
+    (..., H, W, 12), "t" (..., 12, H*W) and "flat16" (..., H*W, 16) with a
+    zero pad lane after each tap's three components; "flat", "flatbf",
+    "dt4" and "dt4bf" are the JAX layout already.  The inverse of
+    ``convert.quad_from_numpy``; the dtype (uint16 bits for the bfloat16
+    forms) is kept."""
+    lead, (h, w) = tuple(struct_shape[:-3]), tuple(struct_shape[-3:-1])
+    if quad_form == "hw12":
+        return rows.reshape(*lead, h, w, 12)
+    if quad_form == "t":
+        return np.ascontiguousarray(np.swapaxes(rows, -1, -2))
+    if quad_form == "flat16":
+        taps = rows.reshape(*lead, h * w, 4, 3)
+        return np.concatenate([taps, np.zeros_like(taps[..., :1])], -1).reshape(*lead, h * w, 16)
+    return rows
+
+
+def save_scan_state(path: str, state, quad_form: str) -> None:
+    """Checkpoint a scan state (parallel.batch.ScanVOState) captured under a
+    config whose ``tracker.optimizer.quad_form`` is ``quad_form``: every
+    leaf under its tree path, so that restoring checks the structure
+    against a template built from the config, and each quad table in the
+    JAX package's layout for that form (``quad_to_jax_layout``), so that
+    ``revo_tpu.checkpoint.load_scan_state`` takes the file too."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **{key: _leaf_to_numpy(v) for key, v in _flatten(state)})
+    leaves = dict(_flatten(state))
+    arrays = {}
+    for key, v in leaves.items():
+        a = _leaf_to_numpy(v)
+        if ".quads[" in key:
+            struct = leaves[key.replace(".quads[", ".structs[")]
+            a = quad_to_jax_layout(a, tuple(struct.shape), quad_form)
+        arrays[key] = a
+    np.savez_compressed(path, **arrays)
 
 
 def load_scan_state(path: str, cfg, device="cuda"):

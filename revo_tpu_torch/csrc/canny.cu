@@ -50,23 +50,39 @@
 //
 // `revo_canny_fused` is K1 and K2 in one launch, the counterpart of the
 // single-image Pallas kernel `_full_kernel2d` (canny_kernel.py, run by
-// `_canny_single`).  It reads the unpadded gray image, float32 or uint8, and
-// applies REFLECT_101 on the index while it stages a tile, so no padded copy
-// exists.  Blocks of 1024 threads classify 32x32 tiles with K1's arithmetic;
-// a warp is one 32-pixel row of the tile, so two ballots give that row's
-// word of `cand` and of `strong` in K2's layout, and lane 0 stores them into
-// a packed scratch in global memory: two bits a pixel leave the SM, not two
-// bytes, and the bits of a tile's overhang past the right edge are 0 because
-// their threads vote false.  Then the block fences and takes an atomic
-// ticket for its image; the block that draws the last ticket loads the
-// image's packed masks into shared memory, runs K2's fixpoint
-// (`hysteresis_fixpoint`, the one loop both kernels call), unpacks the edges
-// and resets the ticket, so launches need no memset between them.  Bound on
-// the H100: as K2, the serial step chain on one SM; bytes are the gray image
-// read once and the bool edges written once.  Every block asks for the
-// fixpoint's shared memory, which it overlays on its NMS tile, so one block
-// is resident per SM while the tiles are classified; that costs a few waves
-// of microsecond blocks against a fixpoint of tens of steps.
+// `_canny_single`), for B images up to 1024x576.  It reads the unpadded gray
+// image, float32 or uint8, and applies REFLECT_101 on the index, so no
+// padded copy exists.  Bound on the H100: the fixpoint's serial chain of
+// synchronous steps (H + W at most, tens at 640x480) on the one SM that
+// holds an image's masks; bytes are the gray image read once and the bool
+// edges written once.  So the design keeps both short.  K1: P blocks an
+// image, P B of them one wave of the card (each block asks for the
+// fixpoint's shared memory, so one 1024-thread block an SM), whose warps
+// classify strips of 32 columns by 8 rows with K1's arithmetic in registers
+// and shuffles (no shared memory, no tile staging): a lane a column, so two
+// ballots a row give that row's word of `cand` and of `strong` in K2's
+// layout, which lane 0 stores into a packed scratch in global memory (two
+// bits a pixel leave the SM), and each lane writes its pixel's edge byte as
+// strong alone.  Then
+// each block fences and takes an atomic ticket for its image; the block
+// that draws the last loads the image's packed masks from L2 into shared
+// memory in 16-byte chunks and runs K2's steps on their frontier
+// (`frontier_fixpoint`, 16 warps at a named barrier): a word can change at
+// step t + 1 only if a word of its 3x3 word neighbourhood changed at step
+// t, so a step lists only those words that still have a `cand` bit to
+// reach or changed themselves (dirty and room bits a word, a 32-bit word a
+// row up to 1024 pixels) and steps them a thread each; a step costs its
+// frontier and two barriers, not the whole image.  It writes the edge
+// bytes of the words that grew and resets the ticket, so launches need no
+// memset between them.  With
+// `stats` it reports the steps, the largest frontier, the frontier words of
+// all steps and a timeline of the fixpoint's block.
+//
+// `revo_canny_fused_dense` is the first form of the same kernel, kept for
+// comparison (no route takes it): 1024-thread blocks over 32x32 tiles
+// staged in shared memory, every block asking for the fixpoint's shared
+// memory, and the last block's fixpoint stepping every word of the image
+// each step (`hysteresis_fixpoint`).
 //
 // `revo_canny_hysteresis_global` is the same loop over ping-pong byte masks
 // in global memory (a 640x480 mask is 300 KB and stays in L2; where rows are
@@ -855,7 +871,7 @@ static int nms_blocks(int B, int H, int W) {
   return (int)(tiles < resident ? tiles : resident);
 }
 
-// -- K1 + K2 in one launch ----------------------------------------------------
+// -- K1 + K2 in one launch, dense form (32x32 tiles, every word a step) ------
 
 constexpr int TY_FUSED = HYST_THREADS / TX;  // 32 x 32 tiles, a warp a row
 constexpr size_t FUSED_TILE_BYTES =
@@ -866,9 +882,9 @@ constexpr size_t FUSED_TILE_BYTES =
 // 0/1 bytes.  Grid (wpr, ceil(H / 32), B), HYST_THREADS threads.
 template <typename T>
 __global__ void __launch_bounds__(HYST_THREADS)
-canny_fused_kernel(const T* __restrict__ gray, uint32_t* words,
-                   unsigned int* tickets, uint8_t* __restrict__ out, int H, int W,
-                   float low_sq, float high_sq, int max_iters) {
+canny_fused_dense_kernel(const T* __restrict__ gray, uint32_t* words, unsigned int* tickets,
+                         uint8_t* __restrict__ out, int H, int W, float low_sq, float high_sq,
+                         int max_iters) {
   extern __shared__ uint32_t fused_smem[];  // the tile, then the packed masks
   __shared__ bool last;
   const int b = blockIdx.z, tid = threadIdx.x;
@@ -918,20 +934,489 @@ canny_fused_kernel(const T* __restrict__ gray, uint32_t* words,
 }
 
 template <typename T>
-static int launch_canny_fused(const T* gray, uint32_t* words,
-                              unsigned int* tickets, uint8_t* out, int B, int H,
-                              int W, float low_sq, float high_sq, int max_iters,
-                              size_t smem, cudaStream_t stream) {
+static int launch_canny_fused_dense(const T* gray, uint32_t* words, unsigned int* tickets,
+                                    uint8_t* out, int B, int H, int W, float low_sq,
+                                    float high_sq, int max_iters, size_t smem,
+                                    cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        canny_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        canny_fused_dense_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((W + TX - 1) / TX, (H + TY_FUSED - 1) / TY_FUSED, B);
-  canny_fused_kernel<T><<<grid, HYST_THREADS, smem, stream>>>(
+  canny_fused_dense_kernel<T><<<grid, HYST_THREADS, smem, stream>>>(
       gray, words, tickets, out, H, W, low_sq, high_sq, max_iters);
   return (int)cudaGetLastError();
+}
+
+// -- K1 + K2 in one launch: warps over strips, the fixpoint on its frontier ---
+
+constexpr int FS_ROWS = 8;            // output rows of a K1 strip
+constexpr int FS_LOAD = FS_ROWS + 4;  // gray rows a strip reads
+constexpr int FUSED_FLAG_WORDS = 8;   // "last" flag, four counters, padding
+constexpr int FUSED_STATS = 9;        // 64-bit words of stats an image
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// K1 on one strip of the image, by one warp: the 32 columns of word k
+// (x0 = 32 k, lane l owning column x0 + l) over output rows y0 ..
+// y0 + FS_ROWS - 1.  A lane first loads its column of gray rows y0 - 2 ..
+// y0 + FS_ROWS + 1, all loads in flight together; lanes 0, 1, 30 and 31
+// also load columns x0 - 1, x0 - 2, x0 + 33 and x0 + 32, so that lane 0
+// holds the column left of the strip and lane 31 the one right of it, each
+// with its own outer neighbour by shuffle.  Then, down the rows, a lane
+// forms the horizontal smoothing of its column; per magnitude row the
+// vertical one, whose neighbours come by shuffle (sobel()'s operations in
+// its order), the magnitude (0 outside the image) and the sector; the
+// neighbours' magnitudes come by shuffle too, lanes 0 and 31 taking the
+// outer columns'.  The row above is then classified: its two ballots are
+// that row's word of `cand` and of `strong`, which lane 0 stores, and each
+// lane inside the image writes its pixel's edge byte as strong alone, which
+// the fixpoint's block overwrites in the words that grew.  Lanes past the
+// right edge vote 0.  No shared memory.
+template <typename T>
+__device__ __forceinline__ void classify_strip(const ReflectGray<T>& img, int x0, int y0, int H,
+                                               int W, int wpr, float low_sq, float high_sq,
+                                               uint32_t* cw, uint32_t* sw, uint8_t* o, int lane) {
+  const int x = x0 + lane;
+  const bool has_e = lane <= 1 || lane >= 30;
+  const int xe = lane == 0 ? x0 - 1 : (lane == 1 ? x0 - 2 : (lane == 30 ? x0 + 33 : x0 + 32));
+  const int xo = lane == 0 ? x0 - 1 : x0 + 32;  // the outer column of lanes 0 and 31
+  const bool col_in = x < W, outer_in = xo >= 0 && xo < W;
+  const int k = x0 >> 5;
+  float gs[FS_LOAD], es[FS_LOAD];
+#pragma unroll
+  for (int r = 0; r < FS_LOAD; ++r) {
+    gs[r] = img(y0 - 2 + r, x);
+    es[r] = has_e ? img(y0 - 2 + r, xe) : 0.0f;
+  }
+  // Rolling windows, index 0 the oldest row: gray of the own column (g),
+  // of the outer column (e) and of the one beyond it (f); the horizontal
+  // smoothings of the own and the outer column (h, ho); magnitudes of the
+  // own column with their left and right neighbours (m, ml, mr) and sectors.
+  float g[3] = {}, e[3] = {}, f[3] = {}, h[3] = {}, ho[3] = {};
+  float m[3] = {}, ml[3] = {}, mr[3] = {};
+  int sec[3] = {};
+#pragma unroll
+  for (int r = 0; r < FS_LOAD; ++r) {
+    const float gn = gs[r], en = es[r];
+    const float gl = __shfl_up_sync(0xffffffffu, gn, 1);
+    const float gr = __shfl_down_sync(0xffffffffu, gn, 1);
+    const float e_dn = __shfl_down_sync(0xffffffffu, en, 1);
+    const float e_up = __shfl_up_sync(0xffffffffu, en, 1);
+    const float fn = lane == 0 ? e_dn : e_up;  // x0 - 2 for lane 0, x0 + 33 for lane 31
+    const float hn = (lane == 0 ? en : gl) + 2.0f * gn + (lane == 31 ? en : gr);
+    const float hon = lane == 0 ? fn + 2.0f * en + gn : gn + 2.0f * en + fn;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      g[q] = g[q + 1]; e[q] = e[q + 1]; f[q] = f[q + 1]; h[q] = h[q + 1]; ho[q] = ho[q + 1];
+    }
+    g[2] = gn; e[2] = en; f[2] = fn; h[2] = hn; ho[2] = hon;
+    if (r < 2) continue;
+    // Magnitude row ym = y0 + r - 3 from gray rows ym - 1 .. ym + 1.
+    const int ym = y0 + r - 3;
+    const bool row_in = ym >= 0 && ym < H;
+    const float v = g[0] + 2.0f * g[1] + g[2];
+    const float vo = e[0] + 2.0f * e[1] + e[2];
+    const float voo = f[0] + 2.0f * f[1] + f[2];
+    const float vl = __shfl_up_sync(0xffffffffu, v, 1);
+    const float vr = __shfl_down_sync(0xffffffffu, v, 1);
+    const float gxv = (lane == 31 ? vo : vr) - (lane == 0 ? vo : vl);
+    const float gyv = h[2] - h[0];
+    const float mn = row_in && col_in ? gxv * gxv + gyv * gyv : 0.0f;  // exact integer < 2^24
+    const float gxo = lane == 0 ? v - voo : voo - v;
+    const float gyo = ho[2] - ho[0];
+    const float mo = row_in && outer_in ? gxo * gxo + gyo * gyo : 0.0f;
+    const float mln = __shfl_up_sync(0xffffffffu, mn, 1);
+    const float mrn = __shfl_down_sync(0xffffffffu, mn, 1);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      m[q] = m[q + 1]; ml[q] = ml[q + 1]; mr[q] = mr[q + 1]; sec[q] = sec[q + 1];
+    }
+    m[2] = mn;
+    ml[2] = lane == 0 ? mo : mln;
+    mr[2] = lane == 31 ? mo : mrn;
+    sec[2] = sector_of(gxv, gyv);
+    if (r < 4) continue;
+    // Classify image row ym - 1, the middle of the three magnitude rows.
+    const int yc = ym - 1;
+    float first, second;
+    nms_pick(sec[1], ml[0], m[0], mr[0], ml[1], mr[1], ml[2], m[2], mr[2], first, second);
+    const bool c = col_in && yc < H && nms_keep(sec[1], m[1], first, second) && m[1] > low_sq;
+    const bool s = c && m[1] > high_sq;
+    const uint32_t cbits = __ballot_sync(0xffffffffu, c);
+    const uint32_t sbits = __ballot_sync(0xffffffffu, s);
+    if (yc < H) {
+      if (lane == 0) {
+        cw[yc * wpr + k] = cbits;
+        sw[yc * wpr + k] = sbits;
+      }
+      if (col_in) o[(size_t)yc * W + x] = s;
+    }
+  }
+}
+
+// The fixpoint's threads: the first FP_THREADS of the block, which meet at
+// named barrier 1 (the others leave once the masks are in shared memory).
+constexpr int FP_THREADS = 512;
+
+__device__ __forceinline__ void fp_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(FP_THREADS) : "memory");
+}
+__device__ __forceinline__ bool fp_sync_or(bool v) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\tsetp.ne.u32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, 1, %2, p;\n\tselp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(r)
+      : "r"((unsigned)v), "n"(FP_THREADS)
+      : "memory");
+  return r != 0;
+}
+
+// The words of row y that may change at the next step, as the bits of
+// dirty word j (word 32 j + i of the row is bit i): those in the 3x3 word
+// neighbourhood of a word that changed at this step, i.e. the changed bits
+// `d` (rows of `dpr` words, H rows) ORed over rows y - 1 .. y + 1, then
+// dilated by one bit, carries across dirty words.  Bits past the row's
+// last word may be set; `room` has none there.
+__device__ __forceinline__ uint32_t frontier_bits(const uint32_t* d, int y, int j, int H,
+                                                  int dpr) {
+  auto rows = [=](int jj) {
+    uint32_t v = d[y * dpr + jj];
+    if (y > 0) v |= d[(y - 1) * dpr + jj];
+    if (y + 1 < H) v |= d[(y + 1) * dpr + jj];
+    return v;
+  };
+  const uint32_t c = rows(j);
+  uint32_t fr = c | c << 1 | c >> 1;
+  if (j > 0) fr |= rows(j - 1) >> 31;
+  if (j + 1 < dpr) fr |= rows(j + 1) << 31;
+  return fr;
+}
+
+// One synchronous step of word w (row y) from `src` into `dst`: w ORed
+// with `cand` under the 3x3 dilation of its neighbourhood.  Where it
+// changes, its bit is set in `dnext` and in `grown`, and cleared from
+// `room` once every `cand` bit of the word is reached.  Returns whether it
+// changed.
+__device__ __forceinline__ bool step_word(const uint32_t* c, const uint32_t* src, uint32_t* dst,
+                                          uint32_t* dnext, uint32_t* room, uint32_t* grown, int y,
+                                          int k, int H, int wpr, int dpr) {
+  const int w = y * wpr + k;
+  const uint32_t cand = c[w], old = src[w];
+  uint32_t around = dilate_row(src, y, k, wpr, old);
+  if (y > 0) around |= dilate_row(src, y - 1, k, wpr, src[w - wpr]);
+  if (y + 1 < H) around |= dilate_row(src, y + 1, k, wpr, src[w + wpr]);
+  const uint32_t now = old | (cand & around);
+  dst[w] = now;
+  if (now == old) return false;
+  const uint32_t bit = 1u << (k & 31);
+  atomicOr(dnext + y * dpr + (k >> 5), bit);
+  atomicOr(grown + y * dpr + (k >> 5), bit);
+  if (!(cand & ~now)) atomicAnd(room + y * dpr + (k >> 5), ~bit);
+  return true;
+}
+
+// K2's fixpoint on packed masks in shared memory, stepping only the
+// frontier, by the first FP_THREADS threads of the block (all of them call
+// it; the masks are complete and a barrier has passed).  JAX's synchronous
+// steps: trips of UNROLL, stop after a trip that grew nothing or once
+// `max_iters` steps have run, a step that grows nothing ends its trip
+// (hysteresis_fixpoint's loop).  A word can change at step t + 1 only if a
+// word of its 3x3 word neighbourhood changed at step t, so a step
+// evaluates only those words, and of them only the ones with a `cand` bit
+// not yet reached or that changed themselves at step t, and writes them
+// into the other buffer; every other word holds the same value in both
+// buffers, so the result is JAX's, bit for bit, at every step, cap
+// included.
+//
+// `c` is cand; `src` and `dst` both hold strong.  Bits a word (bit i of
+// word j of a row is word 32 j + i; rows of dpr words): `dsrc` marks the
+// words that changed at the step before (the strong words that are not 0
+// at the start), `room` the words with a `cand` bit not yet reached.  A
+// step has two parts, each ended by a barrier of the fixpoint's threads.
+// First a thread a row lists the row's frontier words (frontier_bits &
+// (room | dsrc)) as 16-bit word numbers, at a place in `list` that one
+// shared counter add a warp reserves, and clears the row's bits in
+// `dnext`.  Then the threads step the listed words (step_word), one a
+// thread, marking in `grown` the words that change.  A step whose frontier
+// exceeds the list's `cap` entries or a quarter of the image's words steps
+// every word of the image instead (the same bits: a word off the frontier
+// does not change), and so does every step of an image of at most two
+// words a thread, without the list (one barrier a step).  The list's
+// counter and overflow flag alternate between two slots; the step resets
+// the slots the step before used.  counters: [0, 1] the list's counter
+// slots, [2, 3] the overflow slots, all 0.  With `stats`, writes the steps
+// run, the largest frontier, the frontier words of all steps and the steps
+// that stepped every word to stats[0..2] and stats[8].  Returns the buffer
+// that holds the result.
+__device__ __noinline__ const uint32_t* frontier_fixpoint(
+    const uint32_t* c, uint32_t* src, uint32_t* dst, uint32_t* dsrc, uint32_t* dnext,
+    uint32_t* room, uint32_t* grown, uint16_t* list, int cap, unsigned int* counters, int H,
+    int wpr, int max_iters, unsigned long long* stats) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int dpr = (wpr + 31) / 32, n = H * wpr;
+  cap = min(cap, n / 4);  // a larger frontier costs more as a list than every word does
+  // An image of at most two words a thread steps every word at every step:
+  // no list, one barrier a step (the list is built only for `stats`).
+  const bool small = n <= 2 * FP_THREADS, scan = !small || stats != nullptr;
+  // w / wpr for a word number w < 2^16 as __umulhi(w, ceil(2^32 / wpr)).
+  const uint32_t magic = 0xffffffffu / (uint32_t)wpr + 1u;
+  auto row_of = [=](uint32_t w) { return wpr == 1 ? (int)w : (int)__umulhi(w, magic); };
+  int it = 0, steps = 0;
+  unsigned long long most = 0, total = 0, dense = 0;
+  bool trip_grew = true;
+  while (trip_grew && it < max_iters) {
+    trip_grew = false;
+    for (int s = 0; s < UNROLL; ++s) {
+      const int slot = steps & 1;
+      unsigned int* listed = counters + slot;
+      unsigned int* overflow = counters + 2 + slot;
+      for (int y0 = 0; scan && y0 < H; y0 += FP_THREADS) {  // whole warps, for the shuffles
+        const int y = y0 + tid;
+        uint32_t fr[2] = {0u, 0u};  // up to 64 words a row listed in one pass
+        int n_words = 0;
+        for (int j = 0; y < H && j < dpr; ++j) {
+          const uint32_t bits = frontier_bits(dsrc, y, j, H, dpr) &
+                                (room[y * dpr + j] | dsrc[y * dpr + j]);
+          if (j < 2) fr[j] = bits;
+          n_words += __popc(bits);
+          dnext[y * dpr + j] = 0u;
+        }
+        if (!__any_sync(0xffffffffu, n_words != 0)) continue;
+        // Warp-wide exclusive sum of n_words; lane 31 reserves the warp's run.
+        int before = n_words;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, before, d);
+          if (lane >= d) before += v;
+        }
+        unsigned int base = 0;
+        if (lane == 31 && before) base = atomicAdd(listed, (unsigned int)before);
+        base = __shfl_sync(0xffffffffu, base, 31) + (unsigned int)(before - n_words);
+        if (base + n_words > (unsigned int)cap || dpr > 2) {  // step every word
+          if (n_words) *overflow = 1u;
+        } else {
+          for (int j = 0; j < dpr; ++j)
+            for (uint32_t bits = fr[j]; bits; bits &= bits - 1)
+              list[base++] = (uint16_t)(y * wpr + 32 * j + __ffs(bits) - 1);
+        }
+      }
+      if (scan) {
+        if (tid == 0) counters[slot ^ 1] = counters[2 + (slot ^ 1)] = 0u;  // the step before's
+        fp_sync();
+      }
+      const unsigned int n_listed = scan ? *listed : 0u;
+      const bool every = small || *overflow;
+      bool grew = false;
+      if (every) {
+        for (int w = tid; w < n; w += FP_THREADS) {
+          const int y = row_of((uint32_t)w);
+          grew |= step_word(c, src, dst, dnext, room, grown, y, w - y * wpr, H, wpr, dpr);
+        }
+      } else {
+        for (int i = tid; i < (int)n_listed; i += FP_THREADS) {
+          const uint32_t w = list[i];
+          const int y = row_of(w);
+          grew |= step_word(c, src, dst, dnext, room, grown, y, (int)w - y * wpr, H, wpr, dpr);
+        }
+      }
+      if (stats && tid == 0) {
+        most = n_listed > most ? n_listed : most;
+        total += n_listed;
+        dense += every;
+      }
+      uint32_t* t = src;
+      src = dst;
+      dst = t;
+      t = dsrc;
+      dsrc = dnext;
+      dnext = t;
+      // Also orders this step's writes before the next step's reads.
+      const bool any = fp_sync_or(grew);
+      ++steps;
+      if (!any) break;
+      trip_grew = true;
+    }
+    it += UNROLL;
+  }
+  if (stats && tid == 0) {
+    stats[0] = steps;
+    stats[1] = most;
+    stats[2] = total;
+    stats[8] = dense;
+  }
+  return src;
+}
+
+// Dynamic shared memory of canny_fused_kernel for one H x W image without
+// its list: the flags, `cand` and the two state buffers of H * ceil(W / 32)
+// words each, rounded up to whole 16-byte chunks, and four masks of one
+// bit a word (two dirty, room, grown), rows of ceil(ceil(W / 32) / 32)
+// words (ops/canny.py fused_smem_bytes is the wrapper's copy).  The launch adds
+// the list of frontier words, 2 bytes a word, up to the whole image and
+// the block's opt-in limit.
+static size_t fused_smem_bytes(int H, int W) {
+  const size_t wpr = (W + 31) / 32, n4 = ((size_t)H * wpr + 3) / 4 * 4, dpr = (wpr + 31) / 32;
+  return (FUSED_FLAG_WORDS + 3 * n4 + 4 * H * dpr) * sizeof(uint32_t);
+}
+
+// The bytes a launch for an H x W image asks for, and the entries of its
+// list of frontier words: a quarter of the image's words (a larger
+// frontier steps every word), where the block's opt-in limit allows, else
+// what the limit leaves.
+static size_t fused_launch_bytes(int H, int W, int optin, int* cap) {
+  const size_t base = fused_smem_bytes(H, W), words = (size_t)H * ((W + 31) / 32);
+  size_t smem = base + (2 * ((words + 3) / 4) + 15) / 16 * 16;
+  if (optin > 0 && smem > (size_t)optin) smem = base > (size_t)optin ? base : (size_t)optin;
+  *cap = (int)((smem - base) / 2);
+  return smem;
+}
+
+// gray: (B, H, W) unpadded; words: per image cand then strong, n4 = H *
+// ceil(W / 32) rounded up to a multiple of 4 words each; tickets: one zeroed
+// counter per image, left at 0; out: (B, H, W) 0/1 bytes; stats:
+// FUSED_STATS 64-bit words per image, or null; cap: the entries of the
+// fixpoint's list (fused_launch_bytes).  Grid (P, B): P blocks an image, all
+// of one wave where P B blocks fit the card at once
+// (revo_canny_fused_blocks), of HYST_THREADS threads.  Warp w of block x
+// classifies strips x + P (w + 32 i) of its image (strip s: word column
+// s % wpr, band s / wpr of FS_ROWS rows), stores their words and zeroes
+// their edge bytes; then the block fences and takes a ticket, and the block
+// that draws image b's last runs its fixpoint and writes the words of edges
+// that are not 0.  Stats: steps, largest frontier, frontier words of all
+// steps, then the global timer (ns) of that block at its start, after its
+// ticket, before and after the fixpoint's steps and at its end, then the
+// steps that stepped every word.
+template <typename T>
+__global__ void __launch_bounds__(HYST_THREADS)
+canny_fused_kernel(const T* __restrict__ gray, uint32_t* words, unsigned int* tickets,
+                   uint8_t* __restrict__ out, unsigned long long* stats, int H, int W,
+                   float low_sq, float high_sq, int max_iters, int cap) {
+  extern __shared__ __align__(16) uint32_t ff_smem[];
+  const unsigned long long t_start = stats ? global_ns() : 0ull;
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = gridDim.x;
+  const int wpr = (W + 31) / 32, n = H * wpr, n4 = (n + 3) / 4 * 4;
+  uint32_t* cw = words + (size_t)b * 2 * n4;
+  uint32_t* sw = cw + n4;
+  uint8_t* o = out + (size_t)b * H * W;
+  const ReflectGray<T> img{gray + (size_t)b * H * W, H, W};
+  const int strips = wpr * ((H + FS_ROWS - 1) / FS_ROWS);
+  for (int s = blockIdx.x + P * warp; s < strips; s += P * (HYST_THREADS / 32)) {
+    const int band = s / wpr;
+    classify_strip(img, 32 * (s - band * wpr), band * FS_ROWS, H, W, wpr, low_sq, high_sq, cw,
+                   sw, o, lane);
+  }
+  volatile uint32_t* last = ff_smem;
+  __syncthreads();  // every warp's words and edge bytes are written
+  if (tid == 0) {
+    __threadfence();  // they are visible (through the barrier) before the ticket
+    const bool l = atomicAdd(tickets + b, 1u) == (unsigned int)P - 1;
+    if (l) __threadfence();  // and the other blocks' before this block reads them
+    *last = l;
+  }
+  __syncthreads();
+  if (!*last) return;
+  unsigned long long* st = stats ? stats + (size_t)FUSED_STATS * b : nullptr;
+  if (st && tid == 0) {
+    st[3] = t_start;
+    st[4] = global_ns();
+  }
+
+  // Last block of image b: cand and strong from L2 in 16-byte chunks,
+  // strong into both buffers; per row the strong words that are not 0 (the
+  // first dirty bits), the words with a cand bit strong does not hold, and
+  // no word grown yet.
+  const int dpr = (wpr + 31) / 32, nd = H * dpr;
+  unsigned int* counters = ff_smem + 1;  // [1, 4]
+  uint32_t* cm = ff_smem + FUSED_FLAG_WORDS;
+  uint32_t* buf0 = cm + n4;
+  uint32_t* buf1 = cm + 2 * n4;
+  uint32_t* dirty = cm + 3 * n4;  // two of nd words, then room and grown
+  uint32_t* room = dirty + 2 * nd;
+  uint32_t* grown = room + nd;
+  uint16_t* list = reinterpret_cast<uint16_t*>(grown + nd);
+  const uint4* from = reinterpret_cast<const uint4*>(cw);
+  for (int q = tid; q < n4 / 2; q += HYST_THREADS) {  // cand, then strong
+    const uint4 v = __ldcg(from + q);
+    reinterpret_cast<uint4*>(cm)[q] = v;
+    if (q >= n4 / 4) reinterpret_cast<uint4*>(buf1)[q - n4 / 4] = v;
+  }
+  if (tid < 4) counters[tid] = 0u;
+  __syncthreads();
+  for (int q = warp; q < nd; q += HYST_THREADS / 32) {
+    const int y = q / dpr, k = 32 * (q - y * dpr) + lane;
+    const uint32_t cand = k < wpr ? cm[y * wpr + k] : 0u, strong = k < wpr ? buf0[y * wpr + k] : 0u;
+    const uint32_t seeds = __ballot_sync(0xffffffffu, strong != 0u);
+    const uint32_t open = __ballot_sync(0xffffffffu, (cand & ~strong) != 0u);
+    if (lane == 0) {
+      dirty[q] = seeds;
+      room[q] = open;
+      grown[q] = 0u;
+    }
+  }
+  __syncthreads();
+  if (tid >= FP_THREADS) return;  // the fixpoint's threads go on alone
+  if (st && tid == 0) st[5] = global_ns();
+  const uint32_t* reach = frontier_fixpoint(cm, buf0, buf1, dirty, dirty + nd, room, grown, list,
+                                            cap, counters, H, wpr, max_iters, st);
+  if (st && tid == 0) st[6] = global_ns();
+  // The edges of the words that grew (the others hold strong, which K1
+  // wrote), a thread walking `run` rows of one word column.
+  const bool vec = (W % 32 == 0) && (reinterpret_cast<uintptr_t>(o) % 16 == 0);
+  const int run = (n + FP_THREADS - 1) / FP_THREADS, items = ((H + run - 1) / run) * wpr;
+  for (int item = tid; item < items; item += FP_THREADS) {
+    const int k = item % wpr, y0 = (item / wpr) * run, y1 = min(y0 + run, H);
+    for (int y = y0; y < y1; ++y)
+      if ((grown[y * dpr + (k >> 5)] >> (k & 31)) & 1u) unpack_word(reach[y * wpr + k], o, y, k, W, vec);
+  }
+  if (tid == 0) tickets[b] = 0u;
+  if (st) {
+    fp_sync();
+    if (tid == 0) st[7] = global_ns();
+  }
+}
+
+template <typename T>
+static int launch_canny_fused(const T* gray, uint32_t* words, unsigned int* tickets, uint8_t* out,
+                              unsigned long long* stats, int B, int H, int W, float low_sq,
+                              float high_sq, int max_iters, int blocks, cudaStream_t stream) {
+  int dev = 0, optin = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t smem = fused_launch_bytes(H, W, optin, &cap);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(canny_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  canny_fused_kernel<T><<<dim3(blocks, B), HYST_THREADS, smem, stream>>>(
+      gray, words, tickets, out, stats, H, W, low_sq, high_sq, max_iters, cap);
+  return (int)cudaGetLastError();
+}
+
+// canny_fused_kernel<T> blocks with the shared memory of an H x W image's
+// launch that one SM holds at once, or an error.
+template <typename T>
+static cudaError_t fused_per_sm(int H, int W, int optin, int* per_sm) {
+  int cap = 0;
+  const size_t smem = fused_launch_bytes(H, W, optin, &cap);
+  cudaError_t err = cudaFuncSetAttribute(canny_fused_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, canny_fused_kernel<T>,
+                                                        HYST_THREADS, smem);
+  return err;
 }
 
 // -- K1 + K2 across a thread-block cluster ----------------------------------
@@ -1442,20 +1927,66 @@ extern "C" int revo_canny_hysteresis(const uint8_t* cand, const uint8_t* strong,
   return (int)cudaGetLastError();
 }
 
-// gray is float32, or uint8 with `gray_u8`; H, W >= 2, and the image must be
-// one the packed fixpoint fits (revo_canny_hysteresis_shared_limit).
+// K1 + K2 of B images of H x W in one launch of `blocks` blocks an image
+// (revo_canny_fused_blocks chooses them).  gray is float32, or uint8 with
+// `gray_u8`; H, W >= 2, and the image must be one whose masks fit a block
+// (fused_smem_bytes within revo_canny_hysteresis_shared_limit).  words: B
+// times 2 n4 words (n4 = H ceil(W / 32) rounded up to a multiple of 4), no
+// content needed; tickets: B zeroed words, left at 0; stats: 8 64-bit
+// words an image (canny_fused_kernel's), or null.  A launch the
+// device refuses returns its error.
 extern "C" int revo_canny_fused(const void* gray, int gray_u8, uint32_t* words,
-                                unsigned int* tickets, uint8_t* out, int B,
-                                int H, int W, float low_sq, float high_sq,
-                                int max_iters, cudaStream_t stream) {
+                                unsigned int* tickets, uint8_t* out, unsigned long long* stats,
+                                int B, int H, int W, float low_sq, float high_sq, int max_iters,
+                                int blocks, cudaStream_t stream) {
+  if (blocks < 1 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  if (gray_u8)
+    return launch_canny_fused(static_cast<const uint8_t*>(gray), words, tickets, out, stats, B,
+                              H, W, low_sq, high_sq, max_iters, blocks, stream);
+  return launch_canny_fused(static_cast<const float*>(gray), words, tickets, out, stats, B, H,
+                            W, low_sq, high_sq, max_iters, blocks, stream);
+}
+
+// Blocks an image (P) of one canny_fused launch over B images of H x W on
+// the current device: the card's resident blocks of the kernel (the
+// occupancy query, for both gray types) shared by the B images, at least 1
+// and at most one a K1 strip; 0 where a block cannot hold the image's
+// masks; a CUDA error as its negative.
+extern "C" int revo_canny_fused_blocks(int B, int H, int W, cudaStream_t) {
+  int dev = 0, sms = 0, optin = 0, per_u8 = 0, per_f32 = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess && fused_smem_bytes(H, W) > (size_t)optin) return 0;
+  if (err == cudaSuccess) err = fused_per_sm<uint8_t>(H, W, optin, &per_u8);
+  if (err == cudaSuccess) err = fused_per_sm<float>(H, W, optin, &per_f32);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not left for the next launch to report
+    return -(int)err;
+  }
+  const int per_sm = per_u8 < per_f32 ? per_u8 : per_f32;
+  if (per_sm < 1 || B < 1 || H < 2 || W < 2) return 0;
+  const long strips = (long)((W + 31) / 32) * ((H + FS_ROWS - 1) / FS_ROWS);
+  long p = (long)per_sm * sms / B;
+  if (p < 1) p = 1;
+  return (int)(p < strips ? p : strips);
+}
+
+// The dense form: gray is float32, or uint8 with `gray_u8`; H, W >= 2, and
+// the image must be one the packed fixpoint fits
+// (revo_canny_hysteresis_shared_limit).  words: 2 B H ceil(W / 32).
+extern "C" int revo_canny_fused_dense(const void* gray, int gray_u8, uint32_t* words,
+                                      unsigned int* tickets, uint8_t* out, int B, int H, int W,
+                                      float low_sq, float high_sq, int max_iters,
+                                      cudaStream_t stream) {
   size_t smem = hysteresis_smem_bytes(H, W);
   if (smem < FUSED_TILE_BYTES) smem = FUSED_TILE_BYTES;
   if (gray_u8)
-    return launch_canny_fused(static_cast<const uint8_t*>(gray), words, tickets,
-                              out, B, H, W, low_sq, high_sq, max_iters, smem,
-                              stream);
-  return launch_canny_fused(static_cast<const float*>(gray), words, tickets, out,
-                            B, H, W, low_sq, high_sq, max_iters, smem, stream);
+    return launch_canny_fused_dense(static_cast<const uint8_t*>(gray), words, tickets, out, B, H,
+                                    W, low_sq, high_sq, max_iters, smem, stream);
+  return launch_canny_fused_dense(static_cast<const float*>(gray), words, tickets, out, B, H, W,
+                                  low_sq, high_sq, max_iters, smem, stream);
 }
 
 extern "C" int revo_canny_hysteresis_global(const uint8_t* cand,

@@ -9,8 +9,8 @@ loads the existing build.  A missing ``nvcc`` or card raises; nothing falls
 back to the CPU.  Nothing is built when this module is imported.
 
 ``launch(name, *args)`` calls one exported function on PyTorch's current
-stream: tensors pass their data pointer, ints and floats pass by value,
-and the stream is appended.  Each function returns ``cudaGetLastError()``
+stream: tensors pass their data pointer (``None`` a null pointer), ints
+and floats pass by value, and the stream is appended.  Each function returns ``cudaGetLastError()``
 after its launch; a nonzero status raises.  ``call`` is the same call for
 a function that answers a question of the CUDA runtime instead: it returns
 the function's int.
@@ -45,7 +45,9 @@ SIGNATURES = {
     "revo_canny_hysteresis": "pppiiii",
     "revo_canny_hysteresis_global": "ppppiiii",
     "revo_canny_hysteresis_shared_limit": "",
-    "revo_canny_fused": "pipppiiiffi",
+    "revo_canny_fused": "pippppiiiffii",
+    "revo_canny_fused_blocks": "iii",
+    "revo_canny_fused_dense": "pipppiiiffi",
     "revo_canny_cluster": "pipiiiffii",
     "revo_canny_cluster_ranks": "ii",
     "revo_canny_grid": "pipppiiiffii",
@@ -157,7 +159,7 @@ def call(name: str, *args, device=None) -> int:
     cargs = []
     for kind, a in zip(kinds, args):
         if kind == "p":
-            cargs.append(ctypes.c_void_p(a.data_ptr()))
+            cargs.append(ctypes.c_void_p(None if a is None else a.data_ptr()))
         elif kind == "i":
             cargs.append(ctypes.c_int(int(a)))
         else:

@@ -206,11 +206,18 @@ def _shared_limit(device: torch.device) -> int:
 
 
 def fused_smem_bytes(h: int, w: int) -> int:
-    """Shared memory of the one-block fixpoint on an (h, w) image: cand and
-    the two state masks, one bit a pixel in rows of whole 32-bit words
-    (3 * h * ceil(w / 32) * 4 bytes: 640x480 needs 115200 and 1024x576
-    221184 of an H100's 232448; 1280x720 needs 345600)."""
-    return 3 * h * (-(-w // 32)) * 4
+    """Shared memory that ``canny_fused``'s fixpoint needs for an (h, w)
+    image: eight flag words, cand and the two state masks, one bit a pixel
+    in rows of whole 32-bit words (h * ceil(w / 32) words each, rounded up
+    to a multiple of 4), and four masks of one bit a word (two dirty, room
+    and grown; h rows of ceil(ceil(w / 32) / 32) words): 640x480 needs
+    122912 bytes and 1024x576 230432 of an H100's 232448; 1280x720 needs
+    368672.  The launch adds the list of frontier words, 2 bytes a word, as
+    far as the block's limit allows (csrc/canny.cu ``fused_smem_bytes``,
+    ``fused_launch_bytes``)."""
+    wpr = -(-w // 32)
+    n4 = -(-(h * wpr) // 4) * 4
+    return 4 * (8 + 3 * n4 + 4 * h * -(-wpr // 32))
 
 
 def band_smem_bytes(h: int, w: int, blocks: int, tile: int = 0) -> int:
@@ -263,8 +270,9 @@ def canny_route(h: int, w: int, smem_limit: int,
 
 
 def hysteresis_fits_shared(device, h: int, w: int) -> bool:
-    """Whether an (h, w) image takes K2's shared-memory kernel on
-    ``device``: ``fused_smem_bytes`` within one block's shared memory."""
+    """Whether an (h, w) image takes ``canny_fused`` (and K2's
+    shared-memory kernel, whose three masks need less) on ``device``:
+    ``fused_smem_bytes`` within one block's shared memory."""
     return fused_smem_bytes(h, w) <= _shared_limit(torch.device(device))
 
 
@@ -424,8 +432,9 @@ def _grid_buffers(device, n_words: int):
 
 
 def _fused_buffers(device, n_words: int, b: int):
-    """The fused kernel's packed ``cand`` / ``strong`` words and its
-    per-image tickets on the current stream of ``device``.  Launches on one
+    """The fused kernel's packed ``cand`` / ``strong`` words (each image's
+    at a multiple of 16 bytes) and its per-image tickets on the current
+    stream of ``device``.  Launches on one
     stream run in order and each leaves its tickets at 0, so they share the
     buffers; either grows when a call needs more."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
@@ -458,25 +467,68 @@ def _check_gray(gray: torch.Tensor, name: str) -> bool:
     return True
 
 
-def canny_fused(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
+FUSED_FORMS = ("frontier", "dense")
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_blocks(device: torch.device, b: int, h: int, w: int) -> int:
+    """Blocks an image of one ``canny_fused`` launch over ``b`` (h, w)
+    images on ``device``: the blocks the card holds at once (the CUDA
+    runtime's occupancy query) shared by the images, at least 1 and at most
+    one a K1 strip of 32 columns by 8 rows."""
+    blocks = kernels.call("revo_canny_fused_blocks", b, h, w, device=device)
+    if blocks < 0:
+        raise RuntimeError(f"canny_fused: CUDA error {-blocks} counting the resident blocks")
+    if blocks == 0:
+        raise ValueError(f"canny_fused: a {h}x{w} image does not fit a block's shared memory")
+    return blocks
+
+
+def canny_fused(gray: torch.Tensor, low: float, high: float, _form: str = "frontier",
+                _max_iters=None, _stats=None) -> torch.Tensor:
     """K1 + K2 in one launch: (B, H, W) uint8-valued gray, uint8 or float32,
     unpadded -> (B, H, W) bool edges, bit-equal to ``canny_fused_ref``.
     CPU tensor: plain version; CUDA tensor: the kernel, for images that
     ``hysteresis_fits_shared`` admits (others raise: ``canny_batched``
-    routes them to ``canny_cluster`` or the split kernels).  H and W must
-    be at least 2, as REFLECT_101 needs."""
+    routes them to ``canny_cluster`` or the split kernels), one launch for
+    all B images.  H and W must be at least 2, as REFLECT_101 needs.
+
+    For comparisons on the card only: ``_form`` "dense" launches the first
+    form of the kernel (32x32 tiles, every word stepped), which no route
+    takes; ``_max_iters`` replaces the fixpoint's cap of H + W steps (0
+    times K1, the masks' round trip and the unpacking alone; the edges are
+    then strong alone); ``_stats``, a (B, 9) int64 CUDA tensor, receives
+    each image's steps, largest frontier and frontier words of all steps,
+    then the card's global timer in ns at the start of the block that ran
+    its fixpoint, after its ticket, before and after the steps and at its
+    end, then the steps whose frontier overflowed the list and stepped
+    every word (frontier form)."""
     if not _check_gray(gray, "canny_fused"):
         return canny_fused_ref(gray, low, high)
+    if _form not in FUSED_FORMS:
+        raise ValueError(f"canny_fused: form {_form!r} is not one of {FUSED_FORMS}")
     b, h, w = gray.shape
     if not hysteresis_fits_shared(gray.device, h, w):
         raise ValueError(f"canny_fused: a {h}x{w} image does not fit shared memory")
-    words, tickets = _fused_buffers(gray.device, 2 * b * h * (-(-w // 32)), b)
+    wpr = -(-w // 32)
+    n4 = -(-(h * wpr) // 4) * 4
+    words, tickets = _fused_buffers(gray.device, 2 * b * n4, b)
     out = torch.empty((b, h, w), dtype=torch.bool, device=gray.device)
-    kernels.launch(
-        "revo_canny_fused",
-        gray, int(gray.dtype == torch.uint8), words, tickets, out, b, h, w,
-        float(low * low), float(high * high), h + w,
-    )
+    u8 = int(gray.dtype == torch.uint8)
+    cap = h + w if _max_iters is None else int(_max_iters)
+    if _form == "dense":
+        if _stats is not None:
+            raise ValueError("canny_fused: the dense form keeps no stats")
+        kernels.launch("revo_canny_fused_dense", gray, u8, words, tickets, out, b, h, w,
+                       float(low * low), float(high * high), cap)
+    else:
+        if _stats is not None:
+            _check_cuda(_stats, torch.int64, 2, "canny_fused stats")
+            if tuple(_stats.shape) != (b, 9) or _stats.device != gray.device:
+                raise ValueError(f"canny_fused: stats want ({b}, 9) on {gray.device}")
+        kernels.launch("revo_canny_fused", gray, u8, words, tickets, out, _stats, b, h, w,
+                       float(low * low), float(high * high), cap,
+                       _fused_blocks(gray.device, b, h, w))
     canny_fused.launches += 1
     return out
 

@@ -7,7 +7,9 @@ bit (one device, deterministic sums), for VOSystem and for vo_scan; a file
 written by one package and resumed by the other gives poses within 1e-4 m /
 1e-4 rad of the writer's continuous run (the usual port-against-JAX gap);
 the two packages' scan-state files have the same keys, shapes and dtypes
-(dt4bf quad tables as uint16 bits on both sides).
+(dt4bf quad tables as uint16 bits on both sides), and a state the port
+saves under "hw12", "t" or "flat16" resumes in JAX with the port's flags
+and poses within 1e-4.
 """
 import dataclasses
 import os
@@ -146,7 +148,8 @@ def scan_runs(request, cfgs, tmp_path_factory):
     out["port_full"] = batch.vo_scan(gt, dt, tcfg)[0].numpy().astype(np.float64)
     out["port_path"] = os.path.join(tmp, "port.npz")
     out["port_state"] = batch.vo_scan(gt[:SCAN_CUT], dt[:SCAN_CUT], tcfg)[2]
-    checkpoint.save_scan_state(out["port_path"], out["port_state"])
+    checkpoint.save_scan_state(out["port_path"], out["port_state"],
+                                tcfg.tracker.optimizer.quad_form)
     return out
 
 
@@ -195,13 +198,55 @@ def test_port_scan_state_resumes_in_jax(scan_runs):
     assert_poses_close(np.asarray(poses, np.float64), scan_runs["port_full"][SCAN_CUT:], TOL)
 
 
+@pytest.mark.parametrize("form", ["hw12", "t", "flat16"])
+def test_port_scan_state_resumes_in_jax_in_every_quad_layout(cfgs, form, tmp_path):
+    """A scan state the port saves under a quad form whose JAX layout is
+    not the port's rows ((H, W, 12), (12, H*W), (H*W, 16) with a pad lane)
+    is written in JAX's layout: JAX's loader takes it, its tables are JAX's
+    own ``quad_structure`` of the stored structures, and JAX resumes from
+    it with the port's resumed run's flags, poses within TOL; the port's own
+    loader still resumes bit-equal to the port's continuous run."""
+    from revo_tpu.ops.edt import quad_structure as j_quad_structure
+
+    opt = dataclasses.replace(cfgs[0].tracker.optimizer, quad_form=form)
+    cfg = dataclasses.replace(cfgs[0], tracker=dataclasses.replace(cfgs[0].tracker, optimizer=opt))
+    tcfg = convert.config_from_jax(cfg)
+    frames = _frames(cfg, SCAN_N - 2, seed=6)
+    grays, depths = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    gt, dt = torch.from_numpy(grays), torch.from_numpy(depths)
+    state = batch.vo_scan(gt[:SCAN_CUT], dt[:SCAN_CUT], tcfg)[2]
+    path = str(tmp_path / "scan.npz")
+    checkpoint.save_scan_state(path, state, form)
+    h, w = cfg.camera.height, cfg.camera.width
+    want_shape = {"hw12": (h, w, 12), "t": (12, h * w), "flat16": (h * w, 16)}[form]
+    assert np.load(path)[".kf.quads[0]"].shape == want_shape
+    for lvl, q in enumerate(state.kf.quads):  # the inverse of the port's reading of JAX tables
+        rows = checkpoint.quad_to_jax_layout(q.numpy(), tuple(state.kf.structs[lvl].shape), form)
+        np.testing.assert_array_equal(
+            convert.quad_from_numpy(rows, tuple(state.kf.structs[lvl].shape)), q.numpy())
+
+    port_state = checkpoint.load_scan_state(path, tcfg, device="cpu")
+    port_poses, port_outs, _ = batch.vo_scan_from_state(port_state, gt[SCAN_CUT:], dt[SCAN_CUT:],
+                                                        tcfg)
+    np.testing.assert_array_equal(port_poses.numpy(), batch.vo_scan(gt, dt, tcfg)[0][SCAN_CUT:])
+    jstate = jckpt.load_scan_state(path, cfg)
+    for s_, q_ in zip(jstate.kf.structs, jstate.kf.quads):
+        np.testing.assert_array_equal(np.asarray(q_), np.asarray(j_quad_structure(s_, form)))
+    j_poses, j_outs, _ = jbatch.vo_scan_from_state(
+        jstate, jnp.asarray(grays[SCAN_CUT:]), jnp.asarray(depths[SCAN_CUT:]), cfg)
+    for flag in ("promoted", "relocalized", "lost"):
+        np.testing.assert_array_equal(np.asarray(getattr(j_outs, flag)),
+                                      getattr(port_outs, flag).numpy(), err_msg=flag)
+    assert_poses_close(np.asarray(j_poses, np.float64), port_poses.numpy().astype(np.float64), TOL)
+
+
 def test_config_mismatch_rejected(cfgs, tmp_path):
     cfg, tcfg = cfgs
     frames = _frames(cfg, 3, seed=6)
     state = batch.vo_scan(torch.from_numpy(np.stack([f[0] for f in frames])),
                           torch.from_numpy(np.stack([f[1] for f in frames])), tcfg)[2]
     path = str(tmp_path / "scan_state.npz")
-    checkpoint.save_scan_state(path, state)
+    checkpoint.save_scan_state(path, state, tcfg.tracker.optimizer.quad_form)
     pyr = dataclasses.replace(tcfg.pyramid, edge_capacity=(2048, 1024, 512))
     with pytest.raises(ValueError, match="shape"):
         checkpoint.load_scan_state(path, dataclasses.replace(tcfg, pyramid=pyr), device="cpu")

@@ -40,6 +40,7 @@ from revo_tpu_torch.ops import lgsx as K3
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.filters import _reflect_pad
 
+from _torch_fused_model import frontier_fixpoint, pack
 from _torch_inputs import BF16_FORMS, CAM, TABLE_FORMS, make_inputs, make_pose, torch_args
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -127,12 +128,16 @@ def test_canny_nms_unaligned_gray_and_refusals(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
-@pytest.mark.parametrize("shape", [(1, 480, 640), (8, 240, 320), (8, 120, 160), (3, 37, 53),
-                                   (2, 29, 65), (1, 576, 1024), (2, 2, 2)])
+@pytest.mark.parametrize("shape", [(1, 480, 640), (8, 480, 640), (8, 240, 320), (8, 120, 160),
+                                   (3, 37, 53), (2, 29, 65), (1, 576, 1024), (2, 3, 1100),
+                                   (2, 2, 2)])
 def test_canny_fused_bit_equal(cuda, shape, dtype):
     """One launch from unpadded gray, float32 or uint8, whole-word and
-    ragged rows, up to the largest image the shared-memory fixpoint takes:
-    the plain version's edges, and the same bits from a second launch."""
+    ragged rows, a row of two dirty words (1100 wide), up to the largest
+    image the shared-memory fixpoint takes, B = 8 at every pyramid level
+    of a 640x480 frame: the plain version's edges, the same bits from a
+    second launch and from the dense form; each image's steps, largest
+    frontier and words evaluated are the numpy model's."""
     b, h, w = shape
     imgs = torch.from_numpy(np.stack([_gray(h, w, s) for s in range(b)])).to(cuda, dtype)
     before = (K12.canny_fused.launches, K12.canny_nms.launches, K12.canny_hysteresis.launches)
@@ -141,7 +146,17 @@ def test_canny_fused_bit_equal(cuda, shape, dtype):
             K12.canny_hysteresis.launches) == (before[0] + 1, before[1], before[2])
     want = K12.canny_fused_ref(imgs, 30.0, 60.0)
     assert got.dtype == torch.bool and torch.equal(got, want)
-    assert torch.equal(K12.canny_fused(imgs, 30.0, 60.0), want)
+    stats = torch.full((b, 9), -1, dtype=torch.int64, device=cuda)
+    assert torch.equal(K12.canny_fused(imgs, 30.0, 60.0, _stats=stats), want)
+    assert torch.equal(K12.canny_fused(imgs, 30.0, 60.0, _form="dense"), want)
+    c_p, s_p = K12.canny_nms_ref(_reflect_pad(imgs.float(), 1, 1), 900.0, 3600.0)
+    for i in range(b):
+        model = frontier_fixpoint(pack(c_p[i].cpu().numpy(), -(-w // 32)),
+                                  pack(s_p[i].cpu().numpy(), -(-w // 32)), h, w)
+        np.testing.assert_array_equal(model[0], want[i].cpu().numpy())
+        assert tuple(stats[i, :3].tolist()) == model[1:], i
+        t = stats[i, 3:8].tolist()  # start, ticket, steps begin, steps end, end
+        assert t == sorted(t) and t[0] > 0, i
     if h > 2:
         assert int(want.sum()) > 0
 
@@ -149,14 +164,47 @@ def test_canny_fused_bit_equal(cuda, shape, dtype):
 @pytest.mark.parametrize("shape", [(48, 64), (47, 41), (120, 200)])
 def test_canny_fused_cap_binds_on_card(cuda, shape):
     """A gray serpentine whose weak contour is longer than H+W from one
-    strong stretch: the fused kernel stops where the plain loop's cap
-    stops."""
+    strong stretch: both forms of the fused kernel stop where the plain
+    loop's cap stops."""
     g = torch.from_numpy(serpentine_gray(*shape))[None].to(cuda)
     want = K12.canny_fused_ref(g, 40.0, 150.0)
     cand = K12.canny_nms_ref(_reflect_pad(g.float(), 1, 1), 1600.0, 22500.0)[0]
     assert 0 < int(want.sum()) < int(cand.sum())
-    assert torch.equal(K12.canny_fused(g, 40.0, 150.0), want)
-    assert torch.equal(K12.canny_fused(g.float(), 40.0, 150.0), want)
+    for form in K12.FUSED_FORMS:
+        assert torch.equal(K12.canny_fused(g, 40.0, 150.0, _form=form), want)
+        assert torch.equal(K12.canny_fused(g.float(), 40.0, 150.0, _form=form), want)
+
+
+def test_canny_fused_list_overflow_steps_every_word(cuda):
+    """At 1024x576 a warp's list of frontier words has room for about 67
+    words; a noise image's frontier is larger, so those warps step every
+    word of their rows: the same bits, and the numpy model's step counts."""
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.integers(0, 256, (1, 576, 1024), dtype=np.uint8)).to(cuda)
+    want = K12.canny_fused_ref(g, 30.0, 60.0)
+    stats = torch.zeros((1, 9), dtype=torch.int64, device=cuda)
+    assert torch.equal(K12.canny_fused(g, 30.0, 60.0, _stats=stats), want)
+    c_p, s_p = K12.canny_nms_ref(_reflect_pad(g.float(), 1, 1), 900.0, 3600.0)
+    model = frontier_fixpoint(pack(c_p[0].cpu().numpy(), 32), pack(s_p[0].cpu().numpy(), 32),
+                              576, 1024)
+    assert tuple(stats[0, :3].tolist()) == model[1:]
+    assert int(stats[0, 8]) >= 1
+
+
+def test_canny_fused_probe_and_refusals(cuda):
+    """With its cap set to 0 the kernel runs K1, the masks' round trip and
+    the unpacking alone, so the edges are the strong pixels; a form it does
+    not know and a stats tensor of the wrong shape raise."""
+    imgs = torch.from_numpy(np.stack([_gray(120, 160, s) for s in range(2)])).to(cuda)
+    strong = K12.canny_nms_ref(_reflect_pad(imgs, 1, 1), 900.0, 3600.0)[1]
+    stats = torch.zeros((2, 9), dtype=torch.int64, device=cuda)
+    assert torch.equal(K12.canny_fused(imgs, 30.0, 60.0, _max_iters=0, _stats=stats), strong)
+    assert stats[:, :3].tolist() == [[0, 0, 0], [0, 0, 0]]
+    assert 1 <= K12._fused_blocks(cuda, 2, 120, 160) <= 75
+    with pytest.raises(ValueError, match="form"):
+        K12.canny_fused(imgs, 30.0, 60.0, _form="tiles")
+    with pytest.raises(ValueError, match="stats"):
+        K12.canny_fused(imgs, 30.0, 60.0, _stats=stats[:1])
 
 
 def _canny_counts():
@@ -659,7 +707,8 @@ def test_resume_on_card_is_bit_equal(cuda, tmp_path):
     depths = torch.from_numpy(np.stack([f[1] for f in frames])).to(cuda)
     scan_full = batch.vo_scan(grays, depths, cfg)[0]
     path = str(tmp_path / "scan.npz")
-    checkpoint.save_scan_state(path, batch.vo_scan(grays[:6], depths[:6], cfg)[2])
+    checkpoint.save_scan_state(path, batch.vo_scan(grays[:6], depths[:6], cfg)[2],
+                               cfg.tracker.optimizer.quad_form)
     state = checkpoint.load_scan_state(path, cfg, device=cuda)
     assert state.kf.quads[0].is_cuda and state.kf.quads[0].dtype == torch.bfloat16
     tail = batch.vo_scan_from_state(state, grays[6:], depths[6:], cfg)[0]

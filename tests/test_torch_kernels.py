@@ -122,7 +122,9 @@ def words_fixpoint(c: np.ndarray, state: np.ndarray, h: int, w: int) -> np.ndarr
 
 
 def fused_kernel_model(gray: np.ndarray, low: float, high: float) -> np.ndarray:
-    """What ``revo_canny_fused`` does to one (H, W) image, in numpy:
+    """What ``revo_canny_fused_dense`` (``canny_fused``'s first, dense form;
+    tests/_torch_fused_model.py models the current one) does to one (H, W)
+    image, in numpy:
     REFLECT_101 on the index of the unpadded image (-1 -> 1, H -> H - 2),
     K1's classification, ``ballot_words``, ``words_fixpoint``."""
     h, w = gray.shape

@@ -217,7 +217,7 @@ def test_checkpoint_round_trip_flatbf(tmp_path):
     depths = torch.from_numpy(np.stack([f[1] for f in frames]))
     state = batch.vo_scan(grays[:4], depths[:4], tcfg)[2]
     scan_path = os.path.join(tmp_path, "scan.npz")
-    checkpoint.save_scan_state(scan_path, state)
+    checkpoint.save_scan_state(scan_path, state, tcfg.tracker.optimizer.quad_form)
     loaded = checkpoint.load_scan_state(scan_path, tcfg, device="cpu")
     for a, b in zip(loaded.kf.quads, state.kf.quads):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)

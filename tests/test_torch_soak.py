@@ -226,7 +226,7 @@ def run_scan_port(tcfg, g_all, d_all, ckpt=None):
         poses.append(T_w.numpy())
         flags.append(_flags(outs))
         if b == CKPT_AT + 1 and ckpt is not None:
-            save_scan_state(ckpt, state)
+            save_scan_state(ckpt, state, tcfg.tracker.optimizer.quad_form)
     return np.concatenate(poses), np.concatenate(flags)
 
 
