@@ -81,7 +81,14 @@ gates.  Phases, one line each:
              inputs beside that on residual_terms' strided outputs, and an
              empty kernel's device time; the kernels torch launches per
              evaluation and per tracked frame (torch.profiler, over the chain's first 2
-             frames) beside the hand-written kernels' launch counts; level 0
+             frames) beside the hand-written kernels' launch counts and the
+             copies: one evaluation is one residual_lgsx and one
+             solver_step launch and no torch kernel, a tracked lm frame at
+             most 200 launches of any kind (each read again while the
+             profiler's reading cannot be trusted; three untrusted readings
+             fail the phase); lm's chain beside the same chain with the
+             live-lane count read every 1, 2 and 8 evaluations (time,
+             evaluations and reads a frame); level 0
              of the 1280x720 frame through the split kernels and through the
              cluster Canny in turns, and build_frame at 1280x720 both ways,
              the cluster at 16 and 8 blocks an image,
@@ -242,9 +249,14 @@ gates.  Phases, one line each:
              from its own last pose): lane 0 bit-equal to the chain tracked
              alone, ATE < 2 mm; (c) track_ring on the teleport frame against
              phase 7's ring: each slot bit-equal to the slot tracked alone;
-             (d) per batched step 3 canny_fused launches, per level as many
-             residual_lgsx launches as the slowest lane's evaluations alone,
-             host syncs (sync debug mode "warn") equal to the flag reads;
+             (d) per batched step 3 canny_fused launches, one init_check
+             and one solver_step launch an evaluation (and, gn_fixed, a
+             level's start); per level gn_fixed launches residual_lgsx
+             exactly fixed_iters + 1 times and reads nothing on the host,
+             lm from the slowest lane's evaluations (its active byte set)
+             to 2 LM_CHUNK - 1 past them, with at most ceil(launches /
+             LM_CHUNK) + 1 reads of the live-lane count; no host sync under
+             sync debug mode "warn";
              (e) CUDA-event ms per batched step at B = 1, 8, 16, 32 (lm at
              1, 8) against B one-lane steps in the same call, with the
              profiler's kernels per step and device-busy share;
@@ -330,14 +342,35 @@ gates.  Phases, one line each:
              lost, final ATE < 0.85x the run without), the 150-frame double
              circuit (>= 2 spans, < 0.8x) and the broken run with depth
              noise and holes (every loop edge's error < 0.3); seconds per
-             gate, both kernels' launches from 0.
+             gate, both kernels' launches from 0;
+24. solver_step  the level loop's kernels (csrc/solver.cu) against their
+             plain versions on the card: (a) revo_solver_step against
+             solver_step_ref over 1024 seeded lane states a case (lm and
+             gn_fixed, the default schedule and one with early exits and a
+             fail factor of 1.5), each state stepped 6 times from its start
+             with lambda, iteration, tries and active set over their
+             ranges, among them zero systems, lambda 0, singular systems,
+             non-finite increments, large and small angles, NaN errors:
+             every field and the live count bit-equal; (b) revo_init_check
+             against init_check_ref on 33 poses (identity, seeded motions,
+             points behind the camera and outside the image, the frame's
+             tracked pose) as lanes of
+             one launch at level 2 of two chain frames, with and without
+             normalization and the edge filter: bit-equal, each lane equal
+             to its B = 1 launch; (c) phase 5's chain and phase 18's 8
+             lanes with the kernels against the same loops with the plain
+             step and init check on the card: bit-equal; (d) both kernels'
+             rows of the kernel JSON (the step in its start mode at B = 1
+             and 8); (e) phase 5's chain with solve6_impl "linalg": no
+             solver_step launch (the plain step), ATE < 2 mm.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
-host_libraries, 15, 16, 17, 18, 19, 20, 21, 22, 23, 6.
+host_libraries, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 6.
 Launch counts are set to 0 just before each path (phases 5, 7 to 23, each
 form of 17, each path of 18 and 19 and each part of 20 on its own)
 and read just after; every kernel of the path must have launched (the fused
-Canny and the fused K3 on every 640x480 path, which launch neither K1 nor K2
+Canny on every 640x480 path, and the fused K3, the solver step and the
+init check on every path that tracks, which launch neither K1 nor K2
 alone; the cluster Canny on the 1280x720 frames; the grid Canny on the
 5120x2880 and 7680x4320 images; K1 and K2 on the 12288x8192 image; the unfused K3 ``lgsx_reduce`` is
 the TPU kernel's own contract, which the solver no longer calls, so its
@@ -379,6 +412,17 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
 K1_OPS_PER_PIXEL, K2_OPS_PER_WORD_STEP = 37, 11
 K3_OPS_PER_POINT, K3_FUSED_OPS_PER_POINT = 104, 166
 N_PROFILED = 2  # tracked frames per call inside a profiler window (its events cost seconds)
+LM_FRAME_LAUNCHES = 200  # launches of any kind a tracked 640x480 lm frame may make (phase 6)
+LM_CHUNKS_TIMED = (4, 2, 1, 8, 8, 1, 2, 4)  # solver.LM_CHUNK values phase 6 times, in order
+# Phase 24 (solver_step): seeded lane states for revo_solver_step against its
+# plain version (lanes, steps after the start, seed), seeded poses beside the
+# fixed ones for revo_init_check, and the operations each does (counted from
+# csrc/solver.cu, a sin or cos as 20): a live lm lane in the step's start
+# mode (normalisation 43, damped LDL^T solve 213, exp 186, compose 63,
+# compares and selects 15; a later step adds ~60 for its accept, lambda
+# and exit rules); one point at the two poses.
+STEP_LANES, STEP_STEPS, STEP_SEED, IC_RANDOM_POSES = 1024, 6, 24, 25
+STEP_OPS_PER_LANE, IC_OPS_PER_POINT = 520, 80
 N_PAN = 20  # pan frames; the teleport frame follows
 PAN_STEP = (0.04, 0.0, 0.005, 0.0, 0.017, 0.0)  # tests/test_system.py:47-73
 # The JAX package's ATE on pan + teleport, VOSystem on the CPU (PERF.md
@@ -941,14 +985,16 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 # kernels torch launches and the wrappers' launch counts count these.
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
                 "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
-                "lgsx_reduce_kernel", "residual_lgsx_kernel")
+                "lgsx_reduce_kernel", "residual_lgsx_kernel", "solver_step_kernel",
+                "init_check_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
 def _profile_kernels(fn, reps: int = 1):
     """(device kernels torch launches per call of ``fn``, their summed
-    device ms per call, hand-written kernels the profiler showed per call),
-    by torch.profiler; (-1, None, None) where the reading cannot be trusted.
+    device ms per call, hand-written kernels the profiler showed per call,
+    copies and fills on the device per call), by torch.profiler;
+    (-1, None, None, None) where the reading cannot be trusted.
     One profiler window holds 0.1 s of warm-up calls (the profiler drops the
     kernels of a window's first milliseconds) and two marked stretches of
     ``reps`` and ``2 * reps`` calls, each closed by one marker kernel and a
@@ -956,7 +1002,7 @@ def _profile_kernels(fn, reps: int = 1):
     so a kernel belongs to the stretch whose host span holds its start.
     The reading is trusted only if both stretches show their marker and the
     second shows twice the first's kernels, within 2%; it is then the second
-    stretch's.  Reported, never gated on."""
+    stretch's.  A gate reads it through ``_profile_trusted``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -976,28 +1022,45 @@ def _profile_kernels(fn, reps: int = 1):
                 marker.add_(1.0)
                 torch.cuda.synchronize()
     on_card = torch.autograd.DeviceType.CUDA
-    spans, seen = {}, []
+    spans, seen, moved = {}, [], []
+    untrusted = (-1, None, None, None)
     for e in prof.events():
         if e.name in marks:
             if e.device_type != on_card:
                 spans[e.name] = (e.time_range.start, e.time_range.end)
-        elif (e.device_type == on_card and "memcpy" not in e.name.lower()
-              and "memset" not in e.name.lower()):
+        elif e.device_type == on_card and any(w in e.name.lower() for w in ("memcpy", "memset")):
+            moved.append(e.time_range.start)
+        elif e.device_type == on_card:
             seen.append((e.time_range.start, e.time_range.elapsed_us(),
                          any(h in e.name for h in HAND_KERNELS)))
     if len(spans) != 2:
-        return -1, None, None
+        return untrusted
     counts = []
     for lo, hi in (spans[m] for m in marks):
         inside = sorted(k for k in seen if lo <= k[0] <= hi)
         by_torch = [us for _, us, hand in inside if not hand]
         if not by_torch:  # not even the marker
-            return -1, None, None
-        counts.append((len(by_torch) - 1, sum(by_torch[:-1]), len(inside) - len(by_torch)))
-    (n1, _, _), (n2, us2, hand2) = counts
+            return untrusted
+        counts.append((len(by_torch) - 1, sum(by_torch[:-1]), len(inside) - len(by_torch),
+                       sum(lo <= m <= hi for m in moved)))
+    (n1, _, _, _), (n2, us2, hand2, moved2) = counts
     if abs(n2 - 2 * n1) > 0.02 * n2:
-        return -1, None, None
-    return n2 / (2 * reps), us2 / (2 * reps) / 1e3, hand2 / (2 * reps)
+        return untrusted
+    return n2 / (2 * reps), us2 / (2 * reps) / 1e3, hand2 / (2 * reps), moved2 / (2 * reps)
+
+
+PROFILE_TRIES = 3  # readings a gate takes before it gives up on the profiler
+
+
+def _profile_trusted(fn, reps: int, what: str):
+    """``_profile_kernels`` for a gate: read again while the reading cannot
+    be trusted, and raise after PROFILE_TRIES untrusted readings, so that no
+    count gate passes without a count."""
+    for _ in range(PROFILE_TRIES):
+        reading = _profile_kernels(fn, reps)
+        if reading[1] is not None:
+            return reading
+    raise RuntimeError(f"{what}: {PROFILE_TRIES} profiler readings, none trusted")
 
 
 def _queued_ms(fn, reps: int = 50):
@@ -1084,6 +1147,136 @@ def _bit_equal(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.view(torch.int32) if a.dtype == torch.float32 else a,
         b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def _map_tree(fn, tree):
+    """``fn`` on every tensor of a NamedTuple of NamedTuples of tensors."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(_map_tree(fn, x) for x in tree))
+
+
+def _tree_diff(a, b, prefix=""):
+    """Names of the fields of two NamedTuple trees that are not bit-equal."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return [] if _bit_equal(a, b) else [prefix]
+    return [n for f, x, y in zip(a._fields, a, b) for n in _tree_diff(x, y, prefix + f + ".")]
+
+
+def step_sums(rng, err, lanes, device):
+    """(lanes, 46) K3 output rows for phase 24's step check: per lane a
+    seeded SPD system A = J^T J (its scale from 1e-3 to 1e2), g, counts, and
+    sum_w so that the error moves from ``err`` (lanes,) by one of 0.5x,
+    0.9x, 0.9995x (lm converges), 1.0005x (gn_fixed's flat reject), 1.5x;
+    lanes k (mod 16) hold special rows: 0 a zero system and no good point,
+    1 a singular A, 2 an infinite g (a non-finite increment), 3 a large g
+    (large angles), 4 a tiny g (exp's small-angle branch), 5 a NaN error, 6
+    no good point with sums, 7 a zero error."""
+    import torch
+
+    J = rng.standard_normal((lanes, 24, 6)) * 10.0 ** rng.uniform(-1.5, 1.0, (lanes, 1, 1))
+    J[1::16, :, 3:] = 0.0  # rank 3
+    A = np.einsum("bpi,bpj->bij", J, J)
+    g = rng.standard_normal((lanes, 6)) * 10.0 ** rng.uniform(-2.0, 0.5, (lanes, 1))
+    good = rng.integers(1, 4000, lanes)
+    factor = rng.choice([0.5, 0.9, 0.9995, 1.0005, 1.5], lanes)
+    base = np.where(np.isfinite(err) & (err > 0), err, rng.uniform(0.5, 3.0, lanes))
+    sum_w = base * factor * good
+    A[0::16], g[0::16], good[0::16], sum_w[0::16] = 0.0, 0.0, 0, 0.0
+    g[2::16, 1] = np.inf
+    g[3::16] *= 1e4
+    g[4::16] *= 1e-6
+    sum_w[5::16] = np.nan
+    good[6::16] = 0
+    sum_w[7::16] = 0.0
+    rows = np.zeros((lanes, 46), np.float32)
+    rows[:, :36] = A.reshape(lanes, 36)
+    rows[:, 36:42] = g
+    rows[:, 42] = sum_w
+    rows[:, 43] = sum_w * 1.25
+    counts = rows[:, 44:46].view(np.int32)
+    counts[:, 0] = good
+    counts[:, 1] = rng.integers(0, 4000, lanes)
+    return torch.from_numpy(rows).to(device)
+
+
+def step_check(opt, gn, lanes, steps, seed, device, max_inner=32):
+    """Phase 24's check of ``revo_solver_step``: the kernel (``solver_start``,
+    ``solver_step``) against its plain version (``solver_start_ref``,
+    ``solver_step_ref``) on the same seeded inputs on ``device``, every
+    field of the state and the live count bit for bit, after the start and
+    after each of ``steps`` steps.  After the start the lanes' lambda (0,
+    1e-7, 0.2, the next float32 above 0.2, 1, 1e3, 1e30, seeded),
+    iteration, tries and active byte are set over their ranges in both
+    copies.  Returns the fields that differed by step, and how many lanes
+    were live after each step."""
+    import torch
+
+    from revo_tpu_torch import lie, solver
+
+    rng = np.random.default_rng(seed)
+    p = solver.step_params(opt, 0, gn, device, max_inner)
+    w = torch.from_numpy(rng.standard_normal((lanes, 3)).astype(np.float32) * 0.3)
+    R0 = lie.exp_so3(w).to(device)
+    t0 = torch.from_numpy(rng.standard_normal((lanes, 3)).astype(np.float32)).to(device)
+    n_ref = torch.zeros(1, dtype=torch.int32, device=device)
+    n_ker = torch.zeros(1, dtype=torch.int32, device=device)
+    sums = step_sums(rng, np.full(lanes, np.nan), lanes, device)
+    ref = solver.solver_start_ref(R0, t0, sums, p, n_ref)
+    ker = solver.solver_start(R0, t0, sums, p, n_ker)
+    out = {"lanes": lanes, "mismatches": [], "live": []}
+
+    def compare(step):
+        diff = _tree_diff(ref, ker) + ([] if _bit_equal(n_ref, n_ker) else ["n_live"])
+        out["mismatches"] += [[step, d] for d in diff]
+        out["live"].append(int(n_ref))
+
+    compare("start")
+    lam = np.array([0.0, 1e-7, 0.2, np.nextafter(np.float32(0.2), np.float32(1)), 1.0, 1e3, 1e30],
+                   np.float32)[rng.integers(0, 7, lanes)]
+    lam = np.where(rng.random(lanes) < 0.3, rng.uniform(0, 5, lanes), lam).astype(np.float32)
+    it = rng.integers(0, p.max_iter + 1, lanes).astype(np.int32)
+    tries = rng.integers(0, (p.max_iter if gn else max_inner) + 1, lanes).astype(np.int32)
+    act = (rng.random(lanes) < 0.9) & (it < p.max_iter)
+
+    def dev(x):
+        return torch.from_numpy(x).to(device)
+
+    ref = ref._replace(lam=dev(lam), iteration=dev(it), tries=dev(tries), active=dev(act))
+    ker = _map_tree(lambda x: x.clone().contiguous(), ref)
+    for step in range(steps):
+        sums = step_sums(rng, ref.sys.err.cpu().numpy(), lanes, device)
+        ref = solver.solver_step_ref(ref, sums, p, n_ref)
+        ker = solver.solver_step(ker, sums, p, n_ker)
+        compare(step)
+    return out
+
+
+def init_check_poses(rng, n_random):
+    """Phase 24's poses for ``revo_init_check`` (R (K, 3, 3), t (K, 3))
+    from the identity: itself, seeded small motions, half turns about y and
+    x and a pull back of 3 m (points behind the camera), shifts of 5 m and
+    a quarter turn (points outside the image), a 50 m push (all inside,
+    near the centre)."""
+    def rot(axis, angle):
+        k = np.zeros(3)
+        k[axis] = 1.0
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + math.sin(angle) * K + (1 - math.cos(angle)) * K @ K
+
+    Rs = [np.eye(3), rot(1, math.pi), rot(0, math.pi), np.eye(3), np.eye(3), rot(2, 1.5),
+          np.eye(3)]
+    ts = [np.zeros(3), np.zeros(3), np.zeros(3), np.array([0, 0, -3.0]), np.array([5.0, 0, 0]),
+          np.zeros(3), np.array([0, 0, 50.0])]
+    for _ in range(n_random):
+        w = rng.standard_normal(3) * 0.05
+        Rs.append(rot(int(rng.integers(0, 3)), float(w[0])) @ rot(2, float(w[1])))
+        ts.append(rng.standard_normal(3) * 0.05)
+    return np.stack(Rs).astype(np.float32), np.stack(ts).astype(np.float32)
 
 
 def mesh_worker(frames_npz: str, out_prefix: str) -> int:
@@ -1207,8 +1400,10 @@ def main() -> int:
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
     counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
-                 K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx)
-    vga_kernels = ["canny_fused", "residual_lgsx"]  # of every 640x480 path
+                 K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx, solver.solver_step,
+                 solver.init_check)
+    # Of every 640x480 path (the tracking ones: the last three).
+    vga_kernels = ["canny_fused", "residual_lgsx", "solver_step", "init_check"]
     split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above the grid's memory
     large_kernels = split_kernels + ["canny_cluster", "canny_grid"]  # no 640x480 path's
 
@@ -2725,24 +2920,39 @@ def main() -> int:
     # phase_stack): lane b tracks frame 1 + (b + s) % 7 at step s against
     # frame 0's keyframe, each lane from its own last pose; lane 0 walks the
     # plain trajectory.  Per step the launches, and per level the fused K3
-    # launches against each lane's own evaluations alone.
+    # launches against the slowest lane's evaluations (its active byte set).
     n_chain = N_FRAMES - 1
     level_of = {cams[lvl].height * cams[lvl].width: lvl for lvl in range(pyr.n_levels)}
     real_lanes = solver.residual_lgsx_lanes
-    per_level = []
+    calls = []  # per evaluation: (level, lanes, its active mask or None, host reads so far)
 
-    def counting(ops, *args, **kw):  # records the level of every evaluation
-        per_level.append(level_of[ops.quad.shape[-2]])
+    def counting(ops, *args, **kw):
+        active = args[5] if len(args) > 5 else kw.get("active")
+        calls.append((level_of[ops.quad.shape[-2]], args[0].shape[0],
+                      None if active is None else active.clone(),
+                      solver.lm_level_batched.host_reads))
         return real_lanes(ops, *args, **kw)
 
     def level_counts(fn):
-        per_level.clear()
+        """``fn``'s result and, per level, the fused K3 launches, the most
+        evaluations one lane took part in (its active byte set) and the
+        host's reads of the live-lane count (lm)."""
+        calls.clear()
         solver.residual_lgsx_lanes = counting
         try:
             out = fn()
         finally:
             solver.residual_lgsx_lanes = real_lanes
-        return out, [per_level.count(lvl) for lvl in range(pyr.n_levels)]
+        calls.append((None, 0, None, solver.lm_level_batched.host_reads))  # the end
+        launches, slowest, reads = [], [], []
+        for lvl in range(pyr.n_levels):
+            mine = [k for k, c in enumerate(calls) if c[0] == lvl]
+            took = sum(torch.ones(c[1], dtype=torch.int64) if c[2] is None else c[2].cpu().long()
+                       for c in (calls[k] for k in mine))
+            launches.append(len(mine))
+            slowest.append(int(took.max()) if mine else 0)
+            reads.append(calls[mine[-1] + 1][3] - calls[mine[0]][3] if mine else 0)
+        return out, {"launches": launches, "slowest_lane": slowest, "host_reads": reads}
 
     def count_syncs(fn):
         with warnings.catch_warnings(record=True) as caught:
@@ -2779,7 +2989,7 @@ def main() -> int:
         require_vga(f"batched {solver_name}", launches)
         add_launches(launches)
         # Lane 0 against the chain tracked alone (phase 5's chain at these
-        # capacities), and every lane's per-level evaluations alone.
+        # capacities).
         R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         est, lane0_equal = [np.eye(4)], []
         for s, res in enumerate(chain_b):
@@ -2790,24 +3000,35 @@ def main() -> int:
             T[:3, :3], T[:3, 3] = R.cpu().numpy(), t.cpu().numpy()
             est.append(T)
         ate = absolute_trajectory_error(np.stack(est), gt).rmse
-        # Step 0 again, lane by lane alone, for (d).
+        # Step 0 again under sync debug mode "warn": no host sync at all
+        # (lm's reads of the live-lane count wait on a CUDA event, which the
+        # mode does not see: the solver counts them, host_reads).
         R0 = torch.eye(3, device=dev)
         t0_ = torch.zeros(3, device=dev)
         frames0 = frontend.build_frame_batched(lanes_of(g8, steps[0]), lanes_of(d8, steps[0]), c)
-        alone_levels = [level_counts(lambda i=i: tracker.track_frames(
-            kf0, lane_tree.lane(frames0, i), R0, t0_, c))[1] for i in range(BATCH_LANES)]
-        worst = [max(a[lvl] for a in alone_levels) for lvl in range(pyr.n_levels)]
-        first_counts = step_counts[0]
         syncs = count_syncs(lambda: tracker.track_frames_batched(
             kf0_b, frames0, R0.expand(BATCH_LANES, 3, 3), t0_.expand(BATCH_LANES, 3), c))
-        flag_reads = sum(worst) - (pyr.n_levels if solver_name == "lm" else 0)
+        # Per level of every step: gn_fixed launches exactly fixed_iters + 1
+        # and reads nothing; lm launches from the slowest lane's count to
+        # LM_CHUNK - 1 + LM_CHUNK past it (the live count is read one chunk
+        # late) and reads at most once a chunk, plus one.
+        k_ = solver.LM_CHUNK
+        level_gate = []
+        for _, lv in step_counts:
+            for lvl in range(pyr.n_levels):
+                n, slow, rd = lv["launches"][lvl], lv["slowest_lane"][lvl], lv["host_reads"][lvl]
+                if solver_name == "gn_fixed":
+                    level_gate.append(n == c.tracker.optimizer.fixed_iters[lvl] + 1 and rd == 0)
+                else:
+                    level_gate.append(slow <= n <= slow + 2 * k_ - 1 and rd <= -(-n // k_) + 1)
         batched_summary[solver_name] = {
             "lane0_bit_equal_chain_alone": lane0_equal, "ate_m": ate,
             "canny_fused_per_step": [sc["canny_fused"] for sc, _ in step_counts],
             "residual_lgsx_per_step": [sc["residual_lgsx"] for sc, _ in step_counts],
-            "step0_evaluations_per_level": first_counts[1],
-            "step0_slowest_lane_per_level": worst,
-            "step0_host_syncs": syncs, "step0_flag_reads_expected": flag_reads,
+            "solver_step_per_step": [sc["solver_step"] for sc, _ in step_counts],
+            "init_check_per_step": [sc["init_check"] for sc, _ in step_counts],
+            "per_level_by_step": [lv for _, lv in step_counts],
+            "lm_chunk": k_, "level_gates_met": all(level_gate), "step0_host_syncs": syncs,
         }
         if not (all(lane0_equal) and ate < ATE_LIMIT_M):
             raise RuntimeError(f"batched {solver_name}: lane 0 differs from the chain alone or "
@@ -2815,9 +3036,16 @@ def main() -> int:
         if any(sc["canny_fused"] != pyr.n_levels for sc, _ in step_counts):
             raise RuntimeError(f"batched {solver_name}: not {pyr.n_levels} canny_fused launches "
                                f"per step: {batched_summary[solver_name]}")
-        if first_counts[1] != worst or syncs != flag_reads:
-            raise RuntimeError(f"batched {solver_name}: evaluations per level are not the slowest "
-                               f"lane's, or host syncs are not one per evaluation: "
+        # One solver_step launch per evaluation and one a level's start, one
+        # init check a step.
+        starts = 0 if solver_name == "lm" else pyr.n_levels  # lm starts after an evaluation
+        if any(sc["solver_step"] != sc["residual_lgsx"] + starts or sc["init_check"] != 1
+               for sc, _ in step_counts):
+            raise RuntimeError(f"batched {solver_name}: solver_step or init_check launches are "
+                               f"not one an evaluation / a step: {batched_summary[solver_name]}")
+        if not all(level_gate) or syncs != 0:
+            raise RuntimeError(f"batched {solver_name}: evaluations or host reads per level "
+                               f"outside their bounds, or a host sync: "
                                f"{batched_summary[solver_name]}")
 
     # (c) track_ring on the teleport frame (phase 7's ring): the batch over
@@ -3551,6 +3779,170 @@ def main() -> int:
         raise RuntimeError(f"scene_gates: {gates_failed} failed: {gate_summary}")
     _phase("scene_gates", **gate_summary)
 
+    # -- 24. solver_step: the level loop's kernels against their plain versions --
+    t24 = time.perf_counter()
+    # (a) revo_solver_step against solver_step_ref on seeded lane states,
+    # both solvers, the default schedule and one whose exits come early
+    # (step_min 1e-2, 3 iterations, 4 tries, fail factor 1.5: powers that
+    # round), every field bit for bit.
+    opt_early = dataclasses.replace(opt, step_size_min=(1e-2,) * 6, max_its_per_lvl=(3,) * 6,
+                                    fixed_iters=(3,) * 6, lambda_fail_fac=1.5)
+    step_checks = {}
+    for sched, opt_s, inner in (("default", opt, 32), ("early_exits", opt_early, 4)):
+        for name, gn in (("lm", False), ("gn_fixed", True)):
+            step_checks[f"{name}_{sched}"] = step_check(
+                opt_s, gn, STEP_LANES, STEP_STEPS, STEP_SEED + len(step_checks), dev, inner)
+    step_bad = {k: v["mismatches"] for k, v in step_checks.items() if v["mismatches"]}
+    # (b) revo_init_check against init_check_ref at the coarsest level of
+    # two chain frames, phase 5's keyframe: fixed and seeded poses and the
+    # frame's tracked pose as lanes of one launch (keyframe and cloud shared
+    # by stride 0), with and without normalization and the edge filter, each
+    # lane against its B = 1 launch, and one pose shared by every lane.
+    lvl_ic = pyr.pyr_min_lvl
+    Rp0, tp0 = (torch.from_numpy(x).to(dev) for x in init_check_poses(
+        np.random.default_rng(STEP_SEED), IC_RANDOM_POSES))
+    n_poses = Rp0.shape[0] + 1
+    struct_ic = kf_lm.structs[lvl_ic]
+    ic_bad, ic_eye, ic_alone = [], 0, True
+    for fi in (1, N_FRAMES - 1):
+        Rp = torch.cat([Rp0, results_lm[fi - 1].R[None]])
+        tp = torch.cat([tp0, results_lm[fi - 1].t[None]])
+        cl = frames_lm[fi].levels[lvl_ic].cloud
+        shared = (struct_ic[None].expand(n_poses, *struct_ic.shape),
+                  EdgeCloud(cl.points[None].expand(n_poses, -1, -1),
+                            cl.valid[None].expand(n_poses, -1), None), cams[lvl_ic])
+        for normalized, use_ef in ((True, True), (False, True), (True, False)):
+            tail = (opt.edge_distance_lvl[lvl_ic], use_ef, normalized,
+                    cfg.tracker.init_check_margin)
+            got = solver.init_check(*shared, Rp, tp, *tail)
+            want = solver.init_check_ref(*shared, Rp, tp, *tail)
+            ic_bad += [[fi, normalized, use_ef, f] for f in _tree_diff(got, want)]
+            ic_eye += int(want.use_eye.sum())
+            if normalized and use_ef:
+                for i in range(n_poses):
+                    one = solver.init_check(*(lane_tree.lane(x, slice(i, i + 1)) for x in shared[:2]),
+                                            cams[lvl_ic], Rp[i:i + 1], tp[i:i + 1], *tail)
+                    ic_alone &= tree_equal(one, lane_tree.lane(got, slice(i, i + 1)))
+                one_pose = (Rp[1:2].expand(n_poses, 3, 3), tp[1:2].expand(n_poses, 3))
+                ic_bad += [[fi, "shared pose", f] for f in _tree_diff(
+                    solver.init_check(*shared, *one_pose, *tail),
+                    solver.init_check_ref(*shared, *one_pose, *tail))]
+    # (c) the level loops with the kernels against the same loops with the
+    # plain step and init check on the card (solver._steppers and
+    # solver.init_check swapped): phase 5's chain and phase 18's 8 lanes of
+    # step 0, lm and gn_fixed, every output bit for bit.
+    real_steppers, real_init_check = solver._steppers, solver.init_check
+
+    def plain_loops(fn):
+        solver._steppers = lambda p: (solver.solver_start_ref, solver.solver_step_ref)
+        solver.init_check = solver.init_check_ref
+        try:
+            return fn()
+        finally:
+            solver._steppers, solver.init_check = real_steppers, real_init_check
+
+    loop_equal = {}
+    idx0 = [1 + b % (N_FRAMES - 1) for b in range(BATCH_LANES)]
+    for name in ("lm", "gn_fixed"):
+        c = _with_solver(cfg, name)
+        _, _, est_p, res_p = plain_loops(lambda: _run_chain(grays, depths, c, dev))
+        loop_equal[f"chain_{name}"] = bool(np.array_equal(est_p, gpu[name][2])) and all(
+            tree_equal(a, b) for a, b in zip(res_p, gpu[name][3]))
+        c8 = _with_solver(cfg_caps, name)
+        kf8 = lane_tree.add_lane_axis(frontend.make_keyframe(
+            frontend.build_frame(g8[0], d8[0], c8), torch.eye(4, device=dev), c8)._replace(
+                frame=None), BATCH_LANES)
+        f8 = frontend.build_frame_batched(lanes_of(g8, idx0), lanes_of(d8, idx0), c8)
+        start8 = (torch.eye(3, device=dev).expand(BATCH_LANES, 3, 3),
+                  torch.zeros((BATCH_LANES, 3), device=dev))
+        loop_equal[f"lanes8_{name}"] = tree_equal(
+            tracker.track_frames_batched(kf8, f8, *start8, c8),
+            plain_loops(lambda: tracker.track_frames_batched(kf8, f8, *start8, c8)))
+    # (e) solve6_impl "linalg" keeps the plain step (torch.linalg.solve_ex
+    # rounds as cuSOLVER does): phase 5's chain with no solver_step launch,
+    # its ATE under phase 5's limit.
+    linalg_chain = {}
+    for name in ("lm", "gn_fixed"):
+        c = _with_solver(cfg, name)
+        c = dataclasses.replace(c, tracker=dataclasses.replace(c.tracker, optimizer=dataclasses.replace(
+            c.tracker.optimizer, solve6_impl="linalg")))
+        (_, _, est_l, _), counts = _path_launches(
+            counters_[-3:], lambda: _run_chain(grays, depths, c, dev))
+        dt_l, dr_l = _max_pose_diff(est_l, gpu[name][2])
+        linalg_chain[name] = {"launches": counts, "ate_m": absolute_trajectory_error(est_l, gt).rmse,
+                              "vs_ldlt_m": dt_l, "vs_ldlt_rad": dr_l}
+    # (d) rows of the kernel line: the step at the main path's B = 1 (and
+    # B = 8) in its start mode, which does a live step's work (a step
+    # timed in place would stop its lanes), from seeded non-special rows;
+    # the init check at level 2 of the chain's last frame from its tracked
+    # pose.  Bounds: each input read once, each output written once (the
+    # start mode reads R0, t0 and the rows, not the fail table); the init
+    # check gathers one DT value a valid point and pose.
+    p_lm = solver.step_params(opt, 0, False, dev)
+
+    def step_inputs(b_):
+        rows_ = step_sums(np.random.default_rng(STEP_SEED), np.full(16 + b_, 1.0), 16 + b_, dev)
+        w_ = torch.from_numpy(np.random.default_rng(STEP_SEED).standard_normal(
+            (b_, 3)).astype(np.float32) * 0.1)
+        return lie.exp_so3(w_).to(dev), torch.zeros((b_, 3), device=dev), rows_[8:8 + b_]
+
+    def step_row(b_):
+        R_s, t_s, sums_s = step_inputs(b_)
+        state_bytes = _nbytes(*_tensor_leaves(solver.solver_start(R_s, t_s, sums_s, p_lm)))
+        return ((lambda: solver.solver_start(R_s, t_s, sums_s, p_lm)),
+                (lambda: solver.solver_start_ref(R_s, t_s, sums_s, p_lm)),
+                _bound(_nbytes(R_s, t_s, sums_s) + state_bytes, STEP_OPS_PER_LANE * b_))
+
+    cl_ic = frames_lm[-1].levels[lvl_ic].cloud
+    ic_args = (struct_ic[None], EdgeCloud(cl_ic.points[None], cl_ic.valid[None], None),
+               cams[lvl_ic], results_lm[-1].R[None], results_lm[-1].t[None],
+               opt.edge_distance_lvl[lvl_ic], opt.use_edge_filter,
+               cfg.tracker.normalized_init_cost, cfg.tracker.init_check_margin)
+    n_valid_ic = int(cl_ic.valid.sum())
+    ic_bound = _bound(_nbytes(cl_ic.points, cl_ic.valid, ic_args[3], ic_args[4]) + 2 * 4 * n_valid_ic
+                      + (9 + 3 + 2) * 4 + 1, IC_OPS_PER_POINT * cl_ic.points.shape[0])
+    fk1, fp1, bound1 = step_row(1)
+    solver_rows = []
+    for name, replaces, fk, fp, (bound_ms, bound_by) in (
+            ("solver_step", "revo_tpu/solver.py:603", fk1, fp1, bound1),
+            ("init_check", "revo_tpu/tracker.py:48", lambda: solver.init_check(*ic_args),
+             lambda: solver.init_check_ref(*ic_args), ic_bound)):
+        ms_k, ms_p = _time_ms(fk, 50), _time_ms(fp, 20)
+        ms_k2, ms_p2 = _time_ms(fk, 50), _time_ms(fp, 20)
+        solver_rows.append({
+            "name": name, "route": "cuda", "source": "revo_tpu_torch/csrc/solver.cu",
+            "replaces": replaces, "launches": launch_total.get(name, 0),
+            "max_abs_err": 0.0 if not (step_bad if name == "solver_step" else ic_bad) else None,
+            "ms": min(ms_k, ms_k2), "plain_ms": min(ms_p, ms_p2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes either
+            "device_ms": _queued_ms(fk),
+            # No pallas_call: the body XLA fuses inside JAX's jitted
+            # while_loop (solver_step) or around its two eval_cost passes.
+            "pallas_call": None,
+        })
+    fk8, fp8, bound8 = step_row(BATCH_LANES)
+    solver_rows[0]["lanes_8"] = {"ms": _time_ms(fk8, 50), "plain_ms": _time_ms(fp8, 20),
+                                 "device_ms": _queued_ms(fk8), "bound_ms": bound8[0],
+                                 "bound_by": bound8[1]}
+    solver_summary = {
+        "step_checks": {k: {"lanes": v["lanes"], "live_after_each": v["live"],
+                            "mismatches": v["mismatches"][:20]} for k, v in step_checks.items()},
+        "init_check": {"poses": n_poses, "mismatches": ic_bad[:20], "lanes_bit_equal_b1": ic_alone,
+                       "identity_taken": ic_eye},
+        "loops_bit_equal": loop_equal, "linalg_chain": linalg_chain, "smi": smi,
+        "kernel_ms": {r["name"]: [r["ms"], r["plain_ms"], r["device_ms"]] for r in solver_rows},
+        "seconds": round(time.perf_counter() - t24, 1),
+    }
+    _phase("solver_step", **solver_summary)
+    if step_bad or ic_bad or not ic_alone or not all(loop_equal.values()):
+        raise RuntimeError(f"solver_step: a kernel or a loop differs from its plain version: "
+                           f"{solver_summary}")
+    if any(v["launches"]["solver_step"] or not v["launches"]["residual_lgsx"]
+           or not v["ate_m"] < ATE_LIMIT_M for v in linalg_chain.values()):
+        raise RuntimeError(f"solver_step: solve6_impl 'linalg' did not take the plain step, or "
+                           f"its chain is off: {linalg_chain}")
+
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")
     spent_s, t_part = {}, time.perf_counter()
@@ -3567,7 +3959,7 @@ def main() -> int:
     bf_before = K12.canny_fused.launches
     frontend.build_frame(g0, d0, cfg_lm)
     bf_hand = K12.canny_fused.launches - bf_before
-    bf_kernels, bf_busy_ms, _ = _profile_kernels(lambda: frontend.build_frame(g0, d0, cfg_lm), 3)
+    bf_kernels, bf_busy_ms, _, _ = _profile_kernels(lambda: frontend.build_frame(g0, d0, cfg_lm), 3)
     stage_ms = {
         "build_frame": _time_ms(lambda: frontend.build_frame(g0, d0, cfg_lm), 10),
         "build_frame_profile": {"torch_kernels": bf_kernels, "torch_busy_ms": bf_busy_ms,
@@ -3593,17 +3985,56 @@ def main() -> int:
         # its kernels an evaluation (one fused K3 launch) accounts for, over
         # the chain's first N_PROFILED frames: a window over all 7 holds about
         # a million profiler events and takes a minute to read.
-        before = K3.residual_lgsx.launches
-        chain(N_PROFILED)
-        evals = K3.residual_lgsx.launches - before
-        n_kern, busy_ms, _ = _profile_kernels(lambda: chain(N_PROFILED))
+        hand = {k: v / N_PROFILED for k, v in _path_launches(
+            counters_[-3:], lambda: chain(N_PROFILED))[1].items()}
+        n_kern, busy_ms, _, n_copies = _profile_trusted(lambda: chain(N_PROFILED), 1,
+                                                        f"times: track_frames_{name}")
+        launches_frame = (n_kern + n_copies) / N_PROFILED + sum(hand.values())
         stage_ms[f"track_frames_{name}_profile"] = {
             "frames": N_PROFILED,
-            "torch_kernels_per_frame": None if busy_ms is None else n_kern / N_PROFILED,
-            "evaluations_per_frame": evals / N_PROFILED,  # one fused K3 launch each
-            "torch_busy_ms_per_frame": None if busy_ms is None else busy_ms / N_PROFILED,
+            "torch_kernels_per_frame": n_kern / N_PROFILED,
+            "copies_per_frame": n_copies / N_PROFILED,
+            # residual_lgsx: one an evaluation; solver_step: one an
+            # evaluation and (gn_fixed) one a level's start; init_check: one.
+            "hand_launches_per_frame": hand,
+            "launches_per_frame": launches_frame,
+            "torch_busy_ms_per_frame": busy_ms / N_PROFILED,
         }
+        if name == "lm" and launches_frame > LM_FRAME_LAUNCHES:
+            raise RuntimeError(f"times: {launches_frame} launches a tracked lm frame, more than "
+                               f"{LM_FRAME_LAUNCHES}: {stage_ms[f'track_frames_{name}_profile']}")
         part_done(f"track_frames_{name}_profile")
+    # lm's chain with the live-lane count read every k evaluations
+    # (solver.LM_CHUNK) in the order of LM_CHUNKS_TIMED, so that drift falls
+    # on both sides of each k: ms a frame (the better of two), evaluations
+    # and host reads a frame; the poses must not depend on k.
+    frames_c, kf_c = gpu["lm"][0], gpu["lm"][1]
+
+    def chain_lm():
+        R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        for f in frames_c[1:]:
+            res = tracker.track_frames(kf_c, f, R, t, cfg_lm)
+            R, t = res.R, res.t
+        return R, t
+
+    chunk_default, lm_chunks, chunk_poses = solver.LM_CHUNK, {}, {}
+    try:
+        for k in LM_CHUNKS_TIMED:
+            solver.LM_CHUNK = k
+            row = lm_chunks.setdefault(str(k), {"ms": []})
+            row["ms"].append(_time_ms(chain_lm, 3, warmup=1) / (N_FRAMES - 1))
+            reads = solver.lm_level_batched.host_reads
+            chunk_poses[k], counts = _path_launches(counters_[-3:], chain_lm)
+            row["evaluations"] = counts["residual_lgsx"] / (N_FRAMES - 1)
+            row["host_reads"] = (solver.lm_level_batched.host_reads - reads) / (N_FRAMES - 1)
+    finally:
+        solver.LM_CHUNK = chunk_default
+    for row in lm_chunks.values():
+        row["ms"] = min(row["ms"])
+    stage_ms["track_frames_lm_by_chunk"] = lm_chunks
+    if not all(tree_equal(v, chunk_poses[chunk_default]) for v in chunk_poses.values()):
+        raise RuntimeError("times: lm's poses depend on how often the live count is read")
+    part_done("track_frames_lm_by_chunk")
 
     # The VO loops over the pan, warmed up by phases 7 and 8.
     timed = {}
@@ -3920,20 +4351,40 @@ def main() -> int:
     part_done("canny_5120x2880")
 
     def kernels_of(fn):
-        before = K3.residual_lgsx.launches
+        before = K3.residual_lgsx.launches + solver.solver_step.launches
         fn()
-        hand = K3.residual_lgsx.launches - before
-        by_torch, _, shown = _profile_kernels(fn, 20)
+        hand = K3.residual_lgsx.launches + solver.solver_step.launches - before
+        by_torch, _, shown, _ = _profile_trusted(fn, 20, "times: kernels per evaluation")
         return {"hand_launches": hand,
                 "torch_kernels": by_torch, "hand_kernels_profiler_showed": shown}
+
+    # One evaluation as a level's loop makes it: the fused K3 at the
+    # candidate, then the step, on a level-0 state of the chain's last frame.
+    ops0 = K3.lane_operands(fused0[0][None], EdgeCloud(cloud0.points[None], cloud0.valid[None],
+                                                       None), cams[0], 1)
+    p0 = solver.step_params(opt, 0, False, dev)
+    sums0 = torch.empty((1, 46), device=dev)
+    R0_1, t0_1 = fused0[3][None], fused0[4][None]
+    state0 = solver.solver_start(R0_1, t0_1, solver._evaluate(
+        ops0, R0_1, t0_1, opt.edge_distance_lvl[0], opt, None, sums0), p0)
+
+    def evaluation_and_step():
+        solver.solver_step(state0, solver._evaluate(
+            ops0, state0.Rn, state0.tn, opt.edge_distance_lvl[0], opt, state0.active, sums0), p0)
 
     eval_kernels = {
         "residual_sums": kernels_of(lambda: solver._residual_sums(*fused0)),
         "residual_sums_plain": kernels_of(lambda: K3.residual_lgsx_ref(*fused0)),
         "residual_system": kernels_of(lambda: solver.residual_system(*fused0)),
+        "evaluation_and_step": kernels_of(evaluation_and_step),
     }
+    step_eval = eval_kernels["evaluation_and_step"]
+    if step_eval["hand_launches"] != 2 or step_eval["torch_kernels"] != 0:
+        raise RuntimeError(f"times: an evaluation is not one residual_lgsx and one solver_step "
+                           f"launch and no torch kernel: {step_eval}")
     part_done("kernels_per_evaluation")
     rows += quad_rows  # phase 19's rows: the fused K3's reference-gradient layouts
+    rows += solver_rows  # phase 24's: the level loop's kernels
     _phase("times", smi=smi, seconds_per_part=spent_s, stage_ms_per_frame=stage_ms,
            kernel_ms={r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
            bound_ms={r["name"]: [r["bound_ms"], r["bound_by"]] for r in rows},

@@ -56,6 +56,8 @@ SIGNATURES = {
     "revo_canny_hysteresis_grid_blocks": "iiii",
     "revo_lgsx_reduce": "pppppipp",
     "revo_residual_lgsx": "piipipipipipffffiiffiiippp",
+    "revo_solver_step": "p" * 19 + "ipipiiiiiiffffff",
+    "revo_init_check": "pipipipipiiiiifffffiifpppp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -52,9 +52,18 @@ def vee_so3(Omega: torch.Tensor) -> torch.Tensor:
     return torch.stack([Omega[..., 2, 1], Omega[..., 0, 2], Omega[..., 1, 0]], dim=-1)
 
 
+def _sq_norm3(v: torch.Tensor) -> torch.Tensor:
+    """|v|^2 over the last axis of (..., 3) vectors as (p0 + p1) + p2 of the
+    rounded products p: the order of PyTorch's CPU ``sum`` of three values,
+    fixed on the card too (whose reduction kernel adds (p0 + p2) + p1), so
+    the solver's step kernel can repeat it (csrc/solver.cu)."""
+    p = v * v
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues' formula with Taylor fallback (so3.hpp ``SO3::exp``)."""
-    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta_sq = _sq_norm3(omega)
     theta = sqrt_rn(theta_sq)
     small = theta_sq < _EPS
     theta_safe = torch.where(small, torch.ones_like(theta), theta)
@@ -112,7 +121,7 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
 
 def _so3_left_jacobian_terms(omega: torch.Tensor):
     """Coefficients (b, c) of V = I + b W + c W^2 (se3.hpp:741-766)."""
-    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta_sq = _sq_norm3(omega)
     theta = sqrt_rn(theta_sq)
     small = theta_sq < _EPS
     theta_safe = torch.where(small, torch.ones_like(theta), theta)

@@ -14,16 +14,21 @@ inc = (A + lambda diag(A))^-1 g, which is descent under that sign
 
 The solvers run B independent lanes at once (``lm_level_batched``,
 ``gn_level_fixed_batched``), what the JAX package gets from ``vmap`` of its
-``while_loop``s: every lane keeps its own pose, system and lambda on the
-device and its retry count and iteration on the host, the loop runs while
-any lane is active, and a lane that has stopped is frozen with
-``torch.where`` and skipped by the kernel.  Each evaluation reads the
-(B, k) accept/stop flags on the host in one device-to-host sync, which
-capturing a level's loop in a CUDA graph would remove; the host's
-bookkeeping decides from them, and sends the kernel its lane mask in one
-small asynchronous copy once a lane has stopped.  Each lane's op sequence
-is the one-lane sequence, so its bits are those of the same lane run
-alone; ``lm_level`` and ``gn_level_fixed`` are the B = 1 case.
+``while_loop``s, and like its jitted loops they keep every lane's state on
+the device (``LevelState``): pose, candidate, system, lambda, iteration,
+tries and the active byte that the fused K3 kernel reads to skip a lane.
+An evaluation is two launches, ``residual_lgsx`` at the candidates and
+``solver_step`` (csrc/solver.cu's ``revo_solver_step``: normalisation, the
+accept / lambda / exit rules, the damped 6x6 LDL^T solve, exp and compose
+of the next candidate, one thread a lane), and the host reads nothing:
+gn_fixed runs its fixed count of evaluations, lm reads a live-lane count
+once per LM_CHUNK evaluations, one chunk late.  The tracker's init check is
+one ``init_check`` launch.  The plain versions (``solver_step_ref``,
+``solver_start_ref``, ``init_check_ref``) run on the CPU, and on the card
+for ``solve6_impl="linalg"``, whose ``torch.linalg.solve_ex`` no hand
+kernel repeats.  Each lane's op sequence is the one-lane sequence, so its
+bits are those of the same lane run alone; ``lm_level`` and
+``gn_level_fixed`` are the B = 1 case.
 """
 from __future__ import annotations
 
@@ -31,12 +36,14 @@ from typing import NamedTuple
 
 import torch
 
-from revo_tpu_torch import lie
+from revo_tpu_torch import kernels, lie
 from revo_tpu_torch.config import CameraConfig, OptimizerConfig
 from revo_tpu_torch.lanes import lane
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.edt import QUAD_FORMS
-from revo_tpu_torch.ops.lgsx import lane_operands, residual_lgsx, residual_lgsx_lanes
+from revo_tpu_torch.ops.lgsx import (
+    _lane_operand, _lane_outputs, lane_operands, residual_lgsx, residual_lgsx_lanes,
+)
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 from revo_tpu_torch.parallel.mesh import psum, replicate, shard
 
@@ -204,59 +211,324 @@ def uses_quad_table(opt: OptimizerConfig) -> bool:
     return opt.bilinear_impl.startswith("quad")
 
 
-def _evaluate(ops, R, t, edge_distance, opt: OptimizerConfig, active=None) -> LevelSystem:
-    """``residual_system`` of every lane (or those ``active`` (B,) selects;
-    the others' rows hold garbage for the caller to mask): one fused K3
-    launch on operands ``lgsx.lane_operands`` checked once per level."""
-    return _normalize_sums(*residual_lgsx_lanes(
-        ops, R, t, edge_distance, opt.huber_edge, opt.use_edge_filter, active
-    ))
+class LevelState(NamedTuple):
+    """One solver level's per-lane state, every tensor with the lane axis
+    (B lanes) and in device memory: what JAX's ``while_loop`` carries
+    (revo_tpu/solver.py ``_LMState`` and ``_gn_level_fixed``'s carry), so
+    the host keeps no per-lane list.  ``sys`` is the system at (R, t), the
+    last accepted one; ``sys.err`` is the last accepted error (JAX's
+    ``last_err``, which always equals it).  ``active`` is the byte a lane's
+    blocks of ``residual_lgsx`` read: the lane evaluates (Rn, tn) next.
+    A level's state lives in one set of tensors: ``solver_start`` (and its
+    plain version) makes them, sharing none with its arguments or with each
+    other, and ``solver_step`` (and its plain version) writes each step into
+    them in place, on any device.  A caller that keeps an earlier state
+    keeps a copy."""
+
+    R: torch.Tensor  # (B, 3, 3) pose of the kept system
+    t: torch.Tensor  # (B, 3)
+    Rn: torch.Tensor  # (B, 3, 3) candidate the next evaluation evaluates
+    tn: torch.Tensor  # (B, 3)
+    inc: torch.Tensor  # (B, 6) increment that made the candidate
+    sys: LevelSystem  # normalized system at (R, t)
+    lam: torch.Tensor  # (B,) float32 damping
+    iteration: torch.Tensor  # (B,) int32: lm's outer iteration, gn_fixed's evaluations
+    tries: torch.Tensor  # (B,) int32: lm's tries this iteration, gn_fixed's rejects in a row
+    active: torch.Tensor  # (B,) bool
 
 
-def _take_lanes(takes, accept, active, new, old):
-    """Per lane the tensors of ``new`` where the lane took its candidate
-    (host list ``takes``; on the device ``accept`` & ``active``), else those
-    of ``old``; no launch when every lane or none took it."""
-    if all(takes):
-        return new
-    if not any(takes):
-        return old
-    take = accept if active is None else accept & active
-    return [_where_tree(take, a, b) for a, b in zip(new, old)]
+class StepParams(NamedTuple):
+    """A level's schedule as the step takes it (``step_params``)."""
+
+    gn: bool  # gn_fixed's rules, else lm's
+    max_iter: int  # lm: max_its; gn_fixed: fixed_iters + 1 evaluations
+    max_inner: int  # lm's tries an iteration
+    conv_eps: float
+    flat_below: float  # gn_fixed's reject exit: err / last_err < 2 - eps
+    step_min: float
+    success: float  # lambda factors
+    fail: float
+    lam0: float  # starting lambda
+    pows: torch.Tensor  # (n,) float32 fail ** k on the lanes' device (``_fail_table``)
+    impl: str  # OptimizerConfig.solve6_impl
 
 
-def _merge_lanes(acc, rej, lam_acc, lam_rej, accept, active, lam):
-    """New lambda: ``lam_acc()`` on the accepting lanes ``acc``,
-    ``lam_rej()`` on the rejecting lanes ``rej``, ``lam`` on stopped lanes
-    (``active`` None: none).  A branch no lane takes is not computed."""
-    if not rej:
-        new = lam_acc()
-    elif not acc:
-        new = lam_rej()
+_FAIL_TABLES = {}
+
+
+def _fail_table(fail: float, n: int, device) -> torch.Tensor:
+    """(n,) float32 ``fail ** k`` for k < n, each power taken on a () float32
+    tensor on ``device`` with a Python int exponent.  The kernel and the
+    plain step both read this table,
+    so their powers agree bit for bit for any factor.  With the default 2.0
+    every power is exact; for another factor a power may round otherwise
+    than JAX's float ``pow`` does.  Built once per (factor, n, device), with
+    one stream sync on the card."""
+    key = (fail, n, torch.device(device))
+    table = _FAIL_TABLES.get(key)
+    if table is None:
+        base = torch.full((), fail, dtype=torch.float32, device=device)
+        table = _FAIL_TABLES[key] = torch.stack([base ** k for k in range(n)])
+        if table.is_cuda:  # other streams read it later: its fill must be done
+            torch.cuda.current_stream(table.device).synchronize()
+    return table
+
+
+def step_params(opt: OptimizerConfig, lvl: int, gn: bool, device,
+                max_inner: int = 32) -> StepParams:
+    """Level ``lvl``'s StepParams for ``gn_fixed`` (``gn``) or ``lm``."""
+    max_iter = opt.fixed_iters[lvl] + 1 if gn else opt.max_its_per_lvl[lvl]
+    return StepParams(
+        gn=gn, max_iter=max_iter, max_inner=max_inner, conv_eps=opt.convergence_eps[lvl],
+        flat_below=2.0 - opt.convergence_eps[lvl], step_min=opt.step_size_min[lvl],
+        success=opt.lambda_success_fac, fail=opt.lambda_fail_fac,
+        lam0=opt.lambda_initial[lvl] + 1e-5 if gn else opt.lambda_initial[lvl],
+        pows=_fail_table(opt.lambda_fail_fac, (max_iter if gn else max_inner) + 1, device),
+        impl=opt.solve6_impl,
+    )
+
+
+def _system(sums: torch.Tensor) -> LevelSystem:
+    """The normalized system of the (B, 46) K3 output rows ``sums``, in
+    tensors of its own (the next evaluation overwrites ``sums``)."""
+    return _normalize_sums(*(x.clone() for x in _lane_outputs(sums)))
+
+
+def _power(pows: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B,) ``fail ** k`` from the table, k clamped into it."""
+    return pows[k.clamp(0, pows.shape[0] - 1).long()]
+
+
+def _assign(dst: LevelState, src: LevelState) -> LevelState:
+    """``src``'s values written into ``dst``'s tensors; returns ``dst``."""
+    for d, s in zip(_tree_leaves(dst), _tree_leaves(src)):
+        d.copy_(s)
+    return dst
+
+
+def _with_candidate(state: LevelState, live, p: StepParams, n_live) -> LevelState:
+    """The tail of every step: the lanes ``live`` (B,) take one more try
+    (lm) and their next candidate, the damped solve of the kept system;
+    the others keep theirs and stop.  Writes the live count to ``n_live``
+    where given."""
+    new = _damped_step(state.sys, state.lam, state.R, state.t, p.impl)
+    inc, Rn, tn = (_where_tree(live, a, b) for a, b in zip(new, (state.inc, state.Rn, state.tn)))
+    tries = state.tries if p.gn else torch.where(live, state.tries + 1, state.tries)
+    if n_live is not None:
+        n_live.copy_(live.sum(dtype=torch.int32).reshape(1))
+    return state._replace(Rn=Rn, tn=tn, inc=inc, tries=tries, active=live)
+
+
+def solver_start_ref(R0, t0, sums, p: StepParams, n_live=None) -> LevelState:
+    """Plain version of ``solver_start``: a level's state from the start
+    pose (R0 (B, 3, 3), t0 (B, 3)): for lm the system of the first
+    evaluation ``sums`` (B, 46) at (R0, t0), for gn_fixed the zero system at
+    err = inf (``sums`` unread), whose damped solve is inc = 0, so that the
+    first evaluation is of (R0, t0) and always accepts; then the first
+    candidate, in new tensors."""
+    b, dev = R0.shape[0], R0.device
+    zero_i = torch.zeros(b, dtype=torch.int32, device=dev)
+    if p.gn:
+        zero_f = torch.zeros(b, dtype=torch.float32, device=dev)
+        sys = LevelSystem(
+            err=torch.full((b,), float("inf"), device=dev),
+            A=torch.zeros((b, 6, 6), device=dev), g=torch.zeros((b, 6), device=dev),
+            info=ResidualInfo(zero_i, zero_i, zero_f, zero_f),
+        )
     else:
-        new = torch.where(accept, lam_acc(), lam_rej())
-    return new if active is None else torch.where(active, new, lam)
+        sys = _system(sums)
+    state = LevelState(
+        R=R0, t=t0, Rn=R0, tn=t0, inc=torch.zeros((b, 6), device=dev), sys=sys,
+        lam=torch.full((b,), p.lam0, dtype=torch.float32, device=dev),
+        iteration=zero_i, tries=zero_i, active=None,
+    )
+    return _assign(_empty_state(b, dev), _with_candidate(state, zero_i < p.max_iter, p, n_live))
 
 
-def _fail_powers(fail: torch.Tensor, tries, rej) -> torch.Tensor:
-    """(B,) fail ** tries[lane] on the lanes in ``rej`` (1 elsewhere), each
-    power taken on the () tensor ``fail`` with a Python exponent, the
-    one-lane op."""
-    pows = {k: fail ** k for k in {tries[lane] for lane in rej}}
-    one = torch.ones_like(fail) if len(rej) < len(tries) else None
-    return torch.stack([pows[tries[lane]] if lane in rej else one for lane in range(len(tries))])
+def solver_step_ref(state: LevelState, sums, p: StepParams, n_live=None) -> LevelState:
+    """Plain version of ``solver_step``: one evaluation's outcome for every
+    active lane, from its K3 outputs ``sums`` (B, 46) at (Rn, tn).  Accept
+    on error decrease (take the candidate and its system).  lm
+    (optimizer.cpp:235-311): lambda *= success factor on accept (0 at or
+    below 0.2), converge when err / last_err > eps; on reject lambda to 0.2
+    from 0, else *= fail ** tries, stop the level when |inc|^2 <= step_min;
+    the iteration advances on accept, on a small step or after max_inner
+    tries.  gn_fixed (revo_tpu/solver.py ``_gn_level_fixed``): from the
+    second evaluation, lambda *= success factor on accept, on reject to at
+    least 0.2 and then *= fail ** (rejects in a row); stop on accept when
+    err / last_err > eps, on reject when the step is tiny or the candidate
+    barely worse (< 2 - eps).  Inactive lanes are left as they are.
+    Writes the result into ``state``'s tensors and returns ``state``."""
+    act = state.active
+    sys_n = _system(sums)
+    err, last = sys_n.err, state.sys.err
+    ratio = err / torch.clamp(last, min=1e-30)
+    accept = err < last
+    small = ~(sq_norm6(state.inc) > p.step_min)
+    take = act & accept
+    R, t, sys = (_where_tree(take, a, b)
+                 for a, b in zip((state.Rn, state.tn, sys_n), (state.R, state.t, state.sys)))
+    lam, it, tries = state.lam, state.iteration, state.tries
+    if p.gn:
+        tries = torch.where(act, torch.where(accept, 0, tries + 1), tries)
+        upd = act & (it > 0)  # evaluation 0 is of the start pose
+        lam = torch.where(upd, torch.where(
+            accept, lam * p.success,
+            torch.where(lam < 0.2, torch.clamp(lam * p.fail, min=0.2), lam * _power(p.pows, tries)),
+        ), lam)
+        done = upd & torch.where(accept, ratio > p.conv_eps, small | (ratio < p.flat_below))
+        it = torch.where(act, it + 1, it)
+        live = act & ~done & (it < p.max_iter)
+    else:
+        lam = torch.where(act, torch.where(
+            accept, torch.where(lam <= 0.2, 0.0, lam * p.success),
+            torch.where(lam == 0.0, 0.2, lam * _power(p.pows, tries)),
+        ), lam)
+        stop = act & ((accept & (ratio > p.conv_eps)) | (~accept & small))
+        it = torch.where(stop, p.max_iter, it)
+        nxt = act & (accept | small | (tries >= p.max_inner))
+        it = torch.where(nxt, torch.clamp(it + 1, max=p.max_iter), it)
+        tries = torch.where(nxt, 0, tries)
+        live = act & (it < p.max_iter)
+    new = state._replace(R=R, t=t, sys=sys, lam=lam, iteration=it, tries=tries)
+    return _assign(state, _with_candidate(new, live, p, n_live))
 
 
-def _active(live, dev):
-    """The kernel's and the freeze's (B,) lane mask from the host's list;
-    None while every lane is live.  To the card it goes in one small copy
-    from pinned memory that queues behind the stream's work, so the host
-    does not wait for the device."""
-    if all(live):
-        return None
+def _empty_state(b: int, dev) -> LevelState:
+    f = dict(dtype=torch.float32, device=dev)
+    i = dict(dtype=torch.int32, device=dev)
+    return LevelState(
+        R=torch.empty((b, 3, 3), **f), t=torch.empty((b, 3), **f),
+        Rn=torch.empty((b, 3, 3), **f), tn=torch.empty((b, 3), **f),
+        inc=torch.empty((b, 6), **f),
+        sys=LevelSystem(
+            err=torch.empty(b, **f), A=torch.empty((b, 6, 6), **f), g=torch.empty((b, 6), **f),
+            info=ResidualInfo(torch.empty(b, **i), torch.empty(b, **i), torch.empty(b, **f),
+                              torch.empty(b, **f)),
+        ),
+        lam=torch.empty(b, **f), iteration=torch.empty(b, **i), tries=torch.empty(b, **i),
+        active=torch.empty(b, dtype=torch.bool, device=dev),
+    )
+
+
+def _launch_step(state: LevelState, sums, p: StepParams, n_live, R0=None, t0=None) -> None:
+    """One ``revo_solver_step`` launch (csrc/solver.cu) over the B lanes of
+    ``state``, updated in place; ``R0`` given: the level's start."""
+    dev = state.R.device
     if dev.type != "cuda":
-        return torch.tensor(live, dtype=torch.bool, device=dev)
-    return torch.tensor(live, dtype=torch.bool, pin_memory=True).to(dev, non_blocking=True)
+        raise ValueError(f"solver_step: unsupported device {dev}")
+    if p.impl != "ldlt":
+        raise ValueError(f"solver_step: the kernel solves by LDL^T; solve6_impl {p.impl!r} "
+                         "takes the plain step (solver_step_ref)")
+    b = state.R.shape[0]
+    if any(not x.is_contiguous() or x.shape[0] != b or x.device != dev
+           for x in _tree_leaves(state)):
+        raise ValueError("solver_step: the state must be solver_start's contiguous tensors")
+    if sums is not None and (sums.shape != (b, 46) or sums.dtype != torch.float32
+                             or not sums.is_contiguous() or sums.device != dev):
+        raise ValueError(f"solver_step: sums want contiguous float32 ({b}, 46) on {dev}")
+    R0_s = t0_s = 0
+    if R0 is not None:
+        R0, R0_s = _lane_operand(R0, b, (3, 3), (torch.float32,), dev, "R0")
+        t0, t0_s = _lane_operand(t0, b, (3,), (torch.float32,), dev, "t0")
+    info = state.sys.info
+    kernels.launch(
+        "revo_solver_step", sums, state.R, state.t, state.Rn, state.tn, state.inc,
+        state.sys.err, state.sys.A, state.sys.g, info.good, info.bad, info.sum_error_weighted,
+        info.sum_error_unweighted, state.lam, state.iteration, state.tries, state.active, n_live,
+        p.pows, p.pows.shape[0], R0, R0_s, t0, t0_s, b, int(R0 is not None), int(p.gn),
+        p.max_iter, p.max_inner, p.conv_eps, p.flat_below, p.step_min, p.success, p.fail, p.lam0,
+    )
+    solver_step.launches += 1
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for x in tree for leaf in _tree_leaves(x)]
+
+
+def solver_start(R0, t0, sums, p: StepParams, n_live=None) -> LevelState:
+    """A level's LevelState from its start pose and (lm) the K3 outputs of
+    the first evaluation there, as ``solver_start_ref`` computes it.  CPU
+    tensors: the plain version; CUDA tensors: one ``revo_solver_step``
+    launch in its start mode, into new state tensors.  ``n_live`` (1,)
+    int32, where given, receives the count of live lanes."""
+    if R0.device.type == "cpu":
+        return solver_start_ref(R0, t0, sums, p, n_live)
+    state = _empty_state(R0.shape[0], R0.device)
+    _launch_step(state, sums, p, n_live, R0, t0)
+    return state
+
+
+def solver_step(state: LevelState, sums, p: StepParams, n_live=None) -> LevelState:
+    """One evaluation's step over every lane, as ``solver_step_ref``
+    computes it, written into ``state``'s tensors in place (the next
+    candidate into the Rn, tn that ``residual_lgsx`` reads next); returns
+    ``state``.  CPU tensors: the plain version; CUDA tensors: one
+    ``revo_solver_step`` launch.  ``launches`` counts the kernel's launches,
+    the start's included."""
+    if state.R.device.type == "cpu":
+        return solver_step_ref(state, sums, p, n_live)
+    _launch_step(state, sums, p, n_live)
+    return state
+
+
+solver_step.launches = 0
+
+
+def _steppers(p: StepParams):
+    """(start, step) of a level: the kernel for solve6_impl "ldlt", the
+    plain versions on any device for "linalg", whose
+    ``torch.linalg.solve_ex`` rounds as cuSOLVER does, which no hand
+    kernel repeats."""
+    if p.impl == "ldlt":
+        return solver_start, solver_step
+    return solver_start_ref, solver_step_ref
+
+
+# lm evaluations between two of the host's reads of the live-lane count.
+LM_CHUNK = 4
+
+
+class _LiveCounts:
+    """lm's live-lane counts on the host.  After each chunk of LM_CHUNK
+    evaluations the count that the last step wrote is queued to pinned
+    memory (two slots, one CUDA event each), and the host reads chunk c -
+    1's only once chunk c is queued, so its wait never leaves the device
+    idle.  ``lm_level_batched.host_reads`` counts the reads."""
+
+    def __init__(self, n_live: torch.Tensor):
+        self.n_live = n_live
+        cuda = n_live.device.type == "cuda"
+        self.host = torch.empty(2, dtype=torch.int32, pin_memory=cuda)
+        self.events = [torch.cuda.Event(), torch.cuda.Event()] if cuda else None
+        self.posted = 0
+
+    def post_and_read_previous(self):
+        """Queue the current count; return the one queued before it (None
+        after the first chunk)."""
+        slot = self.posted % 2
+        self.host[slot:slot + 1].copy_(self.n_live, non_blocking=True)
+        if self.events is not None:
+            self.events[slot].record()
+        self.posted += 1
+        if self.posted < 2:
+            return None
+        if self.events is not None:
+            self.events[1 - slot].synchronize()
+        lm_level_batched.host_reads += 1
+        return int(self.host[1 - slot])
+
+
+def _evaluate(ops, R, t, edge_distance, opt: OptimizerConfig, active, out) -> torch.Tensor:
+    """The K3 outputs (B, 46) of the lanes ``active`` (B,) selects (None:
+    all) at (R, t) into ``out``, whose other rows stay as they were: one
+    fused K3 launch on operands ``lgsx.lane_operands`` checked once per
+    level.  Returns ``out``."""
+    residual_lgsx_lanes(ops, R, t, edge_distance, opt.huber_edge, opt.use_edge_filter, active,
+                        out)
+    return out
 
 
 def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
@@ -264,133 +536,57 @@ def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
     """One pyramid level of LM (Optimizer::trackFrames,
     optimizer.cpp:235-311) over B lanes (quad (B, H*W, C), the keyframe level's
     table as ``ops.lgsx.table_layout`` takes it; cloud points
-    (B, P, 3), any operand shareable by ``expand``; R0 (B, 3, 3), t0 (B, 3)):
-    accept on error decrease (lambda *= success factor, converge when
-    err/last_err > eps); on reject raise lambda by fail_fac^inc_try, stop
-    the level when |inc|^2 <= step_size_min.  ``max_inner`` bounds the
+    (B, P, 3), any operand shareable by ``expand``; R0 (B, 3, 3), t0 (B, 3)),
+    with the rules of ``solver_step_ref``.  ``max_inner`` bounds the
     reference's unbounded retry loop.  Every evaluation is one try of every
     active lane: the JAX package's nested while loops, vmapped, unrolled
-    into one loop of per-lane state, which the host keeps from the flags it
-    reads.  Returns (R, t, last_err, info), each with the lane axis."""
-    max_its = opt.max_its_per_lvl[lvl]
+    into one loop over the LevelState in device memory.  Each evaluation is
+    one ``residual_lgsx`` and one ``solver_step`` launch; the host reads
+    only the live-lane count, once per LM_CHUNK evaluations and one chunk
+    late (``_LiveCounts``), so a level runs up to 2 LM_CHUNK - 1 evaluations
+    past its slowest lane, which find every lane stopped and change
+    nothing; at most max_its * max_inner.  Returns (R, t, last_err, info),
+    each with the lane axis."""
     edge_dist = opt.edge_distance_lvl[lvl]
-    conv_eps = opt.convergence_eps[lvl]
-    step_min = opt.step_size_min[lvl]
     b, dev = R0.shape[0], R0.device
+    p = step_params(opt, lvl, False, dev, max_inner)
+    start, step = _steppers(p)
     ops = lane_operands(quad, cloud, cam, b)
-    R, t = R0, t0
-    sys = _evaluate(ops, R, t, edge_dist, opt)
-    last_err = sys.err
-    lam = torch.full((b,), opt.lambda_initial[lvl], dtype=torch.float32, device=dev)
-    fail = torch.full((), opt.lambda_fail_fac, dtype=torch.float32, device=dev)
-    iteration, tries = [0] * b, [0] * b
-    while any(it < max_its for it in iteration):
-        live = [it < max_its for it in iteration]
-        active = _active(live, dev)
-        inc, Rn, tn = _damped_step(sys, lam, R, t, opt.solve6_impl)
-        for lane in range(b):
-            tries[lane] += live[lane]
-        sys_n = _evaluate(ops, Rn, tn, edge_dist, opt, active)
-        err = sys_n.err
-        flags = torch.stack([
-            err < last_err,
-            err / torch.clamp(last_err, min=1e-30) > conv_eps,
-            ~(sq_norm6(inc) > step_min),
-        ], dim=-1)
-        host = flags.tolist()  # the host sync: one per evaluation, all lanes
-        accept = flags[:, 0]
-        acc = [lane for lane in range(b) if live[lane] and host[lane][0]]
-        rej = {lane for lane in range(b) if live[lane] and not host[lane][0]}
-        R, t, sys, last_err = _take_lanes(
-            [live[lane] and host[lane][0] for lane in range(b)], accept, active,
-            (Rn, tn, sys_n, err), (R, t, sys, last_err),
-        )
-        lam = _merge_lanes(
-            acc, rej,
-            lambda: torch.where(lam <= 0.2, 0.0, lam * opt.lambda_success_fac),
-            lambda: torch.where(lam == 0.0, 0.2, lam * _fail_powers(fail, tries, rej)),
-            accept, active, lam,
-        )
-        for lane in range(b):
-            if not live[lane]:
-                continue
-            a, conv, small = host[lane]
-            if (a and conv) or (not a and small):
-                iteration[lane] = max_its
-            if a or small or tries[lane] >= max_inner:
-                iteration[lane] = min(iteration[lane] + 1, max_its)
-                tries[lane] = 0
-    return R, t, last_err, sys.info
+    sums = torch.empty((b, 46), dtype=torch.float32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    counts = _LiveCounts(n_live)
+    state = start(R0, t0, _evaluate(ops, R0, t0, edge_dist, opt, None, sums), p, n_live)
+    for n in range(1, p.max_iter * max_inner + 1):
+        state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
+                                      sums), p, n_live)
+        if n % LM_CHUNK == 0 and counts.post_and_read_previous() == 0:
+            break
+    return state.R, state.t, state.sys.err, state.sys.info
+
+
+lm_level_batched.host_reads = 0
 
 
 def gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int):
     """Bounded branchless LM over B lanes, the JAX package's batched fast
-    path (solver._gn_level_fixed and its batching rule, solver.py:609-697):
-    at most fixed_iters[lvl] + 1 evaluations, the first of which evaluates
-    the initial pose.  Accept on error decrease (lambda *= success factor,
-    stop when err/last_err > eps); on reject keep the linearization,
-    escalate lambda (to 0.2, then by fail_fac^inc_try), and stop when the
-    step is tiny or the candidate is barely worse (err/last_err < 2 - eps).
-    Lanes step together; a stopped lane is frozen.  Returns (R, t, err,
-    info), each with the lane axis."""
-    iters = opt.fixed_iters[lvl]
+    path (solver._gn_level_fixed and its batching rule, solver.py:609-697),
+    with the rules of ``solver_step_ref``: exactly fixed_iters[lvl] + 1
+    evaluations, the first of which evaluates the initial pose, each one
+    ``residual_lgsx`` and one ``solver_step`` launch, and no host read.  A
+    stopped lane is frozen: JAX's ``while_loop`` leaves once every lane is
+    done, and the evaluations after that find every lane stopped and
+    change nothing.  Returns (R, t, err, info), each with the lane axis."""
     edge_dist = opt.edge_distance_lvl[lvl]
-    conv_eps = opt.convergence_eps[lvl]
-    step_min = opt.step_size_min[lvl]
     b, dev = R0.shape[0], R0.device
+    p = step_params(opt, lvl, True, dev)
+    start, step = _steppers(p)
     ops = lane_operands(quad, cloud, cam, b)
-    zero_i = torch.zeros(b, dtype=torch.int32, device=dev)
-    zero_f = torch.zeros(b, dtype=torch.float32, device=dev)
-    # Iteration 0 damps a zero system: inc = 0, so its candidate is
-    # exactly (R0, t0) and it always accepts against err = inf.
-    sys = LevelSystem(
-        err=torch.full((b,), float("inf"), device=dev),
-        A=torch.zeros((b, 6, 6), device=dev),
-        g=torch.zeros((b, 6), device=dev),
-        info=ResidualInfo(zero_i, zero_i, zero_f, zero_f),
-    )
-    lam = torch.full((b,), opt.lambda_initial[lvl] + 1e-5, dtype=torch.float32, device=dev)
-    fail = torch.full((), opt.lambda_fail_fac, dtype=torch.float32, device=dev)
-    R, t = R0, t0
-    done, tries = [False] * b, [0] * b
-    i = 0
-    while i < iters + 1 and not all(done):
-        live = [not d for d in done]
-        active = _active(live, dev)
-        inc, Rn, tn = _damped_step(sys, lam, R, t, opt.solve6_impl)
-        sys_n = _evaluate(ops, Rn, tn, edge_dist, opt, active)
-        ratio = sys_n.err / torch.clamp(sys.err, min=1e-30)
-        flags = torch.stack([
-            sys_n.err < sys.err,
-            ratio > conv_eps,
-            ratio < (2.0 - conv_eps),
-            ~(sq_norm6(inc) > step_min),
-        ], dim=-1)
-        host = flags.tolist()  # the host sync: one per evaluation, all lanes
-        accept = flags[:, 0]
-        acc = [lane for lane in range(b) if live[lane] and host[lane][0]]
-        rej = {lane for lane in range(b) if live[lane] and not host[lane][0]}
-        R, t, sys = _take_lanes(
-            [live[lane] and host[lane][0] for lane in range(b)], accept, active,
-            (Rn, tn, sys_n), (R, t, sys),
-        )
-        for lane in acc:
-            tries[lane] = 0
-        for lane in rej:
-            tries[lane] += 1
-        if i > 0:
-            lam = _merge_lanes(
-                acc, rej,
-                lambda: lam * opt.lambda_success_fac,
-                lambda: torch.where(lam < 0.2, torch.clamp(lam * opt.lambda_fail_fac, min=0.2),
-                                    lam * _fail_powers(fail, tries, rej)),
-                accept, active, lam,
-            )
-            for lane in range(b):
-                a, conv, fl, small = host[lane]
-                done[lane] = done[lane] or (live[lane] and (conv if a else (small or fl)))
-        i += 1
-    return R, t, sys.err, sys.info
+    sums = torch.empty((b, 46), dtype=torch.float32, device=dev)
+    state = start(R0, t0, None, p)
+    for _ in range(p.max_iter):
+        state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
+                                      sums), p)
+    return state.R, state.t, state.sys.err, state.sys.info
 
 
 def _one_lane(fn, quad, cloud, cam, R0, t0, *args):
@@ -457,3 +653,73 @@ def eval_cost(
     if normalized:
         return total / torch.clamp(ok.sum(-1), min=1).to(torch.float32)
     return total
+
+
+class InitCheck(NamedTuple):
+    """The tracker's init check of B lanes (``init_check``)."""
+
+    R: torch.Tensor  # (B, 3, 3) the level's starting pose
+    t: torch.Tensor  # (B, 3)
+    use_eye: torch.Tensor  # (B,) bool: the identity replaced (R0, t0)
+    cost_eye: torch.Tensor  # (B,) float32 ``eval_cost`` at the identity
+    cost: torch.Tensor  # (B,) at (R0, t0)
+
+
+def init_check_ref(struct, cloud, cam, R0, t0, edge_distance, use_edge_filter, normalized,
+                   margin) -> InitCheck:
+    """Plain version of ``init_check``: ``eval_cost`` of the DT channel of
+    ``struct`` (B, H, W, 3) at the identity and at (R0, t0), and the
+    identity where its cost is below ``margin`` times the other."""
+    b, dev = R0.shape[0], R0.device
+    eye = torch.eye(3, device=dev).expand(b, 3, 3)
+    zero = torch.zeros(3, device=dev).expand(b, 3)
+    dt_img = struct[..., 2]
+
+    def cost(R_, t_):
+        return eval_cost(dt_img, cloud, cam, R_, t_, edge_distance, use_edge_filter, normalized)
+
+    cost_eye, cost_0 = cost(eye, zero), cost(R0, t0)
+    use_eye = cost_eye < margin * cost_0
+    return InitCheck(torch.where(use_eye[:, None, None], eye, R0),
+                     torch.where(use_eye[:, None], zero, t0), use_eye, cost_eye, cost_0)
+
+
+def init_check(struct, cloud, cam, R0, t0, edge_distance, use_edge_filter, normalized,
+               margin) -> InitCheck:
+    """"DO NOT INIT WITH PREVIOUS TRANSFORM" (tracker.cpp:277-282) over B
+    lanes: each lane starts from the identity where the floor-sampled DT
+    cost there (``eval_cost``, divided by the count if ``normalized``) is
+    below ``margin`` times the cost at (R0 (B, 3, 3), t0 (B, 3)).
+    ``struct`` (B, H, W, 3) is the keyframe level's structure, ``cloud``
+    the frame's cloud at that level (points (B, P, 3), valid (B, P)); any
+    operand may be shared by the lanes through ``expand``.  CPU tensors:
+    the plain version; CUDA tensors: one ``revo_init_check`` launch
+    (csrc/solver.cu), bit-equal to it, no host sync.  ``launches`` counts
+    the kernel's launches."""
+    dev = R0.device
+    if dev.type == "cpu":
+        return init_check_ref(struct, cloud, cam, R0, t0, edge_distance, use_edge_filter,
+                              normalized, margin)
+    if dev.type != "cuda":
+        raise ValueError(f"init_check: unsupported device {dev}")
+    b, n_pts = R0.shape[0], cloud.points.shape[-2]
+    struct, struct_s = _lane_operand(struct, b, (cam.height, cam.width, 3), (torch.float32,),
+                                     dev, "struct")
+    pts, pts_s = _lane_operand(cloud.points, b, (n_pts, 3), (torch.float32,), dev, "points")
+    valid, valid_s = _lane_operand(cloud.valid, b, (n_pts,), (torch.bool,), dev, "valid")
+    R0, R0_s = _lane_operand(R0, b, (3, 3), (torch.float32,), dev, "R0")
+    t0, t0_s = _lane_operand(t0, b, (3,), (torch.float32,), dev, "t0")
+    R = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    use_eye = torch.empty(b, dtype=torch.bool, device=dev)
+    costs = torch.empty((b, 2), dtype=torch.float32, device=dev)
+    kernels.launch(
+        "revo_init_check", struct, struct_s, pts, pts_s, valid, valid_s, R0, R0_s, t0, t0_s,
+        n_pts, b, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy, edge_distance,
+        int(bool(use_edge_filter)), int(bool(normalized)), margin, R, t, use_eye, costs,
+    )
+    init_check.launches += 1
+    return InitCheck(R, t, use_eye, costs[:, 0], costs[:, 1])
+
+
+init_check.launches = 0

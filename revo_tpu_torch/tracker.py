@@ -55,25 +55,15 @@ def track_frames_batched(
     opt = cfg.tracker.optimizer
     cams = cfg.camera_pyramid()
     R, t = R0, t0
-    b, dev = R0.shape[0], R0.device
     if cfg.tracker.check_init_values:
         # "DO NOT INIT WITH PREVIOUS TRANSFORM" (tracker.cpp:277-282), only
         # when identity is clearly better (TrackerConfig.init_check_margin).
         lvl = pyr.pyr_min_lvl
-        cloud = frame.levels[lvl].cloud
-        dt_img = kf.structs[lvl][..., 2]
-        eye = torch.eye(3, device=dev).expand(b, 3, 3)
-        zero = torch.zeros(3, device=dev).expand(b, 3)
-
-        def cost(R_, t_):
-            return solver.eval_cost(
-                dt_img, cloud, cams[lvl], R_, t_, opt.edge_distance_lvl[lvl],
-                opt.use_edge_filter, cfg.tracker.normalized_init_cost,
-            )
-
-        use_eye = cost(eye, zero) < cfg.tracker.init_check_margin * cost(R, t)
-        R = torch.where(use_eye[:, None, None], eye, R)
-        t = torch.where(use_eye[:, None], zero, t)
+        R, t = solver.init_check(
+            kf.structs[lvl], frame.levels[lvl].cloud, cams[lvl], R, t,
+            opt.edge_distance_lvl[lvl], opt.use_edge_filter, cfg.tracker.normalized_init_cost,
+            cfg.tracker.init_check_margin,
+        )[:2]
 
     info = None
     err = None
