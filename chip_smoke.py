@@ -62,7 +62,8 @@ gates.  Phases, one line each:
              within 1e-5, lanes left out by the mask untouched, a second
              launch bit-identical, no host sync;
 5. main      the main path on the card with launch counts reset just before
-             it; every kernel must have launched, outputs finite, poses
+             it; every kernel must have launched (one solve_level_kernel a
+             pyramid level and one init_check a frame), outputs finite, poses
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
 6. times     CUDA-event times per stage and per kernel against its plain
@@ -82,13 +83,15 @@ gates.  Phases, one line each:
              empty kernel's device time; the kernels torch launches per
              evaluation and per tracked frame (torch.profiler, over the chain's first 2
              frames) beside the hand-written kernels' launch counts and the
-             copies: one evaluation is one residual_lgsx and one
-             solver_step launch and no torch kernel, a tracked lm frame at
-             most 200 launches of any kind (each read again while the
-             profiler's reading cannot be trusted; three untrusted readings
-             fail the phase); lm's chain beside the same chain with the
-             live-lane count read every 1, 2 and 8 evaluations (time,
-             evaluations and reads a frame); level 0
+             copies: a level is one solve_level_kernel launch and no torch
+             kernel (an evaluation of the two-launch loop one residual_lgsx
+             and one solver_step launch), a tracked frame one init check and
+             one level kernel a level and nothing of the loop, a tracked lm
+             frame at most 200 launches of any kind (each read again while
+             the profiler's reading cannot be trusted; three untrusted
+             readings fail the phase); both solvers' chains with every level
+             in the two-launch loop, in turns with the level kernel, the
+             same poses; level 0
              of the 1280x720 frame through the split kernels and through the
              cluster Canny in turns, and build_frame at 1280x720 both ways,
              the cluster at 16 and 8 blocks an image,
@@ -249,17 +252,17 @@ gates.  Phases, one line each:
              from its own last pose): lane 0 bit-equal to the chain tracked
              alone, ATE < 2 mm; (c) track_ring on the teleport frame against
              phase 7's ring: each slot bit-equal to the slot tracked alone;
-             (d) per batched step 3 canny_fused launches, one init_check
-             and one solver_step launch an evaluation (and, gn_fixed, a
-             level's start); per level gn_fixed launches residual_lgsx
-             exactly fixed_iters + 1 times and reads nothing on the host,
-             lm from the slowest lane's evaluations (its active byte set)
-             to 2 LM_CHUNK - 1 past them, with at most ceil(launches /
-             LM_CHUNK) + 1 reads of the live-lane count; no host sync under
-             sync debug mode "warn";
-             (e) CUDA-event ms per batched step at B = 1, 8, 16, 32 (lm at
-             1, 8) against B one-lane steps in the same call, with the
-             profiler's kernels per step and device-busy share;
+             (d) per batched step 3 canny_fused launches, one init_check,
+             one solve_level_kernel launch a level and no residual_lgsx or
+             solver_step; per level every lane's evaluations (the kernel's
+             own count) within the level's cap (gn_fixed fixed_iters + 1,
+             lm its start + max_its * 32), no read of a live-lane count and
+             no host sync under sync debug mode "warn";
+             (e) CUDA-event ms per batched step at B = 1, 8, 16, 32, both
+             solvers, against B one-lane steps and against the same step
+             with its levels in the two-launch loop, in turns in the same
+             call, with the profiler's kernels per step and device-busy
+             share of both forms;
 19. quadforms the reference-gradient tracker (the JAX package's 12-component
              quad forms and its structure samplers): (a) the 8-frame chain
              with quad_form "flat", "flatbf" and bilinear_impl "take4", each
@@ -278,7 +281,9 @@ gates.  Phases, one line each:
              7's rule); (d) CUDA-event ms of each layout
              (the kernel alone, through the wrapper, the plain version, at
              B = 8) beside its bytes bound; its three rows join the kernel
-             JSON;
+             JSON (the standalone fused K3 in each layout; on the paths the
+             layouts run inside the level kernel, whose launches by layout
+             phase 19 (a) counts);
 20. soak     the JAX package's long runs (tests/test_soak.py) at 640x480 on
              one render of loop_trajectory(320, radius=0.7, wobble=0.004,
              seed=5, circuits=2) in box_scene, uint8 / uint16 frames: (a)
@@ -304,7 +309,7 @@ gates.  Phases, one line each:
              chunk's,
              host RSS under 10% over the second half; both parts from
              launch counts of 0: 3 canny_fused launches a frame built and
-             a residual_lgsx launch for every solver evaluation;
+             one solve_level_kernel launch for every solver level;
 21. bench    the port's bench as a user runs it, ``python -m
              revo_tpu_torch.bench`` in a subprocess from the tree (8 frames
              rendered, calibrated capacities, the batch-8 gn_fixed headline,
@@ -315,8 +320,8 @@ gates.  Phases, one line each:
              edge_capacity [8192, 4864, 2304], platform cuda; its launch
              record on stderr: canny_fused launched a multiple of 3 times
              (one launch a level of each pyramid built), no other Canny,
-             residual_lgsx launched; then entry()'s 640x480 track step
-             once, its error finite;
+             solve_level_kernel launched and residual_lgsx not; then
+             entry()'s 640x480 track step once, its error finite;
 22. dryrun   entry.dryrun_multichip(8) as a multi-device check calls it,
              on its default slots (eight slots of cuda:0 on one
              card): the sequences (64x48 pairs over "seq"), the points
@@ -358,25 +363,39 @@ gates.  Phases, one line each:
              one launch at level 2 of two chain frames, with and without
              normalization and the edge filter: bit-equal, each lane equal
              to its B = 1 launch; (c) phase 5's chain and phase 18's 8
-             lanes with the kernels against the same loops with the plain
-             step and init check on the card: bit-equal; (d) both kernels'
-             rows of the kernel JSON (the step in its start mode at B = 1
-             and 8); (e) phase 5's chain with solve6_impl "linalg": no
-             solver_step launch (the plain step), ATE < 2 mm.
+             lanes as the main path runs them (the level kernel) against
+             the two-launch loop with the plain step and init check on the
+             card: bit-equal; (d) the three kernels' rows of the kernel JSON
+             (the step in its start mode at B = 1 and 8; the level kernel at
+             level 0 of the chain's last frame, B = 1, lm, with its
+             evaluations, cluster size, registers and local bytes); (e)
+             phase 5's chain with solve6_impl "linalg": no solver_step or
+             level kernel launch (the plain step), ATE < 2 mm; (f) the
+             level kernel against the two-launch loop in lm and gn_fixed, the
+             default schedule and (a)'s early exits, levels 2 / 1 / 0 of
+             phase 5's keyframe, B = 1, 8, 32 lanes, the dt4bf, flatbf and
+             structure tables: every LevelState field bit for bit and each
+             lane's evaluations equal to the loop's; against its plain
+             version on the card (solve_level_ref) at B = 1 and 8: active
+             flags equal, poses within 1e-4; cluster sizes 0 and 16 refused
+             by a raise, the next launch bit-equal to a one-block cluster's.
 
 Phases print in the order 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14,
 host_libraries, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 6.
 Launch counts are set to 0 just before each path (phases 5, 7 to 23, each
 form of 17, each path of 18 and 19 and each part of 20 on its own)
 and read just after; every kernel of the path must have launched (the fused
-Canny on every 640x480 path, and the fused K3, the solver step and the
-init check on every path that tracks, which launch neither K1 nor K2
-alone; the cluster Canny on the 1280x720 frames; the grid Canny on the
+Canny on every 640x480 path, and the level kernel and the init check on
+every path that tracks, which launch neither K1 nor K2 alone nor the
+two-launch loop's residual_lgsx and solver_step: residual_lgsx alone runs
+only in the point-sharded system of phases 17 and 22, and solver_step on
+no path; the cluster Canny on the 1280x720 frames; the grid Canny on the
 5120x2880 and 7680x4320 images; K1 and K2 on the 12288x8192 image; the unfused K3 ``lgsx_reduce`` is
 the TPU kernel's own contract, which the solver no longer calls, so its
 count is 0 and the kernel JSON lists it under ``kernels_off_path``, as it
 does K2's shared-memory form, whose loop every 640x480 path runs inside
-canny_fused).  The
+canny_fused, the solver step and the fused K3 in its reference-gradient
+layouts).  The
 kernel JSON's ``launches`` sum those runs.  Any failed phase raises
 and the exit code is nonzero.  The second-to-last
 lines are the kernel JSON and the card's name and power limit; the last line
@@ -385,6 +404,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -413,7 +433,6 @@ K1_OPS_PER_PIXEL, K2_OPS_PER_WORD_STEP = 37, 11
 K3_OPS_PER_POINT, K3_FUSED_OPS_PER_POINT = 104, 166
 N_PROFILED = 2  # tracked frames per call inside a profiler window (its events cost seconds)
 LM_FRAME_LAUNCHES = 200  # launches of any kind a tracked 640x480 lm frame may make (phase 6)
-LM_CHUNKS_TIMED = (4, 2, 1, 8, 8, 1, 2, 4)  # solver.LM_CHUNK values phase 6 times, in order
 # Phase 24 (solver_step): seeded lane states for revo_solver_step against its
 # plain version (lanes, steps after the start, seed), seeded poses beside the
 # fixed ones for revo_init_check, and the operations each does (counted from
@@ -423,6 +442,12 @@ LM_CHUNKS_TIMED = (4, 2, 1, 8, 8, 1, 2, 4)  # solver.LM_CHUNK values phase 6 tim
 # and exit rules); one point at the two poses.
 STEP_LANES, STEP_STEPS, STEP_SEED, IC_RANDOM_POSES = 1024, 6, 24, 25
 STEP_OPS_PER_LANE, IC_OPS_PER_POINT = 520, 80
+# Phase 24 (f): lanes of the level kernel's cases, and those also held to
+# its plain version on the card (whose residual pass loops over the lanes).
+LEVEL_LANES, LEVEL_PLAIN_LANES = (1, 8, 32), (1, 8)
+# Phase 24 (f): lanes at which every cluster size of the level kernel is
+# held to the two-launch loop and timed.
+LEVEL_CLUSTER_LANES = (1, 8, 16, 32)
 N_PAN = 20  # pan frames; the teleport frame follows
 PAN_STEP = (0.04, 0.0, 0.005, 0.0, 0.017, 0.0)  # tests/test_system.py:47-73
 # The JAX package's ATE on pan + teleport, VOSystem on the CPU (PERF.md
@@ -764,8 +789,10 @@ def _check_bench_line(line, launches):
               if counts[k]]
     if others:
         raise RuntimeError(f"bench: a 640x480 run launched another Canny: {counts}")
-    if not counts["residual_lgsx"] > 0:
-        raise RuntimeError(f"bench: residual_lgsx never launched: {counts}")
+    # Every solver level is one level kernel launch; the two-launch loop
+    # (residual_lgsx + solver_step an evaluation) is no path's.
+    if not (counts["solve_level_kernel"] > 0 and counts["residual_lgsx"] == 0):
+        raise RuntimeError(f"bench: the levels did not run as level kernel launches: {counts}")
 
 
 def _bound(n_bytes: float, n_ops: float):
@@ -986,7 +1013,7 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
                 "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
                 "lgsx_reduce_kernel", "residual_lgsx_kernel", "solver_step_kernel",
-                "init_check_kernel")
+                "init_check_kernel", "solve_level_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -1290,9 +1317,9 @@ def mesh_worker(frames_npz: str, out_prefix: str) -> int:
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from revo_tpu_torch import solver
     from revo_tpu_torch.config import SystemConfig
     from revo_tpu_torch.ops import canny as K12
-    from revo_tpu_torch.ops import lgsx as K3
     from revo_tpu_torch.parallel import batch
     from revo_tpu_torch.parallel.mesh import make_mesh, maybe_distributed_init
 
@@ -1309,7 +1336,8 @@ def mesh_worker(frames_npz: str, out_prefix: str) -> int:
         print(json.dumps({"rank": dist.get_rank(), "mesh": repr(mesh), "poses_on": str(poses.device),
                           "seconds": time.perf_counter() - t0,
                           "launches": {"canny_fused": K12.canny_fused.launches,
-                                       "residual_lgsx": K3.residual_lgsx.launches}}), flush=True)
+                                       "solve_level_kernel": solver.solve_level_kernel.launches}}),
+              flush=True)
     finally:
         dist.destroy_process_group()
     return 0
@@ -1399,26 +1427,57 @@ def main() -> int:
            seconds=round(time.perf_counter() - t0, 3))
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
+    # The tracker's kernels: the two-launch loop's (residual_lgsx and
+    # solver_step, which the levels no longer launch), the init check and
+    # the level kernel.
+    track_counters = (K3.residual_lgsx, solver.solver_step, solver.init_check,
+                      solver.solve_level_kernel)
     counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
-                 K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx, solver.solver_step,
-                 solver.init_check)
-    # Of every 640x480 path (the tracking ones: the last three).
-    vga_kernels = ["canny_fused", "residual_lgsx", "solver_step", "init_check"]
+                 K12.canny_hysteresis, K3.lgsx_reduce) + track_counters
+    # Of every 640x480 path (the tracking ones: the last two).
+    vga_kernels = ["canny_fused", "init_check", "solve_level_kernel"]
     split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above the grid's memory
     large_kernels = split_kernels + ["canny_cluster", "canny_grid"]  # no 640x480 path's
 
     def require_vga(phase, counts, names=vga_kernels):
         """A 640x480 path went through the fused kernels, and through
-        neither the cluster nor the grid Canny nor K1 or K2 alone."""
+        neither the cluster nor the grid Canny nor K1 or K2 alone; its
+        solver levels through the level kernel, never the two-launch loop
+        (no solver_step; residual_lgsx only where ``names`` has it: the
+        point-sharded system)."""
         _require_launched(phase, counts, names)
         if any(counts[n] for n in large_kernels):
             raise RuntimeError(f"{phase}: a 640x480 path launched another Canny: {counts}")
+        if counts["solver_step"] or (counts["residual_lgsx"] and "residual_lgsx" not in names):
+            raise RuntimeError(f"{phase}: a solver level ran the two-launch loop: {counts}")
+
+    @contextlib.contextmanager
+    def two_launch_levels():
+        """Every solver level inside runs the two-launch loop (level_state's
+        "launches" form): the comparisons of phases 18, 24 and 6."""
+        real_state = solver.level_state
+
+        def loop_form(quad, cloud, cam_, R0, t0, opt_, lvl, gn, max_inner=32, _form="kernel"):
+            return real_state(quad, cloud, cam_, R0, t0, opt_, lvl, gn, max_inner, "launches")
+
+        solver.level_state = loop_form
+        try:
+            yield
+        finally:
+            solver.level_state = real_state
 
     gpu, launches = _path_launches(counters_, lambda: {
         name: _run_chain(grays, depths, _with_solver(cfg, name), dev)
         for name in ("lm", "gn_fixed")
     })
     require_vga("main", launches)
+    # One level kernel launch a pyramid level and one init check a frame
+    # tracked (7 frames under each solver).
+    n_tracked = 2 * (N_FRAMES - 1)
+    if (launches["solve_level_kernel"] != cfg.pyramid.n_levels * n_tracked
+            or launches["init_check"] != n_tracked):
+        raise RuntimeError(f"main: not one level kernel a level and one init check a frame: "
+                           f"{launches}")
     launch_total = dict(launches)
 
     summary = {"launches": launches}
@@ -2308,7 +2367,6 @@ def main() -> int:
     _phase("undistort_ply", **und_summary)
 
     # -- 15. live: the viewer, post-run refinement and the live CLI ------------
-    import contextlib
     import importlib.util
     import io as _io
 
@@ -2505,8 +2563,8 @@ def main() -> int:
                 raise RuntimeError(f"live_cli: poses_live.txt is not phase 15 (a)'s run: {cli_summary}")
             if not cli_ate < VO_ATE_LIMIT_M:
                 raise RuntimeError(f"live_cli: ATE {cli_ate} m >= {VO_ATE_LIMIT_M} m")
-            if not (launches_b["canny_fused"] >= 3 * N_PAN and launches_b["residual_lgsx"] > 0
-                    and not any(launches_b[n] for n in split_kernels)):
+            if not (launches_b["canny_fused"] >= 3 * N_PAN and launches_b["solve_level_kernel"] > 0
+                    and not any(launches_b[n] for n in split_kernels + ["solver_step"])):
                 raise RuntimeError(f"live_cli: the path's kernels did not launch: {launches_b}")
             if not (cpu_dt <= POSE_TOL and cpu_dr <= POSE_TOL):
                 raise RuntimeError(f"live_cli: card poses differ from --device cpu: {cli_summary}")
@@ -2572,8 +2630,8 @@ def main() -> int:
             if (len(ds_summary["plots"]) == 2) != host_libs["matplotlib"]:
                 raise RuntimeError(f"dataset_cli: plots {ds_summary['plots']} with matplotlib "
                                    f"importable: {host_libs['matplotlib']}")
-            if not (launches_c["canny_fused"] >= 3 * N_PAN and launches_c["residual_lgsx"] > 0
-                    and not any(launches_c[n] for n in split_kernels)):
+            if not (launches_c["canny_fused"] >= 3 * N_PAN and launches_c["solve_level_kernel"] > 0
+                    and not any(launches_c[n] for n in split_kernels + ["solver_step"])):
                 raise RuntimeError(f"dataset_cli: the path's kernels did not launch: {launches_c}")
             for name_ in ("map_cloud.ply", "map_keyframes.ply", "trajectory.ply"):
                 if not os.path.getsize(os.path.join(out_c, name_)) > 0:
@@ -2702,7 +2760,7 @@ def main() -> int:
         g_seg, d_seg, cfg, N_SEGMENTS, mesh=mesh_of("seq", N_SEGMENTS)))
     kfs_loop, _, _ = loop_keyframes(cfg, dev, loop_rendered)
     verdicts = mesh_form("verify_candidates_batched", lambda: loopclosure.verify_candidates_batched(
-        kfs_loop, MESH_PAIRS, cfg, mesh=mesh_of("cand")), ["residual_lgsx"])
+        kfs_loop, MESH_PAIRS, cfg, mesh=mesh_of("cand")), ["solve_level_kernel"])
     verdicts_plain = loopclosure.verify_candidates_batched(kfs_loop, MESH_PAIRS, cfg)
     verdicts_equal = all(
         (a is None) == (b is None) and (a is None or (np.array_equal(a[0], b[0]) and a[1] == b[1]))
@@ -2919,40 +2977,41 @@ def main() -> int:
     # (b) + (d) the chain stepped as the JAX headline steps it (bench.py
     # phase_stack): lane b tracks frame 1 + (b + s) % 7 at step s against
     # frame 0's keyframe, each lane from its own last pose; lane 0 walks the
-    # plain trajectory.  Per step the launches, and per level the fused K3
-    # launches against the slowest lane's evaluations (its active byte set).
+    # plain trajectory.  Per step the launches, and per level the level
+    # kernel's launches, each lane's evaluations (the kernel's own count)
+    # and the host's reads of lm's live-lane count.
     n_chain = N_FRAMES - 1
     level_of = {cams[lvl].height * cams[lvl].width: lvl for lvl in range(pyr.n_levels)}
-    real_lanes = solver.residual_lgsx_lanes
-    calls = []  # per evaluation: (level, lanes, its active mask or None, host reads so far)
+    real_state = solver.level_state
+    calls = []  # per level solved: (level, level kernel launches, lanes' evaluations)
 
-    def counting(ops, *args, **kw):
-        active = args[5] if len(args) > 5 else kw.get("active")
-        calls.append((level_of[ops.quad.shape[-2]], args[0].shape[0],
-                      None if active is None else active.clone(),
-                      solver.lm_level_batched.host_reads))
-        return real_lanes(ops, *args, **kw)
+    def counting(quad, *args, **kw):
+        before = solver.solve_level_kernel.launches
+        state = real_state(quad, *args, **kw)
+        calls.append((level_of[quad.shape[-2]], solver.solve_level_kernel.launches - before,
+                      solver.solve_level_kernel.evaluations.clone()))
+        return state
 
     def level_counts(fn):
-        """``fn``'s result and, per level, the fused K3 launches, the most
-        evaluations one lane took part in (its active byte set) and the
-        host's reads of the live-lane count (lm)."""
+        """``fn``'s result and, per level, the level kernel's launches, the
+        most evaluations a lane ran (the kernel's own count) and the host's
+        reads of the live-lane count (lm's loop form makes them; the kernel
+        must make none)."""
         calls.clear()
-        solver.residual_lgsx_lanes = counting
+        reads0 = solver.lm_level_batched.host_reads
+        solver.level_state = counting
         try:
             out = fn()
         finally:
-            solver.residual_lgsx_lanes = real_lanes
-        calls.append((None, 0, None, solver.lm_level_batched.host_reads))  # the end
-        launches, slowest, reads = [], [], []
+            solver.level_state = real_state
+        launches, slowest, evals = [], [], []
         for lvl in range(pyr.n_levels):
-            mine = [k for k, c in enumerate(calls) if c[0] == lvl]
-            took = sum(torch.ones(c[1], dtype=torch.int64) if c[2] is None else c[2].cpu().long()
-                       for c in (calls[k] for k in mine))
-            launches.append(len(mine))
-            slowest.append(int(took.max()) if mine else 0)
-            reads.append(calls[mine[-1] + 1][3] - calls[mine[0]][3] if mine else 0)
-        return out, {"launches": launches, "slowest_lane": slowest, "host_reads": reads}
+            mine = [c for c in calls if c[0] == lvl]
+            launches.append(sum(c[1] for c in mine))
+            slowest.append(max((int(c[2].max()) for c in mine), default=0))
+            evals.append([c[2].tolist() for c in mine])
+        return out, {"launches": launches, "slowest_lane": slowest, "lane_evaluations": evals,
+                     "host_reads": solver.lm_level_batched.host_reads - reads0}
 
     def count_syncs(fn):
         with warnings.catch_warnings(record=True) as caught:
@@ -3001,34 +3060,30 @@ def main() -> int:
             est.append(T)
         ate = absolute_trajectory_error(np.stack(est), gt).rmse
         # Step 0 again under sync debug mode "warn": no host sync at all
-        # (lm's reads of the live-lane count wait on a CUDA event, which the
-        # mode does not see: the solver counts them, host_reads).
+        # (lm's loop form reads its live-lane count by a CUDA event, which
+        # the mode does not see: level_counts counts those, host_reads).
         R0 = torch.eye(3, device=dev)
         t0_ = torch.zeros(3, device=dev)
         frames0 = frontend.build_frame_batched(lanes_of(g8, steps[0]), lanes_of(d8, steps[0]), c)
         syncs = count_syncs(lambda: tracker.track_frames_batched(
             kf0_b, frames0, R0.expand(BATCH_LANES, 3, 3), t0_.expand(BATCH_LANES, 3), c))
-        # Per level of every step: gn_fixed launches exactly fixed_iters + 1
-        # and reads nothing; lm launches from the slowest lane's count to
-        # LM_CHUNK - 1 + LM_CHUNK past it (the live count is read one chunk
-        # late) and reads at most once a chunk, plus one.
-        k_ = solver.LM_CHUNK
+        # Per level of every step: one level kernel launch, every lane's
+        # evaluations within the level's cap (gn_fixed: fixed_iters + 1; lm:
+        # its start + max_its * 32 tries), no host read.
         level_gate = []
         for _, lv in step_counts:
             for lvl in range(pyr.n_levels):
-                n, slow, rd = lv["launches"][lvl], lv["slowest_lane"][lvl], lv["host_reads"][lvl]
-                if solver_name == "gn_fixed":
-                    level_gate.append(n == c.tracker.optimizer.fixed_iters[lvl] + 1 and rd == 0)
-                else:
-                    level_gate.append(slow <= n <= slow + 2 * k_ - 1 and rd <= -(-n // k_) + 1)
+                p_ = solver.step_params(c.tracker.optimizer, lvl, solver_name == "gn_fixed", dev)
+                cap = p_.max_iter if p_.gn else 1 + p_.max_iter * p_.max_inner
+                level_gate.append(lv["launches"][lvl] == 1 and 1 <= lv["slowest_lane"][lvl] <= cap)
+            level_gate.append(lv["host_reads"] == 0)
         batched_summary[solver_name] = {
             "lane0_bit_equal_chain_alone": lane0_equal, "ate_m": ate,
             "canny_fused_per_step": [sc["canny_fused"] for sc, _ in step_counts],
-            "residual_lgsx_per_step": [sc["residual_lgsx"] for sc, _ in step_counts],
-            "solver_step_per_step": [sc["solver_step"] for sc, _ in step_counts],
+            "solve_level_kernel_per_step": [sc["solve_level_kernel"] for sc, _ in step_counts],
             "init_check_per_step": [sc["init_check"] for sc, _ in step_counts],
             "per_level_by_step": [lv for _, lv in step_counts],
-            "lm_chunk": k_, "level_gates_met": all(level_gate), "step0_host_syncs": syncs,
+            "level_gates_met": all(level_gate), "step0_host_syncs": syncs,
         }
         if not (all(lane0_equal) and ate < ATE_LIMIT_M):
             raise RuntimeError(f"batched {solver_name}: lane 0 differs from the chain alone or "
@@ -3036,13 +3091,12 @@ def main() -> int:
         if any(sc["canny_fused"] != pyr.n_levels for sc, _ in step_counts):
             raise RuntimeError(f"batched {solver_name}: not {pyr.n_levels} canny_fused launches "
                                f"per step: {batched_summary[solver_name]}")
-        # One solver_step launch per evaluation and one a level's start, one
-        # init check a step.
-        starts = 0 if solver_name == "lm" else pyr.n_levels  # lm starts after an evaluation
-        if any(sc["solver_step"] != sc["residual_lgsx"] + starts or sc["init_check"] != 1
-               for sc, _ in step_counts):
-            raise RuntimeError(f"batched {solver_name}: solver_step or init_check launches are "
-                               f"not one an evaluation / a step: {batched_summary[solver_name]}")
+        # One level kernel launch a level, one init check a step, and
+        # nothing of the two-launch loop.
+        if any(sc["solve_level_kernel"] != pyr.n_levels or sc["init_check"] != 1
+               or sc["residual_lgsx"] or sc["solver_step"] for sc, _ in step_counts):
+            raise RuntimeError(f"batched {solver_name}: not one level kernel a level and one "
+                               f"init check a step: {batched_summary[solver_name]}")
         if not all(level_gate) or syncs != 0:
             raise RuntimeError(f"batched {solver_name}: evaluations or host reads per level "
                                f"outside their bounds, or a host sync: "
@@ -3062,15 +3116,17 @@ def main() -> int:
     found, idx, _ = tracker.select_reloc_candidate(ring_res, ring.n, cfg)
     batched_summary["track_ring"] = {
         "active_slots": ring.n, "slots_bit_equal": ring_equal, "found": bool(found),
-        "slot": int(idx), "residual_lgsx_launches": launches["residual_lgsx"],
+        "slot": int(idx), "solve_level_kernel_launches": launches["solve_level_kernel"],
     }
     if not (all(ring_equal) and bool(found) and ring.n >= 2):
         raise RuntimeError(f"batched: track_ring differs from its slots: {batched_summary}")
 
     # (e) ms per batched step (build + track of B lanes from identity) at
-    # B in BATCH_TIMED (lm at the first two) against B steps of one lane,
-    # in turns in this run: batched, one lane B times (twice below B = 16),
-    # batched.
+    # B in BATCH_TIMED, both solvers, against B steps of one lane and
+    # against the same batched step with its levels in the two-launch loop
+    # (level_state's "launches" form), in turns in this run: level kernel,
+    # loop, one lane B times (twice below B = 16), loop, level kernel; the
+    # profiler's kernels and busy share of one step in each form.
     def step_fn(b_, c):
         idx = [1 + i % n_chain for i in range(b_)]
         g_b, d_b = lanes_of(g8, idx), lanes_of(d8, idx)
@@ -3088,28 +3144,39 @@ def main() -> int:
         return batched_step, single_steps
 
     timing = {}
-    for solver_name, timed_b in (("gn_fixed", BATCH_TIMED), ("lm", BATCH_TIMED[:2])):
+    for solver_name in ("gn_fixed", "lm"):
         c = _with_solver(cfg_caps, solver_name)
         kf0 = frontend.make_keyframe(frontend.build_frame(g8[0], d8[0], c),
                                      torch.eye(4, device=dev), c)
         rows_t = []
-        for b_ in timed_b:
+        for b_ in BATCH_TIMED:
             batched_step, single_steps = step_fn(b_, c)
+
+            def loop_step():
+                with two_launch_levels():
+                    return batched_step()
+
             ms_b = [_time_ms(batched_step, 2, warmup=1)]
+            ms_l = [_time_ms(loop_step, 2, warmup=1)]
             ms_s = [_time_ms(single_steps, 1, warmup=1 if b_ == 1 else 0)]
             if b_ < 16:
                 ms_s.append(_time_ms(single_steps, 1, warmup=0))
+            ms_l.append(_time_ms(loop_step, 2, warmup=0))
             ms_b.append(_time_ms(batched_step, 2, warmup=0))
-            before = K3.residual_lgsx.launches
-            batched_step()
-            evals = K3.residual_lgsx.launches - before
+            _, levels = level_counts(batched_step)
             n_kern, busy_ms, span_ms = _busy(batched_step)
+            n_kern_l, busy_ms_l, span_ms_l = _busy(loop_step)
             rows_t.append({
-                "B": b_, "batched_ms": min(ms_b), "singles_ms": min(ms_s),
+                "B": b_, "batched_ms": min(ms_b), "loop_ms": min(ms_l), "singles_ms": min(ms_s),
                 "batched_ms_per_lane": min(ms_b) / b_, "singles_ms_per_lane": min(ms_s) / b_,
-                "residual_lgsx_per_step": evals, "kernels_per_step": n_kern,
-                "device_busy_ms": busy_ms, "profiled_step_ms": span_ms,
+                "level_launches_per_step": sum(levels["launches"]),
+                "slowest_lane_evaluations_per_step": sum(levels["slowest_lane"]),
+                "kernels_per_step": n_kern, "device_busy_ms": busy_ms,
+                "profiled_step_ms": span_ms,
                 "device_busy_share": None if busy_ms is None else busy_ms / span_ms,
+                "loop_kernels_per_step": n_kern_l, "loop_device_busy_ms": busy_ms_l,
+                "loop_profiled_step_ms": span_ms_l,
+                "loop_device_busy_share": None if busy_ms_l is None else busy_ms_l / span_ms_l,
             })
         timing[solver_name] = rows_t
     batched_summary["step_times"] = timing
@@ -3142,10 +3209,11 @@ def main() -> int:
             res_.append(r)
         return kf_, np.stack(est), res_
 
-    def layout_path(fn):  # _path_launches with the by-layout counts too
-        K3.residual_lgsx.layout_launches[:] = [0] * len(K3.residual_lgsx.layout_launches)
+    def layout_path(fn):  # _path_launches with the level kernel's by-layout counts too
+        layouts = solver.solve_level_kernel.layout_launches
+        layouts[:] = [0] * len(layouts)
         out_, counts = _path_launches(counters_, fn)
-        return out_, counts, list(K3.residual_lgsx.layout_launches)
+        return out_, counts, list(layouts)
 
     form_cfgs = {name: form_cfg(cfg, qf, impl) for name, qf, impl in QUAD_CASES}
 
@@ -3320,8 +3388,11 @@ def main() -> int:
         raise RuntimeError(f"quadforms vo: want a relocalization and none lost: {flags_bf.tolist()}")
     if not ate_bf < VO_FLATBF_ATE_LIMIT_M:
         raise RuntimeError(f"quadforms vo: ATE {ate_bf} m >= {VO_FLATBF_ATE_LIMIT_M} m")
+    # The fused K3 in each layout runs on the paths inside the level kernel
+    # (its launches in that layout); residual_lgsx alone is on no path.
     for row in quad_rows:
-        row["launches"] = quad_launches[row["name"]]
+        row["launches"] = 0
+        row["level_kernel_launches"] = quad_launches[row["name"]]
     quad_summary.update(checks=quad_checks, rtol=QUAD_RTOL, smi=smi, times={
         r["name"]: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                       "batched")} for r in quad_rows})
@@ -3386,31 +3457,31 @@ def main() -> int:
               "rss_kb": rss_kb()[1] - before_warmup[1]}
 
     def soak_path(name, fn, n_built):
-        """``fn`` with the launch counts from 0 and solver evaluations
-        counted: 3 canny_fused launches a frame built, a residual_lgsx launch
-        at least every evaluation."""
-        evals = [0]
-        real = solver._evaluate
+        """``fn`` with the launch counts from 0 and solver levels counted:
+        3 canny_fused launches a frame built, one level kernel launch a
+        solver level."""
+        levels = [0]
+        real = solver.level_state
 
         def counted(*a, **k):
-            evals[0] += 1
+            levels[0] += 1
             return real(*a, **k)
 
-        solver._evaluate = counted
+        solver.level_state = counted
         try:
             out, counts = _path_launches(counters_, fn)
         finally:
-            solver._evaluate = real
+            solver.level_state = real
         require_vga(f"soak {name}", counts)
         add_launches(counts)
         if counts["canny_fused"] != 3 * n_built:
             raise RuntimeError(f"soak {name}: {counts['canny_fused']} canny_fused launches for "
                                f"{n_built} frames built, want 3 a frame")
-        if not counts["residual_lgsx"] >= evals[0] > 0:
-            raise RuntimeError(f"soak {name}: {counts['residual_lgsx']} residual_lgsx launches "
-                               f"for {evals[0]} evaluations")
+        if not counts["solve_level_kernel"] == levels[0] > 0:
+            raise RuntimeError(f"soak {name}: {counts['solve_level_kernel']} level kernel "
+                               f"launches for {levels[0]} solver levels")
         return out, {"canny_fused": counts["canny_fused"], "frames_built": n_built,
-                     "residual_lgsx": counts["residual_lgsx"], "evaluations": evals[0]}
+                     "solve_level_kernel": counts["solve_level_kernel"], "levels": levels[0]}
 
     # (a) TestSoak640's combined run through VOSystem.process_frame.
     order = list(range(SOAK_TELEPORT_FROM)) + list(
@@ -3634,7 +3705,7 @@ def main() -> int:
     dry, launches = _path_launches(counters_, lambda: port_entry.dryrun_multichip(
         DRYRUN_SLOTS, devices=None if dev.type == "cuda" else [dev] * DRYRUN_SLOTS))
     dry_s = time.perf_counter() - t0
-    require_vga("dryrun", launches)
+    require_vga("dryrun", launches, vga_kernels + ["residual_lgsx"])  # its "pt" part
     add_launches(launches)
     dry_summary = {k: dry[k] for k in ("mean_t", "scan_max_dev", "promotions", "relocs",
                                        "n_loops", "ba_dev", "frames", "slots")}
@@ -3827,8 +3898,9 @@ def main() -> int:
                 ic_bad += [[fi, "shared pose", f] for f in _tree_diff(
                     solver.init_check(*shared, *one_pose, *tail),
                     solver.init_check_ref(*shared, *one_pose, *tail))]
-    # (c) the level loops with the kernels against the same loops with the
-    # plain step and init check on the card (solver._steppers and
+    # (c) the levels as the main path runs them (the level kernel, the init
+    # check kernel) against the two-launch loop with the plain step and init
+    # check on the card (level_state's "launches" form, solver._steppers and
     # solver.init_check swapped): phase 5's chain and phase 18's 8 lanes of
     # step 0, lm and gn_fixed, every output bit for bit.
     real_steppers, real_init_check = solver._steppers, solver.init_check
@@ -3837,7 +3909,8 @@ def main() -> int:
         solver._steppers = lambda p: (solver.solver_start_ref, solver.solver_step_ref)
         solver.init_check = solver.init_check_ref
         try:
-            return fn()
+            with two_launch_levels():
+                return fn()
         finally:
             solver._steppers, solver.init_check = real_steppers, real_init_check
 
@@ -3867,10 +3940,147 @@ def main() -> int:
         c = dataclasses.replace(c, tracker=dataclasses.replace(c.tracker, optimizer=dataclasses.replace(
             c.tracker.optimizer, solve6_impl="linalg")))
         (_, _, est_l, _), counts = _path_launches(
-            counters_[-3:], lambda: _run_chain(grays, depths, c, dev))
+            track_counters, lambda: _run_chain(grays, depths, c, dev))
         dt_l, dr_l = _max_pose_diff(est_l, gpu[name][2])
         linalg_chain[name] = {"launches": counts, "ate_m": absolute_trajectory_error(est_l, gt).rmse,
                               "vs_ldlt_m": dt_l, "vs_ldlt_rad": dr_l}
+    # (f) the level kernel against the two-launch loop (level_state's
+    # "launches" form, kernels for both launches): lm and gn_fixed, the
+    # default schedule and (a)'s early exits, levels 2 / 1 / 0 of phase 5's
+    # keyframe, LEVEL_LANES lanes (the chain's frames 1..7 in turn, each
+    # from its own seeded start), the dt-only bf16 quad table, the
+    # 12-component bf16 one and the structure: every LevelState field bit
+    # for bit, and each lane's evaluations (the kernel's count) equal to the
+    # loop's up to that lane's exit.  Against its plain version on the card
+    # (solve_level_ref, torch ops) at B = 1 and 8: active flags equal,
+    # poses within phase 5's tolerance; the share of lanes whose evaluation
+    # count matches is reported (sums in another order may move a stop).
+    cl0 = frames_lm[-1].levels[0].cloud
+    ops0_level = K3.lane_operands(kf_lm.quads[0][None], EdgeCloud(cl0.points[None], cl0.valid[None],
+                                                                  None), cams[0], 1)
+    start0_level = (results_lm[-2].R[None], results_lm[-2].t[None])  # the last frame's prior
+    p_level0 = solver.step_params(opt, 0, False, dev)
+    tables_of = {
+        "dt4bf": lambda lvl: kf_lm.quads[lvl],
+        "flatbf": lambda lvl: quad_structure(kf_lm.structs[lvl], "flatbf"),
+        "struct3": lambda lvl: kf_lm.structs[lvl].flatten(-3, -2)}
+    real_lanes = solver.residual_lgsx_lanes
+    level_checks = {"cases": 0, "mismatches": [], "evaluation_mismatches": [],
+                    "plain": {"cases": 0, "max_m": 0.0, "max_rad": 0.0, "flags_differ": [],
+                              "lanes": 0, "evaluations_equal": 0},
+                    "clusters": {}, "cluster_sizes": [], "refused_raise": None}
+
+    def level_lanes(lvl, b_):
+        """Level ``lvl`` of the chain's frames 1..7 in turn as b_ lanes, and
+        each lane's seeded start pose."""
+        idx = [1 + i % (N_FRAMES - 1) for i in range(b_)]
+        cl_ = EdgeCloud(torch.stack([frames_lm[i].levels[lvl].cloud.points for i in idx]),
+                        torch.stack([frames_lm[i].levels[lvl].cloud.valid for i in idx]), None)
+        xi = np.random.default_rng(STEP_SEED + b_ + lvl).normal(size=(b_, 6)) * 0.01
+        R0_, t0_ = (x.to(dev) for x in lie.exp_se3(torch.from_numpy(xi.astype(np.float32))))
+        return cl_, R0_, t0_
+
+    for sched, opt_s, inner in (("default", opt, 32), ("early_exits", opt_early, 4)):
+        for name, gn in (("lm", False), ("gn_fixed", True)):
+            for lvl in (2, 1, 0):
+                for b_ in LEVEL_LANES:
+                    cl_, R0_, t0_ = level_lanes(lvl, b_)
+                    p_ = solver.step_params(opt_s, lvl, gn, dev, inner)
+                    edge_ = opt_s.edge_distance_lvl[lvl]
+                    for table_name, table_of in tables_of.items():
+                        tab = table_of(lvl)
+                        quad_ = tab[None].expand(b_, *tab.shape)
+                        ops_ = K3.lane_operands(quad_, cl_, cams[lvl], b_)
+                        got, evals = solver.solve_level_kernel(ops_, R0_, t0_, edge_, opt_s, p_)
+                        level_checks["clusters"][f"{name}_{b_}"] = solver.level_cluster(
+                            dev, K3.table_layout(quad_), b_, gn)
+                        took = torch.zeros(b_, dtype=torch.int32, device=dev)
+
+                        def counted(ops, *a, **k):
+                            act = a[5] if len(a) > 5 else k.get("active")
+                            took.add_(1 if act is None else act.to(torch.int32))
+                            return real_lanes(ops, *a, **k)
+
+                        solver.residual_lgsx_lanes = counted
+                        try:
+                            want = solver.level_state(quad_, cl_, cams[lvl], R0_, t0_, opt_s, lvl,
+                                                      gn, inner, _form="launches")
+                        finally:
+                            solver.residual_lgsx_lanes = real_lanes
+                        case = [sched, name, lvl, b_, table_name]
+                        level_checks["cases"] += 1
+                        level_checks["mismatches"] += [case + [f] for f in _tree_diff(got, want)]
+                        if not _bit_equal(evals, took):
+                            level_checks["evaluation_mismatches"].append(
+                                case + [evals.tolist(), took.tolist()])
+                        if b_ in LEVEL_PLAIN_LANES:
+                            ref, evals_ref = solver.solve_level_ref(quad_, cl_, cams[lvl], R0_, t0_,
+                                                                    opt_s, lvl, gn, inner)
+                            pl = level_checks["plain"]
+                            pl["cases"] += 1
+                            pl["max_m"] = max(pl["max_m"], float((ref.t - got.t).abs().max()))
+                            pl["max_rad"] = max(pl["max_rad"], max(
+                                _rot_angle(a.cpu().numpy(), b.cpu().numpy())
+                                for a, b in zip(ref.R, got.R)))
+                            if not _bit_equal(ref.active, got.active):
+                                pl["flags_differ"].append(case)
+                            pl["lanes"] += b_
+                            pl["evaluations_equal"] += int((evals_ref == evals).sum())
+    # Every cluster size the kernel takes (LEVEL_CLUSTERS), forced, against
+    # the two-launch loop: levels 2 / 1 / 0, lm and gn_fixed, the default
+    # schedule, the dt-only bf16 table, LEVEL_CLUSTER_LANES lanes; every
+    # LevelState field bit for bit and each lane's evaluations equal to
+    # those at the size level_cluster picks, and each size's device ms
+    # beside the picked one's (the picked size's share over the fastest).
+    for name, gn in (("lm", False), ("gn_fixed", True)):
+        for lvl in (2, 1, 0):
+            for b_ in LEVEL_CLUSTER_LANES:
+                cl_, R0_, t0_ = level_lanes(lvl, b_)
+                p_ = solver.step_params(opt, lvl, gn, dev)
+                edge_ = opt.edge_distance_lvl[lvl]
+                quad_ = kf_lm.quads[lvl][None].expand(b_, *kf_lm.quads[lvl].shape)
+                ops_ = K3.lane_operands(quad_, cl_, cams[lvl], b_)
+                want = solver.level_state(quad_, cl_, cams[lvl], R0_, t0_, opt, lvl, gn,
+                                          _form="launches")
+                _, evals_want = solver.solve_level_kernel(ops_, R0_, t0_, edge_, opt, p_)
+                row = {"solver": name, "level": lvl, "B": b_,
+                       "picked": solver.level_cluster(dev, K3.table_layout(quad_), b_, gn),
+                       "slowest_lane_evaluations": int(evals_want.max()), "device_ms": {},
+                       "differ": []}
+                for size in solver.LEVEL_CLUSTERS:
+                    def forced(size=size):
+                        return solver.solve_level_kernel(ops_, R0_, t0_, edge_, opt, p_,
+                                                         _cluster=size)
+
+                    got, evals = forced()
+                    row["differ"] += [[size, f] for f in _tree_diff(got, want)]
+                    if not _bit_equal(evals, evals_want):
+                        row["differ"].append([size, "evaluations"])
+                    row["device_ms"][size] = _queued_ms(forced, 20)
+                timed_ = {k: v for k, v in row["device_ms"].items() if v is not None}
+                row["fastest"] = min(timed_, key=timed_.get) if timed_ else None
+                if timed_ and row["picked"] in timed_:
+                    row["picked_over_fastest"] = timed_[row["picked"]] / timed_[row["fastest"]]
+                level_checks["cluster_sizes"].append(row)
+                level_checks["mismatches"] += [[name, lvl, b_, "cluster"] + d
+                                               for d in row["differ"]]
+    # A cluster size the kernel does not take raises, and the next launch runs.
+    refused = 0
+    for bad_cluster in (0, 16):
+        try:
+            solver.solve_level_kernel(ops0_level, *start0_level, opt.edge_distance_lvl[0], opt,
+                                      p_level0, _cluster=bad_cluster)
+        except RuntimeError:
+            refused += 1
+    torch.cuda.synchronize()
+    again, _ = solver.solve_level_kernel(ops0_level, *start0_level, opt.edge_distance_lvl[0], opt,
+                                         p_level0)
+    level_checks["refused_raise"] = refused == 2 and _tree_diff(
+        again, solver.solve_level_kernel(ops0_level, *start0_level, opt.edge_distance_lvl[0], opt,
+                                         p_level0, _cluster=1)[0]) == []
+    level_checks["attributes"] = {
+        table_name: solver.level_attributes(dev, K3.table_layout(table_of(0)))
+        for table_name, table_of in tables_of.items()}
     # (d) rows of the kernel line: the step at the main path's B = 1 (and
     # B = 8) in its start mode, which does a live step's work (a step
     # timed in place would stop its lanes), from seeded non-special rows;
@@ -3925,9 +4135,56 @@ def main() -> int:
     solver_rows[0]["lanes_8"] = {"ms": _time_ms(fk8, 50), "plain_ms": _time_ms(fp8, 20),
                                  "device_ms": _queued_ms(fk8), "bound_ms": bound8[0],
                                  "bound_by": bound8[1]}
+    # The level kernel at the main path's shape: level 0 of the chain's last
+    # frame, B = 1, lm, from the previous frame's pose.  Bound: the cloud,
+    # the table rows its points inside the image gather, the start pose, the
+    # state and the counts moved once; the operations of this run's
+    # evaluations (each a pass over the points and a step).
+    def level_kernel():
+        return solver.solve_level_kernel(ops0_level, *start0_level, opt.edge_distance_lvl[0], opt,
+                                         p_level0)
+
+    def level_plain():
+        return solver.solve_level_ref(ops0_level.quad, ops0_level.cloud, cams[0], *start0_level,
+                                      opt, 0, False)
+
+    state_l, evals_l = level_kernel()
+    n_evals_l, n_pts_l = int(evals_l[0]), cl0.points.shape[0]
+    n_inside_l = int(K3.residual_terms(kf_lm.quads[0], cl0, cams[0], *(x[0] for x in start0_level),
+                                       opt.edge_distance_lvl[0], opt.huber_edge, False)[5])
+    bound_l = _bound(_nbytes(cl0.points, cl0.valid, *start0_level, evals_l,
+                             *_tensor_leaves(state_l))
+                     + _gathered_bytes(kf_lm.quads[0], n_inside_l),
+                     n_evals_l * (K3_FUSED_OPS_PER_POINT * n_pts_l + STEP_OPS_PER_LANE))
+    level_bad = (level_checks["mismatches"] or level_checks["evaluation_mismatches"]
+                 or not level_checks["refused_raise"])
+    solver_rows.append({
+        "name": "solve_level_kernel", "route": "cuda", "source": "revo_tpu_torch/csrc/level.cu",
+        "replaces": "revo_tpu/solver.py:484", "launches": launch_total.get("solve_level_kernel", 0),
+        # Against its plain version (solve_level_ref) at B = 1 and 8: the
+        # larger of metres and radians; bit-equality to the two-launch loop
+        # of kernels is its own field.
+        "max_abs_err": max(level_checks["plain"]["max_m"], level_checks["plain"]["max_rad"]),
+        "vs_launches_bit_equal": not level_bad,
+        "ms": min(_time_ms(level_kernel, 20), _time_ms(level_kernel, 20)),
+        "plain_ms": min(_time_ms(level_plain, 2, warmup=1), _time_ms(level_plain, 2, warmup=0)),
+        "bound_ms": bound_l[0], "bound_by": bound_l[1],
+        "library_ms": None,  # no single PyTorch call computes a level
+        "device_ms": _queued_ms(level_kernel, 20),
+        # JAX's level while_loops (revo_tpu/solver.py:484, :495, :603), whose
+        # evaluations reach this pallas_call (the fused pass inside).
+        "pallas_call": "revo_tpu/ops/pallas/lgsx.py:103",
+        "evaluations": n_evals_l, "points": n_pts_l, "cluster": solver.level_cluster(
+            dev, K3.table_layout(kf_lm.quads[0]), 1, False),
+        "attributes": level_checks["attributes"]["dt4bf"],
+        "vs_plain_max_m": level_checks["plain"]["max_m"],
+        "vs_plain_max_rad": level_checks["plain"]["max_rad"],
+    })
     solver_summary = {
         "step_checks": {k: {"lanes": v["lanes"], "live_after_each": v["live"],
                             "mismatches": v["mismatches"][:20]} for k, v in step_checks.items()},
+        "level_kernel": {**level_checks, "mismatches": level_checks["mismatches"][:20],
+                         "evaluation_mismatches": level_checks["evaluation_mismatches"][:20]},
         "init_check": {"poses": n_poses, "mismatches": ic_bad[:20], "lanes_bit_equal_b1": ic_alone,
                        "identity_taken": ic_eye},
         "loops_bit_equal": loop_equal, "linalg_chain": linalg_chain, "smi": smi,
@@ -3938,8 +4195,14 @@ def main() -> int:
     if step_bad or ic_bad or not ic_alone or not all(loop_equal.values()):
         raise RuntimeError(f"solver_step: a kernel or a loop differs from its plain version: "
                            f"{solver_summary}")
-    if any(v["launches"]["solver_step"] or not v["launches"]["residual_lgsx"]
-           or not v["ate_m"] < ATE_LIMIT_M for v in linalg_chain.values()):
+    plain_l = level_checks["plain"]
+    if (level_bad or plain_l["flags_differ"]
+            or not (plain_l["max_m"] <= POSE_TOL and plain_l["max_rad"] <= POSE_TOL)):
+        raise RuntimeError(f"solver_step: the level kernel differs from the two-launch loop or "
+                           f"from its plain version: {solver_summary['level_kernel']}")
+    if any(v["launches"]["solver_step"] or v["launches"]["solve_level_kernel"]
+           or not v["launches"]["residual_lgsx"] or not v["ate_m"] < ATE_LIMIT_M
+           for v in linalg_chain.values()):
         raise RuntimeError(f"solver_step: solve6_impl 'linalg' did not take the plain step, or "
                            f"its chain is off: {linalg_chain}")
 
@@ -3986,7 +4249,7 @@ def main() -> int:
         # the chain's first N_PROFILED frames: a window over all 7 holds about
         # a million profiler events and takes a minute to read.
         hand = {k: v / N_PROFILED for k, v in _path_launches(
-            counters_[-3:], lambda: chain(N_PROFILED))[1].items()}
+            track_counters, lambda: chain(N_PROFILED))[1].items()}
         n_kern, busy_ms, _, n_copies = _profile_trusted(lambda: chain(N_PROFILED), 1,
                                                         f"times: track_frames_{name}")
         launches_frame = (n_kern + n_copies) / N_PROFILED + sum(hand.values())
@@ -3994,8 +4257,8 @@ def main() -> int:
             "frames": N_PROFILED,
             "torch_kernels_per_frame": n_kern / N_PROFILED,
             "copies_per_frame": n_copies / N_PROFILED,
-            # residual_lgsx: one an evaluation; solver_step: one an
-            # evaluation and (gn_fixed) one a level's start; init_check: one.
+            # solve_level_kernel: one a level; init_check: one; the
+            # two-launch loop's kernels: none.
             "hand_launches_per_frame": hand,
             "launches_per_frame": launches_frame,
             "torch_busy_ms_per_frame": busy_ms / N_PROFILED,
@@ -4003,38 +4266,41 @@ def main() -> int:
         if name == "lm" and launches_frame > LM_FRAME_LAUNCHES:
             raise RuntimeError(f"times: {launches_frame} launches a tracked lm frame, more than "
                                f"{LM_FRAME_LAUNCHES}: {stage_ms[f'track_frames_{name}_profile']}")
+        if hand != {"residual_lgsx": 0, "solver_step": 0, "init_check": 1,
+                    "solve_level_kernel": pyr.n_levels}:
+            raise RuntimeError(f"times: a tracked {name} frame is not one init check and one "
+                               f"level kernel a level: {hand}")
         part_done(f"track_frames_{name}_profile")
-    # lm's chain with the live-lane count read every k evaluations
-    # (solver.LM_CHUNK) in the order of LM_CHUNKS_TIMED, so that drift falls
-    # on both sides of each k: ms a frame (the better of two), evaluations
-    # and host reads a frame; the poses must not depend on k.
-    frames_c, kf_c = gpu["lm"][0], gpu["lm"][1]
+    # lm's and gn_fixed's chains with every level in the two-launch loop
+    # (level_state's "launches" form, lm's live-lane count read every
+    # solver.LM_CHUNK evaluations), in turns with the level kernel's above
+    # (kernel, loop, loop, kernel): ms a frame, the same poses.
+    for name in ("lm", "gn_fixed"):
+        c = _with_solver(cfg, name)
+        frames, kf, _, _ = gpu[name]
 
-    def chain_lm():
-        R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-        for f in frames_c[1:]:
-            res = tracker.track_frames(kf_c, f, R, t, cfg_lm)
-            R, t = res.R, res.t
-        return R, t
+        def chain_poses():
+            R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+            for f in frames[1:]:
+                res = tracker.track_frames(kf, f, R, t, c)
+                R, t = res.R, res.t
+            return R, t
 
-    chunk_default, lm_chunks, chunk_poses = solver.LM_CHUNK, {}, {}
-    try:
-        for k in LM_CHUNKS_TIMED:
-            solver.LM_CHUNK = k
-            row = lm_chunks.setdefault(str(k), {"ms": []})
-            row["ms"].append(_time_ms(chain_lm, 3, warmup=1) / (N_FRAMES - 1))
-            reads = solver.lm_level_batched.host_reads
-            chunk_poses[k], counts = _path_launches(counters_[-3:], chain_lm)
-            row["evaluations"] = counts["residual_lgsx"] / (N_FRAMES - 1)
-            row["host_reads"] = (solver.lm_level_batched.host_reads - reads) / (N_FRAMES - 1)
-    finally:
-        solver.LM_CHUNK = chunk_default
-    for row in lm_chunks.values():
-        row["ms"] = min(row["ms"])
-    stage_ms["track_frames_lm_by_chunk"] = lm_chunks
-    if not all(tree_equal(v, chunk_poses[chunk_default]) for v in chunk_poses.values()):
-        raise RuntimeError("times: lm's poses depend on how often the live count is read")
-    part_done("track_frames_lm_by_chunk")
+        def loop_chain():
+            with two_launch_levels():
+                return chain_poses()
+
+        ms = {"kernel": [], "launches": []}
+        for key, fn in (("launches", loop_chain), ("launches", loop_chain),
+                        ("kernel", chain_poses)):
+            ms[key].append(_time_ms(fn, 3, warmup=1) / (N_FRAMES - 1))
+        ms["kernel"].append(stage_ms[f"track_frames_{name}"])
+        stage_ms[f"track_frames_{name}_two_launch_loop"] = {
+            "ms": min(ms["launches"]), "kernel_ms": min(ms["kernel"]), "runs": ms,
+            "lm_chunk": solver.LM_CHUNK}
+        if not tree_equal(loop_chain(), chain_poses()):
+            raise RuntimeError(f"times: {name}'s chain differs in the two-launch loop")
+    part_done("track_frames_two_launch_loop")
 
     # The VO loops over the pan, warmed up by phases 7 and 8.
     timed = {}
@@ -4043,10 +4309,30 @@ def main() -> int:
         timed["vo"] = VOSystem(cfg, device=dev)
         timed["vo"].run(zip(p_grays[:N_PAN], p_depths[:N_PAN], np.arange(N_PAN) / 30.0))
 
-    stage_ms["process_frame"] = _time_ms(vo_pan, 1, warmup=0) / N_PAN
-    rep = timed["vo"].report()
-    stage_ms["process_frame_p50_p95_p99"] = [
-        rep.latency_ms_p50, rep.latency_ms_p95, rep.latency_ms_p99]
+    def pan_run(form):
+        """One pan through VOSystem with its levels in ``form``: mean ms a
+        frame, p50 / p95 / p99 of process_frame, its slowest frames, and the
+        keyframes made (each make_keyframe's ms), which fill the tail."""
+        if form == "launches":
+            with two_launch_levels():
+                ms_ = _time_ms(vo_pan, 1, warmup=0) / N_PAN
+        else:
+            ms_ = _time_ms(vo_pan, 1, warmup=0) / N_PAN
+        vo_, rep_ = timed["vo"], timed["vo"].report()
+        return {"ms": ms_, "p50_p95_p99": [rep_.latency_ms_p50, rep_.latency_ms_p95,
+                                           rep_.latency_ms_p99],
+                "slowest_frames_ms": sorted(vo_.tracking_times)[-3:],
+                "keyframes": vo_.n_keyframes, "make_keyframe_ms": list(vo_.dt_times)}
+
+    # The pan in turns with every level in the two-launch loop (kernel,
+    # loop, loop, kernel): the same frames and keyframes, so what the tail
+    # moves by between forms is the solver's.
+    pan_runs = {"kernel": [], "launches": []}
+    for form in ("kernel", "launches", "launches", "kernel"):
+        pan_runs[form].append(pan_run(form))
+    stage_ms["process_frame"] = pan_runs["kernel"][0]["ms"]
+    stage_ms["process_frame_p50_p95_p99"] = pan_runs["kernel"][0]["p50_p95_p99"]
+    stage_ms["process_frame_runs"] = pan_runs
     stage_ms["vo_scan_frame"] = _time_ms(
         lambda: batch.vo_scan(g_pan, d_pan, cfg), 1, warmup=0) / N_PAN
     part_done("vo_loops")
@@ -4351,9 +4637,9 @@ def main() -> int:
     part_done("canny_5120x2880")
 
     def kernels_of(fn):
-        before = K3.residual_lgsx.launches + solver.solver_step.launches
+        before = sum(k.launches for k in track_counters)
         fn()
-        hand = K3.residual_lgsx.launches + solver.solver_step.launches - before
+        hand = sum(k.launches for k in track_counters) - before
         by_torch, _, shown, _ = _profile_trusted(fn, 20, "times: kernels per evaluation")
         return {"hand_launches": hand,
                 "torch_kernels": by_torch, "hand_kernels_profiler_showed": shown}
@@ -4372,16 +4658,24 @@ def main() -> int:
         solver.solver_step(state0, solver._evaluate(
             ops0, state0.Rn, state0.tn, opt.edge_distance_lvl[0], opt, state0.active, sums0), p0)
 
+    def level0():  # a level as the main path runs it: level_state on the card
+        solver.level_state(*ops0[:3], R0_1, t0_1, opt, 0, False)
+
     eval_kernels = {
         "residual_sums": kernels_of(lambda: solver._residual_sums(*fused0)),
         "residual_sums_plain": kernels_of(lambda: K3.residual_lgsx_ref(*fused0)),
         "residual_system": kernels_of(lambda: solver.residual_system(*fused0)),
         "evaluation_and_step": kernels_of(evaluation_and_step),
+        "level": kernels_of(level0),
     }
-    step_eval = eval_kernels["evaluation_and_step"]
+    step_eval, level_eval = eval_kernels["evaluation_and_step"], eval_kernels["level"]
     if step_eval["hand_launches"] != 2 or step_eval["torch_kernels"] != 0:
-        raise RuntimeError(f"times: an evaluation is not one residual_lgsx and one solver_step "
-                           f"launch and no torch kernel: {step_eval}")
+        raise RuntimeError(f"times: an evaluation of the two-launch loop is not one "
+                           f"residual_lgsx and one solver_step launch and no torch kernel: "
+                           f"{step_eval}")
+    if level_eval["hand_launches"] != 1 or level_eval["torch_kernels"] != 0:
+        raise RuntimeError(f"times: a level is not one level kernel launch and no torch kernel: "
+                           f"{level_eval}")
     part_done("kernels_per_evaluation")
     rows += quad_rows  # phase 19's rows: the fused K3's reference-gradient layouts
     rows += solver_rows  # phase 24's: the level loop's kernels
@@ -4400,11 +4694,12 @@ def main() -> int:
     # "kernels": those of the paths, each launched there; the unfused K3 is
     # held against its plain version and timed like them, but no path
     # launches it any more, so it is listed apart.
-    on_path = vga_kernels + ["canny_cluster", "canny_grid"] + split_kernels
-    if any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]:
+    # residual_lgsx alone: the point-sharded system's (phases 17 and 22).
+    on_path = vga_kernels + ["canny_cluster", "canny_grid", "residual_lgsx"] + split_kernels
+    if (any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]
+            or launch_total["solver_step"]):
         raise RuntimeError(f"launch totals do not match the paths: {launch_total}")
-    on_path += [r["name"] for r in quad_rows]
-    if any(r["launches"] <= 0 for r in quad_rows):
+    if any(r["level_kernel_launches"] <= 0 for r in quad_rows):
         raise RuntimeError(f"phase 19's layouts never launched: {quad_launches}")
     print(json.dumps({"kernels": [r for r in rows if r["name"] in on_path],
                       "kernels_off_path": [r for r in rows if r["name"] not in on_path]}))

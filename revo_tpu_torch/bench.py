@@ -55,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from revo_tpu_torch import frontend, kernels, lie, tracker
+from revo_tpu_torch import frontend, kernels, lie, solver, tracker
 from revo_tpu_torch.autotune import calibrate_capacities
 from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.eval import relative_pose_error
@@ -73,7 +73,7 @@ EXACTFIT_MARGIN = 1.10
 MAX_CHAIN_ERROR = 5.0  # divergence guard on every timed chain (errors ~0.1)
 # Every hand kernel's wrapper, whose ``.launches`` the run reports.
 COUNTED = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
-           K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx)
+           K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx, solver.solve_level_kernel)
 
 
 def _build_inputs(cfg):

@@ -64,10 +64,12 @@
 #include <stdint.h>
 
 #include "lgsx.cuh"
+#include "residual.cuh"
 
 namespace {
 
 using lgsx::NSUM;
+using namespace residual;
 
 constexpr int RD_THREADS = 128, RD_POINTS = 2;  // threads a block, points a thread
 constexpr int RD_BLOCK_POINTS = RD_THREADS * RD_POINTS;
@@ -102,94 +104,6 @@ lgsx_reduce_kernel(const float* __restrict__ wxp, const float* __restrict__ grad
 }
 
 constexpr int RL_THREADS = 128;
-constexpr int NF = NSUM + 1;  // float sums: the 28 of K3 and sum_unw; a row adds 2 int counts
-
-// float32(q * scale + shift) rounded once: the double product of two
-// floats is exact, so only the double sum and the final conversion round.
-__device__ __forceinline__ float scale_shift(float q, float scale, float shift) {
-  return (float)__dadd_rn(__dmul_rn((double)q, (double)scale), (double)shift);
-}
-
-// floor(u) as an index clamped to [0, hi]; NaN goes to 0 (interp.py ``_taps_at``).
-__device__ __forceinline__ int clamp_index(float fu, int hi) {
-  const float c = isnan(fu) ? 0.0f : fu;
-  return (int)fminf(fmaxf(c, 0.0f), (float)hi);
-}
-
-// Row layouts of the keyframe table (ops/lgsx.py ``table_layout``): the
-// dt-only quad table, the 12-component quad table (taps 00, 01, 10, 11 of
-// (gx, gy, dt)), each in float32 or bfloat16, and the (gx, gy, dt)
-// structure itself, whose four taps are rows base, base+1, base+W, base+W+1.
-enum Layout : int { DT4 = 0, DT4_BF16 = 1, QUAD12 = 2, QUAD12_BF16 = 3, STRUCT3 = 4 };
-
-// bf16 is the upper half of a float: the two of a little-endian word
-// upcast by a shift and a mask.
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-// The reference's 4-tap formula (optimizer.h:173-185) rounded as jitted XLA
-// rounds the JAX sum (interp.py ``_bilinear``): the second product rounded,
-// the other three fused onto it in order.
-__device__ __forceinline__ float bilinear(float i00, float i01, float i10, float i11,
-                                          float dx, float dy, float dxdy) {
-  float acc = __fmul_rn(__fsub_rn(dy, dxdy), i10);
-  acc = __fmaf_rn(dxdy, i11, acc);
-  acc = __fmaf_rn(__fsub_rn(dx, dxdy), i01, acc);
-  return __fmaf_rn(__fadd_rn(__fsub_rn(__fsub_rn(1.0f, dx), dy), dxdy), i00, acc);
-}
-
-// (gx, gy, dt) at fractions (dx, dy) of the pixel whose top-left tap is
-// table row `row` (interp.py ``sample_table``).  DT4: dt and the negated
-// analytic gradients of the bilinear dt surface (interp.py
-// ``bilinear_sample_dtquad``); the others: each channel interpolated.
-template <int L>
-__device__ __forceinline__ void sample(const void* __restrict__ table, size_t row, int W,
-                                       float dx, float dy, float& gx, float& gy, float& r) {
-  const float dxdy = __fmul_rn(dx, dy);
-  if (L == DT4 || L == DT4_BF16) {
-    float i00, i01, i10, i11;
-    if (L == DT4_BF16) {  // one 8-byte row
-      const uint2 q = __ldg(reinterpret_cast<const uint2*>(table) + row);
-      i00 = bf16_lo(q.x); i01 = bf16_hi(q.x); i10 = bf16_lo(q.y); i11 = bf16_hi(q.y);
-    } else {  // one 16-byte row
-      const float4 q = __ldg(reinterpret_cast<const float4*>(table) + row);
-      i00 = q.x; i01 = q.y; i10 = q.z; i11 = q.w;
-    }
-    r = bilinear(i00, i01, i10, i11, dx, dy, dxdy);
-    gx = -__fmaf_rn(dy, __fsub_rn(i11, i10),
-                    __fmul_rn(__fsub_rn(1.0f, dy), __fsub_rn(i01, i00)));
-    gy = -__fmaf_rn(dx, __fsub_rn(i11, i01),
-                    __fmul_rn(__fsub_rn(1.0f, dx), __fsub_rn(i10, i00)));
-  } else {
-    float s[12];  // taps 00, 01, 10, 11, three channels each
-    if (L == QUAD12) {  // one 48-byte row as three 16-byte loads
-      const float4* q = reinterpret_cast<const float4*>(table) + 3 * row;
-      const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
-      s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
-      s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
-      s[8] = c.x; s[9] = c.y; s[10] = c.z; s[11] = c.w;
-    } else if (L == QUAD12_BF16) {  // one 24-byte row as three 8-byte loads
-      const uint2* q = reinterpret_cast<const uint2*>(table) + 3 * row;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const uint2 w = __ldg(q + k);
-        s[4 * k] = bf16_lo(w.x); s[4 * k + 1] = bf16_hi(w.x);
-        s[4 * k + 2] = bf16_lo(w.y); s[4 * k + 3] = bf16_hi(w.y);
-      }
-    } else {  // STRUCT3: four 12-byte taps
-      const float* q = static_cast<const float*>(table);
-      const size_t tap[4] = {row, row + 1, row + W, row + W + 1};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) s[3 * k + c] = __ldg(q + 3 * tap[k] + c);
-      }
-    }
-    gx = bilinear(s[0], s[3], s[6], s[9], dx, dy, dxdy);
-    gy = bilinear(s[1], s[4], s[7], s[10], dx, dy, dxdy);
-    r = bilinear(s[2], s[5], s[8], s[11], dx, dy, dxdy);
-  }
-}
 
 template <int L>
 __global__ void __launch_bounds__(RL_THREADS)
@@ -218,46 +132,14 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
 #pragma unroll
   for (int k = 0; k < NF; ++k) acc[k] = 0.0f;
   int n_good = 0, n_bad = 0;
-
-  const int p = blockIdx.x * RL_THREADS + threadIdx.x;
-  if (p < P && valid[p]) {
-    const float x = pts[3 * p], y = pts[3 * p + 1], z = pts[3 * p + 2];
-    // R p + t as jitted XLA rounds R0 x + R1 y + R2 z + t (project.py
-    // ``apply_rt_cols``): the second product rounded, the first and third
-    // fused onto it, then the translation added.
-    float w3[3];
+  float R[9], t[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float r0 = __ldg(Rp + 3 * i), r1 = __ldg(Rp + 3 * i + 1);
-      const float r2 = __ldg(Rp + 3 * i + 2), ti = __ldg(tp + i);
-      w3[i] = __fadd_rn(__fmaf_rn(r2, z, __fmaf_rn(r0, x, __fmul_rn(r1, y))), ti);
-    }
-    const float px = w3[0], py = w3[1], pz = w3[2];
-    const float pzs = (pz == 0.0f) ? 1e-12f : pz;
-    const float u = scale_shift(__fdiv_rn(px, pzs), fx, cx);
-    const float v = scale_shift(__fdiv_rn(py, pzs), fy, cy);
-    // NaN-rejecting bounds test (optimizer.cpp:100).
-    bool good = (u > 1.0f) && (v > 1.0f) && (u < (float)W - 2.0f) &&
-                (v < (float)H - 2.0f);
-    if (good) {
-      const float fu = floorf(u), fv = floorf(v);
-      const float dx = __fsub_rn(u, fu), dy = __fsub_rn(v, fv);
-      const int ix = clamp_index(fu, W - 2), iy = clamp_index(fv, H - 2);
-      float gx, gy, r;
-      sample<L>(quad, quad_row0 + (size_t)iy * W + ix, W, dx, dy, gx, gy, r);
-      if (use_edge_filter) good = r <= edge_distance;  // optimizer.cpp:108
-      if (good) {
-        // Huber weight (optimizer.h:156-160), a true division.
-        const float r_safe = (r == 0.0f) ? 1.0f : r;
-        const float w = (r <= huber) ? 1.0f : __fdiv_rn(huber, r_safe);
-        lgsx::accumulate(acc, px, py, pz, __fmul_rn(fx, gx),
-                         __fmul_rn(fy, gy), r, w);
-        acc[NSUM] += r * r;
-      }
-    }
-    n_good = good ? 1 : 0;
-    n_bad = good ? 0 : 1;
-  }
+  for (int k = 0; k < 9; ++k) R[k] = __ldg(Rp + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = __ldg(tp + k);
+  residual::point_pass<L>(quad, quad_row0, pts, valid, blockIdx.x * RL_THREADS + threadIdx.x, P, R,
+                          t, fx, fy, cx, cy, W, H, edge_distance, huber, use_edge_filter, acc,
+                          n_good, n_bad);
 
   // Block reduction to one partial row, the ticket, and in the last block
   // the rows summed in block-index order (lgsx.cuh).
@@ -268,16 +150,8 @@ residual_lgsx_kernel(const void* __restrict__ quad, int quad_stride,
   float fs;
   int is;
   lgsx::sum_rows<RL_THREADS, NF, 2>(partial, gridDim.x, stage, fs, is);
-  const int tid = threadIdx.x;
-  // out: A (36), g (6), sum_w, sum_unw, then n_good and n_bad as int32.
-  if (tid < NSUM) {
-    lgsx::store_sum(out, tid, fs);
-  } else if (tid == NSUM) {
-    out[43] = fs;
-  } else if (tid < NF + 2) {
-    reinterpret_cast<int*>(out)[44 + tid - NF] = is;
-  }
-  if (tid == 0) *ticket = 0u;
+  store_outputs(out, threadIdx.x, fs, is);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 }  // namespace

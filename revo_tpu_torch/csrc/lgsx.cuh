@@ -1,4 +1,4 @@
-// Device code shared by the two LGSX kernels of lgsx.cu: one point's
+// Device code shared by the LGSX kernels of lgsx.cu and level.cu: one point's
 // contribution to the 28 running sums, the fixed warp-shuffle tree, the
 // block reduction to one partial row, the ticket that elects the last block,
 // its pass over the rows in block-index order, and the scatter of the 21
@@ -55,22 +55,32 @@ constexpr int CHUNK = 128; // partial rows the last block stages per pass
 // counts `cnt` to one partial row (NF floats, then NI ints) in global
 // memory, in a fixed order: the shuffle tree in each warp, then the warp
 // partials added in warp order.  stage: CHUNK * ROW words of shared memory.
+// `group_row` is the same for NT threads of a larger block, `tid` their
+// index among them, that meet at named barrier `bar` (1-15); stage: their
+// own NT / 32 * ROW words.  The first barrier keeps a group that loops from
+// writing its stage before its readers of the last row are done.
 template <int NT, int NF, int NI>
-__device__ __forceinline__ void block_row(float* acc, int* cnt, float* stage, float* row) {
+__device__ __forceinline__ void group_row(float* acc, int* cnt, float* stage, float* row,
+                                          int tid, int bar) {
   static_assert(NF + NI <= ROW && NT / 32 <= CHUNK, "a partial row holds every sum");
 #pragma unroll
   for (int k = 0; k < NF; ++k) acc[k] = warp_sum(acc[k]);
 #pragma unroll
   for (int k = 0; k < NI; ++k) cnt[k] = __reduce_add_sync(0xffffffffu, cnt[k]);
   int* stage_i = reinterpret_cast<int*>(stage);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (bar) asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(NT) : "memory");
   if (lane == 0) {
 #pragma unroll
     for (int k = 0; k < NF; ++k) stage[warp * ROW + k] = acc[k];
 #pragma unroll
     for (int k = 0; k < NI; ++k) stage_i[warp * ROW + NF + k] = cnt[k];
   }
-  __syncthreads();
+  if (bar) {
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(NT) : "memory");
+  } else {
+    __syncthreads();
+  }
   if (tid < NF) {
     float s = 0.0f;
     for (int wi = 0; wi < NT / 32; ++wi) s += stage[wi * ROW + tid];
@@ -80,6 +90,11 @@ __device__ __forceinline__ void block_row(float* acc, int* cnt, float* stage, fl
     for (int wi = 0; wi < NT / 32; ++wi) s += stage_i[wi * ROW + tid];
     reinterpret_cast<int*>(row)[tid] = s;
   }
+}
+
+template <int NT, int NF, int NI>
+__device__ __forceinline__ void block_row(float* acc, int* cnt, float* stage, float* row) {
+  group_row<NT, NF, NI>(acc, cnt, stage, row, threadIdx.x, 0);
 }
 
 // After block_row: the row is fenced, then the block takes a ticket.  True,
@@ -97,7 +112,8 @@ __device__ __forceinline__ bool last_block(unsigned int* ticket, unsigned int nb
 }
 
 // In the last block: thread k (< NF + NI) sums column k of the nb partial
-// rows in block-index order, into fs (floats) or is (ints).  All NT threads
+// rows in block-index order, into fs (floats) or is (ints); the order, and
+// so the bits, do not depend on NT.  All NT threads
 // stage CHUNK rows at a time in shared memory (loads in flight together,
 // past L1).  stage: CHUNK * ROW words of shared memory.
 template <int NT, int NF, int NI>

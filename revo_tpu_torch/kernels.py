@@ -58,6 +58,10 @@ SIGNATURES = {
     "revo_residual_lgsx": "piipipipipipffffiiffiiippp",
     "revo_solver_step": "p" * 19 + "ipipiiiiiiffffff",
     "revo_init_check": "pipipipipiiiiifffffiifpppp",
+    "revo_solve_level": ("pii" + "pipi" * 2 + "ffffii" + "ffi" + "ii" + "p" * 18 + "pi" + "iii"
+                         + "ffffff" + "i"),
+    "revo_solve_level_clusters": "ii",
+    "revo_solve_level_attr": "ii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -8,7 +8,9 @@ residual pass that feeds it.
 g = sum w J r and s = sum w r^2, unnormalized (the caller divides by the
 good count).  This is the TPU kernel's own contract.
 
-``residual_lgsx`` is what the solver calls once per evaluation: the whole
+``residual_lgsx`` is one evaluation of the solver (``solver.residual_system``;
+on the card a level runs the same pass inside its level kernel,
+csrc/level.cu, and the two-launch loop calls this once per evaluation): the whole
 residual pass (``residual_terms``: transform, project, bounds-check, sample
 the keyframe level's table, edge filter, Huber weight) and that reduction,
 plus the unweighted error sum and the good and bad counts, in one kernel

@@ -16,22 +16,25 @@ The solvers run B independent lanes at once (``lm_level_batched``,
 ``gn_level_fixed_batched``), what the JAX package gets from ``vmap`` of its
 ``while_loop``s, and like its jitted loops they keep every lane's state on
 the device (``LevelState``): pose, candidate, system, lambda, iteration,
-tries and the active byte that the fused K3 kernel reads to skip a lane.
-An evaluation is two launches, ``residual_lgsx`` at the candidates and
-``solver_step`` (csrc/solver.cu's ``revo_solver_step``: normalisation, the
-accept / lambda / exit rules, the damped 6x6 LDL^T solve, exp and compose
-of the next candidate, one thread a lane), and the host reads nothing:
-gn_fixed runs its fixed count of evaluations, lm reads a live-lane count
-once per LM_CHUNK evaluations, one chunk late.  The tracker's init check is
-one ``init_check`` launch.  The plain versions (``solver_step_ref``,
-``solver_start_ref``, ``init_check_ref``) run on the CPU, and on the card
-for ``solve6_impl="linalg"``, whose ``torch.linalg.solve_ex`` no hand
-kernel repeats.  Each lane's op sequence is the one-lane sequence, so its
-bits are those of the same lane run alone; ``lm_level`` and
+tries and the active byte.  On the card a whole level is one launch,
+``solve_level_kernel`` (csrc/level.cu's ``revo_solve_level``: a
+thread-block cluster a lane runs the fused K3 pass, the ordered sums and
+the step, csrc/solver.cuh's normalisation, accept / lambda / exit rules,
+damped 6x6 LDL^T solve, exp and compose, until the lane's own exit), and
+the host reads nothing.  Its plain version is ``solve_level_ref``.  The
+two-launch loop it replaced (``residual_lgsx`` and ``solver_step`` an
+evaluation, ``level_state``'s "launches" form) gives the same bits and
+stays for comparisons; the same loop with the plain step (``solver_step_ref``,
+``solver_start_ref``) runs on the CPU, and on the card for
+``solve6_impl="linalg"``, whose ``torch.linalg.solve_ex`` no hand kernel
+repeats.  The tracker's init check is one ``init_check`` launch
+(``init_check_ref``).  Each lane's op sequence is the one-lane sequence, so
+its bits are those of the same lane run alone; ``lm_level`` and
 ``gn_level_fixed`` are the B = 1 case.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,7 +45,8 @@ from revo_tpu_torch.lanes import lane
 from revo_tpu_torch.ops.backproject import EdgeCloud
 from revo_tpu_torch.ops.edt import QUAD_FORMS
 from revo_tpu_torch.ops.lgsx import (
-    _lane_operand, _lane_outputs, lane_operands, residual_lgsx, residual_lgsx_lanes,
+    LaneOperands, _lane_operand, _lane_outputs, lane_operands, residual_lgsx,
+    residual_lgsx_batched_ref, residual_lgsx_lanes, table_layout,
 )
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 from revo_tpu_torch.parallel.mesh import psum, replicate, shard
@@ -531,28 +535,187 @@ def _evaluate(ops, R, t, edge_distance, opt: OptimizerConfig, active, out) -> to
     return out
 
 
-def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
-                     max_inner: int = 32):
-    """One pyramid level of LM (Optimizer::trackFrames,
-    optimizer.cpp:235-311) over B lanes (quad (B, H*W, C), the keyframe level's
-    table as ``ops.lgsx.table_layout`` takes it; cloud points
-    (B, P, 3), any operand shareable by ``expand``; R0 (B, 3, 3), t0 (B, 3)),
-    with the rules of ``solver_step_ref``.  ``max_inner`` bounds the
-    reference's unbounded retry loop.  Every evaluation is one try of every
-    active lane: the JAX package's nested while loops, vmapped, unrolled
-    into one loop over the LevelState in device memory.  Each evaluation is
-    one ``residual_lgsx`` and one ``solver_step`` launch; the host reads
-    only the live-lane count, once per LM_CHUNK evaluations and one chunk
-    late (``_LiveCounts``), so a level runs up to 2 LM_CHUNK - 1 evaluations
-    past its slowest lane, which find every lane stopped and change
-    nothing; at most max_its * max_inner.  Returns (R, t, last_err, info),
-    each with the lane axis."""
+# How a level may run on the card (``level_route``): the level kernel, or
+# the two-launch loop (``residual_lgsx`` + ``solver_step`` an evaluation),
+# which a caller picks to compare the two.
+LEVEL_FORMS = ("kernel", "launches")
+# Blocks a lane the level kernel may take, largest first (csrc/level.cu:
+# up to 8, the portable cluster size).
+LEVEL_CLUSTERS = (8, 4, 2, 1)
+# Waves of clusters the level kernel's lanes may take, by solver: gn_fixed's
+# lanes all run the same evaluations, so a second wave doubles the time;
+# lm's lanes leave at different evaluations, and a second wave of larger
+# clusters fills the SMs that early lanes free (every size timed at B = 1,
+# 8, 16, 32 in chip_smoke phase 24 (f); PERF.md section 6).
+LEVEL_WAVES = {"gn_fixed": 1, "lm": 2}
+
+
+def level_route(device, impl: str, form: str = "kernel") -> str:
+    """How a level runs on ``device``: "kernel" (one ``solve_level_kernel``
+    launch: a CUDA device, solve6_impl "ldlt" and the default form),
+    "launches" (the two-launch loop on the card, chosen by the caller) or
+    "plain" (the loop with the plain step: the CPU, or solve6_impl
+    "linalg" on any device).  Raises ValueError for another device or
+    form."""
+    device = torch.device(device)
+    if form not in LEVEL_FORMS:
+        raise ValueError(f"unknown level form {form!r}; one of {LEVEL_FORMS}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"solver: unsupported device {device}")
+    if device.type == "cpu" or impl != "ldlt":
+        return "plain"
+    return form
+
+
+@functools.lru_cache(maxsize=None)
+def level_cluster(device: torch.device, layout: int, lanes: int, gn: bool) -> int:
+    """Blocks a lane of ``solve_level_kernel`` takes on ``device`` for table
+    ``layout``: the largest of LEVEL_CLUSTERS of which the card holds
+    ``lanes`` clusters in LEVEL_WAVES of the solver (``gn``: gn_fixed, else
+    lm), else 1.  The cluster size changes no bit of the result."""
+    waves = LEVEL_WAVES["gn_fixed" if gn else "lm"]
+    for cluster in LEVEL_CLUSTERS:
+        held = kernels.call("revo_solve_level_clusters", layout, cluster, device=device)
+        if held < 0:
+            raise RuntimeError(f"solve_level_kernel: CUDA error {-held} counting clusters")
+        if held * waves >= lanes:
+            return cluster
+    return LEVEL_CLUSTERS[-1]
+
+
+LEVEL_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "threads", "max_threads")
+
+
+def level_attributes(device, layout: int) -> dict:
+    """The built level kernel's attributes for table ``layout``
+    (``cudaFuncGetAttributes``): registers a thread, local memory bytes a
+    thread (spills included), static shared memory bytes and threads a
+    block, and the most threads a block the build admits."""
+    out = {}
+    for which, name in enumerate(LEVEL_ATTRIBUTES):
+        value = kernels.call("revo_solve_level_attr", layout, which, device=torch.device(device))
+        if value < 0:
+            raise RuntimeError(f"solve_level_kernel: CUDA error {-value} reading {name}")
+        out[name] = value
+    return out
+
+
+def solve_level_kernel(ops: LaneOperands, R0, t0, edge_distance, opt: OptimizerConfig,
+                       p: StepParams, _cluster=None):
+    """One pyramid level of B lanes in one launch of ``revo_solve_level``
+    (csrc/level.cu): per lane, one thread-block cluster evaluates and steps
+    until the lane's own exit or the cap, lm's start evaluation included,
+    as ``solve_level_ref`` computes it; the two-launch loop's result bit
+    for bit.  ``ops``: the level's operands (``lane_operands`` on the card),
+    R0 (B, 3, 3), t0 (B, 3) the start poses, ``p`` the schedule
+    (solve6_impl "ldlt").  Returns (the final LevelState in new tensors,
+    the evaluations each lane ran (B,) int32).  The cluster size follows
+    from the lanes, the solver and the card (``level_cluster``); ``_cluster`` (1-8) lets
+    a comparison force one.  A launch the card refuses raises; nothing
+    falls back.  ``launches`` counts the launches, ``layout_launches`` the
+    same by table layout, and ``evaluations`` holds the last launch's
+    counts."""
+    dev = ops.quad.device
+    if ops.scratch is None or dev.type != "cuda":
+        raise ValueError(f"solve_level_kernel: unsupported device {dev}")
+    if p.impl != "ldlt":
+        raise ValueError(f"solve_level_kernel: the kernel solves by LDL^T; solve6_impl "
+                         f"{p.impl!r} takes the plain step")
+    b, cam = ops.lanes, ops.cam
+    R0, R0_s = _lane_operand(R0, b, (3, 3), (torch.float32,), dev, "R0")
+    t0, t0_s = _lane_operand(t0, b, (3,), (torch.float32,), dev, "t0")
+    layout = table_layout(ops.quad)
+    cluster = level_cluster(dev, layout, b, bool(p.gn)) if _cluster is None else int(_cluster)
+    state = _empty_state(b, dev)
+    evals = torch.empty(b, dtype=torch.int32, device=dev)
+    quad_s, pts_s, valid_s = ops.strides
+    info = state.sys.info
+    kernels.launch(
+        "revo_solve_level", ops.quad, layout, quad_s, ops.cloud.points, pts_s, ops.cloud.valid,
+        valid_s, R0, R0_s, t0, t0_s, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+        edge_distance, opt.huber_edge, int(bool(opt.use_edge_filter)),
+        ops.cloud.points.shape[-2], b, ops.scratch[0], state.R, state.t, state.Rn, state.tn,
+        state.inc, state.sys.err, state.sys.A, state.sys.g, info.good, info.bad,
+        info.sum_error_weighted, info.sum_error_unweighted, state.lam, state.iteration,
+        state.tries, state.active, evals, p.pows, p.pows.shape[0], int(p.gn), p.max_iter,
+        p.max_inner, p.conv_eps, p.flat_below, p.step_min, p.success, p.fail, p.lam0, cluster,
+    )
+    solve_level_kernel.launches += 1
+    solve_level_kernel.layout_launches[layout] += 1
+    solve_level_kernel.evaluations = evals
+    return state, evals
+
+
+solve_level_kernel.launches = 0
+# Launches by table layout (``ops.lgsx.table_layout``'s code), beside the total.
+solve_level_kernel.layout_launches = [0] * len(residual_lgsx.layout_launches)
+solve_level_kernel.evaluations = None  # the last launch's (B,) counts, for a caller's accounting
+
+
+def solve_level_ref(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bool,
+                    max_inner: int = 32):
+    """Plain version of ``solve_level_kernel``, its schedule as torch ops on
+    any device: each lane evaluates (``residual_lgsx_batched_ref``) and
+    steps (``solver_step_ref``) until its own exit or the cap (lm: its
+    start evaluation, then at most max_its * max_inner; gn_fixed: at most
+    fixed_iters + 1), and counts its evaluations; the level ends when no
+    lane is left.  Operands as ``lm_level_batched`` takes them.  Returns
+    (the final LevelState, evaluations (B,) int32)."""
     edge_dist = opt.edge_distance_lvl[lvl]
     b, dev = R0.shape[0], R0.device
-    p = step_params(opt, lvl, False, dev, max_inner)
-    start, step = _steppers(p)
+    p = step_params(opt, lvl, gn, dev, max_inner)
+    sums = torch.zeros((b, 46), dtype=torch.float32, device=dev)
+    evals = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def evaluate(R, t, active):
+        residual_lgsx_batched_ref(quad, cloud, cam, R, t, edge_dist, opt.huber_edge,
+                                  opt.use_edge_filter, active, sums)
+        return sums
+
+    if gn:
+        state = solver_start_ref(R0, t0, None, p)
+    else:
+        state = solver_start_ref(R0, t0, evaluate(R0, t0, None), p)
+        evals += 1
+    for _ in range(p.max_iter if gn else p.max_iter * max_inner):
+        act = state.active.clone()
+        if not bool(act.any()):
+            break
+        evals += act.to(torch.int32)
+        state = solver_step_ref(state, evaluate(state.Rn, state.tn, act), p)
+    return state, evals
+
+
+def level_state(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bool,
+                max_inner: int = 32, _form: str = "kernel") -> LevelState:
+    """The final LevelState of one pyramid level over B lanes, gn_fixed's
+    (``gn``) or lm's, routed by ``level_route``: on the card with
+    solve6_impl "ldlt" one ``solve_level_kernel`` launch; with ``_form``
+    "launches" (a caller's comparison), on the CPU and for "linalg" the
+    loop of one ``residual_lgsx`` (the plain version on the CPU) and one
+    step an evaluation, the step the kernel's (``solver_step``) or the plain
+    one (``_steppers``).  gn_fixed's loop runs its fixed_iters + 1
+    evaluations and reads nothing on the host; lm's reads a live-lane count
+    once per LM_CHUNK evaluations, one chunk late (``_LiveCounts``), so it
+    runs up to 2 LM_CHUNK - 1 evaluations past its slowest lane, which find
+    every lane stopped and change nothing; at most max_its * max_inner.
+    The kernel leaves each lane at its own exit, as JAX's while_loop does;
+    the two give the same bits."""
+    edge_dist = opt.edge_distance_lvl[lvl]
+    b, dev = R0.shape[0], R0.device
+    route = level_route(dev, opt.solve6_impl, _form)
+    p = step_params(opt, lvl, gn, dev, max_inner)
     ops = lane_operands(quad, cloud, cam, b)
+    if route == "kernel":
+        return solve_level_kernel(ops, R0, t0, edge_dist, opt, p)[0]
+    start, step = _steppers(p)
     sums = torch.empty((b, 46), dtype=torch.float32, device=dev)
+    if gn:
+        state = start(R0, t0, None, p)
+        for _ in range(p.max_iter):
+            state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
+                                          sums), p)
+        return state
     n_live = torch.empty(1, dtype=torch.int32, device=dev)
     counts = _LiveCounts(n_live)
     state = start(R0, t0, _evaluate(ops, R0, t0, edge_dist, opt, None, sums), p, n_live)
@@ -561,31 +724,39 @@ def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
                                       sums), p, n_live)
         if n % LM_CHUNK == 0 and counts.post_and_read_previous() == 0:
             break
+    return state
+
+
+def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
+                     max_inner: int = 32, _form: str = "kernel"):
+    """One pyramid level of LM (Optimizer::trackFrames,
+    optimizer.cpp:235-311) over B lanes (quad (B, H*W, C), the keyframe level's
+    table as ``ops.lgsx.table_layout`` takes it; cloud points
+    (B, P, 3), any operand shareable by ``expand``; R0 (B, 3, 3), t0 (B, 3)),
+    with the rules of ``solver_step_ref``.  ``max_inner`` bounds the
+    reference's unbounded retry loop.  Every evaluation is one try of every
+    active lane: the JAX package's nested while loops, vmapped, as one
+    loop over the LevelState in device memory (``level_state``: on the
+    card one kernel launch).  Returns (R, t, last_err, info), each with the
+    lane axis."""
+    state = level_state(quad, cloud, cam, R0, t0, opt, lvl, False, max_inner, _form)
     return state.R, state.t, state.sys.err, state.sys.info
 
 
 lm_level_batched.host_reads = 0
 
 
-def gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int):
+def gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
+                           _form: str = "kernel"):
     """Bounded branchless LM over B lanes, the JAX package's batched fast
     path (solver._gn_level_fixed and its batching rule, solver.py:609-697),
-    with the rules of ``solver_step_ref``: exactly fixed_iters[lvl] + 1
-    evaluations, the first of which evaluates the initial pose, each one
-    ``residual_lgsx`` and one ``solver_step`` launch, and no host read.  A
-    stopped lane is frozen: JAX's ``while_loop`` leaves once every lane is
-    done, and the evaluations after that find every lane stopped and
-    change nothing.  Returns (R, t, err, info), each with the lane axis."""
-    edge_dist = opt.edge_distance_lvl[lvl]
-    b, dev = R0.shape[0], R0.device
-    p = step_params(opt, lvl, True, dev)
-    start, step = _steppers(p)
-    ops = lane_operands(quad, cloud, cam, b)
-    sums = torch.empty((b, 46), dtype=torch.float32, device=dev)
-    state = start(R0, t0, None, p)
-    for _ in range(p.max_iter):
-        state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
-                                      sums), p)
+    with the rules of ``solver_step_ref``: at most fixed_iters[lvl] + 1
+    evaluations, the first of which evaluates the initial pose
+    (``level_state``: on the card one kernel launch, each lane leaving at
+    its own exit; the loop form runs all of them, and those after a lane
+    stopped change nothing).  Returns (R, t, err, info), each with the lane
+    axis."""
+    state = level_state(quad, cloud, cam, R0, t0, opt, lvl, True, _form=_form)
     return state.R, state.t, state.sys.err, state.sys.info
 
 

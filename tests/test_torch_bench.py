@@ -315,8 +315,9 @@ def _good_line():
 
 def _good_launches(pyramids=200):
     counts = dict.fromkeys(("canny_fused", "canny_cluster", "canny_grid", "canny_nms",
-                            "canny_hysteresis", "lgsx_reduce", "residual_lgsx"), 0)
-    counts.update(canny_fused=3 * pyramids, residual_lgsx=5000)
+                            "canny_hysteresis", "lgsx_reduce", "residual_lgsx",
+                            "solve_level_kernel"), 0)
+    counts.update(canny_fused=3 * pyramids, solve_level_kernel=3 * pyramids)
     return {"launches": counts}
 
 
@@ -351,7 +352,8 @@ def test_check_bench_line_gates():
         dict(counts, launches=dict(counts["launches"], canny_fused=0)),
         dict(counts, launches=dict(counts["launches"], canny_cluster=1)),
         dict(counts, launches=dict(counts["launches"], canny_nms=2, canny_hysteresis=2)),
-        dict(counts, launches=dict(counts["launches"], residual_lgsx=0)),
+        dict(counts, launches=dict(counts["launches"], solve_level_kernel=0)),
+        dict(counts, launches=dict(counts["launches"], residual_lgsx=5000)),
     ]
     sys.settrace(tracer)
     try:

@@ -72,7 +72,7 @@ def test_phase_19_rehearses_on_the_cpu(capsys, monkeypatch):
     grays, depths, gt = cs._sensor_frames(rendered[:cs.N_FRAMES], cfg)
     p_grays, p_depths, p_gt = cs._sensor_frames(rendered[cs.N_FRAMES:], cfg)
     counters_ = [_Counter(n) for n in ("canny_fused", "residual_lgsx")]
-    layouts = K3.residual_lgsx.layout_launches
+    layouts = solver.solve_level_kernel.layout_launches
 
     def path_launches(counters, fn):  # what a 640x480 path on the card would count
         out = fn()
@@ -107,5 +107,5 @@ def test_phase_19_rehearses_on_the_cpu(capsys, monkeypatch):
     rows = ns["quad_rows"]
     assert sorted(r["name"] for r in rows) == sorted(cs.LAYOUT_ROWS.values())
     for r in rows:
-        assert r["launches"] > 0 and r["bound_by"] in ("bytes", "operations")
+        assert r["level_kernel_launches"] > 0 and r["bound_by"] in ("bytes", "operations")
         assert r["bound_ms"] > 0 and r["library_ms"] is None

@@ -94,11 +94,12 @@ def test_phases_15_and_16_rehearse_on_the_cpu(tmp_path, capsys):
     poses_c = VOSystem(cfg, device="cpu").run(
         zip(p_grays[:cs.N_PAN], p_depths[:cs.N_PAN], [i / 30.0 for i in range(cs.N_PAN)]))[0]
     counters_ = [_Counter(n) for n in ("canny_fused", "canny_nms", "canny_hysteresis",
-                                       "lgsx_reduce", "residual_lgsx")]
+                                       "lgsx_reduce", "residual_lgsx", "solver_step",
+                                       "init_check", "solve_level_kernel")]
+    on_card = ("canny_fused", "init_check", "solve_level_kernel")
 
     def path_launches(counters, fn):  # what a 640x480 path on the card would count
-        return fn(), {k.__name__: 999 if k.__name__ in ("canny_fused", "residual_lgsx") else 0
-                      for k in counters}
+        return fn(), {k.__name__: 999 if k.__name__ in on_card else 0 for k in counters}
 
     ns = dict(vars(cs))
     ns.update(

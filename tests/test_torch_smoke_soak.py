@@ -4,7 +4,7 @@ CPU, the frames rendered at 160x120 by the script's own pool, the card's
 memory reads stubbed by the bytes of the live tensors' storages,
 ``torch.cuda.synchronize`` by a no-op, and the launch counts
 taken from counting stand-ins of the two kernels' entries (each Canny of the
-front end, each fused K3 call of the solver), so wrong paths, arguments and
+front end, each solver level), so wrong paths, arguments and
 control flow of the phase show here, where there is no card.  Every gate of
 the phase (an ``if`` that raises) must be reached: a gate whose code path the
 run never takes would pass on the card without checking anything.  What the
@@ -97,19 +97,19 @@ def test_phase_20_rehearses_on_the_cpu(capsys, monkeypatch):
     jobs = [(syn.box_scene(), cfg.camera, T, 1000 * cs.SOAK_SEED + i) for i, T in enumerate(traj)]
     soak = cs._sensor_frames(cs.render_jobs(jobs, workers=2), cfg)
 
-    canny, k3 = _Counter("canny_fused"), _Counter("residual_lgsx")
-    real_canny, real_k3 = frontend.canny_batched, solver.residual_lgsx_lanes
+    canny, level = _Counter("canny_fused"), _Counter("solve_level_kernel")
+    real_canny, real_level = frontend.canny_batched, solver.level_state
 
     def counted_canny(*a, **k):  # one canny_fused launch a call at 640x480 on the card
         canny.launches += 1
         return real_canny(*a, **k)
 
-    def counted_k3(*a, **k):  # one residual_lgsx launch a call on the card
-        k3.launches += 1
-        return real_k3(*a, **k)
+    def counted_level(*a, **k):  # one level kernel launch a solver level on the card
+        level.launches += 1
+        return real_level(*a, **k)
 
     monkeypatch.setattr(frontend, "canny_batched", counted_canny)
-    monkeypatch.setattr(solver, "residual_lgsx_lanes", counted_k3)
+    monkeypatch.setattr(solver, "level_state", counted_level)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "memory_allocated", _live_tensor_bytes)
     monkeypatch.setattr(torch.cuda, "memory_reserved", _live_tensor_bytes)
@@ -124,9 +124,9 @@ def test_phase_20_rehearses_on_the_cpu(capsys, monkeypatch):
     ns = dict(vars(cs))
     ns.update(
         torch=torch, cfg=cfg, dev=torch.device("cpu"), smi="cpu rehearsal", soak=soak,
-        counters_=(canny, k3), add_launches=add_launches,
+        counters_=(canny, level), add_launches=add_launches,
         require_vga=lambda phase, counts: cs._require_launched(
-            phase, counts, ["canny_fused", "residual_lgsx"]),
+            phase, counts, ["canny_fused", "solve_level_kernel"]),
         solver=solver, frontend=frontend, batch=batch, VOSystem=VOSystem,
         absolute_trajectory_error=absolute_trajectory_error, SOAK_ATE_M=REHEARSAL_ATE_M)
     reached = set()
@@ -159,7 +159,7 @@ def test_phase_20_rehearses_on_the_cpu(capsys, monkeypatch):
     assert vo["first_eviction_frame"] is not None
     assert len(vo["process_frame_ms_p50_p95_p99_max"]) == 4 and vo["closures"]
     assert vo["launches"]["canny_fused"] == 3 * vo["frames"]
-    assert vo["launches"]["residual_lgsx"] == vo["launches"]["evaluations"] > 0
+    assert vo["launches"]["solve_level_kernel"] == vo["launches"]["levels"] > 0
     assert scan["resume_bit_equal"] and scan["promoted"] > cs.SOAK_RING
     assert scan["launches"]["canny_fused"] == 3 * (2 * cs.SOAK_FRAMES - cs.SOAK_CKPT)
     assert scan["checkpoint_bytes"] > 0
