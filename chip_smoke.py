@@ -63,7 +63,8 @@ gates.  Phases, one line each:
              launch bit-identical, no host sync;
 5. main      the main path on the card with launch counts reset just before
              it; every kernel must have launched (one solve_level_kernel a
-             pyramid level and one init_check a frame), outputs finite, poses
+             pyramid level, the coarsest of each frame running the init check
+             first, and no init_check launch), outputs finite, poses
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
 6. times     CUDA-event times per stage and per kernel against its plain
@@ -85,8 +86,9 @@ gates.  Phases, one line each:
              frames) beside the hand-written kernels' launch counts and the
              copies: a level is one solve_level_kernel launch and no torch
              kernel (an evaluation of the two-launch loop one residual_lgsx
-             and one solver_step launch), a tracked frame one init check and
-             one level kernel a level and nothing of the loop, a tracked lm
+             and one solver_step launch), a tracked frame one level kernel a
+             level, the coarsest with the init check, no init_check launch
+             and nothing of the loop, a tracked lm
              frame at most 200 launches of any kind (each read again while
              the profiler's reading cannot be trusted; three untrusted
              readings fail the phase); both solvers' chains with every level
@@ -252,9 +254,10 @@ gates.  Phases, one line each:
              from its own last pose): lane 0 bit-equal to the chain tracked
              alone, ATE < 2 mm; (c) track_ring on the teleport frame against
              phase 7's ring: each slot bit-equal to the slot tracked alone;
-             (d) per batched step 3 canny_fused launches, one init_check,
-             one solve_level_kernel launch a level and no residual_lgsx or
-             solver_step; per level every lane's evaluations (the kernel's
+             (d) per batched step 3 canny_fused launches, one
+             solve_level_kernel launch a level, the coarsest carrying the
+             init check, and no init_check, residual_lgsx or solver_step;
+             per level every lane's evaluations (the kernel's
              own count) within the level's cap (gn_fixed fixed_iters + 1,
              lm its start + max_its * 32), no read of a live-lane count and
              no host sync under sync debug mode "warn";
@@ -357,7 +360,8 @@ gates.  Phases, one line each:
              ranges, among them zero systems, lambda 0, singular systems,
              non-finite increments, large and small angles, NaN errors:
              every field and the live count bit-equal; (b) revo_init_check
-             against init_check_ref on 33 poses (identity, seeded motions,
+             (a cluster of 8 blocks a lane, the device code the level kernel
+             runs) against init_check_ref on 33 poses (identity, seeded motions,
              points behind the camera and outside the image, the frame's
              tracked pose) as lanes of
              one launch at level 2 of two chain frames, with and without
@@ -368,14 +372,21 @@ gates.  Phases, one line each:
              card: bit-equal; (d) the three kernels' rows of the kernel JSON
              (the step in its start mode at B = 1 and 8; the level kernel at
              level 0 of the chain's last frame, B = 1, lm, with its
-             evaluations, cluster size, registers and local bytes); (e)
+             evaluations, cluster size, registers, local and shared bytes,
+             us an evaluation at levels 0 / 1 / 2 and B = 1, 8, 32 from (f),
+             and the level-2 launch without and with the init-check block,
+             in turns); (e)
              phase 5's chain with solve6_impl "linalg": no solver_step or
-             level kernel launch (the plain step), ATE < 2 mm; (f) the
+             level kernel launch (the plain step), one init_check launch a
+             frame, ATE < 2 mm; the kernel JSON's init_check launches are
+             this route's; (f) the
              level kernel against the two-launch loop in lm and gn_fixed, the
              default schedule and (a)'s early exits, levels 2 / 1 / 0 of
              phase 5's keyframe, B = 1, 8, 32 lanes, the dt4bf, flatbf and
              structure tables: every LevelState field bit for bit and each
-             lane's evaluations equal to the loop's; against its plain
+             lane's evaluations equal to the loop's, and at level 2 also
+             with the init-check block against init_check_ref followed by
+             the loop (its outputs too); against its plain
              version on the card (solve_level_ref) at B = 1 and 8: active
              flags equal, poses within 1e-4; cluster sizes 0 and 16 refused
              by a raise, the next launch bit-equal to a one-block cluster's.
@@ -385,10 +396,13 @@ host_libraries, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 6.
 Launch counts are set to 0 just before each path (phases 5, 7 to 23, each
 form of 17, each path of 18 and 19 and each part of 20 on its own)
 and read just after; every kernel of the path must have launched (the fused
-Canny on every 640x480 path, and the level kernel and the init check on
-every path that tracks, which launch neither K1 nor K2 alone nor the
-two-launch loop's residual_lgsx and solver_step: residual_lgsx alone runs
-only in the point-sharded system of phases 17 and 22, and solver_step on
+Canny on every 640x480 path, and the level kernel on every path that
+tracks, the coarsest level's launch running the init check (counted as
+``level_init_check``), which launch neither K1 nor K2 alone nor the
+two-launch loop's residual_lgsx and solver_step nor the init check's own
+launch: residual_lgsx alone runs only in the point-sharded system of
+phases 17 and 22 (and in the loop of the "linalg" route, phase 24 (e),
+whose init_check launches are the only ones counted), and solver_step on
 no path; the cluster Canny on the 1280x720 frames; the grid Canny on the
 5120x2880 and 7680x4320 images; K1 and K2 on the 12288x8192 image; the unfused K3 ``lgsx_reduce`` is
 the TPU kernel's own contract, which the solver no longer calls, so its
@@ -750,6 +764,23 @@ def _path_launches(counters_, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {c.__name__: c.launches for c in counters_}
+
+
+class _Count:
+    """A further count of a kernel's wrapper (its attribute ``attr``) as a
+    counter of its own for ``_path_launches``: ``launches`` reads and sets
+    it, ``__name__`` names it."""
+
+    def __init__(self, fn, attr: str, name: str):
+        self.fn, self.attr, self.__name__ = fn, attr, name
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
 
 
 def _require_launched(phase, launches, names):
@@ -1428,14 +1459,17 @@ def main() -> int:
 
     # -- 5. main path (run before phase 4, which needs its frames) ----------
     # The tracker's kernels: the two-launch loop's (residual_lgsx and
-    # solver_step, which the levels no longer launch), the init check and
-    # the level kernel.
+    # solver_step, which the levels no longer launch), the init check's own
+    # launch (the "linalg" route's and the loops') and the level kernel;
+    # and the level launches that ran the init check first
+    # ("level_init_check", the main path's check: no launch of its own).
     track_counters = (K3.residual_lgsx, solver.solver_step, solver.init_check,
                       solver.solve_level_kernel)
+    level_check = _Count(solver.solve_level_kernel, "check_launches", "level_init_check")
     counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
-                 K12.canny_hysteresis, K3.lgsx_reduce) + track_counters
+                 K12.canny_hysteresis, K3.lgsx_reduce) + track_counters + (level_check,)
     # Of every 640x480 path (the tracking ones: the last two).
-    vga_kernels = ["canny_fused", "init_check", "solve_level_kernel"]
+    vga_kernels = ["canny_fused", "level_init_check", "solve_level_kernel"]
     split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above the grid's memory
     large_kernels = split_kernels + ["canny_cluster", "canny_grid"]  # no 640x480 path's
 
@@ -1444,12 +1478,15 @@ def main() -> int:
         neither the cluster nor the grid Canny nor K1 or K2 alone; its
         solver levels through the level kernel, never the two-launch loop
         (no solver_step; residual_lgsx only where ``names`` has it: the
-        point-sharded system)."""
+        point-sharded system), and the init check inside the coarsest
+        level's launch, never a launch of its own."""
         _require_launched(phase, counts, names)
         if any(counts[n] for n in large_kernels):
             raise RuntimeError(f"{phase}: a 640x480 path launched another Canny: {counts}")
         if counts["solver_step"] or (counts["residual_lgsx"] and "residual_lgsx" not in names):
             raise RuntimeError(f"{phase}: a solver level ran the two-launch loop: {counts}")
+        if counts["init_check"]:
+            raise RuntimeError(f"{phase}: the init check ran as a launch of its own: {counts}")
 
     @contextlib.contextmanager
     def two_launch_levels():
@@ -1457,8 +1494,10 @@ def main() -> int:
         "launches" form): the comparisons of phases 18, 24 and 6."""
         real_state = solver.level_state
 
-        def loop_form(quad, cloud, cam_, R0, t0, opt_, lvl, gn, max_inner=32, _form="kernel"):
-            return real_state(quad, cloud, cam_, R0, t0, opt_, lvl, gn, max_inner, "launches")
+        def loop_form(quad, cloud, cam_, R0, t0, opt_, lvl, gn, max_inner=32, _form="kernel",
+                      check=None):
+            return real_state(quad, cloud, cam_, R0, t0, opt_, lvl, gn, max_inner, "launches",
+                              check)
 
         solver.level_state = loop_form
         try:
@@ -1471,13 +1510,13 @@ def main() -> int:
         for name in ("lm", "gn_fixed")
     })
     require_vga("main", launches)
-    # One level kernel launch a pyramid level and one init check a frame
-    # tracked (7 frames under each solver).
+    # One level kernel launch a pyramid level, the coarsest of each frame
+    # tracked (7 frames under each solver) carrying the init check.
     n_tracked = 2 * (N_FRAMES - 1)
     if (launches["solve_level_kernel"] != cfg.pyramid.n_levels * n_tracked
-            or launches["init_check"] != n_tracked):
-        raise RuntimeError(f"main: not one level kernel a level and one init check a frame: "
-                           f"{launches}")
+            or launches["level_init_check"] != n_tracked):
+        raise RuntimeError(f"main: not one level kernel a level and the init check in one "
+                           f"level launch a frame: {launches}")
     launch_total = dict(launches)
 
     summary = {"launches": launches}
@@ -3082,6 +3121,7 @@ def main() -> int:
             "canny_fused_per_step": [sc["canny_fused"] for sc, _ in step_counts],
             "solve_level_kernel_per_step": [sc["solve_level_kernel"] for sc, _ in step_counts],
             "init_check_per_step": [sc["init_check"] for sc, _ in step_counts],
+            "level_init_check_per_step": [sc["level_init_check"] for sc, _ in step_counts],
             "per_level_by_step": [lv for _, lv in step_counts],
             "level_gates_met": all(level_gate), "step0_host_syncs": syncs,
         }
@@ -3091,12 +3131,13 @@ def main() -> int:
         if any(sc["canny_fused"] != pyr.n_levels for sc, _ in step_counts):
             raise RuntimeError(f"batched {solver_name}: not {pyr.n_levels} canny_fused launches "
                                f"per step: {batched_summary[solver_name]}")
-        # One level kernel launch a level, one init check a step, and
-        # nothing of the two-launch loop.
-        if any(sc["solve_level_kernel"] != pyr.n_levels or sc["init_check"] != 1
-               or sc["residual_lgsx"] or sc["solver_step"] for sc, _ in step_counts):
-            raise RuntimeError(f"batched {solver_name}: not one level kernel a level and one "
-                               f"init check a step: {batched_summary[solver_name]}")
+        # One level kernel launch a level, the coarsest carrying the init
+        # check (no init_check launch), and nothing of the two-launch loop.
+        if any(sc["solve_level_kernel"] != pyr.n_levels or sc["level_init_check"] != 1
+               or sc["init_check"] or sc["residual_lgsx"] or sc["solver_step"]
+               for sc, _ in step_counts):
+            raise RuntimeError(f"batched {solver_name}: not one level kernel a level with the "
+                               f"init check in the coarsest: {batched_summary[solver_name]}")
         if not all(level_gate) or syncs != 0:
             raise RuntimeError(f"batched {solver_name}: evaluations or host reads per level "
                                f"outside their bounds, or a host sync: "
@@ -3940,7 +3981,8 @@ def main() -> int:
         c = dataclasses.replace(c, tracker=dataclasses.replace(c.tracker, optimizer=dataclasses.replace(
             c.tracker.optimizer, solve6_impl="linalg")))
         (_, _, est_l, _), counts = _path_launches(
-            track_counters, lambda: _run_chain(grays, depths, c, dev))
+            track_counters + (level_check,), lambda: _run_chain(grays, depths, c, dev))
+        add_launches(counts)  # the init check's own launch: this route's
         dt_l, dr_l = _max_pose_diff(est_l, gpu[name][2])
         linalg_chain[name] = {"launches": counts, "ate_m": absolute_trajectory_error(est_l, gt).rmse,
                               "vs_ldlt_m": dt_l, "vs_ldlt_rad": dr_l}
@@ -3966,9 +4008,49 @@ def main() -> int:
         "struct3": lambda lvl: kf_lm.structs[lvl].flatten(-3, -2)}
     real_lanes = solver.residual_lgsx_lanes
     level_checks = {"cases": 0, "mismatches": [], "evaluation_mismatches": [],
+                    "check_cases": 0, "check_identity_taken": 0,
                     "plain": {"cases": 0, "max_m": 0.0, "max_rad": 0.0, "flags_differ": [],
                               "lanes": 0, "evaluations_equal": 0},
                     "clusters": {}, "cluster_sizes": [], "refused_raise": None}
+    tr = cfg.tracker
+
+    def counted_loop(fn, b_):
+        """``fn``'s result and the evaluations each of b_ lanes ran in the
+        two-launch loop inside it (the masks its residual passes take)."""
+        took = torch.zeros(b_, dtype=torch.int32, device=dev)
+
+        def counted(ops, *a, **k):
+            act = a[5] if len(a) > 5 else k.get("active")
+            took.add_(1 if act is None else act.to(torch.int32))
+            return real_lanes(ops, *a, **k)
+
+        solver.residual_lgsx_lanes = counted
+        try:
+            return fn(), took
+        finally:
+            solver.residual_lgsx_lanes = real_lanes
+
+    def checked_level(ops_, quad_, cl_, lvl, R0_, t0_, opt_s, p_, gn, inner, size=None):
+        """The coarsest level with the init-check block in the kernel's
+        launch against init_check_ref, then the two-launch loop from its
+        choice: the differences (LevelState fields, evaluations, the
+        block's outputs) and the identity's lanes."""
+        b_ = R0_.shape[0]
+        struct_ = kf_lm.structs[lvl][None].expand(b_, *kf_lm.structs[lvl].shape)
+        ic_ = (opt_s.edge_distance_lvl[lvl], opt_s.use_edge_filter, tr.normalized_init_cost,
+               tr.init_check_margin)
+        blk = solver.init_check_block(struct_, b_, *ic_)
+        got, evals = solver.solve_level_kernel(ops_, R0_, t0_, opt_s.edge_distance_lvl[lvl],
+                                               opt_s, p_, _cluster=size, check=blk)
+        ref = solver.init_check_ref(struct_, cl_, cams[lvl], R0_, t0_, *ic_)
+        want, took = counted_loop(lambda: solver.level_state(
+            quad_, cl_, cams[lvl], ref.R, ref.t, opt_s, lvl, gn, inner, _form="launches"), b_)
+        out = _tree_diff(got, want)
+        out += [] if _bit_equal(blk.use_eye, ref.use_eye) else ["use_eye"]
+        out += [] if _bit_equal(blk.costs, torch.stack([ref.cost_eye, ref.cost], -1)) else ["costs"]
+        if not _bit_equal(evals, took):
+            out.append(["evaluations", evals.tolist(), took.tolist()])
+        return out, int(ref.use_eye.sum())
 
     def level_lanes(lvl, b_):
         """Level ``lvl`` of the chain's frames 1..7 in turn as b_ lanes, and
@@ -3994,25 +4076,21 @@ def main() -> int:
                         got, evals = solver.solve_level_kernel(ops_, R0_, t0_, edge_, opt_s, p_)
                         level_checks["clusters"][f"{name}_{b_}"] = solver.level_cluster(
                             dev, K3.table_layout(quad_), b_, gn)
-                        took = torch.zeros(b_, dtype=torch.int32, device=dev)
-
-                        def counted(ops, *a, **k):
-                            act = a[5] if len(a) > 5 else k.get("active")
-                            took.add_(1 if act is None else act.to(torch.int32))
-                            return real_lanes(ops, *a, **k)
-
-                        solver.residual_lgsx_lanes = counted
-                        try:
-                            want = solver.level_state(quad_, cl_, cams[lvl], R0_, t0_, opt_s, lvl,
-                                                      gn, inner, _form="launches")
-                        finally:
-                            solver.residual_lgsx_lanes = real_lanes
+                        want, took = counted_loop(lambda: solver.level_state(
+                            quad_, cl_, cams[lvl], R0_, t0_, opt_s, lvl, gn, inner,
+                            _form="launches"), b_)
                         case = [sched, name, lvl, b_, table_name]
                         level_checks["cases"] += 1
                         level_checks["mismatches"] += [case + [f] for f in _tree_diff(got, want)]
                         if not _bit_equal(evals, took):
                             level_checks["evaluation_mismatches"].append(
                                 case + [evals.tolist(), took.tolist()])
+                        if lvl == pyr.pyr_min_lvl:  # the init check in the same launch
+                            differ, eye_ = checked_level(ops_, quad_, cl_, lvl, R0_, t0_, opt_s,
+                                                         p_, gn, inner)
+                            level_checks["check_cases"] += 1
+                            level_checks["check_identity_taken"] += eye_
+                            level_checks["mismatches"] += [case + ["check", f] for f in differ]
                         if b_ in LEVEL_PLAIN_LANES:
                             ref, evals_ref = solver.solve_level_ref(quad_, cl_, cams[lvl], R0_, t0_,
                                                                     opt_s, lvl, gn, inner)
@@ -4056,6 +4134,9 @@ def main() -> int:
                     row["differ"] += [[size, f] for f in _tree_diff(got, want)]
                     if not _bit_equal(evals, evals_want):
                         row["differ"].append([size, "evaluations"])
+                    if lvl == pyr.pyr_min_lvl:  # with the init check at this size too
+                        row["differ"] += [[size, "check", f] for f in checked_level(
+                            ops_, quad_, cl_, lvl, R0_, t0_, opt, p_, gn, 32, size)[0]]
                     row["device_ms"][size] = _queued_ms(forced, 20)
                 timed_ = {k: v for k, v in row["device_ms"].items() if v is not None}
                 row["fastest"] = min(timed_, key=timed_.get) if timed_ else None
@@ -4148,6 +4229,25 @@ def main() -> int:
         return solver.solve_level_ref(ops0_level.quad, ops0_level.cloud, cams[0], *start0_level,
                                       opt, 0, False)
 
+    # The coarsest level's launch of the same frame without and with the
+    # init-check block, in turns: what the check adds to it.
+    cl2 = frames_lm[-1].levels[lvl_ic].cloud
+    ops2 = K3.lane_operands(kf_lm.quads[lvl_ic][None],
+                            EdgeCloud(cl2.points[None], cl2.valid[None], None), cams[lvl_ic], 1)
+    p2 = solver.step_params(opt, lvl_ic, False, dev)
+    block2 = solver.init_check_block(struct_ic[None], 1, opt.edge_distance_lvl[lvl_ic],
+                                     opt.use_edge_filter, tr.normalized_init_cost,
+                                     tr.init_check_margin)
+
+    def level2(check=None):
+        return solver.solve_level_kernel(ops2, *start0_level, opt.edge_distance_lvl[lvl_ic], opt,
+                                         p2, check=check)
+
+    level2_ms = {"without_check": [], "with_check": []}
+    for key in ("without_check", "with_check", "with_check", "without_check"):
+        level2_ms[key].append(_queued_ms(lambda: level2(block2 if key == "with_check" else None),
+                                         20))
+    level2_ms["evaluations"] = [int(level2()[1][0]), int(level2(block2)[1][0])]
     state_l, evals_l = level_kernel()
     n_evals_l, n_pts_l = int(evals_l[0]), cl0.points.shape[0]
     n_inside_l = int(K3.residual_terms(kf_lm.quads[0], cl0, cams[0], *(x[0] for x in start0_level),
@@ -4179,6 +4279,16 @@ def main() -> int:
         "attributes": level_checks["attributes"]["dt4bf"],
         "vs_plain_max_m": level_checks["plain"]["max_m"],
         "vs_plain_max_rad": level_checks["plain"]["max_rad"],
+        # us of one evaluation of the slowest lane, lm, at the size
+        # level_cluster picks (phase 24 (f)'s sweep): level, lanes.
+        "us_an_evaluation": {
+            f"level{r['level']}_B{r['B']}": 1e3 * r["device_ms"][r["picked"]]
+            / r["slowest_lane_evaluations"]
+            for r in level_checks["cluster_sizes"]
+            if r["solver"] == "lm" and r["B"] in LEVEL_LANES and r["device_ms"].get(r["picked"])},
+        "level2_device_ms": level2_ms,
+        # Level launches that ran the init check first (the main path's check).
+        "init_check_launches": launch_total.get("level_init_check", 0),
     })
     solver_summary = {
         "step_checks": {k: {"lanes": v["lanes"], "live_after_each": v["live"],
@@ -4202,9 +4312,10 @@ def main() -> int:
                            f"from its plain version: {solver_summary['level_kernel']}")
     if any(v["launches"]["solver_step"] or v["launches"]["solve_level_kernel"]
            or not v["launches"]["residual_lgsx"] or not v["ate_m"] < ATE_LIMIT_M
+           or v["launches"]["init_check"] != N_FRAMES - 1 or v["launches"]["level_init_check"]
            for v in linalg_chain.values()):
-        raise RuntimeError(f"solver_step: solve6_impl 'linalg' did not take the plain step, or "
-                           f"its chain is off: {linalg_chain}")
+        raise RuntimeError(f"solver_step: solve6_impl 'linalg' did not take the plain step and "
+                           f"one init_check launch a frame, or its chain is off: {linalg_chain}")
 
     # -- 6. times ------------------------------------------------------------
     cfg_lm = _with_solver(cfg, "lm")
@@ -4249,15 +4360,17 @@ def main() -> int:
         # the chain's first N_PROFILED frames: a window over all 7 holds about
         # a million profiler events and takes a minute to read.
         hand = {k: v / N_PROFILED for k, v in _path_launches(
-            track_counters, lambda: chain(N_PROFILED))[1].items()}
+            track_counters + (level_check,), lambda: chain(N_PROFILED))[1].items()}
         n_kern, busy_ms, _, n_copies = _profile_trusted(lambda: chain(N_PROFILED), 1,
                                                         f"times: track_frames_{name}")
-        launches_frame = (n_kern + n_copies) / N_PROFILED + sum(hand.values())
+        launches_frame = (n_kern + n_copies) / N_PROFILED + sum(
+            v for k, v in hand.items() if k != "level_init_check")  # a count, not a launch
         stage_ms[f"track_frames_{name}_profile"] = {
             "frames": N_PROFILED,
             "torch_kernels_per_frame": n_kern / N_PROFILED,
             "copies_per_frame": n_copies / N_PROFILED,
-            # solve_level_kernel: one a level; init_check: one; the
+            # solve_level_kernel: one a level, the coarsest running the
+            # init check (level_init_check: one); init_check and the
             # two-launch loop's kernels: none.
             "hand_launches_per_frame": hand,
             "launches_per_frame": launches_frame,
@@ -4266,10 +4379,10 @@ def main() -> int:
         if name == "lm" and launches_frame > LM_FRAME_LAUNCHES:
             raise RuntimeError(f"times: {launches_frame} launches a tracked lm frame, more than "
                                f"{LM_FRAME_LAUNCHES}: {stage_ms[f'track_frames_{name}_profile']}")
-        if hand != {"residual_lgsx": 0, "solver_step": 0, "init_check": 1,
-                    "solve_level_kernel": pyr.n_levels}:
-            raise RuntimeError(f"times: a tracked {name} frame is not one init check and one "
-                               f"level kernel a level: {hand}")
+        if hand != {"residual_lgsx": 0, "solver_step": 0, "init_check": 0,
+                    "solve_level_kernel": pyr.n_levels, "level_init_check": 1}:
+            raise RuntimeError(f"times: a tracked {name} frame is not one level kernel a "
+                               f"level with the init check in the coarsest: {hand}")
         part_done(f"track_frames_{name}_profile")
     # lm's and gn_fixed's chains with every level in the two-launch loop
     # (level_state's "launches" form, lm's live-lane count read every
@@ -4695,8 +4808,12 @@ def main() -> int:
     # held against its plain version and timed like them, but no path
     # launches it any more, so it is listed apart.
     # residual_lgsx alone: the point-sharded system's (phases 17 and 22).
-    on_path = vga_kernels + ["canny_cluster", "canny_grid", "residual_lgsx"] + split_kernels
-    if (any(launch_total[n] <= 0 for n in on_path) or launch_total["lgsx_reduce"]
+    # init_check: the "linalg" route's own launch (phase 24 (e)); on the
+    # main path the check runs inside the coarsest level's launch.
+    on_path = [k for k in vga_kernels if k != "level_init_check"] + [
+        "init_check", "canny_cluster", "canny_grid", "residual_lgsx"] + split_kernels
+    if (any(launch_total[n] <= 0 for n in on_path + ["level_init_check"])
+            or launch_total["lgsx_reduce"]
             or launch_total["solver_step"]):
         raise RuntimeError(f"launch totals do not match the paths: {launch_total}")
     if any(r["level_kernel_launches"] <= 0 for r in quad_rows):

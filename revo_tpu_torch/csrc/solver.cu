@@ -11,9 +11,10 @@
 //
 // `revo_solver_step` runs after each `residual_lgsx` launch (lgsx.cu) in the
 // two-launch loop, which the level kernel (level.cu) replaced on the main
-// path and which stays for comparisons; the level kernel runs the same step
-// (`step::step_lane`, solver.cuh) in one thread of each lane.  One
-// thread a lane, one block for all B lanes (a loop of blockDim-sized rounds
+// path and which stays for comparisons; the level kernel runs the same
+// arithmetic (solver.cuh's entries) spread over a warp of each block of a
+// lane's cluster (`step::step_lane_warp`).  One thread a lane
+// (`step::step_lane`), one block for all B lanes (a loop of blockDim-sized rounds
 // past 256 lanes).  Per live lane it reads the lane's 46 K3 outputs and its
 // state, normalizes the system, takes or keeps the candidate, applies the
 // lambda schedule and the iteration / tries / exit rules of `lm` or
@@ -34,7 +35,10 @@
 // filter, summed in double (square roots of integers: the sum is exact in
 // any order), divided by the count where asked; it keeps the identity where
 // its cost is below margin times the other (tracker.cpp:277-282) and writes
-// the lane's starting pose.  One block of IC_THREADS a lane.
+// the lane's starting pose.  One cluster of IC_CLUSTER blocks of IC_THREADS
+// a lane, running initcheck.cuh's `lane_check`, the device code the level
+// kernel runs inside the coarsest level's launch on the main path; this
+// launch is the other routes' ("linalg", the two-launch loop).
 //
 // Both are bound by launch latency on the H100: a step moves ~0.5 KB a lane
 // and does ~520 float operations in its start mode (~580 in a later step,
@@ -51,14 +55,17 @@
 // `scale_shift` go through double the same way, and sin / cos are the CUDA
 // math library's sinf / cosf, what torch.sin / torch.cos call.  fail ** k
 // comes from a table PyTorch fills (solver.py `_fail_table`).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "initcheck.cuh"
 #include "solver.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace step;
 
 constexpr int STEP_THREADS_MAX = 256;  // 255 registers a thread; more lanes loop
@@ -70,109 +77,37 @@ solver_step_kernel(const float* __restrict__ sums, State st, const float* __rest
   int count = 0;
   for (int base = 0; base < B; base += blockDim.x) {  // uniform over the block
     const int b = base + threadIdx.x;
-    const bool live = b < B && step_lane(b, sums == nullptr ? nullptr : sums + (size_t)46 * b, st,
-                                         pows, R0, R0_stride, t0, t0_stride, init, p);
+    const bool live =
+        b < B && step_lane(lane_of(st, b), sums == nullptr ? nullptr : sums + (size_t)46 * b,
+                           pows, init ? R0 + (size_t)b * R0_stride : nullptr,
+                           init ? t0 + (size_t)b * t0_stride : nullptr, init, p);
     count += __syncthreads_count(live);
   }
   if (threadIdx.x == 0 && n_live != nullptr) *n_live = count;
 }
 
-constexpr int IC_THREADS = 256;
+constexpr int IC_THREADS = 256, IC_CLUSTER = 8;  // a lane: one cluster of 8 blocks
 
-// One point's floor-sampled cost at (R, t) (`solver.eval_cost`): whether it
-// counts, and its DT value.
-__device__ __forceinline__ bool point_cost(const float* R, const float* t, float x, float y,
-                                           float z, const float* __restrict__ dt, int W, int H,
-                                           float fx, float fy, float cx, float cy,
-                                           float edge_distance, int use_edge_filter,
-                                           float& res) {
-  float w[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {  // ops.project.apply_rt_cols, fma_f32 through double
-    float acc = mul(R[3 * r + 1], y);
-    acc = (float)__dadd_rn(__dmul_rn((double)R[3 * r], (double)x), (double)acc);
-    acc = (float)__dadd_rn(__dmul_rn((double)R[3 * r + 2], (double)z), (double)acc);
-    w[r] = add(acc, t[r]);
-  }
-  const float pz = w[2] == 0.0f ? (float)1e-12 : w[2];
-  const float u = (float)__dadd_rn(__dmul_rn((double)dvd(w[0], pz), (double)fx), (double)cx);
-  const float v = (float)__dadd_rn(__dmul_rn((double)dvd(w[1], pz), (double)fy), (double)cy);
-  const bool inb = u >= 0.0f && v >= 0.0f && u < (float)W && v < (float)H;
-  float fu = floorf(u), fv = floorf(v);
-  fu = fminf(fmaxf(isnan(fu) ? 0.0f : fu, 0.0f), (float)(W - 1));
-  fv = fminf(fmaxf(isnan(fv) ? 0.0f : fv, 0.0f), (float)(H - 1));
-  res = dt[((size_t)(int)fv * W + (int)fu) * 3 + 2];  // the structure's dt channel
-  return inb && (!use_edge_filter || res <= edge_distance);
-}
-
-__device__ __forceinline__ double block_sum(double v, double* stage) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) stage[warp] = v;
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x == 0)
-    for (int k = 0; k < IC_THREADS / 32; ++k) s += stage[k];
-  return s;  // thread 0's
-}
-
+// One lane a cluster (grid (IC_CLUSTER, B)): initcheck.cuh's check, then
+// rank 0 writes the lane's start pose.
 __global__ void __launch_bounds__(IC_THREADS)
-init_check_kernel(const float* __restrict__ dt, int dt_stride, const float* __restrict__ pts,
-                  int pts_stride, const uint8_t* __restrict__ valid, int valid_stride,
+init_check_kernel(initcheck::Args a, const float* __restrict__ pts, int pts_stride,
+                  const uint8_t* __restrict__ valid, int valid_stride,
                   const float* __restrict__ R0, int R0_stride, const float* __restrict__ t0,
                   int t0_stride, int P, int W, int H, float fx, float fy, float cx, float cy,
-                  float edge_distance, int use_edge_filter, int normalized, float margin,
-                  float* __restrict__ R_out, float* __restrict__ t_out,
-                  uint8_t* __restrict__ use_eye, float* __restrict__ costs) {
-  const size_t b = blockIdx.x;
-  dt += b * dt_stride;
-  pts += b * pts_stride;
-  valid += b * valid_stride;
-  float R[9], t[3];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = R0[b * R0_stride + k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) t[k] = t0[b * t0_stride + k];
-  const float I[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  const float Z[3] = {0.0f, 0.0f, 0.0f};
-  double s_eye = 0.0, s_pose = 0.0;
-  double n_eye = 0.0, n_pose = 0.0;  // counts, exact in double
-  for (int p = threadIdx.x; p < P; p += IC_THREADS) {
-    if (!valid[p]) continue;  // eval_cost's `inb & valid`: the point adds nothing
-    const float x = pts[3 * p], y = pts[3 * p + 1], z = pts[3 * p + 2];
-    float res;
-    if (point_cost(I, Z, x, y, z, dt, W, H, fx, fy, cx, cy, edge_distance, use_edge_filter,
-                   res)) {
-      s_eye += (double)res;
-      n_eye += 1.0;
-    }
-    if (point_cost(R, t, x, y, z, dt, W, H, fx, fy, cx, cy, edge_distance, use_edge_filter,
-                   res)) {
-      s_pose += (double)res;
-      n_pose += 1.0;
-    }
+                  float* __restrict__ R_out, float* __restrict__ t_out) {
+  __shared__ initcheck::Smem<IC_THREADS> sm;
+  __shared__ float start[12];
+  const int b = blockIdx.y;
+  initcheck::lane_check<IC_THREADS>(a, b, pts + (size_t)b * pts_stride,
+                                    valid + (size_t)b * valid_stride, P,
+                                    R0 + (size_t)b * R0_stride, t0 + (size_t)b * t0_stride, W, H,
+                                    fx, fy, cx, cy, sm, start);
+  if (cg::this_cluster().block_rank() == 0) {
+    if (threadIdx.x < 9) R_out[9 * b + threadIdx.x] = start[threadIdx.x];
+    else if (threadIdx.x < 12) t_out[3 * b + threadIdx.x - 9] = start[threadIdx.x];
   }
-  __shared__ double stage[IC_THREADS / 32];
-  s_eye = block_sum(s_eye, stage);
-  s_pose = block_sum(s_pose, stage);
-  n_eye = block_sum(n_eye, stage);
-  n_pose = block_sum(n_pose, stage);
-  if (threadIdx.x != 0) return;
-  float c_eye = (float)s_eye, c_pose = (float)s_pose;
-  if (normalized) {
-    c_eye = dvd(c_eye, (float)fmax(n_eye, 1.0));
-    c_pose = dvd(c_pose, (float)fmax(n_pose, 1.0));
-  }
-  const bool eye = c_eye < mul(margin, c_pose);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) R_out[9 * b + k] = eye ? I[k] : R[k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) t_out[3 * b + k] = eye ? 0.0f : t[k];
-  use_eye[b] = eye ? 1 : 0;
-  costs[2 * b] = c_eye;
-  costs[2 * b + 1] = c_pose;
+  cg::this_cluster().sync();  // no block leaves while another reads its part
 }
 
 }  // namespace
@@ -212,9 +147,23 @@ extern "C" int revo_init_check(const float* dt, int dt_stride, const float* pts,
                                float margin, float* R, float* t, uint8_t* use_eye, float* costs,
                                cudaStream_t stream) {
   if (B <= 0) return 0;
-  init_check_kernel<<<B, IC_THREADS, 0, stream>>>(
-      dt, dt_stride, pts, pts_stride, valid, valid_stride, R0, R0_stride, t0, t0_stride, P, W,
-      H, fx, fy, cx, cy, edge_distance, use_edge_filter, normalized, margin, R, t, use_eye,
-      costs);
-  return (int)cudaGetLastError();
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  const initcheck::Args a{dt, dt_stride, edge_distance, use_edge_filter, normalized, margin,
+                          use_eye, costs};
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(IC_CLUSTER, B, 1);
+  cfg.blockDim = dim3(IC_THREADS, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = IC_CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t status =
+      cudaLaunchKernelEx(&cfg, init_check_kernel, a, pts, pts_stride, valid, valid_stride, R0,
+                         R0_stride, t0, t0_stride, P, W, H, fx, fy, cx, cy, R, t);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(status != cudaSuccess ? status : last);
 }

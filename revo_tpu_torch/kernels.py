@@ -59,7 +59,7 @@ SIGNATURES = {
     "revo_solver_step": "p" * 19 + "ipipiiiiiiffffff",
     "revo_init_check": "pipipipipiiiiifffffiifpppp",
     "revo_solve_level": ("pii" + "pipi" * 2 + "ffffii" + "ffi" + "ii" + "p" * 18 + "pi" + "iii"
-                         + "ffffff" + "i"),
+                         + "ffffff" + "pifiifpp" + "i"),
     "revo_solve_level_clusters": "ii",
     "revo_solve_level_attr": "ii",
 }

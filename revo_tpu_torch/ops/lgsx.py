@@ -292,7 +292,9 @@ def lane_operands(quad, cloud, cam, lanes: int) -> LaneOperands:
     if quad.data_ptr() % _ALIGN[layout]:
         raise ValueError(f"residual_lgsx: the table must be {_ALIGN[layout]}-byte aligned")
     blocks = max(-(-p // _RL_THREADS), 1)
-    partial, ticket, every_lane = _stream_scratch(_scratch, device, lanes * blocks, lanes)
+    # Two buffers of partial rows: the level kernel's, by its evaluations'
+    # parity (csrc/level.cu); a residual_lgsx launch uses the first.
+    partial, ticket, every_lane = _stream_scratch(_scratch, device, 2 * lanes * blocks, lanes)
     return LaneOperands(quad, EdgeCloud(points=points, valid=valid, count=None), cam, lanes,
                         (quad_s // c, pts_s, valid_s), (partial, ticket, every_lane[:lanes]))
 

@@ -20,17 +20,19 @@ tries and the active byte.  On the card a whole level is one launch,
 ``solve_level_kernel`` (csrc/level.cu's ``revo_solve_level``: a
 thread-block cluster a lane runs the fused K3 pass, the ordered sums and
 the step, csrc/solver.cuh's normalisation, accept / lambda / exit rules,
-damped 6x6 LDL^T solve, exp and compose, until the lane's own exit), and
+damped 6x6 LDL^T solve, exp and compose, on the lane's state in shared
+memory, until the lane's own exit), and
 the host reads nothing.  Its plain version is ``solve_level_ref``.  The
 two-launch loop it replaced (``residual_lgsx`` and ``solver_step`` an
 evaluation, ``level_state``'s "launches" form) gives the same bits and
 stays for comparisons; the same loop with the plain step (``solver_step_ref``,
 ``solver_start_ref``) runs on the CPU, and on the card for
 ``solve6_impl="linalg"``, whose ``torch.linalg.solve_ex`` no hand kernel
-repeats.  The tracker's init check is one ``init_check`` launch
-(``init_check_ref``).  Each lane's op sequence is the one-lane sequence, so
-its bits are those of the same lane run alone; ``lm_level`` and
-``gn_level_fixed`` are the B = 1 case.
+repeats.  The tracker's init check runs inside the coarsest level's kernel
+launch (``InitCheckBlock``), else as one ``init_check`` launch before the
+level (``init_check_ref`` on the CPU).  Each lane's op sequence is the
+one-lane sequence, so its bits are those of the same lane run alone;
+``lm_level`` and ``gn_level_fixed`` are the B = 1 case.
 """
 from __future__ import annotations
 
@@ -601,20 +603,24 @@ def level_attributes(device, layout: int) -> dict:
 
 
 def solve_level_kernel(ops: LaneOperands, R0, t0, edge_distance, opt: OptimizerConfig,
-                       p: StepParams, _cluster=None):
+                       p: StepParams, _cluster=None, check=None):
     """One pyramid level of B lanes in one launch of ``revo_solve_level``
     (csrc/level.cu): per lane, one thread-block cluster evaluates and steps
     until the lane's own exit or the cap, lm's start evaluation included,
     as ``solve_level_ref`` computes it; the two-launch loop's result bit
     for bit.  ``ops``: the level's operands (``lane_operands`` on the card),
     R0 (B, 3, 3), t0 (B, 3) the start poses, ``p`` the schedule
-    (solve6_impl "ldlt").  Returns (the final LevelState in new tensors,
-    the evaluations each lane ran (B,) int32).  The cluster size follows
-    from the lanes, the solver and the card (``level_cluster``); ``_cluster`` (1-8) lets
-    a comparison force one.  A launch the card refuses raises; nothing
-    falls back.  ``launches`` counts the launches, ``layout_launches`` the
-    same by table layout, and ``evaluations`` holds the last launch's
-    counts."""
+    (solve6_impl "ldlt").  ``check``, an ``InitCheckBlock`` of the level's
+    lanes, runs the tracker's init check before the level's start in the
+    same launch (``init_check``'s bits, written into its outputs), and the
+    level starts from its choice.  Returns (the final LevelState in new
+    tensors, the evaluations each lane ran (B,) int32).  The cluster size
+    follows from the lanes, the solver and the card (``level_cluster``);
+    ``_cluster`` (1-8) lets a comparison force one.  A launch the card
+    refuses raises; nothing falls back.  ``launches`` counts the launches,
+    ``layout_launches`` the same by table layout, ``check_launches`` those
+    that carried an init check, and ``evaluations`` holds the last
+    launch's counts."""
     dev = ops.quad.device
     if ops.scratch is None or dev.type != "cuda":
         raise ValueError(f"solve_level_kernel: unsupported device {dev}")
@@ -629,40 +635,62 @@ def solve_level_kernel(ops: LaneOperands, R0, t0, edge_distance, opt: OptimizerC
     state = _empty_state(b, dev)
     evals = torch.empty(b, dtype=torch.int32, device=dev)
     quad_s, pts_s, valid_s = ops.strides
+    n_pts = ops.cloud.points.shape[-2]
+    # The init check's operands (a null structure: none).
+    struct, struct_s, ic_edge, ic_filter, ic_norm, margin, use_eye, costs = (
+        None, 0, 0.0, 0, 0, 0.0, None, None)
+    if check is not None:
+        struct, struct_s = _lane_operand(check.struct, b, (cam.height, cam.width, 3),
+                                         (torch.float32,), dev, "struct")
+        use_eye, costs = check.use_eye, check.costs
+        if (use_eye.shape != (b,) or use_eye.dtype != torch.bool or costs.shape != (b, 2)
+                or costs.dtype != torch.float32 or use_eye.device != dev
+                or costs.device != dev
+                or not (use_eye.is_contiguous() and costs.is_contiguous())):
+            raise ValueError(f"solve_level_kernel: the check's outputs want contiguous bool "
+                             f"({b},) and float32 ({b}, 2) on {dev}")
+        ic_edge, ic_filter = check.edge_distance, int(bool(check.use_edge_filter))
+        ic_norm, margin = int(bool(check.normalized)), check.margin
     info = state.sys.info
     kernels.launch(
         "revo_solve_level", ops.quad, layout, quad_s, ops.cloud.points, pts_s, ops.cloud.valid,
         valid_s, R0, R0_s, t0, t0_s, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
-        edge_distance, opt.huber_edge, int(bool(opt.use_edge_filter)),
-        ops.cloud.points.shape[-2], b, ops.scratch[0], state.R, state.t, state.Rn, state.tn,
-        state.inc, state.sys.err, state.sys.A, state.sys.g, info.good, info.bad,
-        info.sum_error_weighted, info.sum_error_unweighted, state.lam, state.iteration,
-        state.tries, state.active, evals, p.pows, p.pows.shape[0], int(p.gn), p.max_iter,
-        p.max_inner, p.conv_eps, p.flat_below, p.step_min, p.success, p.fail, p.lam0, cluster,
+        edge_distance, opt.huber_edge, int(bool(opt.use_edge_filter)), n_pts, b, ops.scratch[0],
+        state.R, state.t, state.Rn, state.tn, state.inc, state.sys.err, state.sys.A, state.sys.g,
+        info.good, info.bad, info.sum_error_weighted, info.sum_error_unweighted, state.lam,
+        state.iteration, state.tries, state.active, evals, p.pows, p.pows.shape[0], int(p.gn),
+        p.max_iter, p.max_inner, p.conv_eps, p.flat_below, p.step_min, p.success, p.fail,
+        p.lam0, struct, struct_s, ic_edge, ic_filter, ic_norm, margin, use_eye, costs, cluster,
     )
     solve_level_kernel.launches += 1
     solve_level_kernel.layout_launches[layout] += 1
+    solve_level_kernel.check_launches += check is not None
     solve_level_kernel.evaluations = evals
     return state, evals
 
 
 solve_level_kernel.launches = 0
+solve_level_kernel.check_launches = 0  # launches that ran the init check first
 # Launches by table layout (``ops.lgsx.table_layout``'s code), beside the total.
 solve_level_kernel.layout_launches = [0] * len(residual_lgsx.layout_launches)
 solve_level_kernel.evaluations = None  # the last launch's (B,) counts, for a caller's accounting
 
 
 def solve_level_ref(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bool,
-                    max_inner: int = 32):
+                    max_inner: int = 32, check=None):
     """Plain version of ``solve_level_kernel``, its schedule as torch ops on
-    any device: each lane evaluates (``residual_lgsx_batched_ref``) and
-    steps (``solver_step_ref``) until its own exit or the cap (lm: its
-    start evaluation, then at most max_its * max_inner; gn_fixed: at most
+    any device: ``check`` given, ``init_check_ref`` first (its outputs
+    written into the block's) and the level from its choice; then each lane
+    evaluates (``residual_lgsx_batched_ref``) and steps
+    (``solver_step_ref``) until its own exit or the cap (lm: its start
+    evaluation, then at most max_its * max_inner; gn_fixed: at most
     fixed_iters + 1), and counts its evaluations; the level ends when no
     lane is left.  Operands as ``lm_level_batched`` takes them.  Returns
     (the final LevelState, evaluations (B,) int32)."""
     edge_dist = opt.edge_distance_lvl[lvl]
     b, dev = R0.shape[0], R0.device
+    if check is not None:
+        R0, t0 = _run_check(init_check_ref, check, cloud, cam, R0, t0)
     p = step_params(opt, lvl, gn, dev, max_inner)
     sums = torch.zeros((b, 46), dtype=torch.float32, device=dev)
     evals = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -687,7 +715,7 @@ def solve_level_ref(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn
 
 
 def level_state(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bool,
-                max_inner: int = 32, _form: str = "kernel") -> LevelState:
+                max_inner: int = 32, _form: str = "kernel", check=None) -> LevelState:
     """The final LevelState of one pyramid level over B lanes, gn_fixed's
     (``gn``) or lm's, routed by ``level_route``: on the card with
     solve6_impl "ldlt" one ``solve_level_kernel`` launch; with ``_form``
@@ -700,14 +728,19 @@ def level_state(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bo
     runs up to 2 LM_CHUNK - 1 evaluations past its slowest lane, which find
     every lane stopped and change nothing; at most max_its * max_inner.
     The kernel leaves each lane at its own exit, as JAX's while_loop does;
-    the two give the same bits."""
+    the two give the same bits.  ``check``, an ``InitCheckBlock``: the
+    tracker's init check before the level's start, inside the kernel's
+    launch, else one ``init_check`` call (its plain version on the CPU)
+    first; the level starts from its choice either way."""
     edge_dist = opt.edge_distance_lvl[lvl]
     b, dev = R0.shape[0], R0.device
     route = level_route(dev, opt.solve6_impl, _form)
     p = step_params(opt, lvl, gn, dev, max_inner)
     ops = lane_operands(quad, cloud, cam, b)
     if route == "kernel":
-        return solve_level_kernel(ops, R0, t0, edge_dist, opt, p)[0]
+        return solve_level_kernel(ops, R0, t0, edge_dist, opt, p, check=check)[0]
+    if check is not None:
+        R0, t0 = _run_check(init_check, check, cloud, cam, R0, t0)
     start, step = _steppers(p)
     sums = torch.empty((b, 46), dtype=torch.float32, device=dev)
     if gn:
@@ -728,7 +761,7 @@ def level_state(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bo
 
 
 def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
-                     max_inner: int = 32, _form: str = "kernel"):
+                     max_inner: int = 32, _form: str = "kernel", check=None):
     """One pyramid level of LM (Optimizer::trackFrames,
     optimizer.cpp:235-311) over B lanes (quad (B, H*W, C), the keyframe level's
     table as ``ops.lgsx.table_layout`` takes it; cloud points
@@ -737,9 +770,9 @@ def lm_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
     reference's unbounded retry loop.  Every evaluation is one try of every
     active lane: the JAX package's nested while loops, vmapped, as one
     loop over the LevelState in device memory (``level_state``: on the
-    card one kernel launch).  Returns (R, t, last_err, info), each with the
-    lane axis."""
-    state = level_state(quad, cloud, cam, R0, t0, opt, lvl, False, max_inner, _form)
+    card one kernel launch; ``check``: the init check first).  Returns (R,
+    t, last_err, info), each with the lane axis."""
+    state = level_state(quad, cloud, cam, R0, t0, opt, lvl, False, max_inner, _form, check)
     return state.R, state.t, state.sys.err, state.sys.info
 
 
@@ -747,16 +780,16 @@ lm_level_batched.host_reads = 0
 
 
 def gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int,
-                           _form: str = "kernel"):
+                           _form: str = "kernel", check=None):
     """Bounded branchless LM over B lanes, the JAX package's batched fast
     path (solver._gn_level_fixed and its batching rule, solver.py:609-697),
     with the rules of ``solver_step_ref``: at most fixed_iters[lvl] + 1
     evaluations, the first of which evaluates the initial pose
     (``level_state``: on the card one kernel launch, each lane leaving at
     its own exit; the loop form runs all of them, and those after a lane
-    stopped change nothing).  Returns (R, t, err, info), each with the lane
-    axis."""
-    state = level_state(quad, cloud, cam, R0, t0, opt, lvl, True, _form=_form)
+    stopped change nothing; ``check``: the init check first).  Returns (R,
+    t, err, info), each with the lane axis."""
+    state = level_state(quad, cloud, cam, R0, t0, opt, lvl, True, _form=_form, check=check)
     return state.R, state.t, state.sys.err, state.sys.info
 
 
@@ -778,12 +811,13 @@ def gn_level_fixed(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int):
     return _one_lane(gn_level_fixed_batched, quad, cloud, cam, R0, t0, opt, lvl)
 
 
-def solve_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int):
-    """Dispatch on OptimizerConfig.solver, over B lanes."""
+def solve_level_batched(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, check=None):
+    """Dispatch on OptimizerConfig.solver, over B lanes; ``check`` (an
+    ``InitCheckBlock``) runs the tracker's init check before the level."""
     if opt.solver == "gn_fixed":
-        return gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt, lvl)
+        return gn_level_fixed_batched(quad, cloud, cam, R0, t0, opt, lvl, check=check)
     if opt.solver == "lm":
-        return lm_level_batched(quad, cloud, cam, R0, t0, opt, lvl)
+        return lm_level_batched(quad, cloud, cam, R0, t0, opt, lvl, check=check)
     raise ValueError(f"unknown solver {opt.solver!r}")
 
 
@@ -809,6 +843,16 @@ def eval_cost(
     (..., 3, 3), t (..., 3)).  The DT values are square roots of integers
     (>= 1 or 0), so their sum in float64 is exact and the same whatever the
     order of the reduction; it is rounded to float32 once."""
+    terms, ok = cost_terms(dt_img, cloud, cam, R, t, edge_distance, use_edge_filter)
+    total = terms.to(torch.float64).sum(-1).to(torch.float32)
+    if normalized:
+        return total / torch.clamp(ok.sum(-1), min=1).to(torch.float32)
+    return total
+
+
+def cost_terms(dt_img, cloud, cam, R, t, edge_distance, use_edge_filter):
+    """``eval_cost``'s terms, per point (..., P): the floor-sampled DT value
+    where the point counts, else 0, and whether it counts."""
     wx, wy, wz = apply_rt_cols(cloud.points, R, t)
     pz = torch.where(wz == 0, 1e-12, wz)
     u = scale_shift(wx / pz, cam.fx, cam.cx)
@@ -820,10 +864,7 @@ def eval_cost(
     flat = dt_img.reshape(*dt_img.shape[:-2], -1).expand(*ui.shape[:-1], -1)
     res = torch.gather(flat, -1, vi * cam.width + ui)
     ok = inb & (res <= edge_distance) if use_edge_filter else inb
-    total = torch.where(ok, res, 0.0).to(torch.float64).sum(-1).to(torch.float32)
-    if normalized:
-        return total / torch.clamp(ok.sum(-1), min=1).to(torch.float32)
-    return total
+    return torch.where(ok, res, 0.0), ok
 
 
 class InitCheck(NamedTuple):
@@ -865,8 +906,11 @@ def init_check(struct, cloud, cam, R0, t0, edge_distance, use_edge_filter, norma
     the frame's cloud at that level (points (B, P, 3), valid (B, P)); any
     operand may be shared by the lanes through ``expand``.  CPU tensors:
     the plain version; CUDA tensors: one ``revo_init_check`` launch
-    (csrc/solver.cu), bit-equal to it, no host sync.  ``launches`` counts
-    the kernel's launches."""
+    (csrc/solver.cu: a cluster of blocks a lane, csrc/initcheck.cuh's
+    check, which the level kernel also runs), bit-equal to it, no host
+    sync.  ``launches`` counts the kernel's launches.  On the main path the
+    check runs inside the coarsest level's launch instead
+    (``InitCheckBlock``); this call is the other routes'."""
     dev = R0.device
     if dev.type == "cpu":
         return init_check_ref(struct, cloud, cam, R0, t0, edge_distance, use_edge_filter,
@@ -894,3 +938,40 @@ def init_check(struct, cloud, cam, R0, t0, edge_distance, use_edge_filter, norma
 
 
 init_check.launches = 0
+
+
+class InitCheckBlock(NamedTuple):
+    """The tracker's init check as a solver level takes it (``level_state``'s
+    ``check``): ``init_check`` of the level's cloud and start poses against
+    ``struct``, run before the level's start, which then starts from its
+    choice.  ``init_check_block`` makes one."""
+
+    struct: torch.Tensor  # (B, H, W, 3) the keyframe level's structure (channel 2: the DT)
+    edge_distance: float
+    use_edge_filter: bool
+    normalized: bool
+    margin: float
+    use_eye: torch.Tensor  # (B,) bool, written: the identity replaced (R0, t0)
+    costs: torch.Tensor  # (B, 2) float32, written: ``eval_cost`` at the identity, at (R0, t0)
+
+
+def init_check_block(struct, lanes: int, edge_distance, use_edge_filter, normalized,
+                     margin) -> InitCheckBlock:
+    """An ``InitCheckBlock`` of ``lanes`` lanes (``struct`` (B or 1, H, W,
+    3)), with new output tensors."""
+    dev = struct.device
+    return InitCheckBlock(struct, edge_distance, use_edge_filter, normalized, margin,
+                          torch.empty(lanes, dtype=torch.bool, device=dev),
+                          torch.empty((lanes, 2), dtype=torch.float32, device=dev))
+
+
+def _run_check(fn, check: InitCheckBlock, cloud, cam, R0, t0):
+    """``fn`` (``init_check`` or its plain version) of ``check`` on the
+    level's cloud and start poses, its outputs written into the block's;
+    returns the start poses it chose."""
+    got = fn(check.struct, cloud, cam, R0, t0, check.edge_distance, check.use_edge_filter,
+             check.normalized, check.margin)
+    check.use_eye.copy_(got.use_eye)
+    check.costs[:, 0].copy_(got.cost_eye)
+    check.costs[:, 1].copy_(got.cost)
+    return got.R, got.t

@@ -55,15 +55,17 @@ def track_frames_batched(
     opt = cfg.tracker.optimizer
     cams = cfg.camera_pyramid()
     R, t = R0, t0
+    check = None
     if cfg.tracker.check_init_values:
         # "DO NOT INIT WITH PREVIOUS TRANSFORM" (tracker.cpp:277-282), only
-        # when identity is clearly better (TrackerConfig.init_check_margin).
+        # when identity is clearly better (TrackerConfig.init_check_margin):
+        # the coarsest level runs the check before its start, inside its
+        # launch on the card (``solver.level_state``).
         lvl = pyr.pyr_min_lvl
-        R, t = solver.init_check(
-            kf.structs[lvl], frame.levels[lvl].cloud, cams[lvl], R, t,
-            opt.edge_distance_lvl[lvl], opt.use_edge_filter, cfg.tracker.normalized_init_cost,
-            cfg.tracker.init_check_margin,
-        )[:2]
+        check = solver.init_check_block(
+            kf.structs[lvl], R.shape[0], opt.edge_distance_lvl[lvl], opt.use_edge_filter,
+            cfg.tracker.normalized_init_cost, cfg.tracker.init_check_margin,
+        )
 
     info = None
     err = None
@@ -73,7 +75,8 @@ def track_frames_batched(
     for lvl in range(pyr.pyr_min_lvl, pyr.pyr_max_lvl - 1, -1):
         table = kf.quads[lvl] if use_quad else kf.structs[lvl].flatten(-3, -2)
         R, t, err, info = solver.solve_level_batched(
-            table, frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl
+            table, frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl,
+            check=check if lvl == pyr.pyr_min_lvl else None,
         )
     good_f = info.good.to(torch.float32)
     bad_f = torch.clamp(info.bad, min=1).to(torch.float32)

@@ -21,6 +21,7 @@ at 160x120: the plain versions of the two kernels of csrc/solver.cu.
 - ``kernels.SIGNATURES`` against the C prototypes of every csrc/*.cu.
 """
 import dataclasses
+import math
 import os
 import re
 
@@ -37,6 +38,7 @@ from revo_tpu_torch.io import synthetic as tsyn
 from revo_tpu_torch.lanes import lane
 from revo_tpu_torch.ops.backproject import EdgeCloud
 
+import _torch_step_model as step_model
 from _torch_inputs import CAM, EDGE_DISTANCE, make_inputs, small_config
 from test_solver import small_cfg
 
@@ -348,6 +350,107 @@ def test_init_check_matches_jax(jax_pair, normalized, use_edge_filter):
         for x, y in zip(lane(one, 0), lane(got, k)):
             assert torch.equal(x, y), name
     assert 0 < int(got.use_eye.sum()) < b  # both choices taken
+
+
+def _partitioned_sum(terms: np.ndarray, cluster: int, threads: int) -> float:
+    """``terms`` (P,) float64 summed as csrc/initcheck.cuh sums them: point
+    p to thread p mod (cluster threads), each thread over its points in
+    order, the shuffle tree of each warp, the warps in order, then the
+    blocks (ranks) in order."""
+    span = cluster * threads
+    padded = np.zeros(-(-len(terms) // span) * span)
+    padded[:len(terms)] = terms
+    per_thread = np.zeros(span)
+    for chunk in padded.reshape(-1, span):  # the thread's loop, in order
+        per_thread = per_thread + chunk
+    warps = per_thread.reshape(cluster, threads // 32, 32)
+    for off in (16, 8, 4, 2, 1):  # __shfl_down_sync: lane l adds lane l + off
+        shifted = np.concatenate([warps[..., off:], warps[..., :off]], axis=-1)
+        warps = warps + shifted
+    total = 0.0
+    for rank in range(cluster):
+        block = 0.0
+        for w in range(threads // 32):
+            block += warps[rank, w, 0]
+        total += block
+    return total
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.parametrize("use_edge_filter", [True, False])
+def test_init_check_partitioned_sums_match(jax_pair, normalized, use_edge_filter):
+    """The check's sums as the kernels take them (csrc/initcheck.cuh: the
+    standalone check's clusters of 8 blocks of 256 threads, the level
+    kernel's 1-8 blocks of 512), and in a random order, in float64: equal
+    to the plain sum of ``solver.cost_terms``, and rounded (and divided by
+    the count) equal to ``init_check_ref``'s costs bit for bit, on the
+    JAX-built frame pair; JAX's ``eval_cost`` within float32's summation
+    bound of them."""
+    cfg, kj, fj, kt, ft = jax_pair
+    lvl = cfg.pyramid.pyr_min_lvl
+    cam, tcam = cfg.camera_pyramid()[lvl], convert.config_from_jax(cfg).camera_pyramid()[lvl]
+    dist, margin = cfg.tracker.optimizer.edge_distance_lvl[lvl], cfg.tracker.init_check_margin
+    jcloud = fj.levels[lvl].cloud
+    jcost = jax.jit(lambda R_, t_: jsolver.eval_cost(
+        kj.structs[lvl][..., 2], jcloud, cam, R_, t_, dist, use_edge_filter, normalized))
+    cl = ft.levels[lvl].cloud
+    dt_img = kt.structs[lvl][..., 2]
+    rng = np.random.default_rng(19)
+    rtol = (cl.points.shape[0] + 1) * 2.0 ** -24
+    for name, (R, t) in INIT_POSES.items():
+        Rt, tt = torch.from_numpy(R), torch.from_numpy(t)
+        terms, ok = solver.cost_terms(dt_img, cl, tcam, Rt, tt, dist, use_edge_filter)
+        terms = terms.numpy().astype(np.float64)
+        exact = float(np.sum(terms))
+        assert math.fsum(terms) == exact
+        sums = {_partitioned_sum(terms, c, nt) for c, nt in ((8, 256), (1, 512), (2, 512),
+                                                             (4, 512), (8, 512))}
+        sums.add(float(np.sum(terms[rng.permutation(len(terms))])))
+        assert sums == {exact}, name
+        cost = np.float32(exact)
+        if normalized:
+            cost = cost / np.float32(max(int(ok.sum()), 1))
+        ref = solver.init_check_ref(kt.structs[lvl][None], EdgeCloud(cl.points[None],
+                                                                     cl.valid[None], None),
+                                    tcam, Rt[None], tt[None], dist, use_edge_filter,
+                                    normalized, margin)
+        assert np.float32(ref.cost[0]).tobytes() == np.float32(cost).tobytes(), name
+        np.testing.assert_allclose(cost, np.float32(jcost(jnp.asarray(R), jnp.asarray(t))),
+                                   rtol=rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("solver_name", ["lm", "gn_fixed"])
+def test_warp_step_model_matches_the_plain_step(solver_name):
+    """tests/_torch_step_model.py, the level kernel's step entry by entry as
+    the warp's lanes take the entries (csrc/solver.cuh ``step_lane_warp``),
+    against ``solver_start_ref`` and ``solver_step_ref`` on the seeded lanes
+    that stop through every exit: every field of every lane bit for bit
+    after the start and after every step."""
+    seeds, xis, change = EXIT_CASES[solver_name]
+    opt = dataclasses.replace(small_config().tracker.optimizer, solver=solver_name, **change)
+    quad, cloud, R0, t0 = _seeded_lanes(seeds, xis)
+    gn = solver_name == "gn_fixed"
+    p = solver.step_params(opt, 0, gn, "cpu")
+    pows = [np.float32(x) for x in p.pows.numpy()]
+    ops = solver.lane_operands(quad, cloud, _cam(), 4)
+    sums = torch.zeros((4, 46))
+    first = None if gn else solver._evaluate(ops, R0, t0, EDGE_DISTANCE, opt, None, sums).clone()
+    state = solver.solver_start_ref(R0, t0, first, p)
+    for b in range(4):
+        row = np.zeros(46, np.float32) if gn else first[b].numpy()
+        model = step_model.step(None, row, p, pows, 1, R0[b].reshape(9).numpy(), t0[b].numpy())
+        assert step_model.same(model, step_model.lane_state(state, b)), ("start", b)
+    n = 0
+    while bool(state.active.any()):
+        rows = solver._evaluate(ops, state.Rn, state.tn, EDGE_DISTANCE, opt, state.active,
+                                sums).clone()
+        before = [step_model.lane_state(state, b) for b in range(4)]
+        state = solver.solver_step_ref(state, rows, p)
+        n += 1
+        for b in range(4):
+            model = step_model.step(before[b], rows[b].numpy(), p, pows, 0)
+            assert step_model.same(model, step_model.lane_state(state, b)), (n, b)
+    assert n > 2
 
 
 def test_init_check_and_step_take_the_plain_version_on_the_cpu():
