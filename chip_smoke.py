@@ -60,16 +60,32 @@ gates.  Phases, one line each:
              own, the 8 chain frames' keyframe tables): each lane bit-equal
              to its B=1 launch, counts equal to the plain version, floats
              within 1e-5, lanes left out by the mask untouched, a second
-             launch bit-identical, no host sync;
+             launch bit-identical, no host sync; the front end's and the
+             keyframe's kernels (csrc/frontend.cu: revo_edt_columns,
+             revo_keyframe_rows, revo_edge_cloud, revo_pyr_level) bit-equal
+             to their plain versions on all levels of the 8 chain frames at
+             B=8 and B=1 in all seven quad forms, the pyramid from raw uint8
+             gray / uint16 depth and from float32, lanes with no edge and
+             with all edges over depth with 0, NaN, inf, negative and
+             out-of-range values, over and under capacity, at 640x480, 61x79,
+             37x65 and 1280x720, each launch twice (the second
+             bit-identical) with no host sync;
 5. main      the main path on the card with launch counts reset just before
              it; every kernel must have launched (one solve_level_kernel a
              pyramid level, the coarsest of each frame running the init check
              first, and no init_check launch), outputs finite, poses
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
+             one edge cloud a level and one pyramid step between levels a
+             frame built, two EDT launches a keyframe level; make_keyframe
+             alone 6 hand launches and no host read, build_frame alone 3
+             canny_fused, 3 edge clouds and 2 pyramid steps, the torch
+             kernels each leaves printed (torch.profiler);
 6. times     CUDA-event times per stage and per kernel against its plain
              version at the shape its path gives it (level 0 of a 640x480
-             frame; for the cluster Canny level 0 of phase 11's 1280x720
+             frame, one lane, for the front end's and keyframe's kernels too;
+             make_keyframe's torch kernels and hand launches; for the
+             cluster Canny level 0 of phase 11's 1280x720
              frame; for the grid Canny phase 11's 5120x2880 image; for K1
              and K2 alone phase 11's 12288x8192 image, K1 on its uint8 gray
              as given, K2 in its grid form with the state in global memory),
@@ -1041,10 +1057,22 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 # Device functions of csrc/*.cu as the profiler names them.  The profiler
 # shows launches made through ctypes only now and then, so it counts the
 # kernels torch launches and the wrappers' launch counts count these.
+# The front end's and the keyframe's kernels (csrc/frontend.cu): row name ->
+# (the wrapper that counts its launches, the JAX code it stands for: no
+# pallas_call, the jitted programs' pieces).
+FRONT_KERNELS = {
+    "edt_columns": ("edt_columns", "revo_tpu/ops/edt.py:41"),
+    "keyframe_rows": ("keyframe_rows", "revo_tpu/ops/edt.py:99"),
+    "edge_cloud": ("backproject_edges", "revo_tpu/ops/backproject.py:238"),
+    "pyr_level": ("pyr_level", "revo_tpu/ops/filters.py:96"),
+}
+FRONT_RAGGED = ((61, 79), (37, 65))  # odd sizes phase 4 holds the front-end kernels on
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
                 "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
                 "lgsx_reduce_kernel", "residual_lgsx_kernel", "solver_step_kernel",
-                "init_check_kernel", "solve_level_kernel")
+                "init_check_kernel", "solve_level_kernel", "edt_columns_kernel",
+                "keyframe_rows_kernel", "cloud_count_kernel", "cloud_scatter_kernel",
+                "pyr_level_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -1205,6 +1233,32 @@ def _bit_equal(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.view(torch.int32) if a.dtype == torch.float32 else a,
         b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit on the device, whatever the dtype."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    kind = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(kind), b.contiguous().view(kind))
+
+
+def _synced(fn):
+    """(fn(), the host syncs it made, as sync debug mode "warn" reports them)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def _map_tree(fn, tree):
@@ -1388,7 +1442,10 @@ def main() -> int:
     from revo_tpu_torch.eval import absolute_trajectory_error
     from revo_tpu_torch.io import synthetic as syn
     from revo_tpu_torch.io.synthetic import SyntheticScene
+    from revo_tpu_torch.ops import backproject as BP
     from revo_tpu_torch.ops import canny as K12
+    from revo_tpu_torch.ops import edt as EDT
+    from revo_tpu_torch.ops import filters as FL
     from revo_tpu_torch.ops import lgsx as K3
     from revo_tpu_torch.ops.filters import _reflect_pad
 
@@ -1466,8 +1523,11 @@ def main() -> int:
     track_counters = (K3.residual_lgsx, solver.solver_step, solver.init_check,
                       solver.solve_level_kernel)
     level_check = _Count(solver.solve_level_kernel, "check_launches", "level_init_check")
+    # The front end's and the keyframe's (csrc/frontend.cu).
+    front_counters = (EDT.edt_columns, EDT.keyframe_rows, BP.backproject_edges, FL.pyr_level)
     counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
-                 K12.canny_hysteresis, K3.lgsx_reduce) + track_counters + (level_check,)
+                 K12.canny_hysteresis, K3.lgsx_reduce) + track_counters + (level_check,) \
+        + front_counters
     # Of every 640x480 path (the tracking ones: the last two).
     vga_kernels = ["canny_fused", "level_init_check", "solve_level_kernel"]
     split_kernels = ["canny_nms", "canny_hysteresis"]  # of an image above the grid's memory
@@ -1517,9 +1577,45 @@ def main() -> int:
             or launches["level_init_check"] != n_tracked):
         raise RuntimeError(f"main: not one level kernel a level and the init check in one "
                            f"level launch a frame: {launches}")
+    # The front end and the keyframe on their hand kernels: a frame built,
+    # one edge cloud a level and one pyramid step between levels; a
+    # keyframe, the two EDT launches a level (8 frames and one keyframe a
+    # solver).
+    n_lv = cfg.pyramid.n_levels
+    front_want = {"backproject_edges": 2 * N_FRAMES * n_lv, "pyr_level": 2 * N_FRAMES * (n_lv - 1),
+                  "edt_columns": 2 * n_lv, "keyframe_rows": 2 * n_lv}
+    if any(launches[k] != v for k, v in front_want.items()):
+        raise RuntimeError(f"main: the front end's kernels did not launch {front_want}: {launches}")
     launch_total = dict(launches)
+    # build_frame and make_keyframe alone, counted again: make_keyframe is
+    # 2 hand launches a level and reads nothing on the host; the torch
+    # kernels each leaves (profiler) are printed.
+    from revo_tpu_torch import frontend
 
-    summary = {"launches": launches}
+    g_1, d_1 = torch.from_numpy(grays[0]).to(dev), torch.from_numpy(depths[0]).to(dev)
+    eye_dev = torch.eye(4, device=dev)
+    (f_1, bf_syncs), bf_counts = _path_launches(counters_, lambda: _synced(
+        lambda: frontend.build_frame(g_1, d_1, cfg)))
+    (_, kf_syncs), kf_counts = _path_launches(counters_, lambda: _synced(
+        lambda: frontend.make_keyframe(f_1, eye_dev, cfg)))
+    bf_launch = {k: v for k, v in bf_counts.items() if v}
+    kf_launch = {k: v for k, v in kf_counts.items() if v}
+    if kf_launch != {"edt_columns": n_lv, "keyframe_rows": n_lv} or kf_syncs:
+        raise RuntimeError(f"main: make_keyframe is not {2 * n_lv} hand launches and no host "
+                           f"read: {kf_launch}, {kf_syncs} host reads")
+    if bf_launch != {"canny_fused": n_lv, "backproject_edges": n_lv, "pyr_level": n_lv - 1}:
+        raise RuntimeError(f"main: build_frame's hand launches are {bf_launch}")
+    front_end = {}
+    for stage, stage_launches, stage_syncs, stage_fn in (
+            ("build_frame", bf_launch, bf_syncs, lambda: frontend.build_frame(g_1, d_1, cfg)),
+            ("make_keyframe", kf_launch, kf_syncs,
+             lambda: frontend.make_keyframe(f_1, eye_dev, cfg))):
+        stage_kernels, stage_busy, _, stage_copies = _profile_kernels(stage_fn, 3)
+        front_end[stage] = {"hand_launches": stage_launches, "host_reads": stage_syncs,
+                            "torch_kernels": stage_kernels, "torch_busy_ms": stage_busy,
+                            "copies": stage_copies}
+
+    summary = {"launches": launches, "front_end": front_end}
     for name in ("lm", "gn_fixed"):
         frames, kf, est, results = gpu[name]
         for r in results:
@@ -1747,6 +1843,144 @@ def main() -> int:
         raise RuntimeError(f"batched K3 differs from plain by {lanes_rel} (relative) > {K3_RTOL}")
     if not any(bad > good for good, bad in lanes_counts):
         raise RuntimeError("batched K3: no lane with most points out of bounds")
+    # The front end's and the keyframe's kernels (csrc/frontend.cu) against
+    # their plain versions, bit for bit, each launch made twice (the second
+    # bit-identical) with no host sync: all levels of the 8 chain frames at
+    # B = 8 and B = 1, the seven quad forms, the pyramid from raw uint8 gray
+    # and uint16 depth as run sends them and from float32; then lanes with
+    # no edge and with all edges over depth with 0, NaN, inf, negative and
+    # out-of-range values, over and under capacity, at 640x480, at the odd
+    # sizes FRONT_RAGGED and on a 1280x720 frame.
+    from revo_tpu_torch.io.synthetic import render_frame
+
+    fe_cases = dict.fromkeys(FRONT_KERNELS, 0)
+
+    def fe_check(name, fn, ref, what):
+        first, syncs = _synced(fn)
+        second, want = fn(), ref()
+        first, second, want = ((x,) if isinstance(x, torch.Tensor) else tuple(x)
+                               for x in (first, second, want))
+        if syncs:
+            raise RuntimeError(f"kernels: {name} made {syncs} host syncs ({what})")
+        if not all(_same_bits(a, b) for a, b in zip(first, second)):
+            raise RuntimeError(f"kernels: two {name} launches differ ({what})")
+        if len(first) != len(want) or not all(_same_bits(a, b) for a, b in zip(first, want)):
+            raise RuntimeError(f"kernels: {name} differs from its plain version ({what})")
+        fe_cases[name] += 1
+        return first
+
+    def fe_tables(edges, forms, what):
+        """The EDT pair on (B, H, W) edges in each form: against the plain
+        pair (the full row search) and, in the first form, against
+        keyframe_tables_ref (the banded search the CPU runs)."""
+        g2 = fe_check("edt_columns", lambda: EDT.edt_columns(edges),
+                      lambda: EDT.edt_columns_ref(edges), what)[0]
+        struct = EDT.keyframe_rows_ref(g2, "dt4")[0]
+        for k, form in enumerate(forms):
+            got = fe_check("keyframe_rows", lambda: EDT.keyframe_rows(g2, form),
+                           lambda: (struct, EDT.quad_structure(struct, form)), f"{what} {form}")
+            if k == 0 and not all(_same_bits(a, b) for a, b in zip(
+                    got, EDT.keyframe_tables_ref(edges, form))):
+                raise RuntimeError(f"kernels: the EDT pair differs from keyframe_tables_ref "
+                                   f"({what} {form})")
+        return got
+
+    def fe_cloud(edges, depth, lvl, caps, what):
+        c = cams[lvl]
+        for cap in caps:
+            fe_check("edge_cloud",
+                     lambda: BP.backproject_edges(edges, depth, c.fx, c.fy, c.cx, c.cy,
+                                                  pyr.depth_min, pyr.depth_max, cap),
+                     lambda: BP.backproject_edges_ref(edges, depth, c.fx, c.fy, c.cx, c.cy,
+                                                      pyr.depth_min, pyr.depth_max, cap),
+                     f"{what} capacity {cap}")
+
+    def fe_pyr(gray, depth, what, inv=1.0):
+        fe_check("pyr_level", lambda: FL.pyr_level(gray, depth, inv),
+                 lambda: FL.pyr_level_ref(gray, depth, inv), what)
+
+    def valid_counts(edges, depth):
+        ok = edges & torch.isfinite(depth) & (depth > pyr.depth_min) & (depth < pyr.depth_max)
+        return ok.flatten(1).sum(1).tolist()
+
+    inv_scale = 1.0 / cfg.dataset.depth_scale_factor
+    fe_over = {"over": 0, "under": 0}
+    for lvl in range(pyr.n_levels):
+        edges8 = torch.stack([f.levels[lvl].edges for f in frames_lm])
+        depth8 = torch.stack([f.levels[lvl].depth for f in frames_lm])
+        gray8 = torch.stack([f.levels[lvl].gray for f in frames_lm])
+        structs8, quads8 = fe_tables(edges8, tuple(EDT.QUAD_FORMS), f"chain level {lvl}, B = 8")
+        n_ok = valid_counts(edges8, depth8)
+        caps = (pyr.edge_capacity[lvl], max(min(n_ok) // 3, 1), max(n_ok) + 64)
+        fe_cloud(edges8, depth8, lvl, caps, f"chain level {lvl}, B = 8")
+        fe_over["over"] += sum(n > cap for cap in caps for n in n_ok)
+        fe_over["under"] += sum(n <= cap for cap in caps for n in n_ok)
+        if lvl + 1 < pyr.n_levels:
+            fe_pyr(gray8, depth8, f"chain level {lvl}, B = 8")
+        for i in range(N_FRAMES):
+            one = slice(i, i + 1)
+            fe_check("edt_columns", lambda: EDT.edt_columns(edges8[one]),
+                     lambda: EDT.edt_columns(edges8)[one], f"chain level {lvl}, lane {i} alone")
+            g2_i = EDT.edt_columns(edges8[one])
+            fe_check("keyframe_rows", lambda: EDT.keyframe_rows(g2_i, cfg.tracker.optimizer.quad_form),
+                     lambda: (structs8[one], EDT.quad_structure(
+                         structs8[one], cfg.tracker.optimizer.quad_form)),
+                     f"chain level {lvl}, lane {i} alone")
+            fe_cloud(edges8[one], depth8[one], lvl, caps[:1], f"chain level {lvl}, lane {i} alone")
+            if lvl + 1 < pyr.n_levels:
+                fe_pyr(gray8[one], depth8[one], f"chain level {lvl}, lane {i} alone")
+    raw_g = torch.from_numpy(np.stack(grays)).to(dev)
+    raw_d = torch.from_numpy(np.stack(depths)).to(dev)
+    fe_pyr(raw_g, raw_d, "raw uint8 gray, uint16 depth, B = 8", inv_scale)
+    fe_pyr(raw_g[:1], raw_d[:1], "raw uint8 gray, uint16 depth, B = 1", inv_scale)
+    fe_pyr(raw_g.float(), raw_d, "float32 gray, uint16 depth", inv_scale)
+
+    def odd_lanes(edges, depth, gray):
+        """Lane 0 as given, lane 1 with no edge, lane 2 all edges; depth with
+        0, NaN, inf, negative and out-of-range values."""
+        h, w = edges.shape[-2:]
+        e3 = torch.stack([edges, torch.zeros_like(edges), torch.ones_like(edges)])
+        gen = torch.Generator(device=dev).manual_seed(h * w)
+        u = torch.rand((h, w), generator=gen, device=dev)
+        bad = depth.clone()
+        for lo_, hi_, v in ((0.0, 0.03, float("nan")), (0.03, 0.05, float("inf")),
+                            (0.05, 0.07, 0.0), (0.07, 0.08, -1.0),
+                            (0.08, 0.1, pyr.depth_max + 1.0), (0.1, 0.11, pyr.depth_min)):
+            bad = torch.where((u >= lo_) & (u < hi_), torch.full_like(bad, v), bad)
+        return e3, torch.stack([bad, bad.flip(-1), bad.flip(-2)]).contiguous(), \
+            torch.stack([gray, gray.flip(-1), gray.flip(-2)]).contiguous()
+
+    def odd_cases(edges, depth, gray, lvl, what):
+        e3, d3, g3 = odd_lanes(edges, depth, gray)
+        fe_tables(e3, ("dt4bf", "flat"), what)
+        n_ok = valid_counts(e3, d3)
+        caps = (max(n_ok[0] // 3, 1), n_ok[0], n_ok[2] - 1, n_ok[2] + 64)
+        fe_cloud(e3, d3, lvl, caps, what)
+        fe_over["over"] += sum(n > cap for cap in caps for n in n_ok)
+        fe_over["under"] += sum(n <= cap for cap in caps for n in n_ok)
+        fe_pyr(g3, d3, what)
+        fe_pyr(g3.to(torch.uint8), (d3.nan_to_num(0.0, 0.0, 0.0).clamp(0, 13.0)
+                                    * cfg.dataset.depth_scale_factor).to(torch.int32)
+               .to(torch.uint16), f"{what}, raw", inv_scale)
+
+    f0 = frames_lm[0].levels[0]
+    odd_cases(f0.edges, f0.depth, f0.gray, 0, "640x480 odd lanes")
+    for h, w in FRONT_RAGGED:
+        gen = torch.Generator(device=dev).manual_seed(h + w)
+        gray_r = (torch.rand((1, h, w), generator=gen, device=dev) * 255).round()
+        edges_r = K12.canny_batched(gray_r, pyr.canny_threshold1 / 3, pyr.canny_threshold2 / 3)[0]
+        depth_r = 0.2 + 5.0 * torch.rand((h, w), generator=gen, device=dev)
+        odd_cases(edges_r, depth_r, gray_r[0], 2, f"{h}x{w}")
+    cam_hd4 = dataclasses.replace(cam, fx=2 * cam.fx, fy=2 * cam.fy, cx=2 * cam.cx,
+                                  cy=1.5 * cam.cy, width=1280, height=720)
+    hd_gray, hd_depth = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in render_frame(
+        scene, cam_hd4, np.eye(4, dtype=np.float32)))
+    hd_gray = hd_gray.round()
+    hd_edges = K12.canny_batched(hd_gray[None], t_lo, t_hi)[0]
+    odd_cases(hd_edges, hd_depth.float(), hd_gray.float(), 0, "1280x720")
+    fe_tables(hd_edges[None], tuple(EDT.QUAD_FORMS), "1280x720, B = 1")
+    if not (fe_over["over"] and fe_over["under"]):
+        raise RuntimeError(f"kernels: the edge cloud was not held over and under capacity: {fe_over}")
     _phase("kernels", canny_fused_cases=fused_px["cases"],
            canny_fused_differing_pixels=fused_px["differing"],
            canny_fused_dense_differing_pixels=fused_px["dense_differing"],
@@ -1756,7 +1990,8 @@ def main() -> int:
            k3_max_rel_err=k3_rel, k3_rtol=K3_RTOL, fused_k3_cases=k3_cases,
            fused_k3_max_abs_err=fused_err, fused_k3_max_rel_err=fused_rel,
            fused_k3_good_bad=fused_counts, batched_k3_lanes=K3_LANES,
-           batched_k3_lane_cases=lanes_cases, batched_k3_max_rel_err=lanes_rel)
+           batched_k3_lane_cases=lanes_cases, batched_k3_max_rel_err=lanes_rel,
+           front_end_cases=fe_cases, front_end_cloud_lanes=fe_over)
     _phase("main", **summary)
 
     from revo_tpu_torch.autotune import calibrate_capacities
@@ -4342,6 +4577,12 @@ def main() -> int:
             lambda: frontend.make_keyframe(f1, torch.eye(4, device=dev), cfg_lm), 5
         ),
     }
+    kf_hand_ = _path_launches(front_counters, lambda: frontend.make_keyframe(
+        f1, torch.eye(4, device=dev), cfg_lm))[1]
+    kf_kernels, kf_busy_ms, _, _ = _profile_kernels(
+        lambda: frontend.make_keyframe(f1, torch.eye(4, device=dev), cfg_lm), 3)
+    stage_ms["make_keyframe_profile"] = {"torch_kernels": kf_kernels, "torch_busy_ms": kf_busy_ms,
+                                         "hand_launches": kf_hand_}
     part_done("front_end")
     for name in ("lm", "gn_fixed"):
         c = _with_solver(cfg, name)
@@ -4566,6 +4807,47 @@ def main() -> int:
             # spin); "ms" above is the rate at which the host can launch it.
             "device_ms": _queued_ms(fk),
         })
+    # The front end's and the keyframe's kernels at the main path's shape:
+    # level 0 of a 640x480 frame, one lane, the config's quad form.  Bound:
+    # inputs read and outputs written once (the row search's operations,
+    # about 6 a visited offset and at least ceil(dt) offsets a pixel on this
+    # frame's data, and the other kernels' few a pixel, take less).
+    # library_ms null: no single PyTorch call computes an exact EDT, the
+    # decimating compaction, or a rounded pyrDown with the hole-aware subsample.
+    lv0 = frames_lm[1].levels[0]
+    e0, dep0, gr0 = lv0.edges[None].contiguous(), lv0.depth[None], lv0.gray[None]
+    g2_0 = EDT.edt_columns(e0)
+    form0, fe_cam, cap0 = cfg.tracker.optimizer.quad_form, cams[0], pyr.edge_capacity[0]
+    n_px0 = e0.numel()
+    fe_s0, fe_q0 = EDT.keyframe_rows(g2_0, form0)
+    visited0 = float(torch.ceil(fe_s0[..., 2].double()).clamp(max=cam.width).sum())
+    cloud_args = (e0, dep0, fe_cam.fx, fe_cam.fy, fe_cam.cx, fe_cam.cy, pyr.depth_min,
+                  pyr.depth_max, cap0)
+    pg0, pd0 = FL.pyr_level(gr0, dep0)
+    front = [
+        ("edt_columns", lambda: EDT.edt_columns(e0), lambda: EDT.edt_columns_ref(e0),
+         _bound(_nbytes(e0, g2_0), 4 * n_px0), 20),
+        ("keyframe_rows", lambda: EDT.keyframe_rows(g2_0, form0),
+         lambda: EDT.keyframe_rows_ref(g2_0, form0), _bound(_nbytes(g2_0, fe_s0, fe_q0), 6 * visited0), 3),
+        ("edge_cloud", lambda: BP.backproject_edges(*cloud_args),
+         lambda: BP.backproject_edges_ref(*cloud_args),
+         _bound(_nbytes(e0, dep0, *BP.backproject_edges(*cloud_args)), 10 * n_px0), 50),
+        ("pyr_level", lambda: FL.pyr_level(gr0, dep0), lambda: FL.pyr_level_ref(gr0, dep0),
+         _bound(_nbytes(gr0, dep0, pg0, pd0), 60 * pg0.numel()), 50),
+    ]
+    for name, fk, fp, (bound_ms, bound_by), n_reps in front:
+        counted, replaces = FRONT_KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": "revo_tpu_torch/csrc/frontend.cu",
+            "replaces": replaces, "launches": launch_total.get(counted, 0),
+            "max_abs_err": 0.0,  # phase 4: bit-equal in every case
+            "ms": min(_time_ms(fk, 50), _time_ms(fk, 50)),
+            "plain_ms": min(_time_ms(fp, n_reps), _time_ms(fp, n_reps)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": _queued_ms(fk),
+            "device_kernels_a_call": 2 if name == "edge_cloud" else 1,
+        })
+    part_done("front_end_rows")
     # K1's persistent blocks per launch (the occupancy query's count, at
     # most one a tile), its device time from float32 gray, and the cast +
     # pad that the split route no longer runs, alone; K3's blocks per
@@ -4811,8 +5093,10 @@ def main() -> int:
     # init_check: the "linalg" route's own launch (phase 24 (e)); on the
     # main path the check runs inside the coarsest level's launch.
     on_path = [k for k in vga_kernels if k != "level_init_check"] + [
-        "init_check", "canny_cluster", "canny_grid", "residual_lgsx"] + split_kernels
-    if (any(launch_total[n] <= 0 for n in on_path + ["level_init_check"])
+        "init_check", "canny_cluster", "canny_grid", "residual_lgsx"] + split_kernels \
+        + list(FRONT_KERNELS)
+    if (any(launch_total[FRONT_KERNELS[n][0] if n in FRONT_KERNELS else n] <= 0
+            for n in on_path + ["level_init_check"])
             or launch_total["lgsx_reduce"]
             or launch_total["solver_step"]):
         raise RuntimeError(f"launch totals do not match the paths: {launch_total}")

@@ -60,7 +60,10 @@ from revo_tpu_torch.autotune import calibrate_capacities
 from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.eval import relative_pose_error
 from revo_tpu_torch.lanes import add_lane_axis
+from revo_tpu_torch.ops import backproject as BP
 from revo_tpu_torch.ops import canny as K12
+from revo_tpu_torch.ops import edt as EDT
+from revo_tpu_torch.ops import filters as FL
 from revo_tpu_torch.ops import lgsx as K3
 
 N_FRAMES = 8
@@ -73,7 +76,8 @@ EXACTFIT_MARGIN = 1.10
 MAX_CHAIN_ERROR = 5.0  # divergence guard on every timed chain (errors ~0.1)
 # Every hand kernel's wrapper, whose ``.launches`` the run reports.
 COUNTED = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
-           K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx, solver.solve_level_kernel)
+           K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx, solver.solve_level_kernel,
+           EDT.edt_columns, EDT.keyframe_rows, BP.backproject_edges, FL.pyr_level)
 
 
 def _build_inputs(cfg):

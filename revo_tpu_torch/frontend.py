@@ -4,11 +4,15 @@ clouds, and keyframes (counterpart of revo_tpu/frontend.py).
 ``build_frame`` mirrors the ImgPyramidRGBD constructor
 (imgpyramidrgbd.cpp:43-96): per level Canny edges (one fused K1 + K2 launch), BMVC17
 fill-in when patch occupancy is low, and back-projection of edge pixels with
-valid depth into a fixed-capacity cloud; levels > 0 come from pyrDown gray
-and hole-aware depth subsampling.  ``make_keyframe`` adds the per-level DT
-structures and the quad tables of ``OptimizerConfig.quad_form``
-(``ops.edt.quad_structure``) the solver samples.  Outputs live on the
-device of the inputs.
+valid depth into a fixed-capacity cloud (``ops.backproject.backproject_edges``,
+one ``revo_edge_cloud`` call a level on the card); levels > 0 come from
+pyrDown gray and hole-aware depth subsampling (``ops.filters.pyr_level``,
+one ``revo_pyr_level`` launch a step).  ``make_keyframe`` adds the
+per-level DT structures and the quad tables of ``OptimizerConfig.quad_form``
+the solver samples (``ops.edt.keyframe_tables``: on the card two launches a
+level, ``revo_edt_columns`` and ``revo_keyframe_rows``, and no host read).
+Outputs live on the device of the inputs; the plain versions run on the
+CPU.
 
 Both run B sequences' frames at once (``build_frame_batched``,
 ``make_keyframe_batched``: a leading lane axis on every tensor of the
@@ -28,10 +32,9 @@ from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.backproject import EdgeCloud, backproject_edges
 from revo_tpu_torch.ops.canny import canny_batched
-from revo_tpu_torch.ops.depth import subsample_depth_with_holes
 from revo_tpu_torch.ops.edge_hist import fill_in_edges, patch_histogram
-from revo_tpu_torch.ops.edt import keyframe_structure, quad_structure
-from revo_tpu_torch.ops.filters import gaussian_blur, pyr_down
+from revo_tpu_torch.ops.edt import keyframe_tables
+from revo_tpu_torch.ops.filters import gaussian_blur, pyr_level
 from revo_tpu_torch.ops.undistort import remap_bilinear
 
 
@@ -55,7 +58,7 @@ class Keyframe(NamedTuple):
     (makeKeyframe, imgpyramidrgbd.cpp:231-252)."""
 
     structs: Tuple[torch.Tensor, ...]  # per level (H, W, 3): (gx, gy, dt)
-    quads: Tuple[torch.Tensor, ...]  # per level (H*W, C) taps, ``ops.edt.quad_structure``
+    quads: Tuple[torch.Tensor, ...]  # per level (H*W, C) taps, ``ops.edt.keyframe_tables``
     frame: Frame
     T_w_k: torch.Tensor  # (4, 4) keyframe-to-world
 
@@ -80,15 +83,21 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
     tensors from ``ops.undistort.build_undistort_maps``; gray and depth are
     then rectified first, cv::remap CV_INTER_LINEAR on both like the
     reference (imgpyramidrgbd.cpp:57-65), gray rounded back to uint8 levels."""
+    inv_scale = 1.0 / cfg.dataset.depth_scale_factor
     g = gray.to(torch.float32)
     if depth.dtype == torch.uint16:
-        d = depth.to(torch.float32) * (1.0 / cfg.dataset.depth_scale_factor)
+        d = depth.to(torch.float32) * inv_scale
     else:
         d = depth.to(torch.float32)
     if undistort_maps is not None:
         map_u, map_v = undistort_maps
         g = gray = torch.round(remap_bilinear(g, map_u, map_v))
-        d = remap_bilinear(d, map_u, map_v)
+        d = depth = remap_bilinear(d, map_u, map_v)
+    # The first pyramid step reads the sensor's uint8 gray and uint16 depth
+    # as given (``pyr_level`` converts them as above); the others, and a
+    # rectified frame's, the float32 levels.
+    step_g = gray if gray.dtype == torch.uint8 else g
+    step_d = depth if depth.dtype == torch.uint16 else d
     pyr = cfg.pyramid
     prev_edges = None
     for lvl in range(pyr.n_levels):
@@ -112,8 +121,10 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
         yield g, d, edges_orig, edges
         prev_edges = edges
         if lvl + 1 < pyr.n_levels:
-            g = pyr_down(g)
-            d = subsample_depth_with_holes(d)
+            lead = g.shape[:-2]
+            g, d = pyr_level(step_g.reshape(-1, h, w), step_d.reshape(-1, h, w), inv_scale)
+            g, d = g.reshape(*lead, *g.shape[-2:]), d.reshape(*lead, *d.shape[-2:])
+            step_g, step_d = g, d
 
 
 def build_frame_batched(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
@@ -147,11 +158,10 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
 
 def make_keyframe_batched(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
     """Keyframes of a batched Frame with world poses T_w_k (B, 4, 4)."""
-    structs = tuple(keyframe_structure(lv.edges) for lv in frame.levels)
-    quads = tuple(
-        quad_structure(s, cfg.tracker.optimizer.quad_form) for s in structs
-    )
-    return Keyframe(structs=structs, quads=quads, frame=frame, T_w_k=T_w_k)
+    tables = [keyframe_tables(lv.edges, cfg.tracker.optimizer.quad_form)
+              for lv in frame.levels]
+    return Keyframe(structs=tuple(s for s, _ in tables), quads=tuple(q for _, q in tables),
+                    frame=frame, T_w_k=T_w_k)
 
 
 def make_keyframe(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:

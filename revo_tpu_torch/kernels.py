@@ -62,6 +62,10 @@ SIGNATURES = {
                          + "ffffff" + "pifiifpp" + "i"),
     "revo_solve_level_clusters": "ii",
     "revo_solve_level_attr": "ii",
+    "revo_edt_columns": "ppiii",
+    "revo_keyframe_rows": "pppiiiii",
+    "revo_edge_cloud": "ppppppiiiffffffi",
+    "revo_pyr_level": "pipifppiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -148,6 +152,21 @@ def check_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
     return device
+
+
+def on_card(name: str, *tensors) -> bool:
+    """The route of a kernel's wrapper: False where its tensors lie on the
+    CPU (the plain version), True where they lie on one CUDA device (the
+    kernel).  Raises for any other device and for a mix of devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on different devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return True
 
 
 def call(name: str, *args, device=None) -> int:

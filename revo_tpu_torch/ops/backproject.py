@@ -6,9 +6,13 @@ frame point (Z (x - cx) / fx, Z (y - cy) / fy, Z) (addLevelEdge,
 imgpyramidrgbd.cpp:199-226).  The cloud has a fixed capacity: points fill
 the first ``count`` slots in ascending pixel order; when more pixels
 qualify than fit, slot = floor(pos * capacity / count) in float32 and the
-highest pos wins a shared slot (a uniform stride decimation).  This is the
-JAX module's scatter form (``_compact_scatter``), bit-identical to its
-default rank-sort compaction.
+highest pos wins a shared slot (a uniform stride decimation).  The plain
+version (``backproject_edges_ref``) is the JAX module's scatter form
+(``_compact_scatter``), bit-identical to its default rank-sort compaction.
+``backproject_edges`` takes it for a CPU tensor; a CUDA tensor takes the
+hand kernel ``revo_edge_cloud`` (csrc/frontend.cu: tile counts, then a scan
+whose last pixel of each slot writes it; no atomics, no host read), counted
+in ``backproject_edges.launches``.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from revo_tpu_torch import kernels
 
 
 class EdgeCloud(NamedTuple):
@@ -56,7 +62,11 @@ def compact(valid_px: torch.Tensor, capacity: int):
             count.reshape(lead))
 
 
-def backproject_edges(
+def _inv_focal(f: float) -> float:
+    return float(np.float32(1.0 / np.float32(f)))
+
+
+def backproject_edges_ref(
     edges: torch.Tensor,
     depth: torch.Tensor,
     fx: float,
@@ -69,7 +79,8 @@ def backproject_edges(
 ) -> EdgeCloud:
     """Edge pixels with finite depth strictly inside (depth_min, depth_max)
     -> EdgeCloud (isPointOkEdgePyr, imgpyramidrgbd.h:176-180), for
-    (..., H, W) edges and depth (lanes on the leading axes)."""
+    (..., H, W) edges and depth (lanes on the leading axes): the plain
+    version of ``backproject_edges``."""
     w = edges.shape[-1]
     valid_px = (
         edges & torch.isfinite(depth) & (depth > depth_min) & (depth < depth_max)
@@ -80,8 +91,56 @@ def backproject_edges(
     xx = (idx % w).to(torch.float32)
     # Division by the focal length as a multiply by its float32 reciprocal:
     # what XLA and PyTorch's CUDA division by a scalar both compute.
-    inv_fx = float(np.float32(1.0 / np.float32(fx)))
-    inv_fy = float(np.float32(1.0 / np.float32(fy)))
+    inv_fx, inv_fy = _inv_focal(fx), _inv_focal(fy)
     pts = torch.stack([z * (xx - cx) * inv_fx, z * (yy - cy) * inv_fy, z], dim=-1)
     pts = torch.where(lane_valid[..., None], pts, 0.0)
     return EdgeCloud(points=pts, valid=lane_valid, count=count)
+
+
+# Pixels a block of revo_edge_cloud scans (csrc/frontend.cu CLOUD_TILE).
+CLOUD_TILE = 4096
+
+
+def backproject_edges(
+    edges: torch.Tensor,
+    depth: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    depth_min: float,
+    depth_max: float,
+    capacity: int,
+) -> EdgeCloud:
+    """``backproject_edges_ref``'s EdgeCloud of (..., H, W) bool edges and
+    float32 depth, bit-equal to it.  CPU tensors: the plain version; CUDA
+    tensors: ``revo_edge_cloud``, one call (two kernels: tile counts, then
+    the scan, the slots and the points) for all lanes."""
+    if edges.shape != depth.shape or edges.dim() < 2:
+        raise ValueError(f"backproject_edges: edges {tuple(edges.shape)} and depth "
+                         f"{tuple(depth.shape)} differ")
+    if not kernels.on_card("backproject_edges", edges, depth):
+        return backproject_edges_ref(edges, depth, fx, fy, cx, cy, depth_min, depth_max,
+                                     capacity)
+    if edges.dtype != torch.bool or depth.dtype != torch.float32:
+        raise ValueError(f"backproject_edges: want bool edges and float32 depth, got "
+                         f"{edges.dtype}, {depth.dtype}")
+    if capacity < 1:
+        raise ValueError(f"backproject_edges: capacity {capacity}")
+    lead, (h, w) = edges.shape[:-2], edges.shape[-2:]
+    e = edges.reshape(-1, h, w).contiguous()
+    d = depth.reshape(-1, h, w).contiguous()
+    b = e.shape[0]
+    tiles = -(-(h * w) // CLOUD_TILE)
+    scratch = torch.empty(b * tiles, dtype=torch.int32, device=e.device)
+    points = torch.empty((b, capacity, 3), dtype=torch.float32, device=e.device)
+    valid = torch.empty((b, capacity), dtype=torch.bool, device=e.device)
+    count = torch.empty(b, dtype=torch.int32, device=e.device)
+    kernels.launch("revo_edge_cloud", e, d, scratch, points, valid, count, b, h, w,
+                   _inv_focal(fx), _inv_focal(fy), cx, cy, depth_min, depth_max, capacity)
+    backproject_edges.launches += 1
+    return EdgeCloud(points=points.reshape(*lead, capacity, 3),
+                     valid=valid.reshape(*lead, capacity), count=count.reshape(lead))
+
+
+backproject_edges.launches = 0
