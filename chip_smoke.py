@@ -68,7 +68,12 @@ gates.  Phases, one line each:
              gray / uint16 depth and from float32, lanes with no edge and
              with all edges over depth with 0, NaN, inf, negative and
              out-of-range values, over and under capacity, at 640x480, 61x79,
-             37x65 and 1280x720, each launch twice (the second
+             37x65 and 1280x720, the chain's level 0 at B=32 (waves of
+             clusters), lanes whose valid pixels lie in one block, with one
+             corner edge pixel and none, alone and at B = 4, 8 and 32 (the
+             cloud's clusters of 16, 8 and 2 blocks) with count == P, P - 1,
+             P + 1, one row, rows 7680 and 11,620 wide, a wider row
+             refused, each launch twice (the second
              bit-identical) with no host sync;
 5. main      the main path on the card with launch counts reset just before
              it; every kernel must have launched (one solve_level_kernel a
@@ -1071,8 +1076,7 @@ HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
                 "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
                 "lgsx_reduce_kernel", "residual_lgsx_kernel", "solver_step_kernel",
                 "init_check_kernel", "solve_level_kernel", "edt_columns_kernel",
-                "keyframe_rows_kernel", "cloud_count_kernel", "cloud_scatter_kernel",
-                "pyr_level_kernel")
+                "keyframe_rows_kernel", "edge_cloud_kernel", "pyr_level_kernel")
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -1979,6 +1983,57 @@ def main() -> int:
     hd_edges = K12.canny_batched(hd_gray[None], t_lo, t_hi)[0]
     odd_cases(hd_edges, hd_depth.float(), hd_gray.float(), 0, "1280x720")
     fe_tables(hd_edges[None], tuple(EDT.QUAD_FORMS), "1280x720, B = 1")
+    # The two cluster kernels' shapes, which follow B and the shape (the bits
+    # do not depend on them): the chain's level 0 at B = 32 (waves of
+    # clusters); at 640x480, lanes whose valid pixels lie in the first of 16
+    # blocks, one edge pixel in a corner (the longest search), none, and the
+    # frame's own, alone and at B = 4, 8 and 32 (cloud clusters of 16, 16, 8
+    # and 2 blocks; row bands of 2, 2, 4 and 15) with the capacity at, below
+    # and above a lane's count (count == P, count == 0); one row under a band
+    # of 2; rows 7680 wide (bands of 2) and 11,620 wide (the widest a band of
+    # one row holds; 11,621, not a multiple of 4, by 4-byte copies), in
+    # clusters with halo rows; and a row wider than that refused.
+    lv0s = [f.levels[0] for f in frames_lm]
+    e32 = torch.stack([lv0s[i % N_FRAMES].edges for i in range(32)])
+    d32 = torch.stack([lv0s[i % N_FRAMES].depth for i in range(32)])
+    fe_tables(e32, (cfg.tracker.optimizer.quad_form, "flat"), "chain level 0, B = 32")
+    n32 = valid_counts(e32, d32)
+    caps = (pyr.edge_capacity[0], max(min(n32) // 3, 1), max(n32) + 64)
+    fe_cloud(e32, d32, 0, caps, "chain level 0, B = 32")
+    fe_over["over"] += sum(n > cap for cap in caps for n in n32)
+    fe_over["under"] += sum(n <= cap for cap in caps for n in n32)
+    e_f, d_f = lv0s[0].edges, lv0s[0].depth
+    h_f, w_f = e_f.shape
+    one_block, corner = torch.zeros_like(e_f), torch.zeros_like(e_f)
+    one_block[:h_f // 16] = e_f[:h_f // 16]
+    corner[h_f - 1, 0] = True
+    e_sp = torch.stack([one_block, corner, torch.zeros_like(e_f), e_f])
+    d_sp = d_f.expand(4, h_f, w_f).contiguous()
+    n_sp = valid_counts(e_sp, d_sp)
+    caps_sp = sorted({n_sp[0], n_sp[3], n_sp[3] - 1, n_sp[3] + 1, 1})
+    sp_lanes = [(e_sp[i:i + 1], d_sp[i:i + 1], f"special lane {i} alone") for i in range(4)]
+    sp_lanes += [(e_sp.repeat(r, 1, 1), d_sp.repeat(r, 1, 1), f"special lanes, B = {4 * r}")
+                 for r in (1, 2, 8)]
+    for e_b, d_b, what in sp_lanes:
+        fe_cloud(e_b, d_b, 0, caps_sp, what)
+        n_b = valid_counts(e_b, d_b)
+        fe_over["over"] += sum(n > cap for cap in caps_sp for n in n_b)
+        fe_over["under"] += sum(n <= cap for cap in caps_sp for n in n_b)
+        if what.endswith("alone") and not what.startswith("special lane 1"):
+            continue  # the rows: the corner lane alone, and each B
+        fe_tables(e_b, ("flat",), what)
+    fe_tables(e_sp[:, :1].contiguous(), ("dt4bf",), "special lanes, 1 row")
+    gen_w = torch.Generator(device=dev).manual_seed(7680)
+    for h_w, w_w in ((24, 7680), (24, 11620), (9, 11621)):
+        e_w = torch.rand((2, h_w, w_w), generator=gen_w, device=dev) < 0.002
+        e_w[1, :, w_w // 3:] = False  # edges in its first third only: long searches
+        fe_tables(e_w, ("dt4bf", "flat"), f"{h_w}x{w_w}")
+    try:
+        EDT.keyframe_rows(torch.zeros((1, 4, 11623), device=dev), "dt4bf")
+    except RuntimeError:
+        pass
+    else:
+        raise RuntimeError("kernels: keyframe_rows took a row wider than a band of one row holds")
     if not (fe_over["over"] and fe_over["under"]):
         raise RuntimeError(f"kernels: the edge cloud was not held over and under capacity: {fe_over}")
     _phase("kernels", canny_fused_cases=fused_px["cases"],
@@ -1991,7 +2046,8 @@ def main() -> int:
            fused_k3_max_abs_err=fused_err, fused_k3_max_rel_err=fused_rel,
            fused_k3_good_bad=fused_counts, batched_k3_lanes=K3_LANES,
            batched_k3_lane_cases=lanes_cases, batched_k3_max_rel_err=lanes_rel,
-           front_end_cases=fe_cases, front_end_cloud_lanes=fe_over)
+           front_end_cases=fe_cases, front_end_cloud_lanes=fe_over,
+           front_end_rows_refused_width=11623)
     _phase("main", **summary)
 
     from revo_tpu_torch.autotune import calibrate_capacities
@@ -4845,7 +4901,7 @@ def main() -> int:
             "plain_ms": min(_time_ms(fp, n_reps), _time_ms(fp, n_reps)),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_ms": _queued_ms(fk),
-            "device_kernels_a_call": 2 if name == "edge_cloud" else 1,
+            "device_kernels_a_call": 1,
         })
     part_done("front_end_rows")
     # K1's persistent blocks per launch (the occupancy query's count, at

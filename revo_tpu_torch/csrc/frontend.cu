@@ -19,13 +19,20 @@
 // dt4bf: 0.31 + 3.69 + 2.46 MB, ~1.9 us); the cloud reads edges and depth
 // (1.5 MB) and writes the points; the pyramid step reads a level and writes
 // the next.  All four are latency- and launch-bound at these sizes: the
-// design keeps each a single pass (the cloud: two kernels in one call) with
-// no host read, so a keyframe is 6 launches and a frame's pyramid 2.
+// design keeps each a single launch with no host read, so a keyframe is 6
+// launches and a frame's pyramid 2.  The cloud runs a thread-block cluster a
+// lane and the row pass clusters of bands: their blocks trade counts and
+// halo rows over DSMEM, not through global memory or a second launch.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace fe {
+
+namespace cg = cooperative_groups;
 
 constexpr float BIG = 1e9f;  // the plain version's sentinel (ops/edt.py _BIG)
 
@@ -96,15 +103,43 @@ edt_columns_kernel(const uint8_t* __restrict__ edges, float* __restrict__ g2, in
 // No band radius: a pixel's search over offsets o = 1, 2, ... stops once
 // o^2 >= its best so far, since every later candidate g^2 + o'^2 >= o'^2 >
 // best.  Rounding is monotone, so any search that sees the minimum returns
-// the same float32 value as the plain version's banded one; offsets past the
-// row's ends (the plain version's BIG padding, >= BIG >= best) are skipped.
-// A row whose g^2 is BIG everywhere (a lane with no edge) is BIG everywhere.
+// the same float32 value as the plain version's banded one.  The search
+// takes ROWS_GROUP offsets at a time into independent minima and tests the
+// stop rule once a group: the offsets past the stop point it adds give
+// candidates >= o^2 >= the minimum, so the bits do not change.  A lane with
+// no edge is BIG everywhere (a column with an edge is finite in every row),
+// so one block-wide flag skips its search.  The search's time is the
+// slowest block's: a pixel far from every edge (the frame's empty regions)
+// visits ~dt offsets a side.
 //
-// A block owns a band of rows of one lane and recomputes dt for one halo
-// row above and two below (gy of row y + 1 reads dt(y + 2), which the
-// 12-component quad needs), so it writes the structure and the quad table
-// from its own shared memory without a third pass.
+// A block owns a band of rows of one lane; a cluster of up to ROWS_CLUSTER
+// blocks owns consecutive bands.  Each block copies its band's g^2 rows and
+// the cluster's halo rows (one above it, two below: gy of row y + 1 reads
+// dt(y + 2), which the 12-component quad needs) into shared memory at once
+// (cp.async, 16-byte chunks where rows are aligned, every copy in flight),
+// searches its band, then its slice of columns of each halo row (a thread a
+// pixel, no barrier a row), so every block of the cluster does about the
+// same work.  After one cluster barrier it copies its window's other dt rows
+// over DSMEM: from the block that owns the band, or for a halo row of the
+// cluster from every block's slice.  After a second cluster barrier (no
+// block reads another's shared memory past it) each block writes the
+// structure and the quad table of its band from its own window.  Band and
+// cluster follow the lanes and the shape (rows_band); the bits do not
+// depend on them.
+//
+// Shared memory (rows_smem_bytes): the window, band + 3 rows (row y at
+// y - y0 + 1: the band's dt, the rows above and below it), whose three
+// outer rows hold the cluster's halo g^2 until the first cluster barrier,
+// then the window's dt; and the band's g^2 rows, whose room takes the halo
+// slices' dt once the band is searched.  A lane has halo rows only where
+// its bands take more than one cluster, so of ROWS_CLUSTER blocks.  At band
+// 1 that is 5 rows: rows up to 11,622 floats wide fit the card's 227 KB.
 constexpr int ROWS_THREADS = 256;
+constexpr int ROWS_GROUP = 8;     // offsets a pixel's search takes between two stop tests
+constexpr int ROWS_CLUSTER = 8;   // blocks a cluster, at most
+constexpr int ROWS_BAND_MIN = 2;  // rows a block: ceil(H B / (ROWS_PER_SM 132)) in
+constexpr int ROWS_BAND_MAX = 16; //   [ROWS_BAND_MIN, ROWS_BAND_MAX], fewer where
+constexpr int ROWS_PER_SM = 8;    //   the window does not fit a block's shared memory
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
@@ -112,42 +147,146 @@ __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(ROWS_THREADS)
+// The exact squared EDT at x of one row of g^2 in shared memory: groups of
+// ROWS_GROUP offsets from 1 while the group's first offset squared is below
+// the best.  An offset u past the row's end reads the end pixel: its
+// candidate g^2(end) + u^2 is no better than the end's own, which the same
+// or an earlier group sees, so the bits do not change.  A candidate is
+// round(min(l, r) + u^2), as min(round(l + u^2), round(r + u^2)) rounds
+// (rounding is monotone), with u^2 exact: one fused multiply-add (fma) where
+// u < 4096, else __fmul_rn then __fadd_rn (u^2 rounded as (float)(u * u)).
+template <bool fma>
+__device__ __forceinline__ float row_search(const float* row, int x, int W) {
+  float best = row[x];
+  const int reach = max(x, W - 1 - x);
+  float of = 1.0f;  // o as a float, exact
+  for (int o = 1; o <= reach; o += ROWS_GROUP, of += (float)ROWS_GROUP) {
+    if (__fmul_rn(of, of) >= best) break;
+    float c[ROWS_GROUP];
+#pragma unroll
+    for (int k = 0; k < ROWS_GROUP; ++k) {
+      const float u = __fadd_rn(of, (float)k);
+      const float m = fminf(row[max(x - o - k, 0)], row[min(x + o + k, W - 1)]);
+      c[k] = fma ? __fmaf_rn(u, u, m) : __fadd_rn(m, __fmul_rn(u, u));
+    }
+#pragma unroll
+    for (int w = ROWS_GROUP / 2; w > 0; w /= 2)  // a tree: log2(ROWS_GROUP) dependent steps
+#pragma unroll
+      for (int k = 0; k < w; ++k) c[k] = fminf(c[k], c[k + w]);
+    best = fminf(best, c[0]);
+  }
+  return best;
+}
+static_assert((ROWS_GROUP & (ROWS_GROUP - 1)) == 0, "row_search's tree halves the group");
+constexpr int ROWS_FMA_W = 4096;  // rows up to this wide: every offset squared is exact
+
+// dt at x of a row of g^2: its root, searched where the lane has an edge
+// (`any`; a lane with none is BIG everywhere).
+__device__ __forceinline__ float row_dt(const float* row, int x, int W, bool any) {
+  return __fsqrt_rn(!any ? row[x] : W <= ROWS_FMA_W ? row_search<true>(row, x, W)
+                                                    : row_search<false>(row, x, W));
+}
+
+__device__ __forceinline__ bool below_big(float v) { return v < BIG; }
+__device__ __forceinline__ bool below_big(float4 v) {
+  return v.x < BIG || v.y < BIG || v.z < BIG || v.w < BIG;
+}
+
+__device__ __forceinline__ void cp_async(float4* smem, const float4* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
+
+// Three segments of g^2 rows, n0, n1, n2 values (multiples of the floats a
+// V holds), from global to shared memory by cp.async in chunks of V (float4
+// or float), every copy of the thread in flight at once; once they land,
+// returns whether any value the thread copied is below BIG.
+template <typename V>
+__device__ __forceinline__ bool load_rows(const float* s0, float* d0, int n0, const float* s1,
+                                          float* d1, int n1, const float* s2, float* d2, int n2) {
+  constexpr int F = sizeof(V) / sizeof(float);  // floats a chunk
+  const int e0 = n0 / F, e1 = e0 + n1 / F, nv = e1 + n2 / F;
+  auto off = [&](int i) { return i < e0 ? i : i < e1 ? i - e0 : i - e1; };  // in its segment
+  auto dst = [&](int i) { return reinterpret_cast<V*>(i < e0 ? d0 : i < e1 ? d1 : d2) + off(i); };
+  for (int i = threadIdx.x; i < nv; i += ROWS_THREADS)
+    cp_async(dst(i), reinterpret_cast<const V*>(i < e0 ? s0 : i < e1 ? s1 : s2) + off(i));
+  asm volatile("cp.async.wait_all;\n" ::: "memory");  // this thread's copies are visible to it
+  bool finite = false;
+  for (int i = threadIdx.x; i < nv; i += ROWS_THREADS) finite |= below_big(*dst(i));
+  return finite;
+}
+
+__global__ void __launch_bounds__(ROWS_THREADS, 4)
 keyframe_rows_kernel(const float* __restrict__ g2, float* __restrict__ structs,
                      void* __restrict__ quad, int H, int W, int width, int bf16, int band) {
-  extern __shared__ float smem[];
-  float* srow = smem;      // one row of g^2
-  float* sdt = smem + W;   // dt of the window's rows
+  extern __shared__ float4 smem4[];
+  float* win = reinterpret_cast<float*>(smem4);  // the window: row y at y - y0 + 1
+  float* gown = win + (size_t)(band + 3) * W;     // the band's g^2, then the halo slices' dt
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
   const int b = blockIdx.y;
-  const int y0 = blockIdx.x * band, y1 = min(y0 + band, H);
+  const int first = blockIdx.x - rank;  // the cluster's first block
+  const int y0 = min((int)blockIdx.x * band, H), y1 = min(y0 + band, H);
+  const int cy0 = min(first * band, H), cy1 = min((first + C) * band, H);  // the cluster's rows
+  const bool live = y0 < y1;
   const int lo = max(y0 - 1, 0), hi = min(y1 + 1, H - 1);  // the window, inclusive
+  // The cluster's halo rows (0: cy0 - 1, in window row 0; 1: cy1 and 2: cy1
+  // + 1, in window rows band + 1 and band + 2; where they exist), a slice of
+  // columns [hx0, hx0 + hw) of each searched here.
+  const bool up = cy0 > 0 && cy0 < cy1;
+  const int down = cy0 < cy1 ? min(H - cy1, 2) : 0;
+  const int xs = (W + C - 1) / C, hx0 = min(rank * xs, W), hw = min(hx0 + xs, W) - hx0;
+  // -- the rows' loads
   const float* lane_g2 = g2 + (size_t)b * H * W;
-  for (int r = lo; r <= hi; ++r) {
-    bool finite = false;
-    for (int x = threadIdx.x; x < W; x += ROWS_THREADS) {
-      const float v = lane_g2[(size_t)r * W + x];
-      srow[x] = v;
-      finite |= v < BIG;
+  const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(g2) & 15) == 0;
+  const int n_own = (y1 - y0) * W;
+  const float *s0 = lane_g2 + (size_t)y0 * W, *s1 = lane_g2 + (size_t)(up ? cy0 - 1 : 0) * W,
+              *s2 = lane_g2 + (size_t)(down ? cy1 : 0) * W;
+  float *d0 = gown, *d1 = win, *d2 = win + (size_t)(band + 1) * W;
+  const bool finite = vec ? load_rows<float4>(s0, d0, n_own, s1, d1, up ? W : 0, s2, d2, down * W)
+                          : load_rows<float>(s0, d0, n_own, s1, d1, up ? W : 0, s2, d2, down * W);
+  const bool any = __syncthreads_or(finite);
+  // -- the rows' search
+  for (int i = threadIdx.x; i < n_own; i += ROWS_THREADS) {
+    const int r = i / W, x = i - r * W;
+    win[(size_t)(r + 1) * W + x] = row_dt(gown + (size_t)r * W, x, W, any);
+  }
+  if ((up || down) && hw > 0) {
+    __syncthreads();  // the band's g^2 is read: its room takes the slices
+    for (int i = threadIdx.x; i < 3 * hw; i += ROWS_THREADS) {
+      const int h = i / hw, x = hx0 + i - h * hw;  // halo row h
+      if (h == 0 ? !up : h > down) continue;
+      gown[(size_t)h * xs + x - hx0] = row_dt(win + (size_t)(h == 0 ? 0 : band + h) * W, x, W, any);
     }
-    const int any = __syncthreads_or(finite);
-    float* out = sdt + (size_t)(r - lo) * W;
-    for (int x = threadIdx.x; x < W; x += ROWS_THREADS) {
-      float best = srow[x];
-      if (any) {
-        const int reach = max(x, W - 1 - x);
-        for (int o = 1; o <= reach; ++o) {
-          const float o2 = (float)(o * o);
-          if (o2 >= best) break;
-          if (x - o >= 0) best = fminf(best, __fadd_rn(srow[x - o], o2));
-          if (x + o < W) best = fminf(best, __fadd_rn(srow[x + o], o2));
+  }
+  // -- the rows' halo over DSMEM
+  cluster.sync();  // every block's dt rows and slices are in its shared memory
+  if (live)
+    for (int r = lo; r <= hi; ++r) {
+      if (r >= y0 && r < y1) continue;
+      float* dst = win + (size_t)(r - y0 + 1) * W;
+      if (r >= cy0 && r < cy1) {  // a band of this cluster
+        const int owner = r / band;
+        const float* src = cluster.map_shared_rank(win, owner - first) +
+                           (size_t)(r - owner * band + 1) * W;
+        for (int x = threadIdx.x; x < W; x += ROWS_THREADS) dst[x] = src[x];
+      } else {  // a halo row of the cluster, from every block's slice
+        const int h = r < cy0 ? 0 : 1 + (r - cy1);
+        for (int x = threadIdx.x; x < W; x += ROWS_THREADS) {
+          const int k = x / xs;
+          dst[x] = cluster.map_shared_rank(gown, k)[(size_t)h * xs + x - k * xs];
         }
       }
-      out[x] = __fsqrt_rn(best);
     }
-    __syncthreads();
-  }
+  cluster.sync();  // no block reads another's shared memory past here
+  // -- the rows' tables
+  if (!live) return;
   auto dt = [&](int y, int x) {
-    return sdt[(size_t)(clampi(y, 0, H - 1) - lo) * W + clampi(x, 0, W - 1)];
+    return win[(size_t)(clampi(y, 0, H - 1) - y0 + 1) * W + clampi(x, 0, W - 1)];
   };
   for (int i = threadIdx.x; i < (y1 - y0) * W; i += ROWS_THREADS) {
     const int y = y0 + i / W, x = i % W;
@@ -186,20 +325,12 @@ keyframe_rows_kernel(const float* __restrict__ g2, float* __restrict__ structs,
   }
 }
 
-// Shared memory of a band: one g^2 row and the window's dt rows.
-static size_t rows_smem_bytes(int W, int band) { return (size_t)(band + 4) * W * sizeof(float); }
-
-// Rows a block owns: about two blocks an SM over the B lanes (132 SMs), 4
-// to 16, fewer where the window does not fit a block's shared memory; 0 when
-// not even one row does.
-static int rows_band(int B, int H, int W) {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return -1;
-  int band = min(max((int)(((long long)H * B) / 264), 4), 16);
-  while (band > 1 && rows_smem_bytes(W, band) > (size_t)limit) --band;
-  return rows_smem_bytes(W, band) <= (size_t)limit ? band : 0;
+// Shared memory of a band (floats): the window, band + 3 rows, and the
+// larger of the band's g^2 rows and the 3 halo slices of a cluster of
+// ROWS_CLUSTER blocks.
+static size_t rows_smem_bytes(int W, int band) {
+  const size_t slices = 3 * (size_t)((W + ROWS_CLUSTER - 1) / ROWS_CLUSTER);
+  return ((size_t)(band + 3) * W + std::max((size_t)band * W, slices)) * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -208,64 +339,183 @@ static int rows_band(int B, int H, int W) {
 // position pos is its rank among the valid pixels in row-major order; with
 // count of them and capacity P, slot = pos, or floor(f32(pos) * f32(P /
 // count)) when count > P (a uniform stride decimation), and the highest pos
-// of a slot wins it (the plain version's scatter with max).  Since slot is
-// monotone in pos, pos wins where slot(pos + 1) != slot(pos) or pos = count
-// - 1: no atomics.  A slot nobody wins holds zeros: those from count on
-// (count <= P), spread over the lane's blocks; and when count > P the gaps
-// the float rounding leaves between two slots, and the slots after the last
-// one, each filled by the pixel after the gap.
+// of a slot wins it (the plain version's scatter with max).  A slot nobody
+// wins holds zeros: those from count on (count <= P), and when count > P the
+// gaps the float rounding leaves and the slots after the last one.
 //
-// Two kernels in one call: tile counts, then each block sums the counts of
-// the tiles before its own, scans its tile and writes its winners.
-constexpr int CLOUD_THREADS = 256;
-constexpr int CLOUD_PER_THREAD = 16;
-constexpr int CLOUD_TILE = CLOUD_THREADS * CLOUD_PER_THREAD;
+// One launch, a thread-block cluster a lane (C blocks, from the lanes and
+// the shape: cloud_cluster).  Block k takes the k-th of C contiguous ranges
+// of the lane's pixels in steps of CLOUD_STEP; each warp of the block takes
+// a contiguous run of the range's steps, and a lane 4 pixels of a step (one
+// 4-byte load of edges, then one 16-byte load of depth where one of the 4
+// is an edge: a warp's loads are coalesced, and the depth under no edge,
+// most of it, is not read; byte loads where the lane is not 16-byte aligned
+// or its end cuts the step).  Its time grows with the pixels a block takes,
+// so the cluster is as large as the lanes let the card hold (16 blocks at
+// most).  A round, each lane loads up to
+// CLOUD_STEPS steps with every load in flight, the warp scans the steps'
+// counts (one scan, packed), the block scans the warps' totals (one
+// barrier a round), and
+// each valid pixel's (index, depth) goes to its rank in the block in a list
+// in shared memory: nothing goes to global memory and nothing is read
+// twice.  Each block then writes its count into every block's shared memory
+// over DSMEM, once the cluster's arrival (made at the kernel's start, so it
+// costs nothing in the wait) says every block has started; after one cluster
+// barrier each reads the C counts locally: the valid pixels before it and
+// the lane's count (no DSMEM read, so no block waits for the others to
+// leave).
+//
+// Writing: slot is monotone in pos, so the slots j whose last position
+// top(j) (the highest pos with slot(pos) <= j) lies in the block form one
+// range, [slot(first pos), slot(next block's first pos) - 1] (the last
+// block's up to slot(count - 1)).  A thread a slot writes it, consecutive
+// threads consecutive slots: the point of top(j) from the list where
+// slot(top(j)) == j, else zeros (a gap of the rounding: none occurs below
+// 2^24 positions, the rule is a guard).  The slots after the lane's last
+// one are zeros, spread evenly over the cluster's blocks.  Every slot is
+// written by exactly one thread, with no atomics.  A block with more valid
+// pixels than the list holds walks its range again for each further
+// CLOUD_LIST ranks (a lane of mostly edges at 1280x720): slower, the same
+// bits.
+constexpr int CLOUD_THREADS = 1024;
+constexpr int CLOUD_WARPS = CLOUD_THREADS / 32;
+constexpr int CLOUD_STEP = 128;          // pixels a warp a step: 4 a lane
+constexpr int CLOUD_STEPS = 6;           // steps a lane keeps in flight a round (<= 8)
+constexpr int CLOUD_LIST = 24576;        // (index, depth) pairs a block keeps: 192 KB
+constexpr int CLOUD_CLUSTER_MAX = 16;    // blocks a cluster, at most (non-portable above 8)
+constexpr int CLOUD_MIN_STEPS = 64;      // steps a block takes at least where C > 1
+
+static_assert(CLOUD_STEPS <= 8, "a round's step counts are packed in two words");
 
 struct CloudArgs {
   float inv_fx, inv_fy, cx, cy, dmin, dmax;
 };
 
-__device__ __forceinline__ bool valid_px(const uint8_t* e, const float* d, size_t p,
-                                         const CloudArgs& a) {
-  if (!e[p]) return false;
-  const float z = d[p];
-  return isfinite(z) && z > a.dmin && z < a.dmax;
+// The edge bytes of the 4 pixels from q (a multiple of 4 below n) of a lane.
+__device__ __forceinline__ uint32_t load_edges(const uint8_t* e, int q, int n, bool vec) {
+  if (vec && q + 4 <= n) return __ldg(reinterpret_cast<const uint32_t*>(e + q));
+  uint32_t e4 = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (q + i < n) e4 |= (uint32_t)e[q + i] << (8 * i);
+  return e4;
 }
 
-// Valid pixels among a thread's CLOUD_PER_THREAD consecutive ones, as bits.
-__device__ __forceinline__ uint32_t thread_bits(const uint8_t* e, const float* d, int n,
-                                                int tile, const CloudArgs& a) {
-  const int p0 = tile * CLOUD_TILE + threadIdx.x * CLOUD_PER_THREAD;
-  uint32_t bits = 0;
-  for (int k = 0; k < CLOUD_PER_THREAD; ++k)
-    if (p0 + k < n && valid_px(e, d, p0 + k, a)) bits |= 1u << k;
-  return bits;
+// Their depths, read only where an edge byte is set (0 elsewhere).
+__device__ __forceinline__ float4 load_depth(const float* d, uint32_t e4, int q, int n, bool vec) {
+  float4 d4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (!e4) return d4;
+  if (vec && q + 4 <= n) return __ldg(reinterpret_cast<const float4*>(d + q));
+  if (e4 & 0xffu) d4.x = d[q];
+  if (e4 & 0xff00u) d4.y = d[q + 1];
+  if (e4 & 0xff0000u) d4.z = d[q + 2];
+  if (e4 & 0xff000000u) d4.w = d[q + 3];
+  return d4;
 }
 
-// Block-wide sum of v (every thread gets it); red holds 32 ints.
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int s = 0;
-  for (int w = 0; w < CLOUD_THREADS / 32; ++w) s += red[w];
-  return s;
+__device__ __forceinline__ float depth_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(CLOUD_THREADS)
-cloud_count_kernel(const uint8_t* __restrict__ edges, const float* __restrict__ depth,
-                   int* __restrict__ tile_counts, int n, CloudArgs a) {
-  __shared__ int red[32];
-  const size_t lane = (size_t)blockIdx.y * n;
-  const int c = __popc(thread_bits(edges + lane, depth + lane, n, blockIdx.x, a));
-  const int total = block_sum(c, red);
-  if (threadIdx.x == 0) tile_counts[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = total;
+// Bit i: byte i of w is not 0 (the high bit of each byte, gathered by one
+// product whose partial terms do not overlap).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t hi = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+  return ((hi >> 7) * 0x01020408u) >> 24;
+}
+
+// Bit i: pixel i of the 4 is valid (the range test fails NaN and +-inf).
+__device__ __forceinline__ uint32_t four_bits(uint32_t e4, const float4& d4, const CloudArgs& a) {
+  const uint32_t in = (d4.x > a.dmin && d4.x < a.dmax ? 1u : 0u) |
+                      (d4.y > a.dmin && d4.y < a.dmax ? 2u : 0u) |
+                      (d4.z > a.dmin && d4.z < a.dmax ? 4u : 0u) |
+                      (d4.w > a.dmin && d4.w < a.dmax ? 8u : 0u);
+  return nonzero_bytes(e4) & in;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_inclusive(T v) {
+  const int ln = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T t = __shfl_up_sync(0xffffffffu, v, o);
+    if (ln >= o) v += t;
+  }
+  return v;
+}
+
+// The block's walk over steps [s0, s1) of a lane: returns its valid pixels
+// and puts the (index, depth) of those of rank r0 .. r0 + len - 1 in list.
+// sums: 2 x 32 ints, a round's warp totals by the round's parity.
+__device__ int cloud_walk(const uint8_t* e, const float* d, int n, bool vec, int s0, int s1,
+                          int r0, int len, int2* list, int* sums, const CloudArgs& a) {
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int running = 0, round = 0;
+  for (int rs = s0; rs < s1; rs += CLOUD_WARPS * CLOUD_STEPS, ++round) {
+    const int re = min(rs + CLOUD_WARPS * CLOUD_STEPS, s1);
+    const int per = (re - rs + CLOUD_WARPS - 1) / CLOUD_WARPS;  // steps a warp this round
+    const int w0 = min(rs + warp * per, re), w1 = min(w0 + per, re);
+    uint32_t e4[CLOUD_STEPS];  // the edges of every step first, then the depth under edges
+    float4 d4[CLOUD_STEPS];
+#pragma unroll
+    for (int k = 0; k < CLOUD_STEPS; ++k)
+      e4[k] = w0 + k < w1 ? load_edges(e, (w0 + k) * CLOUD_STEP + 4 * ln, n, vec) : 0u;
+#pragma unroll
+    for (int k = 0; k < CLOUD_STEPS; ++k)
+      d4[k] = load_depth(d, e4[k], (w0 + k) * CLOUD_STEP + 4 * ln, n, vec);
+    // Each step's count in an 8-bit field (at most 32 x 4 = 128 a warp), so
+    // one scan of two words serves every step.
+    uint32_t bits[CLOUD_STEPS], packed[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < CLOUD_STEPS; ++k) {
+      bits[k] = four_bits(e4[k], d4[k], a);
+      packed[k / 4] += (uint32_t)__popc(bits[k]) << (8 * (k % 4));
+    }
+    uint32_t incl[2], whole[2];
+#pragma unroll
+    for (int h = 0; h < (CLOUD_STEPS + 3) / 4; ++h) {
+      incl[h] = warp_inclusive(packed[h]);
+      whole[h] = __shfl_sync(0xffffffffu, incl[h], 31);
+    }
+    int before[CLOUD_STEPS];  // the warp's valid pixels before this lane's in step k
+    int total = 0;
+#pragma unroll
+    for (int k = 0; k < CLOUD_STEPS; ++k) {
+      before[k] = total + (int)((incl[k / 4] - packed[k / 4]) >> (8 * (k % 4)) & 0xffu);
+      total += (int)(whole[k / 4] >> (8 * (k % 4)) & 0xffu);
+    }
+    int* ws = sums + 32 * (round & 1);
+    if (ln == 31) ws[warp] = total;
+    __syncthreads();
+    const int v = ln < CLOUD_WARPS ? ws[ln] : 0;  // each warp scans the warps' totals
+    const int vincl = warp_inclusive(v);
+    const int base = running + __shfl_sync(0xffffffffu, vincl - v, warp) - r0;
+#pragma unroll
+    for (int k = 0; k < CLOUD_STEPS; ++k) {
+      const uint32_t m = bits[k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (m >> i & 1u) {
+          const uint32_t r = base + before[k] + __popc(m & ((1u << i) - 1u));
+          if (r < (uint32_t)len)
+            list[r] = make_int2((w0 + k) * CLOUD_STEP + 4 * ln + i, __float_as_int(depth_of(d4[k], i)));
+        }
+    }
+    running += __shfl_sync(0xffffffffu, vincl, 31);
+  }
+  return running;
 }
 
 __device__ __forceinline__ int slot_of(int pos, bool over, float scale) {
   return over ? (int)floorf(__fmul_rn((float)pos, scale)) : pos;
+}
+
+// The highest pos < count with slot(pos) <= j, when count > P.
+__device__ __forceinline__ int top_of(int j, int count, float scale) {
+  int q = (int)fmin((double)(count - 1), floor(((double)j + 1.0) / (double)scale));
+  while (q + 1 < count && slot_of(q + 1, true, scale) <= j) ++q;
+  while (q > 0 && slot_of(q, true, scale) > j) --q;
+  return q;
 }
 
 __device__ __forceinline__ void zero_slot(float* pts, uint8_t* valid, int j) {
@@ -275,69 +525,158 @@ __device__ __forceinline__ void zero_slot(float* pts, uint8_t* valid, int j) {
   valid[j] = 0;
 }
 
-__global__ void __launch_bounds__(CLOUD_THREADS)
-cloud_scatter_kernel(const uint8_t* __restrict__ edges, const float* __restrict__ depth,
-                     const int* __restrict__ tile_counts, float* __restrict__ points,
-                     uint8_t* __restrict__ valid, int* __restrict__ count_out, int W, int n,
-                     int cap, CloudArgs a) {
-  __shared__ int red[32];
-  __shared__ int warp_sums[CLOUD_THREADS / 32];
-  const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
-  const int* counts = tile_counts + (size_t)b * tiles;
-  int before = 0, all = 0;
-  for (int t = threadIdx.x; t < tiles; t += CLOUD_THREADS) {
-    const int c = counts[t];
-    all += c;
-    if (t < tile) before += c;
-  }
-  before = block_sum(before, red);
-  const int count = block_sum(all, red);
+// The split cluster barrier: arrive (relaxed: it orders no memory) and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(CLOUD_THREADS, 1)
+edge_cloud_kernel(const uint8_t* __restrict__ edges, const float* __restrict__ depth,
+                  float* __restrict__ points, uint8_t* __restrict__ valid,
+                  int* __restrict__ count_out, int W, int n, int cap, int len, CloudArgs a) {
+  extern __shared__ int2 list[];  // len (index, depth) pairs
+  __shared__ int sums[2 * 32];
+  __shared__ int s_counts[CLOUD_CLUSTER_MAX];  // every block's count, pushed over DSMEM
+  cluster_arrive_relaxed();  // this block has started
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const uint8_t* e = edges + (size_t)b * n;
+  const float* d = depth + (size_t)b * n;
+  const bool vec = ((reinterpret_cast<uintptr_t>(e) | reinterpret_cast<uintptr_t>(d)) & 15) == 0;
+  const int steps = (n + CLOUD_STEP - 1) / CLOUD_STEP, per = (steps + C - 1) / C;
+  const int s0 = min(k * per, steps), s1 = min(s0 + per, steps);
+  // -- the cloud's loads, bits, scan and list
+  const int mine = cloud_walk(e, d, n, vec, s0, s1, 0, len, list, sums, a);
+  // -- the cloud's cluster barrier
+  cluster_wait();  // every block of the cluster has started: its shared memory exists
+  if ((int)threadIdx.x < C) cluster.map_shared_rank(s_counts, (int)threadIdx.x)[k] = mine;
+  cluster.sync();  // every block's count is in every block's shared memory
+  // -- the cloud's counts
+  const int ln = threadIdx.x & 31;
+  const int theirs = ln < C ? s_counts[ln] : 0;
+  const int incl = warp_inclusive(theirs);  // every warp scans the C counts itself
+  const int count = __shfl_sync(0xffffffffu, incl, 31);
+  const int before = __shfl_sync(0xffffffffu, incl - theirs, k);
+  if (k == 0 && threadIdx.x == 0) count_out[b] = count;
   const bool over = count > cap;
   const float scale = __fdiv_rn((float)cap, (float)max(count, cap));
   float* pts = points + (size_t)b * cap * 3;
   uint8_t* val = valid + (size_t)b * cap;
-  if (tile == 0 && threadIdx.x == 0) count_out[b] = count;
-  if (!over)  // the slots from count on hold zeros, spread over the lane's blocks
-    for (int j = count + tile * CLOUD_THREADS + threadIdx.x; j < cap;
-         j += tiles * CLOUD_THREADS)
-      zero_slot(pts, val, j);
-  // Exclusive scan of the threads' valid counts within the block.
-  const size_t lane = (size_t)b * n;
-  const uint32_t bits = thread_bits(edges + lane, depth + lane, n, tile, a);
-  const int c = __popc(bits);
-  int incl = c;
-  const int wid = threadIdx.x / 32, ln = threadIdx.x % 32;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (ln >= o) incl += v;
-  }
-  if (ln == 31) warp_sums[wid] = incl;
-  __syncthreads();
-  int base = before + incl - c;
-  for (int w = 0; w < wid; ++w) base += warp_sums[w];
-  const int p0 = tile * CLOUD_TILE + threadIdx.x * CLOUD_PER_THREAD;
-  for (int k = 0, pos = base; k < CLOUD_PER_THREAD; ++k) {
-    if (!(bits >> k & 1u)) continue;
-    const int p = p0 + k;
-    const int s = slot_of(pos, over, scale);
-    bool win = true;
-    if (over) {
-      win = s < cap && (pos == count - 1 || slot_of(pos + 1, over, scale) != s);
-      const int prev = pos > 0 ? slot_of(pos - 1, over, scale) : -1;
-      for (int j = prev + 1; j < min(s, cap); ++j) zero_slot(pts, val, j);  // a gap
-      if (pos == count - 1)
-        for (int j = s + 1; j < cap; ++j) zero_slot(pts, val, j);  // after the last slot
+  // -- the cloud's slots
+  for (int r0 = 0; r0 < mine; r0 += len) {
+    if (r0 > 0) {  // the list's next window: walk the range again
+      __syncthreads();
+      cloud_walk(e, d, n, vec, s0, s1, r0, len, list, sums, a);
+      __syncthreads();
     }
-    if (win) {
-      const float z = depth[lane + p];
-      const float xx = (float)(p % W), yy = (float)(p / W);
-      pts[(size_t)s * 3 + 0] = __fmul_rn(__fmul_rn(z, __fsub_rn(xx, a.cx)), a.inv_fx);
-      pts[(size_t)s * 3 + 1] = __fmul_rn(__fmul_rn(z, __fsub_rn(yy, a.cy)), a.inv_fy);
-      pts[(size_t)s * 3 + 2] = z;
-      val[s] = 1;
+    const int q0 = before + r0, q1 = before + min(r0 + len, mine);  // positions [q0, q1)
+    const int j0 = slot_of(q0, over, scale);
+    const int j1 = min(q1 < count ? slot_of(q1, over, scale) - 1 : slot_of(count - 1, over, scale),
+                       cap - 1);
+    for (int j = j0 + threadIdx.x; j <= j1; j += CLOUD_THREADS) {
+      const int q = over ? top_of(j, count, scale) : j;
+      if (slot_of(q, over, scale) != j) {
+        zero_slot(pts, val, j);
+        continue;
+      }
+      const int2 v = list[q - q0];
+      const float z = __int_as_float(v.y);
+      const float xx = (float)(v.x % W), yy = (float)(v.x / W);
+      pts[(size_t)j * 3 + 0] = __fmul_rn(__fmul_rn(z, __fsub_rn(xx, a.cx)), a.inv_fx);
+      pts[(size_t)j * 3 + 1] = __fmul_rn(__fmul_rn(z, __fsub_rn(yy, a.cy)), a.inv_fy);
+      pts[(size_t)j * 3 + 2] = z;
+      val[j] = 1;
     }
-    ++pos;
   }
+  // -- the cloud's tail
+  const int t0 = count == 0 ? 0 : min(slot_of(count - 1, over, scale) + 1, cap);
+  const int tper = (cap - t0 + C - 1) / C;
+  for (int j = t0 + k * tper + threadIdx.x; j < min(t0 + (k + 1) * tper, cap); j += CLOUD_THREADS)
+    zero_slot(pts, val, j);
+}
+
+// Per device, queried once: the opt-in shared memory of a block and the
+// cloud's clusters of 1, 2, 4, 8, 16 blocks the card holds at once.
+struct DeviceInfo {
+  int ready;
+  int smem_optin;
+  int cloud_held[5];
+};
+constexpr int MAX_DEVICES = 64;
+static DeviceInfo g_devices[MAX_DEVICES];
+
+static void cloud_config(int C, int B, size_t smem, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                         cudaLaunchAttribute* attr) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C, B, 1);
+  cfg->blockDim = dim3(CLOUD_THREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// This device's DeviceInfo, with the two kernels' attributes set, or null
+// (err set).
+static DeviceInfo* device_info(cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return nullptr;
+  if (dev < 0 || dev >= MAX_DEVICES) {
+    *err = cudaErrorInvalidDevice;
+    return nullptr;
+  }
+  DeviceInfo* info = &g_devices[dev];
+  if (info->ready) return info;
+  *err = cudaDeviceGetAttribute(&info->smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(keyframe_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                info->smem_optin);
+  const size_t cloud_smem = (size_t)CLOUD_LIST * sizeof(int2);
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(edge_cloud_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)cloud_smem);
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(edge_cloud_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  for (int i = 0; i < 5 && *err == cudaSuccess; ++i) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cloud_config(1 << i, 1, cloud_smem, 0, &cfg, &attr);
+    *err = cudaOccupancyMaxActiveClusters(&info->cloud_held[i], edge_cloud_kernel, &cfg);
+  }
+  if (*err != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch
+    return nullptr;
+  }
+  info->ready = 1;
+  return info;
+}
+
+// Rows a block of revo_keyframe_rows owns for B lanes of H x W; 0 where not
+// even one row fits a block's shared memory.  A cluster takes ROWS_CLUSTER
+// bands, or all of a lane's where it has fewer.
+static int rows_band(const DeviceInfo* info, int B, int H, int W) {
+  const long long want = ((long long)H * B + ROWS_PER_SM * 132 - 1) / (ROWS_PER_SM * 132);
+  int band = (int)min(max(want, (long long)ROWS_BAND_MIN), (long long)ROWS_BAND_MAX);
+  while (band > 1 && rows_smem_bytes(W, band) > (size_t)info->smem_optin) --band;
+  return rows_smem_bytes(W, band) <= (size_t)info->smem_optin ? band : 0;
+}
+
+// Blocks a lane of revo_edge_cloud: the largest power of two up to
+// CLOUD_CLUSTER_MAX that leaves every block CLOUD_MIN_STEPS steps and of
+// which the card holds the B lanes' clusters at once; else 1.
+static int cloud_cluster(const DeviceInfo* info, int B, int steps) {
+  for (int i = 4; i > 0; --i)
+    if ((1 << i) * CLOUD_MIN_STEPS <= steps && info->cloud_held[i] >= B) return 1 << i;
+  return 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -422,44 +761,65 @@ extern "C" int revo_edt_columns(const uint8_t* edges, float* g2, int B, int H, i
   return (int)cudaGetLastError();
 }
 
+// B lanes of (H, W) g^2 -> structure (B, H, W, 3) float32 and the quad table
+// (B, H W, width) of float32 or bfloat16 (bf16); bands of rows_band's rows, a
+// cluster of ROWS_CLUSTER bands or all of a lane's.  A row too wide for a
+// band of one row (W > 11,622), or a cluster the card cannot hold, is
+// refused, and the status returned.
 extern "C" int revo_keyframe_rows(const float* g2, float* structs, void* quad, int B, int H, int W,
                                   int width, int bf16, cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || (width != 4 && width != 12)) return (int)cudaErrorInvalidValue;
-  const int band = fe::rows_band(B, H, W);
-  if (band <= 0) {
-    cudaGetLastError();
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || (width != 4 && width != 12))
     return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = fe::rows_smem_bytes(W, band);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fe::keyframe_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return (int)err;
-    }
-  }
-  const dim3 grid((H + band - 1) / band, B);
-  fe::keyframe_rows_kernel<<<grid, fe::ROWS_THREADS, smem, stream>>>(g2, structs, quad, H, W,
-                                                                     width, bf16, band);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  const fe::DeviceInfo* info = fe::device_info(&err);
+  if (!info) return (int)err;
+  const int bd = fe::rows_band(info, B, H, W);
+  if (bd <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (H + bd - 1) / bd;
+  const int C = min(fe::ROWS_CLUSTER, blocks);
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3((blocks + C - 1) / C * C, B, 1);
+  cfg.blockDim = dim3(fe::ROWS_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = fe::rows_smem_bytes(W, bd);
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fe::keyframe_rows_kernel, g2, structs, quad, H, W, width, bf16,
+                           bd);
+  // Also clears a refusal, so that the next launch's check does not report it.
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
-// tile_counts: B * ceil(H * W / CLOUD_TILE) ints of scratch.
-extern "C" int revo_edge_cloud(const uint8_t* edges, const float* depth, int* tile_counts,
-                               float* points, uint8_t* valid, int* count, int B, int H, int W,
-                               float inv_fx, float inv_fy, float cx, float cy, float dmin,
-                               float dmax, int cap, cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || cap < 1) return (int)cudaErrorInvalidValue;
-  const int n = H * W;
+// B lanes of (H, W) edges (0/1 bytes) and float32 depth -> points (B, cap,
+// 3), valid (B, cap) bytes, count (B,) int32; cloud_cluster's blocks a lane.
+// A cluster the card cannot hold is refused by the launch, whose status is
+// returned.
+extern "C" int revo_edge_cloud(const uint8_t* edges, const float* depth, float* points,
+                               uint8_t* valid, int* count, int B, int H, int W, float inv_fx,
+                               float inv_fy, float cx, float cy, float dmin, float dmax, int cap,
+                               cudaStream_t stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || cap < 1 || (long long)H * W > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const fe::DeviceInfo* info = fe::device_info(&err);
+  if (!info) return (int)err;
+  const int n = H * W, steps = (n + fe::CLOUD_STEP - 1) / fe::CLOUD_STEP;
+  const int C = fe::cloud_cluster(info, B, steps);
+  const int len = min(fe::CLOUD_LIST, (steps + C - 1) / C * fe::CLOUD_STEP);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fe::cloud_config(C, B, (size_t)len * sizeof(int2), stream, &cfg, &attr);
   const fe::CloudArgs a{inv_fx, inv_fy, cx, cy, dmin, dmax};
-  const dim3 grid((n + fe::CLOUD_TILE - 1) / fe::CLOUD_TILE, B);
-  fe::cloud_count_kernel<<<grid, fe::CLOUD_THREADS, 0, stream>>>(edges, depth, tile_counts, n, a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fe::cloud_scatter_kernel<<<grid, fe::CLOUD_THREADS, 0, stream>>>(
-      edges, depth, tile_counts, points, valid, count, W, n, cap, a);
-  return (int)cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, fe::edge_cloud_kernel, edges, depth, points, valid, count, W, n,
+                           cap, len, a);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 extern "C" int revo_pyr_level(const void* gray, int gray_u8, const void* depth, int depth_u16,

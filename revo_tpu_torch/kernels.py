@@ -64,7 +64,7 @@ SIGNATURES = {
     "revo_solve_level_attr": "ii",
     "revo_edt_columns": "ppiii",
     "revo_keyframe_rows": "pppiiiii",
-    "revo_edge_cloud": "ppppppiiiffffffi",
+    "revo_edge_cloud": "pppppiiiffffffi",
     "revo_pyr_level": "pipifppiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

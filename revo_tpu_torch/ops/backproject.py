@@ -10,9 +10,10 @@ highest pos wins a shared slot (a uniform stride decimation).  The plain
 version (``backproject_edges_ref``) is the JAX module's scatter form
 (``_compact_scatter``), bit-identical to its default rank-sort compaction.
 ``backproject_edges`` takes it for a CPU tensor; a CUDA tensor takes the
-hand kernel ``revo_edge_cloud`` (csrc/frontend.cu: tile counts, then a scan
-whose last pixel of each slot writes it; no atomics, no host read), counted
-in ``backproject_edges.launches``.
+hand kernel ``revo_edge_cloud`` (csrc/frontend.cu: one launch, a thread-block
+cluster a lane whose blocks scan their pixels into shared memory, trade
+counts over DSMEM and write their slots with coalesced stores; no atomics,
+no scratch, no host read), counted in ``backproject_edges.launches``.
 """
 from __future__ import annotations
 
@@ -97,10 +98,6 @@ def backproject_edges_ref(
     return EdgeCloud(points=pts, valid=lane_valid, count=count)
 
 
-# Pixels a block of revo_edge_cloud scans (csrc/frontend.cu CLOUD_TILE).
-CLOUD_TILE = 4096
-
-
 def backproject_edges(
     edges: torch.Tensor,
     depth: torch.Tensor,
@@ -114,8 +111,9 @@ def backproject_edges(
 ) -> EdgeCloud:
     """``backproject_edges_ref``'s EdgeCloud of (..., H, W) bool edges and
     float32 depth, bit-equal to it.  CPU tensors: the plain version; CUDA
-    tensors: ``revo_edge_cloud``, one call (two kernels: tile counts, then
-    the scan, the slots and the points) for all lanes."""
+    tensors: ``revo_edge_cloud``, one launch for all lanes, a cluster of
+    blocks a lane (its size follows the lanes and the shape; the bits do not
+    depend on it)."""
     if edges.shape != depth.shape or edges.dim() < 2:
         raise ValueError(f"backproject_edges: edges {tuple(edges.shape)} and depth "
                          f"{tuple(depth.shape)} differ")
@@ -131,13 +129,11 @@ def backproject_edges(
     e = edges.reshape(-1, h, w).contiguous()
     d = depth.reshape(-1, h, w).contiguous()
     b = e.shape[0]
-    tiles = -(-(h * w) // CLOUD_TILE)
-    scratch = torch.empty(b * tiles, dtype=torch.int32, device=e.device)
     points = torch.empty((b, capacity, 3), dtype=torch.float32, device=e.device)
     valid = torch.empty((b, capacity), dtype=torch.bool, device=e.device)
     count = torch.empty(b, dtype=torch.int32, device=e.device)
-    kernels.launch("revo_edge_cloud", e, d, scratch, points, valid, count, b, h, w,
-                   _inv_focal(fx), _inv_focal(fy), cx, cy, depth_min, depth_max, capacity)
+    kernels.launch("revo_edge_cloud", e, d, points, valid, count, b, h, w, _inv_focal(fx),
+                   _inv_focal(fy), cx, cy, depth_min, depth_max, capacity)
     backproject_edges.launches += 1
     return EdgeCloud(points=points.reshape(*lead, capacity, 3),
                      valid=valid.reshape(*lead, capacity), count=count.reshape(lead))

@@ -236,8 +236,10 @@ def keyframe_rows(g2: torch.Tensor, form: str):
     """(B, H, W) float32 g^2 -> (structure (B, H, W, 3) float32, quad table
     (B, H*W, C) of ``form``), bit-equal to ``keyframe_rows_ref``.  CUDA
     tensor: ``revo_keyframe_rows``, one launch for all B lanes, a block a
-    band of rows with one halo row above and two below (the bits do not
-    depend on the band); no band radius and no host read."""
+    band of rows and a cluster a run of bands whose halo rows the blocks
+    trade over DSMEM (their sizes follow the lanes and the shape; the bits
+    do not depend on them); rows up to 11,622 wide; no band radius and no
+    host read."""
     if form not in QUAD_FORMS:
         raise ValueError(f"unknown quad form {form!r}; one of {sorted(QUAD_FORMS)}")
     if not _check_card(g2, torch.float32, "keyframe_rows"):

@@ -5,13 +5,20 @@ port's plain version, and the wrappers' routing.
 
 - ``revo_edt_columns``: segments of rows, each thread's first and last
   edge, then a sweep down and one up a column;
-- ``revo_keyframe_rows``: each pixel's search over offsets stopped once the
-  offset's square reaches the best so far, by bands of rows with one halo
-  row above and two below, the structure and the quad table of every quad
-  form from the band's window alone;
-- ``revo_edge_cloud``: tile counts, each block's sum of the tiles before
-  it, the threads' scan, last-of-slot winners, and the zeros of the slots
-  nobody wins (every slot written exactly once);
+- ``revo_keyframe_rows``: each pixel's search over offsets in groups of
+  ROWS_GROUP, the stop rule tested once a group, reads past the row's end
+  clamped to it (held bit for bit to the one-offset search), by bands of
+  rows in clusters whose blocks share out the cluster's halo rows by
+  columns and take their window rows from the band or the slices that hold
+  them, the structure and the quad table of every quad form from the
+  band's window alone;
+- ``revo_edge_cloud``: a cluster of blocks a lane, each block's range of
+  steps walked in rounds by its warps, the block's scan putting every
+  valid pixel at its rank in a list, the counts traded between the
+  cluster's blocks, each block's slot range a thread a slot (the last
+  position of a slot wins it, a gap of the rounding is zeros), windows of
+  the list where a block has more valid pixels than it holds, and the tail
+  spread over the blocks (every slot written exactly once);
 - ``revo_pyr_level``: pyrDown's taps in the plain version's order, rounded
   half to even, and the hole-aware 2x2 mean, from float32 and from uint8
   gray / uint16 depth.
@@ -54,14 +61,35 @@ def _const(name: str) -> int:
 
 
 EDT_SEGMENTS = _const("EDT_SEGMENTS")
+ROWS_GROUP = _const("ROWS_GROUP")
+ROWS_CLUSTER = _const("ROWS_CLUSTER")
+ROWS_BAND_MIN = _const("ROWS_BAND_MIN")
+ROWS_BAND_MAX = _const("ROWS_BAND_MAX")
+ROWS_PER_SM = _const("ROWS_PER_SM")
+SMEM_OPTIN = 232448  # the H100's shared memory a block may opt in to (bytes)
 CLOUD_THREADS = _const("CLOUD_THREADS")
-CLOUD_PER_THREAD = _const("CLOUD_PER_THREAD")
-CLOUD_TILE = CLOUD_THREADS * CLOUD_PER_THREAD
+CLOUD_STEP = _const("CLOUD_STEP")
+CLOUD_STEPS = _const("CLOUD_STEPS")
+CLOUD_LIST = _const("CLOUD_LIST")
+CLOUD_CLUSTER_MAX = _const("CLOUD_CLUSTER_MAX")
+CLOUD_WARPS = CLOUD_THREADS // 32
 
 
 def test_wrapper_constants_follow_the_source():
-    assert tbp.CLOUD_TILE == CLOUD_TILE
-    assert re.search(r"constexpr int CLOUD_TILE = CLOUD_THREADS \* CLOUD_PER_THREAD;", SRC)
+    """The layouts the models follow: a warp's step is 4 pixels a lane (a
+    4-byte load of edges, a 16-byte one of depth), a block's list fits the
+    card's 227 KB of shared memory beside its scan, the search's minimum tree
+    halves its group, clusters stay within the card's limits; and no wrapper
+    keeps a layout constant of its own."""
+    assert CLOUD_STEP == 32 * 4 and CLOUD_THREADS % 32 == 0 and CLOUD_THREADS <= 1024
+    assert re.search(r"constexpr int CLOUD_WARPS = CLOUD_THREADS / 32;", SRC)
+    assert CLOUD_LIST * 8 + 2 * 32 * 4 + 4 <= 232448
+    assert ROWS_GROUP >= 2 and ROWS_GROUP & (ROWS_GROUP - 1) == 0
+    assert ROWS_CLUSTER <= 8 and CLOUD_CLUSTER_MAX <= 16
+    assert re.search(r"slices = 3 \* \(size_t\)\(\(W \+ ROWS_CLUSTER - 1\) / ROWS_CLUSTER\);\n"
+                     r"  return \(\(size_t\)\(band \+ 3\) \* W \+ std::max\(\(size_t\)band \* W, "
+                     r"slices\)\) \* sizeof\(float\);", SRC)
+    assert not hasattr(tbp, "CLOUD_TILE")
 
 
 def lanes_of(shape):
@@ -116,58 +144,162 @@ def model_columns(e: np.ndarray) -> np.ndarray:
     return out
 
 
-def model_row_dt(g2: np.ndarray) -> np.ndarray:
-    """revo_keyframe_rows' search on (R, W) rows of g^2: every pixel from
-    its own g^2 over offsets o = 1, 2, ... while o^2 < best and o reaches
-    the row; a row of BIG only is skipped.  -> dt (R, W) float32."""
+def model_row_dt_single(g2: np.ndarray) -> np.ndarray:
+    """The one-offset search on (R, W) rows of g^2 (the first design): every
+    pixel from its own g^2 over offsets o = 1, 2, ... while o^2 < best and
+    o reaches the row; a row of BIG only is skipped.  -> dt (R, W)."""
     r, w = g2.shape
     x = np.arange(w)
     best = g2.copy()
     reach = np.maximum(x, w - 1 - x)
     live = (g2 < BIG).any(1, keepdims=True)
-    steps = 0
     for o in range(1, w):
         o2 = np.float32(o * o)
         active = live & (o <= reach) & (o2 < best)
         if not active.any():
             break
-        steps += 1
         left = np.where(x - o >= 0, g2[:, np.clip(x - o, 0, w - 1)] + o2, np.inf)
         right = np.where(x + o < w, g2[:, np.clip(x + o, 0, w - 1)] + o2, np.inf)
         best = np.where(active, np.minimum(np.minimum(best, left), right), best)
     return np.sqrt(best).astype(np.float32)
 
 
-def model_rows(g2: np.ndarray, band: int):
-    """revo_keyframe_rows on one lane: blocks of ``band`` rows, each
-    computing dt over its window (one row above, two below, clamped) and
-    writing the structure and the four taps of each quad row of its band
-    from the window alone.  -> (structure (H, W, 3), taps (H*W, 4, 3)),
-    every entry written once."""
+def model_row_dt(g2: np.ndarray, live: bool) -> np.ndarray:
+    """revo_keyframe_rows' search (``row_search``) on (R, W) rows of g^2:
+    offsets in groups of ROWS_GROUP from o = 1, the stop rule (o^2 >= best)
+    tested at each group's first offset and the row's reach; an offset past
+    the row's end reads the end pixel; each candidate min(l, r) + o^2; each
+    group's candidates min-reduced by halves into the best.  ``live``: the
+    block-wide flag that some g^2 is below BIG (else no search).  -> dt (R,
+    W) float32."""
+    r, w = g2.shape
+    x = np.arange(w)
+    best = g2.copy()
+    reach = np.maximum(x, w - 1 - x)
+    if not live:
+        return np.sqrt(best).astype(np.float32)
+    p = w + ROWS_GROUP  # the row padded with its end pixels: column x - u at p + x - u
+    padded = np.pad(g2, ((0, 0), (p, p)), mode="edge")
+    for o in range(1, w, ROWS_GROUP):
+        active = (o <= reach) & ~(np.float32(o * o) >= best)
+        if not active.any():
+            break
+        cand = []
+        for k in range(ROWS_GROUP):
+            u = o + k
+            m = np.minimum(padded[:, p - u:p - u + w], padded[:, p + u:p + u + w])
+            cand.append(m + np.float32(u * u))
+        half = ROWS_GROUP // 2
+        while half:
+            cand = [np.minimum(cand[k], cand[k + half]) for k in range(half)]
+            half //= 2
+        best = np.where(active, np.minimum(best, cand[0]), best)
+    return np.sqrt(best).astype(np.float32)
+
+
+def rows_smem_floats(w: int, band: int) -> int:
+    """A row-pass block's shared memory in floats (csrc/frontend.cu
+    ``rows_smem_bytes``): the window (band + 3 rows) and the room of the
+    band's g^2 rows, at least the three halo slices of a cluster of
+    ROWS_CLUSTER blocks."""
+    return (band + 3) * w + max(band * w, 3 * -(-w // ROWS_CLUSTER))
+
+
+def rows_shape(lanes: int, h: int, w: int):
+    """(band, cluster) of ``revo_keyframe_rows`` for ``lanes`` lanes of h x w
+    on 132 SMs (csrc/frontend.cu ``rows_band``): ceil(H B / (ROWS_PER_SM
+    132)) rows clamped to [ROWS_BAND_MIN, ROWS_BAND_MAX], fewer while the
+    block's shared memory does not fit, (0, 0) where one row does not."""
+    band = min(max(-(-(h * lanes) // (ROWS_PER_SM * 132)), ROWS_BAND_MIN), ROWS_BAND_MAX)
+    while band > 1 and 4 * rows_smem_floats(w, band) > SMEM_OPTIN:
+        band -= 1
+    if 4 * rows_smem_floats(w, band) > SMEM_OPTIN:
+        return 0, 0
+    return band, min(ROWS_CLUSTER, -(-h // band))
+
+
+def model_rows(g2: np.ndarray, band: int, cluster: int, searched=None):
+    """revo_keyframe_rows on one lane: blocks of ``band`` rows in clusters of
+    ``cluster`` blocks (the grid padded to whole clusters).  Each block
+    loads its band's g^2 rows into their room and the cluster's halo rows
+    (one above the cluster, two below, where they exist) into the window's
+    outer rows (0; band + 1, band + 2); it searches its band into the
+    window's rows 1 .. band, then its slice of columns (rank r: [r xs, (r +
+    1) xs), xs = ceil(W / cluster)) of each halo row into the band's room.
+    After the cluster barrier it copies its window's other rows (one above,
+    two below, clamped) into the outer rows, from the block of its cluster
+    that owns the band, or for a halo row from every block's slice; then it
+    writes the structure and the four taps of each quad row of its band
+    from its window alone.  ``searched`` (a list) gets each block's count of
+    searched pixels.  -> (structure (H, W, 3), taps (H*W, 4, 3)), every
+    entry written once."""
     h, w = g2.shape
+    nb = -(-h // band)
+    grid = -(-nb // cluster) * cluster
+    xs = -(-w // cluster)
+    room = rows_smem_floats(w, band) - (band + 3) * w  # the band's g^2, then the slices
+    live = bool((g2 < BIG).any())  # the block-wide flag: the same in every block
+    halo_dt = {}  # a halo row's dt, of which each block keeps its slice
+    bands, slices = {}, {}
+    for g in range(grid):  # the loads and the search
+        rank, first = g % cluster, g - g % cluster
+        y0 = min(g * band, h)
+        y1 = min(y0 + band, h)
+        cy0, cy1 = min(first * band, h), min((first + cluster) * band, h)
+        halo = [r for r in (cy0 - 1, cy1, cy1 + 1) if cy0 < cy1 and 0 <= r < h]
+        x0, x1 = min(rank * xs, w), min(rank * xs + xs, w)
+        assert (y1 - y0) * w <= room, "the band's g^2 beyond its room"
+        if halo:
+            assert cluster == ROWS_CLUSTER, "halo rows in a cluster smaller than its room's"
+            assert 3 * xs <= room, "the halo slices beyond the band's room"
+        bands[g] = dict(zip(range(y0, y1), model_row_dt(g2[y0:y1], live)))
+        for r in halo:
+            if r not in halo_dt:
+                halo_dt[r] = model_row_dt(g2[r:r + 1], live)[0]
+        slices[g] = {r: halo_dt[r][x0:x1] for r in halo}
+        if searched is not None:
+            searched.append((y1 - y0) * w + len(halo) * (x1 - x0))
     struct = np.full((h, w, 3), np.nan, np.float32)
     taps_out = np.full((h * w, 4, 3), np.nan, np.float32)
     half = np.float32(0.5)
-    for y0 in range(0, h, band):
+    for g in range(grid):  # the window over DSMEM, the tables
+        first = g - g % cluster
+        y0 = min(g * band, h)
         y1 = min(y0 + band, h)
+        if y0 >= y1:
+            continue
+        cy0, cy1 = min(first * band, h), min((first + cluster) * band, h)
         lo, hi = max(y0 - 1, 0), min(y1 + 1, h - 1)
-        dt = model_row_dt(g2[lo:hi + 1])
+        window = np.full((band + 3, w), np.nan, np.float32)  # row y at y - y0 + 1
+        for r in range(lo, hi + 1):
+            if y0 <= r < y1:
+                row = bands[g][r]
+            elif cy0 <= r < cy1:
+                owner = r // band
+                assert first <= owner < first + cluster
+                row = bands[owner][r]
+            else:  # a halo row of the cluster: every block's slice, in column order
+                row = np.concatenate([slices[first + k][r] for k in range(cluster)])
+            assert 0 <= r - y0 + 1 < band + 3 and (y0 <= r < y1) == (1 <= r - y0 + 1 <= y1 - y0)
+            window[r - y0 + 1] = row
 
-        def at(y, x):
+        def at(y, x, y0=y0, window=window):
             yc = np.clip(y, 0, h - 1)
-            assert (yc >= lo).all() and (yc <= hi).all(), "read outside the window"
-            return dt[yc - lo, np.clip(x, 0, w - 1)]
+            got = window[yc - y0 + 1, np.clip(x, 0, w - 1)]
+            assert not np.isnan(got).any(), "read outside the window"
+            return got
 
-        ys, xs = np.mgrid[y0:y1, 0:w]
+        ys, xs_ = np.mgrid[y0:y1, 0:w]
         taps = []
         for t in range(4):
-            ty, tx = np.clip(ys + t // 2, 0, h - 1), np.clip(xs + t % 2, 0, w - 1)
+            ty, tx = np.clip(ys + t // 2, 0, h - 1), np.clip(xs_ + t % 2, 0, w - 1)
             taps.append(np.stack([half * (at(ty, tx - 1) - at(ty, tx + 1)),
                                   half * (at(ty - 1, tx) - at(ty + 1, tx)), at(ty, tx)], -1))
+        assert np.isnan(struct[y0:y1]).all(), "a structure row written twice"
         struct[y0:y1] = taps[0]
-        rows = ys.ravel() * w + xs.ravel()
-        assert np.isnan(taps_out[rows]).all(), "a quad row written twice"
-        taps_out[rows] = np.stack(taps, -2).reshape(-1, 4, 3)
+        idx = ys.ravel() * w + xs_.ravel()
+        assert np.isnan(taps_out[idx]).all(), "a quad row written twice"
+        taps_out[idx] = np.stack(taps, -2).reshape(-1, 4, 3)
     assert not np.isnan(struct).any() and not np.isnan(taps_out).any()
     return struct, taps_out
 
@@ -210,15 +342,17 @@ def test_column_sweeps(shape):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_row_search_and_tables(shape, jax_tables):
-    """Columns, then the early-exit row search by bands with halo rows:
-    the structure bit-equal to JAX's ``keyframe_structure`` and each of the
-    seven quad forms' tables to JAX's ``quad_structure``, at several band
-    heights (the bits do not depend on it); a lane with no edge is
-    sqrt_rn(1e9) everywhere."""
+    """Columns, then the grouped early-exit row search by bands in clusters
+    with halo rows: the structure bit-equal to JAX's ``keyframe_structure``
+    and each of the seven quad forms' tables to JAX's ``quad_structure``,
+    at the bands and clusters the kernel takes for 1, 18, 40, 71 and 1000
+    lanes of the shape (the bits do not depend on them); a lane with no
+    edge is sqrt_rn(1e9) everywhere."""
     e = lanes_of(shape)
     s_j, quads_j = jax_tables[shape]
     for i in range(len(e)):
-        struct, taps = model_rows(model_columns(e[i]), (1, 3, 4, 16, 5)[i])
+        band, cluster = rows_shape((1, 18, 40, 71, 1000)[i], *shape)
+        struct, taps = model_rows(model_columns(e[i]), band, cluster)
         np.testing.assert_array_equal(struct, s_j[i])
         for form in tedt.QUAD_FORMS:
             want = convert.quad_from_numpy(quads_j[form][i], s_j[i].shape).astype(np.float32)
@@ -236,11 +370,117 @@ def test_tables_plain_versions(form):
     s_pair, q_pair = tedt.keyframe_rows_ref(tedt.edt_columns_ref(e), form)
     s_all, q_all = tedt.keyframe_tables_ref(e, form)
     g2 = tedt.edt_columns_ref(e).numpy()
+    band, cluster = rows_shape(e.shape[0], *SHAPES[2])
+    assert (band, cluster) == (2, ROWS_CLUSTER)
     for i in range(e.shape[0]):
-        struct, taps = model_rows(g2[i], 4)
+        struct, taps = model_rows(g2[i], band, cluster)
         for s, q in ((s_pair, q_pair), (s_all, q_all)):
             np.testing.assert_array_equal(s[i].numpy(), struct)
             np.testing.assert_array_equal(q[i].float().numpy(), model_quad(taps, form))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_grouped_search_equals_single_offset(seed):
+    """The grouped search (ROWS_GROUP offsets a stop test) bit-equal to the
+    one-offset search on seeded rows: g^2 of sparse, dense, single and no
+    edges, and arbitrary non-square floats with BIG holes."""
+    rng = np.random.default_rng(seed)
+    h, w = 40, 157
+    rows = []
+    for density in (0.002, 0.02, 0.3):
+        rows.append(model_columns(rng.random((h, w)) < density))
+    single = np.zeros((h, w), bool)
+    single[rng.integers(h), rng.integers(w)] = True
+    rows.append(model_columns(single))
+    arb = (rng.random((h, w)) * 1e4).astype(np.float32)
+    arb[rng.random((h, w)) < 0.7] = BIG
+    rows.append(arb)
+    for g2 in rows:
+        got = model_row_dt(g2, bool((g2 < BIG).any()))
+        np.testing.assert_array_equal(got, model_row_dt_single(g2))
+    none = np.full((3, w), BIG, np.float32)
+    np.testing.assert_array_equal(model_row_dt(none, False), model_row_dt_single(none))
+
+
+def test_rows_cluster_halo(jax_tables):
+    """The cluster's halo rows are shared out: at 120 rows in bands of 4
+    (32 lanes), clusters of ROWS_CLUSTER, every block searches its band and a slice of
+    columns of each halo row of its cluster (none above the image, none
+    below it), so no block searches more than its band and three slices;
+    every other window row comes over DSMEM from the band that owns it.  The
+    tables stay JAX's."""
+    e = lanes_of(SHAPES[0])[0]
+    s_j, quads_j = jax_tables[SHAPES[0]]
+    h, w = SHAPES[0]
+    searched = []
+    assert rows_shape(32, h, w) == (4, ROWS_CLUSTER)
+    struct, taps = model_rows(model_columns(e), 4, ROWS_CLUSTER, searched)
+    nb = h // 4
+    xs = -(-w // ROWS_CLUSTER)
+    want = []
+    for g in range(-(-nb // ROWS_CLUSTER) * ROWS_CLUSTER):  # padding blocks search slices only
+        first = g - g % ROWS_CLUSTER
+        n_halo = (first > 0) + 2 * (first + ROWS_CLUSTER < nb)
+        x0 = min((g % ROWS_CLUSTER) * xs, w)
+        want.append(4 * w * (g < nb) + n_halo * (min(x0 + xs, w) - x0))
+    assert searched == want
+    assert max(searched) <= 4 * w + 3 * xs
+    np.testing.assert_array_equal(struct, s_j[0])
+    want_q = convert.quad_from_numpy(quads_j["flat"][0], s_j[0].shape).astype(np.float32)
+    np.testing.assert_array_equal(model_quad(taps, "flat"), want_q)
+
+
+@pytest.mark.parametrize("case", ["ragged", "short"])
+def test_rows_ragged_and_short(case, jax_tables):
+    """H not a multiple of the band (37 rows at 64 lanes: bands of 3 in
+    clusters of 8, a last band of 1 row, a second cluster cut short with 3
+    blocks past the image) and H smaller than a band (5 rows at 3200 lanes,
+    a band of 16): the structure and the quad tables still JAX's, and the
+    plain version's."""
+    if case == "ragged":
+        e = lanes_of(SHAPES[2])
+        s_j, quads_j = jax_tables[SHAPES[2]]
+        band, cluster = rows_shape(64, *SHAPES[2])
+        assert (band, cluster) == (3, ROWS_CLUSTER)
+    else:
+        e = lanes_of(SHAPES[2])[:, :5]
+        s_j = np.asarray(jax.vmap(jedt.keyframe_structure)(jnp.asarray(e)))
+        quads_j = {"dt4bf": np.asarray(jax.vmap(lambda x: jedt.quad_structure(x, "dt4bf"))(
+            jnp.asarray(s_j)))}
+        band, cluster = rows_shape(3200, 5, SHAPES[2][1])
+        assert (band, cluster) == (16, 1)
+    s_ref, q_ref = tedt.keyframe_rows_ref(tedt.edt_columns_ref(torch.from_numpy(e)), "dt4bf")
+    for i in range(len(e)):
+        struct, taps = model_rows(model_columns(e[i]), band, cluster)
+        np.testing.assert_array_equal(struct, s_j[i])
+        np.testing.assert_array_equal(struct, s_ref[i].numpy())
+        want = convert.quad_from_numpy(quads_j["dt4bf"][i], s_j[i].shape).astype(np.float32)
+        np.testing.assert_array_equal(model_quad(taps, "dt4bf"), want)
+        np.testing.assert_array_equal(model_quad(taps, "dt4bf"), q_ref[i].float().numpy())
+
+
+@pytest.mark.parametrize("w", [7680, 11620])
+def test_rows_wide(w):
+    """Rows 7680 wide (bands of 2, as a 7680x4320 keyframe takes) and 11,620
+    wide (a band of one row: rows up to 11,622 fit the card's shared
+    memory, one more finds no band), in clusters with halo rows, the long
+    searches of a lane whose edges lie in its first half: the model
+    bit-equal to the plain version."""
+    h = 18 if w == 7680 else 10
+    rng = np.random.default_rng(w)
+    e = rng.random((2, h, w)) < 0.002
+    e[1, :, w // 2:] = False
+    if w > 7680:
+        e = e[:1]
+    band, cluster = rows_shape(len(e), h, w)
+    assert (band, cluster) == ((2, ROWS_CLUSTER) if w == 7680 else (1, ROWS_CLUSTER))
+    assert rows_shape(1, 4320, 7680) == (2, ROWS_CLUSTER)
+    assert rows_shape(1, 4, 11622)[0] == 1 and rows_shape(1, 4, 11623) == (0, 0)
+    s_ref, q_ref = tedt.keyframe_rows_ref(tedt.edt_columns_ref(torch.from_numpy(e)), "flat")
+    for i in range(len(e)):
+        struct, taps = model_rows(model_columns(e[i]), band, cluster)
+        np.testing.assert_array_equal(struct, s_ref[i].numpy())
+        np.testing.assert_array_equal(model_quad(taps, "flat"), q_ref[i].float().numpy())
 
 
 # -- the edge cloud ----------------------------------------------------------------
@@ -248,73 +488,122 @@ def test_tables_plain_versions(form):
 CAM = dict(fx=150.0, fy=151.0, cx=80.3, cy=60.7, depth_min=0.1, depth_max=5.2)
 
 
-def model_cloud(edges, depth, cap, fx, fy, cx, cy, depth_min, depth_max):
-    """revo_edge_cloud on one lane, block by block and thread by thread:
-    tile counts, the tiles before a block summed, each thread's
-    CLOUD_PER_THREAD pixels scanned, then every valid pixel's slot, its win,
-    and the zeros of the gaps and the tail; not over capacity, the slots
-    from count on are zeroed in the blocks' grid-stride order.  Every slot
-    is written exactly once.  -> (points, valid, count)."""
+def _slot(q, over: bool, scale):
+    """slot(pos) as the kernel's ``slot_of``: float32 product, floor."""
+    q = np.asarray(q)
+    return np.floor(q.astype(np.float32) * scale).astype(np.int64) if over else q
+
+
+def _top(j, count: int, scale):
+    """The kernel's ``top_of``: the highest pos < count with slot(pos) <= j
+    (count > P), from a double estimate stepped up, then down."""
+    q = np.minimum(count - 1, np.floor((j + 1.0) / float(scale))).astype(np.int64)
+    while True:
+        up = (q + 1 < count) & (_slot(np.minimum(q + 1, count - 1), True, scale) <= j)
+        if not up.any():
+            break
+        q = q + up
+    while True:
+        down = (q > 0) & (_slot(q, True, scale) > j)
+        if not down.any():
+            break
+        q = q - down
+    return q
+
+
+def model_cloud(edges, depth, cap, fx, fy, cx, cy, depth_min, depth_max, cluster=4,
+                list_len=None, spans=None):
+    """revo_edge_cloud on one lane, as a cluster of ``cluster`` blocks (list
+    of ``list_len`` pairs a block, the kernel's min(CLOUD_LIST, its pixels)
+    by default): block k walks its range of CLOUD_STEP-pixel steps in
+    rounds of up to CLOUD_WARPS x CLOUD_STEPS steps, warp w a contiguous run
+    of the round's steps and lane l pixels 4l .. 4l + 3 of each, the warp's
+    step-by-step scans and the block's scan of the warps' totals giving each
+    valid pixel its rank; the counts traded; then each window of list_len
+    ranks (the walk repeated for every window after the first) writes the
+    slots whose last position it holds, a thread a slot, and the blocks
+    share the tail.  Every slot is written exactly once.  ``spans`` (a list)
+    gets each block's (k, before, mine, first slot, last slot + 1) per
+    window.  -> (points, valid, count)."""
     f32 = np.float32
     h, w = edges.shape
     n = h * w
     ok = (edges & np.isfinite(depth) & (depth > f32(depth_min)) & (depth < f32(depth_max))).ravel()
-    tiles = -(-n // CLOUD_TILE)
-    padded = np.zeros(tiles * CLOUD_TILE, bool)
-    padded[:n] = ok
-    per_thread = padded.reshape(tiles, CLOUD_THREADS, CLOUD_PER_THREAD)
-    tile_counts = per_thread.sum((1, 2))
-    count = int(tile_counts.sum())
+    z_all = depth.ravel()
+    steps = -(-n // CLOUD_STEP)
+    per = -(-steps // cluster)
+    if list_len is None:
+        list_len = min(CLOUD_LIST, per * CLOUD_STEP)
+
+    def walk(s0, s1, r0):
+        """-> (the block's valid pixels, {rank - r0: (index, depth)} of ranks
+        r0 .. r0 + list_len - 1), by rounds, warps, steps and lanes as the
+        kernel."""
+        running, lst = 0, {}
+        for rs in range(s0, s1, CLOUD_WARPS * CLOUD_STEPS):
+            re_ = min(rs + CLOUD_WARPS * CLOUD_STEPS, s1)
+            wper = -(-(re_ - rs) // CLOUD_WARPS)
+            assert wper <= CLOUD_STEPS
+            totals, pix = [], []
+            for wp in range(CLOUD_WARPS):
+                w0 = min(rs + wp * wper, re_)
+                w1 = min(w0 + wper, re_)
+                mine_px = [p for st in range(w0, w1) for ln in range(32) for i in range(4)
+                           for p in [st * CLOUD_STEP + 4 * ln + i] if p < n and ok[p]]
+                totals.append(len(mine_px))
+                pix.append(mine_px)
+            excl = np.cumsum(totals) - totals
+            for wp in range(CLOUD_WARPS):
+                for i, p in enumerate(pix[wp]):
+                    r = running + int(excl[wp]) + i - r0
+                    if 0 <= r < list_len:
+                        assert r not in lst, "a list entry written twice"
+                        lst[r] = (p, z_all[p])
+            running += int(sum(totals))
+        return running, lst
+
+    ranges = [(min(k * per, steps), min(min(k * per, steps) + per, steps))
+              for k in range(cluster)]
+    walks = [walk(c0, c1, 0) for c0, c1 in ranges]
+    mine = [m for m, _ in walks]  # each block's count, read by all over DSMEM
+    count = int(sum(mine))
     over = count > cap
     scale = f32(cap) / f32(max(count, cap))
     inv_fx, inv_fy = f32(1.0 / f32(fx)), f32(1.0 / f32(fy))
-
-    def slot(q):
-        return int(np.floor(f32(q) * scale)) if over else q
-
     pts = np.full((cap, 3), np.nan, np.float32)
     val = np.full(cap, 7, np.uint8)
     writes = np.zeros(cap, int)
-
-    def zero(j):
-        pts[j] = 0.0
-        val[j] = 0
-        writes[j] += 1
-
-    positions = []
-    for t in range(tiles):
-        before = int(tile_counts[:t].sum())
-        if not over:
-            for tid in range(CLOUD_THREADS):
-                for j in range(count + t * CLOUD_THREADS + tid, cap, tiles * CLOUD_THREADS):
-                    zero(j)
-        c = per_thread[t].sum(1)
-        base = before + np.cumsum(c) - c
-        for tid in range(CLOUD_THREADS):
-            pos = int(base[tid])
-            for k in np.flatnonzero(per_thread[t, tid]):
-                p = t * CLOUD_TILE + tid * CLOUD_PER_THREAD + int(k)
-                positions.append((p, pos))
-                s = slot(pos)
-                win = True
-                if over:
-                    win = s < cap and (pos == count - 1 or slot(pos + 1) != s)
-                    prev = slot(pos - 1) if pos > 0 else -1
-                    for j in range(prev + 1, min(s, cap)):
-                        zero(j)
-                    if pos == count - 1:
-                        for j in range(s + 1, cap):
-                            zero(j)
-                if win:
-                    z = depth.ravel()[p]
-                    xx, yy = f32(p % w), f32(p // w)
-                    pts[s] = [(z * (xx - f32(cx))) * inv_fx, (z * (yy - f32(cy))) * inv_fy, z]
-                    val[s] = 1
-                    writes[s] += 1
-                pos += 1
-    # The scan's positions are the valid pixels' ranks in row-major order.
-    assert [q for _, q in positions] == list(range(count))
-    assert [p for p, _ in positions] == list(np.flatnonzero(ok))
+    for k, (c0, c1) in enumerate(ranges):
+        before = int(sum(mine[:k]))
+        for r0 in range(0, mine[k], list_len):
+            lst = walks[k][1] if r0 == 0 else walk(c0, c1, r0)[1]
+            q0, q1 = before + r0, before + min(r0 + list_len, mine[k])
+            j0 = int(_slot(q0, over, scale))
+            j1 = min(int(_slot(q1, over, scale)) - 1 if q1 < count
+                     else int(_slot(count - 1, over, scale)), cap - 1)
+            if spans is not None:
+                spans.append((k, before, mine[k], j0, j1 + 1))
+            j = np.arange(j0, j1 + 1)  # thread j - j0 (mod CLOUD_THREADS): one slot each
+            if not len(j):
+                continue
+            q = _top(j, count, scale) if over else j
+            win = _slot(q, over, scale) == j
+            assert ((q[win] >= q0) & (q[win] < q1)).all(), "a winner outside the window"
+            for jj, qq, wn in zip(j, q, win):
+                writes[jj] += 1
+                if not wn:
+                    pts[jj], val[jj] = 0.0, 0
+                    continue
+                p, z = lst[int(qq) - q0]
+                xx, yy = f32(p % w), f32(p // w)
+                pts[jj] = [(z * (xx - f32(cx))) * inv_fx, (z * (yy - f32(cy))) * inv_fy, z]
+                val[jj] = 1
+    t0 = 0 if count == 0 else min(int(_slot(count - 1, over, scale)) + 1, cap)
+    tper = -(-(cap - t0) // cluster)
+    for k in range(cluster):  # the tail, shared
+        for jj in range(t0 + k * tper, min(t0 + (k + 1) * tper, cap)):
+            pts[jj], val[jj] = 0.0, 0
+            writes[jj] += 1
     assert (writes == 1).all(), "a slot written twice or never"
     return pts, val.astype(bool), count
 
@@ -337,7 +626,7 @@ def cloud_lanes(shape):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_edge_cloud(shape):
-    """The tile scan with last-of-slot winners bit-equal to jitted JAX
+    """The cluster scan with last-of-slot winners bit-equal to jitted JAX
     ``backproject_edges`` (points, valid, count) and to the port's plain
     version, over and under capacity, on lanes with bad depths, all edges
     and none."""
@@ -364,6 +653,134 @@ def test_edge_cloud(shape):
             np.testing.assert_array_equal(pts, np.asarray(want.points[i]), err_msg=f"{cap} {i}")
             np.testing.assert_array_equal(val, ref.valid[i].numpy())
             np.testing.assert_array_equal(pts, ref.points[i].numpy())
+
+
+def _cloud_against_jax(edges, depth, caps, cluster, list_len=None, spans=None):
+    """model_cloud on each lane of (B, H, W) edges / depth at each capacity,
+    bit-equal to jitted JAX ``backproject_edges`` and to the plain version."""
+    @jax.jit
+    def clouds(e, d):
+        return tuple(jax.vmap(lambda e_, d_, c=c: jbp.backproject_edges(
+            e_, d_, capacity=c, **CAM))(e, d) for c in caps)
+
+    wants = clouds(jnp.asarray(edges), jnp.asarray(depth))
+    counts = []
+    for cap, want in zip(caps, wants):
+        ref = tbp.backproject_edges_ref(torch.from_numpy(edges), torch.from_numpy(depth),
+                                        capacity=cap, **CAM)
+        for i in range(edges.shape[0]):
+            pts, val, count = model_cloud(edges[i], depth[i], cap, **CAM, cluster=cluster,
+                                          list_len=list_len, spans=spans)
+            assert count == int(want.count[i]) == int(ref.count[i])
+            np.testing.assert_array_equal(val, np.asarray(want.valid[i]))
+            np.testing.assert_array_equal(pts, np.asarray(want.points[i]), err_msg=f"{cap} {i}")
+            np.testing.assert_array_equal(val, ref.valid[i].numpy())
+            np.testing.assert_array_equal(pts, ref.points[i].numpy())
+            counts.append(count)
+    return counts
+
+
+def test_cloud_one_block_and_corner():
+    """A lane whose valid pixels all lie in one block's range (the rows of
+    the first block of 4), a lane with one edge pixel in a corner, and a
+    lane whose valid pixels lie in the last block alone: over and under
+    capacity and exactly full, the other blocks writing only their share of
+    the tail."""
+    h, w = SHAPES[0]
+    rng = np.random.default_rng(5)
+    block_px = -(-(-(-h * w // CLOUD_STEP)) // 4) * CLOUD_STEP  # a block's pixels of 4
+    top, bottom = block_px // w, -(-3 * block_px // w)  # rows of block 0; from block 3 on
+    e = np.zeros((3, h, w), bool)
+    e[0, :top] = rng.random((top, w)) < 0.3
+    e[1, h - 1, w - 1] = True
+    e[2, bottom:] = rng.random((h - bottom, w)) < 0.3
+    depth = np.broadcast_to(synthetic_depth(h, w, seed=2, hole_frac=0.0) * 0 + 1.5, e.shape).copy()
+    n0 = int(e[0].sum())
+    spans = []
+    counts = _cloud_against_jax(e, depth, (n0 // 2, n0, 1, 4 * n0), 4, spans=spans)
+    assert counts[:3] == [n0, 1, int(e[2].sum())]
+    assert {k for k, before, mine, j0, j1 in spans if mine} <= {0, 3}
+
+
+def _boundary_case(kind: str):
+    """(cap, count, q) with count > cap where slot(q + 1) - slot(q) is 1 (a
+    new slot starts at q + 1) or 0 (q and q + 1 share a slot), q + 1 and
+    count - q - 1 each at most 9600 (half of a 160x120 lane)."""
+    for cap in range(7001, 9500, 13):
+        count = cap + 1 + cap % 97
+        scale = np.float32(cap) / np.float32(count)
+        d = np.diff(_slot(np.arange(count), True, scale))
+        qs = np.flatnonzero(d == (1 if kind == "step" else 0))
+        qs = qs[(qs + 1 <= 9600) & (count - qs - 1 <= 9600)]
+        if len(qs):
+            return cap, count, int(qs[len(qs) // 2])
+    raise AssertionError(f"no {kind} boundary found")
+
+
+def test_cloud_rounding_leaves_no_gap():
+    """slot(pos + 1) - slot(pos) is 0 or 1 for every pos when count > P and
+    count < 2^24: f32(pos) is exact and the product, rounded to nearest,
+    cannot pass two integers for a step below 1.  So the gap rule of the
+    kernel (a slot no position maps to holds zeros) is a guard: checked over
+    every capacity with count = P + 1, P + 2, P + 3 up to 19,200 (a 160x120
+    lane), and 4,000 seeded pairs up to 307,200 (640x480)."""
+    rng = np.random.default_rng(21)
+    pairs = [(cap, cap + k) for cap in range(1, 19200) for k in (1, 2, 3)]
+    pairs += [(int(c), int(c) + int(k)) for c, k in zip(rng.integers(1, 300000, 4000),
+                                                        rng.integers(1, 300000, 4000))]
+    for cap, count in pairs:
+        if count > 307200:
+            continue
+        scale = np.float32(cap) / np.float32(count)
+        sl = _slot(np.arange(count), True, scale)
+        d = np.diff(sl)
+        assert d.min() >= 0 and d.max() <= 1, (cap, count)
+        assert sl[-1] < cap, (cap, count)
+
+
+@pytest.mark.parametrize("kind", ["step", "shared"])
+def test_cloud_straddles_blocks(kind):
+    """count > P with the boundary between two blocks right after pos q (q
+    the last valid pixel of block 0 of 2) where a new slot starts at q + 1
+    ("step") or where q and q + 1 share a slot ("shared"), and the same
+    boundary between two windows of one block's list (list_len = q + 1):
+    the shared slot goes to the block (window) of its last position, every
+    slot once; bit-equal to JAX."""
+    cap, count, q = _boundary_case(kind)
+    h, w = SHAPES[0]
+    half = h * w // 2  # block 0 of 2 takes the first 9600 pixels
+    rng = np.random.default_rng(cap)
+    e = np.zeros(h * w, bool)
+    e[np.sort(rng.choice(half, q + 1, replace=False))] = True
+    e[half + np.sort(rng.choice(h * w - half, count - q - 1, replace=False))] = True
+    e = e.reshape(1, h, w)
+    depth = np.full(e.shape, 2.0, np.float32)
+    spans = []
+    _cloud_against_jax(e, depth, (cap,), 2, spans=spans)
+    (_, _, m0, j00, j01), (_, b1, _, j10, j11) = spans
+    scale = np.float32(cap) / np.float32(count)
+    s_q, s_q1 = int(_slot(q, True, scale)), int(_slot(q + 1, True, scale))
+    assert (m0, b1, j00, j01, j10, j11) == (q + 1, q + 1, 0, s_q1, s_q1,
+                                            int(_slot(count - 1, True, scale)) + 1)
+    assert s_q1 - s_q == (1 if kind == "step" else 0)
+    spans = []
+    _cloud_against_jax(e, depth, (cap,), 1, list_len=q + 1, spans=spans)
+    assert [(j0, j1) for _, _, _, j0, j1 in spans] == [(0, s_q1), (s_q1, j11)]
+
+
+def test_cloud_full_and_empty():
+    """count == P (every slot a point, no tail), count == 0 (every slot a
+    zero, the tail spread over all blocks), and a lane of mostly edges whose
+    blocks hold more valid pixels than a small list (three windows each),
+    at the smallest and the largest cluster."""
+    h, w = SHAPES[0]
+    rng = np.random.default_rng(11)
+    e = np.stack([rng.random((h, w)) < 0.05, np.zeros((h, w), bool), rng.random((h, w)) < 0.9])
+    depth = np.full(e.shape, 3.0, np.float32)
+    n0 = int(e[0].sum())
+    for cluster in (1, CLOUD_CLUSTER_MAX):
+        counts = _cloud_against_jax(e, depth, (n0,), cluster, list_len=int(e[2].sum()) // 7)
+        assert counts == [n0, 0, int(e[2].sum())]
 
 
 # -- the pyramid step -------------------------------------------------------------
