@@ -61,11 +61,14 @@ gates.  Phases, one line each:
              to its B=1 launch, counts equal to the plain version, floats
              within 1e-5, lanes left out by the mask untouched, a second
              launch bit-identical, no host sync; the front end's and the
-             keyframe's kernels (csrc/frontend.cu: revo_edt_columns,
-             revo_keyframe_rows, revo_edge_cloud, revo_pyr_level) bit-equal
+             keyframe's kernels (csrc/frontend.cu: revo_edt_columns_levels,
+             revo_keyframe_rows, revo_edge_cloud, revo_pyramid) bit-equal
              to their plain versions on all levels of the 8 chain frames at
-             B=8 and B=1 in all seven quad forms, the pyramid from raw uint8
-             gray / uint16 depth and from float32, lanes with no edge and
+             B=8 and B=1 in all seven quad forms (the column pass of every
+             level in one launch, also at B = 4 and 32, and on lanes of 4320
+             and 20,000 rows), the pyramid from raw uint8 gray / uint16
+             depth and from float32 at 2, 3 and 4 levels and B = 1, 4, 8 and
+             32, lanes with no edge and
              with all edges over depth with 0, NaN, inf, negative and
              out-of-range values, over and under capacity, at 640x480, 61x79,
              37x65 and 1280x720, the chain's level 0 at B=32 (waves of
@@ -81,14 +84,17 @@ gates.  Phases, one line each:
              first, and no init_check launch), outputs finite, poses
              within 1e-4 m / 1e-4 rad of the same path on the CPU (plain
              versions), ATE against ground truth < 2 mm for both solvers;
-             one edge cloud a level and one pyramid step between levels a
-             frame built, two EDT launches a keyframe level; make_keyframe
-             alone 6 hand launches and no host read, build_frame alone 3
-             canny_fused, 3 edge clouds and 2 pyramid steps, the torch
-             kernels each leaves printed (torch.profiler);
+             one edge cloud a level and one pyramid launch a frame built,
+             one column-pass launch and one row launch a level a keyframe;
+             make_keyframe alone 4 hand launches and no host read,
+             build_frame alone 3 canny_fused, 3 edge clouds and 1 pyramid
+             launch and at most BF_TORCH_KERNELS torch kernels at B = 1
+             from uint8 / uint16 (torch.profiler);
 6. times     CUDA-event times per stage and per kernel against its plain
-             version at the shape its path gives it (level 0 of a 640x480
-             frame, one lane, for the front end's and keyframe's kernels too;
+             version at the shape its path gives it (a 640x480 frame, one
+             lane, for the front end's and keyframe's kernels too: the row
+             pass and the cloud at level 0, the column pass over every level
+             and the pyramid from uint8 / uint16, as one launch each;
              make_keyframe's torch kernels and hand launches; for the
              cluster Canny level 0 of phase 11's 1280x720
              frame; for the grid Canny phase 11's 5120x2880 image; for K1
@@ -1066,17 +1072,20 @@ def distort_capture(gray, depth, cam, iters: int = 20):
 # (the wrapper that counts its launches, the JAX code it stands for: no
 # pallas_call, the jitted programs' pieces).
 FRONT_KERNELS = {
-    "edt_columns": ("edt_columns", "revo_tpu/ops/edt.py:41"),
+    "edt_columns_levels": ("edt_columns_levels", "revo_tpu/ops/edt.py:41"),
     "keyframe_rows": ("keyframe_rows", "revo_tpu/ops/edt.py:99"),
     "edge_cloud": ("backproject_edges", "revo_tpu/ops/backproject.py:238"),
-    "pyr_level": ("pyr_level", "revo_tpu/ops/filters.py:96"),
+    "pyramid": ("pyramid", "revo_tpu/ops/filters.py:96"),
 }
 FRONT_RAGGED = ((61, 79), (37, 65))  # odd sizes phase 4 holds the front-end kernels on
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
                 "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
                 "lgsx_reduce_kernel", "residual_lgsx_kernel", "solver_step_kernel",
-                "init_check_kernel", "solve_level_kernel", "edt_columns_kernel",
-                "keyframe_rows_kernel", "edge_cloud_kernel", "pyr_level_kernel")
+                "init_check_kernel", "solve_level_kernel", "edt_levels_kernel",
+                "keyframe_rows_kernel", "edge_cloud_kernel", "pyramid_kernel")
+# The torch kernels a 640x480 build_frame from uint8 gray / uint16 depth may
+# launch at B = 1 (82 before the pyramid kernel took level 0's three casts).
+BF_TORCH_KERNELS = 79
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -1528,7 +1537,8 @@ def main() -> int:
                       solver.solve_level_kernel)
     level_check = _Count(solver.solve_level_kernel, "check_launches", "level_init_check")
     # The front end's and the keyframe's (csrc/frontend.cu).
-    front_counters = (EDT.edt_columns, EDT.keyframe_rows, BP.backproject_edges, FL.pyr_level)
+    front_counters = (EDT.edt_columns_levels, EDT.keyframe_rows, BP.backproject_edges,
+                      FL.pyramid)
     counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
                  K12.canny_hysteresis, K3.lgsx_reduce) + track_counters + (level_check,) \
         + front_counters
@@ -1582,18 +1592,20 @@ def main() -> int:
         raise RuntimeError(f"main: not one level kernel a level and the init check in one "
                            f"level launch a frame: {launches}")
     # The front end and the keyframe on their hand kernels: a frame built,
-    # one edge cloud a level and one pyramid step between levels; a
-    # keyframe, the two EDT launches a level (8 frames and one keyframe a
-    # solver).
+    # one edge cloud a level and one pyramid launch (two steps a launch); a
+    # keyframe, one column-pass launch for every level and one row launch a
+    # level (8 frames and one keyframe a solver).
     n_lv = cfg.pyramid.n_levels
-    front_want = {"backproject_edges": 2 * N_FRAMES * n_lv, "pyr_level": 2 * N_FRAMES * (n_lv - 1),
-                  "edt_columns": 2 * n_lv, "keyframe_rows": 2 * n_lv}
+    pyr_a_frame, cols_a_kf = n_lv // 2, -(-n_lv // EDT.EDT_MAX_LEVELS)  # 1, 1 at 3 levels
+    front_want = {"backproject_edges": 2 * N_FRAMES * n_lv, "pyramid": 2 * N_FRAMES * pyr_a_frame,
+                  "edt_columns_levels": 2 * cols_a_kf, "keyframe_rows": 2 * n_lv}
     if any(launches[k] != v for k, v in front_want.items()):
         raise RuntimeError(f"main: the front end's kernels did not launch {front_want}: {launches}")
     launch_total = dict(launches)
     # build_frame and make_keyframe alone, counted again: make_keyframe is
-    # 2 hand launches a level and reads nothing on the host; the torch
-    # kernels each leaves (profiler) are printed.
+    # one column-pass launch and a row launch a level and reads nothing on
+    # the host; the torch kernels each leaves (profiler) are printed, and
+    # build_frame's gated (level 0's casts are the pyramid kernel's).
     from revo_tpu_torch import frontend
 
     g_1, d_1 = torch.from_numpy(grays[0]).to(dev), torch.from_numpy(depths[0]).to(dev)
@@ -1604,20 +1616,23 @@ def main() -> int:
         lambda: frontend.make_keyframe(f_1, eye_dev, cfg)))
     bf_launch = {k: v for k, v in bf_counts.items() if v}
     kf_launch = {k: v for k, v in kf_counts.items() if v}
-    if kf_launch != {"edt_columns": n_lv, "keyframe_rows": n_lv} or kf_syncs:
-        raise RuntimeError(f"main: make_keyframe is not {2 * n_lv} hand launches and no host "
-                           f"read: {kf_launch}, {kf_syncs} host reads")
-    if bf_launch != {"canny_fused": n_lv, "backproject_edges": n_lv, "pyr_level": n_lv - 1}:
+    if kf_launch != {"edt_columns_levels": cols_a_kf, "keyframe_rows": n_lv} or kf_syncs:
+        raise RuntimeError(f"main: make_keyframe is not {cols_a_kf + n_lv} hand launches and no "
+                           f"host read: {kf_launch}, {kf_syncs} host reads")
+    if bf_launch != {"canny_fused": n_lv, "backproject_edges": n_lv, "pyramid": pyr_a_frame}:
         raise RuntimeError(f"main: build_frame's hand launches are {bf_launch}")
     front_end = {}
     for stage, stage_launches, stage_syncs, stage_fn in (
             ("build_frame", bf_launch, bf_syncs, lambda: frontend.build_frame(g_1, d_1, cfg)),
             ("make_keyframe", kf_launch, kf_syncs,
              lambda: frontend.make_keyframe(f_1, eye_dev, cfg))):
-        stage_kernels, stage_busy, _, stage_copies = _profile_kernels(stage_fn, 3)
+        stage_kernels, stage_busy, _, stage_copies = _profile_trusted(stage_fn, 3, f"main: {stage}")
         front_end[stage] = {"hand_launches": stage_launches, "host_reads": stage_syncs,
                             "torch_kernels": stage_kernels, "torch_busy_ms": stage_busy,
                             "copies": stage_copies}
+    if g_1.dtype == torch.uint8 and front_end["build_frame"]["torch_kernels"] > BF_TORCH_KERNELS:
+        raise RuntimeError(f"main: build_frame launched more than {BF_TORCH_KERNELS} torch "
+                           f"kernels: {front_end['build_frame']}")
 
     summary = {"launches": launches, "front_end": front_end}
     for name in ("lm", "gn_fixed"):
@@ -1850,11 +1865,13 @@ def main() -> int:
     # The front end's and the keyframe's kernels (csrc/frontend.cu) against
     # their plain versions, bit for bit, each launch made twice (the second
     # bit-identical) with no host sync: all levels of the 8 chain frames at
-    # B = 8 and B = 1, the seven quad forms, the pyramid from raw uint8 gray
-    # and uint16 depth as run sends them and from float32; then lanes with
-    # no edge and with all edges over depth with 0, NaN, inf, negative and
-    # out-of-range values, over and under capacity, at 640x480, at the odd
-    # sizes FRONT_RAGGED and on a 1280x720 frame.
+    # B = 8 and B = 1 (the column pass of all levels in one launch, also at
+    # B = 4), the seven quad forms, the pyramid of 2, 3 and 4 levels from raw
+    # uint8 gray and uint16 depth as run sends them and from float32 at B =
+    # 1, 4 and 8; then lanes with no edge and with all edges over depth with
+    # 0, NaN, inf, negative and out-of-range values, over and under
+    # capacity, at 640x480, at the odd sizes FRONT_RAGGED and on a 1280x720
+    # frame.
     from revo_tpu_torch.io.synthetic import render_frame
 
     fe_cases = dict.fromkeys(FRONT_KERNELS, 0)
@@ -1877,8 +1894,8 @@ def main() -> int:
         """The EDT pair on (B, H, W) edges in each form: against the plain
         pair (the full row search) and, in the first form, against
         keyframe_tables_ref (the banded search the CPU runs)."""
-        g2 = fe_check("edt_columns", lambda: EDT.edt_columns(edges),
-                      lambda: EDT.edt_columns_ref(edges), what)[0]
+        g2 = fe_check("edt_columns_levels", lambda: EDT.edt_columns_levels([edges]),
+                      lambda: [EDT.edt_columns_ref(edges)], what)[0]
         struct = EDT.keyframe_rows_ref(g2, "dt4")[0]
         for k, form in enumerate(forms):
             got = fe_check("keyframe_rows", lambda: EDT.keyframe_rows(g2, form),
@@ -1899,9 +1916,18 @@ def main() -> int:
                                                       pyr.depth_min, pyr.depth_max, cap),
                      f"{what} capacity {cap}")
 
-    def fe_pyr(gray, depth, what, inv=1.0):
-        fe_check("pyr_level", lambda: FL.pyr_level(gray, depth, inv),
-                 lambda: FL.pyr_level_ref(gray, depth, inv), what)
+    def fe_columns(levels, what):
+        """The column pass of every level of ``levels`` in one launch."""
+        fe_check("edt_columns_levels", lambda: EDT.edt_columns_levels(levels),
+                 lambda: [EDT.edt_columns_ref(e) for e in levels], what)
+
+    def fe_pyr(gray, depth, what, inv=1.0, levels=(pyr.n_levels,)):
+        """The pyramid of each count of ``levels``, every level's gray and
+        depth against pyramid_ref's (pyr_level_ref chained)."""
+        for n in levels:
+            fe_check("pyramid", lambda: [x for lv in FL.pyramid(gray, depth, inv, n) for x in lv],
+                     lambda: [x for lv in FL.pyramid_ref(gray, depth, inv, n) for x in lv],
+                     f"{what}, {n} levels")
 
     def valid_counts(edges, depth):
         ok = edges & torch.isfinite(depth) & (depth > pyr.depth_min) & (depth < pyr.depth_max)
@@ -1909,6 +1935,15 @@ def main() -> int:
 
     inv_scale = 1.0 / cfg.dataset.depth_scale_factor
     fe_over = {"over": 0, "under": 0}
+    chain_edges = [torch.stack([f.levels[lvl].edges for f in frames_lm])
+                   for lvl in range(pyr.n_levels)]
+    for lanes in (8, 4, 1):
+        fe_columns([e[:lanes] for e in chain_edges], f"chain levels, B = {lanes}")
+    for i in range(N_FRAMES):
+        fe_check("edt_columns_levels",
+                 lambda: EDT.edt_columns_levels([e[i:i + 1] for e in chain_edges]),
+                 lambda: [g[i:i + 1] for g in EDT.edt_columns_levels(chain_edges)],
+                 f"chain levels, lane {i} alone")
     for lvl in range(pyr.n_levels):
         edges8 = torch.stack([f.levels[lvl].edges for f in frames_lm])
         depth8 = torch.stack([f.levels[lvl].depth for f in frames_lm])
@@ -1919,25 +1954,28 @@ def main() -> int:
         fe_cloud(edges8, depth8, lvl, caps, f"chain level {lvl}, B = 8")
         fe_over["over"] += sum(n > cap for cap in caps for n in n_ok)
         fe_over["under"] += sum(n <= cap for cap in caps for n in n_ok)
-        if lvl + 1 < pyr.n_levels:
-            fe_pyr(gray8, depth8, f"chain level {lvl}, B = 8")
+        if lvl + 1 < pyr.n_levels:  # a pyramid from this level
+            fe_pyr(gray8, depth8, f"chain level {lvl}, B = 8", levels=(pyr.n_levels - lvl,))
         for i in range(N_FRAMES):
             one = slice(i, i + 1)
-            fe_check("edt_columns", lambda: EDT.edt_columns(edges8[one]),
-                     lambda: EDT.edt_columns(edges8)[one], f"chain level {lvl}, lane {i} alone")
-            g2_i = EDT.edt_columns(edges8[one])
+            g2_i = EDT.edt_columns_levels([edges8[one]])[0]
             fe_check("keyframe_rows", lambda: EDT.keyframe_rows(g2_i, cfg.tracker.optimizer.quad_form),
                      lambda: (structs8[one], EDT.quad_structure(
                          structs8[one], cfg.tracker.optimizer.quad_form)),
                      f"chain level {lvl}, lane {i} alone")
             fe_cloud(edges8[one], depth8[one], lvl, caps[:1], f"chain level {lvl}, lane {i} alone")
-            if lvl + 1 < pyr.n_levels:
-                fe_pyr(gray8[one], depth8[one], f"chain level {lvl}, lane {i} alone")
+            if lvl == 0:
+                fe_check("pyramid",
+                         lambda: [x for lv in FL.pyramid(gray8[one], depth8[one]) for x in lv],
+                         lambda: [x[one] for lv in FL.pyramid(gray8, depth8) for x in lv],
+                         f"chain level 0, lane {i} alone")
     raw_g = torch.from_numpy(np.stack(grays)).to(dev)
     raw_d = torch.from_numpy(np.stack(depths)).to(dev)
-    fe_pyr(raw_g, raw_d, "raw uint8 gray, uint16 depth, B = 8", inv_scale)
-    fe_pyr(raw_g[:1], raw_d[:1], "raw uint8 gray, uint16 depth, B = 1", inv_scale)
-    fe_pyr(raw_g.float(), raw_d, "float32 gray, uint16 depth", inv_scale)
+    for lanes in (8, 4, 1):
+        fe_pyr(raw_g[:lanes], raw_d[:lanes], f"raw uint8 gray, uint16 depth, B = {lanes}",
+               inv_scale, levels=(2, 3, 4))
+    fe_pyr(raw_g.float(), raw_d, "float32 gray, uint16 depth", inv_scale, levels=(2, 3, 4))
+    fe_pyr(raw_g, raw_d.float() * inv_scale, "uint8 gray, float32 depth", levels=(3,))
 
     def odd_lanes(edges, depth, gray):
         """Lane 0 as given, lane 1 with no edge, lane 2 all edges; depth with
@@ -1962,10 +2000,10 @@ def main() -> int:
         fe_cloud(e3, d3, lvl, caps, what)
         fe_over["over"] += sum(n > cap for cap in caps for n in n_ok)
         fe_over["under"] += sum(n <= cap for cap in caps for n in n_ok)
-        fe_pyr(g3, d3, what)
+        fe_pyr(g3, d3, what, levels=(2, 3, 4))
         fe_pyr(g3.to(torch.uint8), (d3.nan_to_num(0.0, 0.0, 0.0).clamp(0, 13.0)
                                     * cfg.dataset.depth_scale_factor).to(torch.int32)
-               .to(torch.uint16), f"{what}, raw", inv_scale)
+               .to(torch.uint16), f"{what}, raw", inv_scale, levels=(2, 3, 4))
 
     f0 = frames_lm[0].levels[0]
     odd_cases(f0.edges, f0.depth, f0.gray, 0, "640x480 odd lanes")
@@ -2002,6 +2040,24 @@ def main() -> int:
     fe_cloud(e32, d32, 0, caps, "chain level 0, B = 32")
     fe_over["over"] += sum(n > cap for cap in caps for n in n32)
     fe_over["under"] += sum(n <= cap for cap in caps for n in n32)
+    fe_columns([torch.stack([frames_lm[i % N_FRAMES].levels[lvl].edges for i in range(32)])
+                for lvl in range(pyr.n_levels)], "chain levels, B = 32")
+    fe_pyr(raw_g.repeat(4, 1, 1), raw_d.repeat(4, 1, 1), "raw uint8 gray, uint16 depth, B = 32",
+           inv_scale)
+    # The column pass on tall lanes: 4320 rows (chunks of 540, one window
+    # each; a lane with no edge) and 20,000 rows (chunks of 2,500 rows, three
+    # windows each: columns with no edge, one edge, one in the last row).
+    gen_t = torch.Generator(device=dev).manual_seed(4320)
+    tall = torch.rand((2, 4320, 40), generator=gen_t, device=dev) < 0.001
+    tall[1] = False
+    fe_columns([tall], "4320 rows")
+    taller = torch.rand((1, 20000, 24), generator=gen_t, device=dev) < 0.0005
+    taller[0, :, 5] = False
+    taller[0, :, 7] = False
+    taller[0, 100, 7] = True
+    taller[0, :, 9] = False
+    taller[0, 19999, 9] = True
+    fe_columns([taller], "20,000 rows")
     e_f, d_f = lv0s[0].edges, lv0s[0].depth
     h_f, w_f = e_f.shape
     one_block, corner = torch.zeros_like(e_f), torch.zeros_like(e_f)
@@ -4864,32 +4920,44 @@ def main() -> int:
             "device_ms": _queued_ms(fk),
         })
     # The front end's and the keyframe's kernels at the main path's shape:
-    # level 0 of a 640x480 frame, one lane, the config's quad form.  Bound:
-    # inputs read and outputs written once (the row search's operations,
-    # about 6 a visited offset and at least ceil(dt) offsets a pixel on this
-    # frame's data, and the other kernels' few a pixel, take less).
-    # library_ms null: no single PyTorch call computes an exact EDT, the
-    # decimating compaction, or a rounded pyrDown with the hole-aware subsample.
-    lv0 = frames_lm[1].levels[0]
-    e0, dep0, gr0 = lv0.edges[None].contiguous(), lv0.depth[None], lv0.gray[None]
-    g2_0 = EDT.edt_columns(e0)
+    # a 640x480 frame, one lane, the config's quad form; the row pass and
+    # the cloud at level 0, the column pass over every level (one launch, as
+    # make_keyframe makes it), the pyramid of every level from the sensor's
+    # uint8 gray / uint16 depth (one launch, as build_frame makes it; from
+    # float32 beside it).  Bound: inputs read and outputs written once (the
+    # row search's operations, about 6 a visited offset and at least
+    # ceil(dt) offsets a pixel on this frame's data, and the other kernels'
+    # few a pixel, take less).  library_ms null: no single PyTorch call
+    # computes an exact EDT, the decimating compaction, or a rounded pyrDown
+    # with the hole-aware subsample.
+    f_t = frames_lm[1]
+    lv0 = f_t.levels[0]
+    e0, dep0 = lv0.edges[None].contiguous(), lv0.depth[None]
+    e_all = [lv.edges[None].contiguous() for lv in f_t.levels]
+    g2_all = EDT.edt_columns_levels(e_all)
+    g2_0 = g2_all[0]
     form0, fe_cam, cap0 = cfg.tracker.optimizer.quad_form, cams[0], pyr.edge_capacity[0]
-    n_px0 = e0.numel()
+    n_px0, n_px_all = e0.numel(), sum(e.numel() for e in e_all)
     fe_s0, fe_q0 = EDT.keyframe_rows(g2_0, form0)
     visited0 = float(torch.ceil(fe_s0[..., 2].double()).clamp(max=cam.width).sum())
     cloud_args = (e0, dep0, fe_cam.fx, fe_cam.fy, fe_cam.cx, fe_cam.cy, pyr.depth_min,
                   pyr.depth_max, cap0)
-    pg0, pd0 = FL.pyr_level(gr0, dep0)
+    raw_g1 = torch.from_numpy(grays[1])[None].to(dev)
+    raw_d1 = torch.from_numpy(depths[1])[None].to(dev)
+    pyr_args = (raw_g1, raw_d1, inv_scale, pyr.n_levels)
+    pyr_outs = [x for lv in FL.pyramid(*pyr_args) for x in lv]
+    pyr_px1 = sum(x.numel() for x in pyr_outs[2::2])  # the gray of levels 1 on
     front = [
-        ("edt_columns", lambda: EDT.edt_columns(e0), lambda: EDT.edt_columns_ref(e0),
-         _bound(_nbytes(e0, g2_0), 4 * n_px0), 20),
+        ("edt_columns_levels", lambda: EDT.edt_columns_levels(e_all),
+         lambda: [EDT.edt_columns_ref(e) for e in e_all],
+         _bound(_nbytes(*e_all, *g2_all), 4 * n_px_all), 20),
         ("keyframe_rows", lambda: EDT.keyframe_rows(g2_0, form0),
          lambda: EDT.keyframe_rows_ref(g2_0, form0), _bound(_nbytes(g2_0, fe_s0, fe_q0), 6 * visited0), 3),
         ("edge_cloud", lambda: BP.backproject_edges(*cloud_args),
          lambda: BP.backproject_edges_ref(*cloud_args),
          _bound(_nbytes(e0, dep0, *BP.backproject_edges(*cloud_args)), 10 * n_px0), 50),
-        ("pyr_level", lambda: FL.pyr_level(gr0, dep0), lambda: FL.pyr_level_ref(gr0, dep0),
-         _bound(_nbytes(gr0, dep0, pg0, pd0), 60 * pg0.numel()), 50),
+        ("pyramid", lambda: FL.pyramid(*pyr_args), lambda: FL.pyramid_ref(*pyr_args),
+         _bound(_nbytes(raw_g1, raw_d1, *pyr_outs), 60 * pyr_px1), 50),
     ]
     for name, fk, fp, (bound_ms, bound_by), n_reps in front:
         counted, replaces = FRONT_KERNELS[name]
@@ -4903,6 +4971,9 @@ def main() -> int:
             "device_ms": _queued_ms(fk),
             "device_kernels_a_call": 1,
         })
+    pyr_f32 = (lv0.gray[None], dep0, 1.0, pyr.n_levels)
+    next(r for r in rows if r["name"] == "pyramid")["float32_device_ms"] = _queued_ms(
+        lambda: FL.pyramid(*pyr_f32))
     part_done("front_end_rows")
     # K1's persistent blocks per launch (the occupancy query's count, at
     # most one a tile), its device time from float32 gray, and the cast +

@@ -77,7 +77,7 @@ MAX_CHAIN_ERROR = 5.0  # divergence guard on every timed chain (errors ~0.1)
 # Every hand kernel's wrapper, whose ``.launches`` the run reports.
 COUNTED = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
            K12.canny_hysteresis, K3.lgsx_reduce, K3.residual_lgsx, solver.solve_level_kernel,
-           EDT.edt_columns, EDT.keyframe_rows, BP.backproject_edges, FL.pyr_level)
+           EDT.edt_columns_levels, EDT.keyframe_rows, BP.backproject_edges, FL.pyramid)
 
 
 def _build_inputs(cfg):

@@ -1,6 +1,6 @@
 // The front end's and the keyframe's hand kernels: the exact EDT with the
-// structure and quad table (revo_edt_columns + revo_keyframe_rows), the edge
-// cloud (revo_edge_cloud) and one pyramid step (revo_pyr_level).
+// structure and quad table (revo_edt_columns_levels + revo_keyframe_rows),
+// the edge cloud (revo_edge_cloud) and the pyramid (revo_pyramid).
 //
 // None of them replaces a pl.pallas_call: they are the device form of the
 // two other jitted programs of the main path, revo_tpu/frontend.py's
@@ -9,20 +9,21 @@
 // The port ran both as eager torch ops: ~1,000-1,500 small launches and 3
 // host reads (the band radius) a keyframe, ~306 launches a frame.  Each
 // kernel here takes B lanes in one launch and is bit-equal to its plain
-// version (ops/edt.py keyframe_tables_ref, ops/backproject.py
-// backproject_edges_ref, ops/filters.py pyr_level_ref); every product and
-// sum is written with __f*_rn, because NVCC_FLAGS let nvcc contract a * b + c
-// into an FMA.
+// version (ops/edt.py edt_columns_ref and keyframe_rows_ref,
+// ops/backproject.py backproject_edges_ref, ops/filters.py pyramid_ref);
+// every product and sum is written with __f*_rn, because NVCC_FLAGS let nvcc
+// contract a * b + c into an FMA.
 //
 // Bounds (bytes over 3.35 TB/s; the integer work is small): the EDT pair
 // reads the edges once and writes the structure and the quad table (640x480,
 // dt4bf: 0.31 + 3.69 + 2.46 MB, ~1.9 us); the cloud reads edges and depth
-// (1.5 MB) and writes the points; the pyramid step reads a level and writes
-// the next.  All four are latency- and launch-bound at these sizes: the
-// design keeps each a single launch with no host read, so a keyframe is 6
-// launches and a frame's pyramid 2.  The cloud runs a thread-block cluster a
-// lane and the row pass clusters of bands: their blocks trade counts and
-// halo rows over DSMEM, not through global memory or a second launch.
+// (1.5 MB) and writes the points; the pyramid reads level 0 and writes the
+// others.  All four are latency- and launch-bound at these sizes: the
+// design keeps each a single launch with no host read, so a keyframe of 3
+// levels is 4 launches (the column pass of every level in one) and a frame's
+// pyramid 1.  The column pass, the cloud and the row pass run thread-block
+// clusters: their blocks trade column ends, counts and halo rows over
+// DSMEM, not through global memory or a second launch.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,62 +37,219 @@ namespace cg = cooperative_groups;
 
 constexpr float BIG = 1e9f;  // the plain version's sentinel (ops/edt.py _BIG)
 
-// ---------------------------------------------------------------------------
-// 1. revo_edt_columns: g^2 of every pixel, g the vertical distance to the
-// nearest edge of its column (BIG where the column has none), g^2 clamped to
-// BIG: ops/edt.py edt_columns_ref (the log-doubling min-plus relaxations of
-// _column_distances, a TPU form) as two sweeps.  A block is 32 columns x
-// EDT_SEGMENTS segments of rows: each thread finds the first and last edge of
-// its segment, the segments meet in shared memory, and each thread sweeps
-// its segment down (distance to the edge above, kept as an int in the
-// output) and up (the edge below) with the exact integer distance.
-constexpr int EDT_COLS = 32;
-constexpr int EDT_SEGMENTS = 8;
+// The split cluster barrier: arrive (relaxed: it orders no memory) and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
-__global__ void __launch_bounds__(EDT_COLS * EDT_SEGMENTS)
-edt_columns_kernel(const uint8_t* __restrict__ edges, float* __restrict__ g2, int H, int W) {
-  __shared__ int first_edge[EDT_SEGMENTS][EDT_COLS];
-  __shared__ int last_edge[EDT_SEGMENTS][EDT_COLS];
-  const int cx = threadIdx.x % EDT_COLS, seg = threadIdx.x / EDT_COLS;
-  const int x = blockIdx.x * EDT_COLS + cx;
-  const size_t lane = (size_t)blockIdx.y * H * W;
-  const int rows = (H + EDT_SEGMENTS - 1) / EDT_SEGMENTS;
-  const int y0 = min(seg * rows, H), y1 = min(y0 + rows, H);
-  const uint8_t* e = edges + lane + x;
-  int* dn = reinterpret_cast<int*>(g2 + lane + x);
-  int first = -1, last = -1;
-  if (x < W) {
-    for (int y = y0; y < y1; ++y)
-      if (e[(size_t)y * W]) {
-        if (first < 0) first = y;
-        last = y;
+// ---------------------------------------------------------------------------
+// 1. revo_edt_columns_levels: g^2 of every pixel of every level of a
+// keyframe in one launch, g the vertical distance to the nearest edge of its
+// column (BIG where the column has none), g^2 clamped to BIG:
+// ops/edt.py edt_columns_ref (the log-doubling min-plus relaxations of
+// _column_distances, a TPU form) level by level.
+//
+// A block takes a strip of EDT_STRIP columns of one (level, lane) and a
+// chunk of its rows; the C blocks of a strip form a thread-block cluster,
+// chunk k of ceil(H / C) rows in block k.  C is the largest of 8, 4, 2, 1
+// whose blocks the card holds at once (edt_cluster: 8 at B = 1 at 640x480,
+// 2 at B = 8, 1 from B = 16); the bits do not depend on it.  A block loads
+// its chunk's edges once (16-byte loads where W % 16 == 0, bytes elsewhere)
+// and packs them into column words in shared memory: word k of a column
+// holds 32 rows, one __ballot_sync of the 32 threads that loaded them.
+// Each block pushes every column's first edge row of its chunk into the
+// shared memory of the blocks above it and the last into those below over
+// DSMEM (once the cluster's arrival, made at entry, says every block has
+// started); after one cluster barrier each reads the nearest edge above and
+// below its chunk locally, and no block reads another's shared memory past
+// it, so blocks leave as they finish.  Then a walk down and one up each
+// column's words gives the nearest edge before and after each word, and
+// each pixel's nearest edge above and below comes from its own word by
+// __clz / __ffs, in registers: g^2 is written once, a thread a column and a
+// run of EDT_RUN rows (a warp's stores a row are 128 contiguous bytes).  Bounds: the edges read and g^2 written once (640x480, 3 levels:
+// 0.40 MB and 1.61 MB, ~0.6 us at 3.35 TB/s); the kernel is latency-bound:
+// one round of loads, one cluster barrier, one round of stores.
+//
+// A chunk of more than EDT_WINDOW rows (lanes of more than C x 1024 rows) is
+// walked in windows of EDT_WINDOW rows, its words loaded twice: the first
+// pass writes each window's first edge row into the window's first g^2 row
+// (as int bits), then the suffix of those (the first edge at or after each
+// window), which the second pass reads before it overwrites them.
+constexpr int EDT_STRIP = 64;      // columns a block
+constexpr int EDT_CHUNKS = 8;      // blocks a cluster at most: a strip's chunks of rows
+constexpr int EDT_THREADS = 256;
+constexpr int EDT_WORDS = 32;      // column words a window: EDT_WINDOW rows
+constexpr int EDT_WINDOW = 32 * EDT_WORDS;
+constexpr int EDT_LOADS = 4;       // 16-byte loads a thread keeps in flight
+constexpr int EDT_RUN = 16;        // rows a thread writes down a column: a word's half
+constexpr int EDT_MAX_LEVELS = 8;  // levels a launch
+
+struct EdtLevels {
+  const uint8_t* edges[EDT_MAX_LEVELS];
+  float* g2[EDT_MAX_LEVELS];
+  int H[EDT_MAX_LEVELS], W[EDT_MAX_LEVELS];
+  int first[EDT_MAX_LEVELS + 1];  // each level's first strip (lanes x strips); first[n] all
+};
+
+static_assert(EDT_THREADS == 4 * EDT_STRIP, "a block's warps load 2 x 32 rows of 4 x 16 columns");
+
+// The window's rows [wy0, wy1) of columns [x0, x0 + EDT_STRIP) into column
+// words: warp w loads 16 columns (w % 4) of 32 rows at a time, each thread one
+// row; one ballot a column gives the word.
+__device__ __forceinline__ void edt_load(const uint8_t* e, int W, int x0, int wy0, int wy1,
+                                         bool vec, uint32_t (*mask)[EDT_STRIP]) {
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, grp = warp & 3;
+  const int c = x0 + 16 * grp;
+  const int words = (wy1 - wy0 + 31) / 32;
+  for (int k0 = warp >> 2; k0 < words; k0 += 2 * EDT_LOADS) {
+    uint4 v[EDT_LOADS];
+#pragma unroll
+    for (int i = 0; i < EDT_LOADS; ++i) {
+      const int y = wy0 + 32 * (k0 + 2 * i) + ln;
+      v[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + 2 * i >= words || y >= wy1 || c >= W) continue;
+      const uint8_t* row = e + (size_t)y * W + c;
+      if (vec) {
+        v[i] = __ldg(reinterpret_cast<const uint4*>(row));
+      } else {
+        uint32_t b[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < 16 && c + j < W; ++j) b[j >> 2] |= (uint32_t)row[j] << (8 * (j & 3));
+        v[i] = make_uint4(b[0], b[1], b[2], b[3]);
       }
-  }
-  first_edge[seg][cx] = first;
-  last_edge[seg][cx] = last;
-  __syncthreads();
-  if (x >= W) return;
-  int above = -1, below = -1;  // nearest edge rows outside the segment
-  for (int s = seg - 1; s >= 0 && above < 0; --s) above = last_edge[s][cx];
-  for (int s = seg + 1; s < EDT_SEGMENTS && below < 0; ++s) below = first_edge[s][cx];
-  // Down: the distance to the nearest edge at or above (-1: none).
-  for (int y = y0; y < y1; ++y) {
-    if (e[(size_t)y * W]) above = y;
-    dn[(size_t)y * W] = above < 0 ? -1 : y - above;
-  }
-  // Up: the nearest edge at or below; the smaller of the two, squared.
-  float* out = g2 + lane + x;
-  for (int y = y1 - 1; y >= y0; --y) {
-    if (e[(size_t)y * W]) below = y;
-    int d = dn[(size_t)y * W];
-    if (below >= 0 && (d < 0 || below - y < d)) d = below - y;
-    float v = BIG;
-    if (d >= 0) {
-      const float g = (float)d;
-      v = fminf(__fmul_rn(g, g), BIG);
     }
-    out[(size_t)y * W] = v;
+#pragma unroll
+    for (int i = 0; i < EDT_LOADS; ++i) {
+      if (k0 + 2 * i >= words) break;  // warp-uniform
+      const uint32_t b[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t m = __ballot_sync(0xffffffffu, (b[j >> 2] >> (8 * (j & 3))) & 0xffu);
+        if (ln == j) mask[k0 + 2 * i][16 * grp + j] = m;
+      }
+    }
   }
+}
+
+__global__ void __launch_bounds__(EDT_THREADS)
+edt_levels_kernel(EdtLevels lv) {
+  __shared__ uint32_t mask[EDT_WORDS][EDT_STRIP];  // column words of the window
+  __shared__ int prev_e[EDT_WORDS][EDT_STRIP];     // the last edge row before each word, or -1
+  __shared__ int next_e[EDT_WORDS][EDT_STRIP];     // the first edge row after each word, or -1
+  // Each block's chunk ends, pushed over DSMEM: the first edge rows of the
+  // blocks below this one, the last of those above (-1: none).
+  __shared__ int ends_first[EDT_CHUNKS][EDT_STRIP], ends_last[EDT_CHUNKS][EDT_STRIP];
+  cluster_arrive_relaxed();  // this block has started
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int strip = blockIdx.x / C;
+  int l = 0;
+  while (strip >= lv.first[l + 1]) ++l;
+  const int H = lv.H[l], W = lv.W[l], strips = (W + EDT_STRIP - 1) / EDT_STRIP;
+  const int b = (strip - lv.first[l]) / strips, x0 = (strip - lv.first[l]) % strips * EDT_STRIP;
+  const uint8_t* e = lv.edges[l] + (size_t)b * H * W;
+  float* g2 = lv.g2[l] + (size_t)b * H * W;
+  int* slots = reinterpret_cast<int*>(g2);  // a window's first edge row, in its first row
+  const bool vec_in = W % 16 == 0 && (reinterpret_cast<uintptr_t>(lv.edges[l]) & 15) == 0;
+  const int rows = (H + C - 1) / C;
+  const int y0 = min(rank * rows, H), y1 = min(y0 + rows, H);
+  const int nwin = (y1 - y0 + EDT_WINDOW - 1) / EDT_WINDOW;
+  const int t = threadIdx.x, c = t & (EDT_STRIP - 1), x = x0 + c;
+  const bool up = t < EDT_STRIP, down = t >= EDT_STRIP && t < 2 * EDT_STRIP;  // column walkers
+  // -- the columns' loads and chunk ends
+  int chunk_end = -1;  // up: the chunk's first edge row; down: its last
+  for (int w = 0; w < nwin; ++w) {
+    const int wy0 = y0 + w * EDT_WINDOW, wy1 = min(wy0 + EDT_WINDOW, y1);
+    const int words = (wy1 - wy0 + 31) / 32;
+    if (w > 0) __syncthreads();  // the last window's words are read
+    edt_load(e, W, x0, wy0, wy1, vec_in, mask);
+    __syncthreads();
+    if (up) {
+      int f = -1;
+      for (int k = 0; k < words && f < 0; ++k)
+        if (mask[k][c]) f = wy0 + 32 * k + __ffs(mask[k][c]) - 1;
+      if (nwin > 1 && x < W) slots[(size_t)wy0 * W + x] = f;
+      if (chunk_end < 0) chunk_end = f;
+    } else if (down) {
+      for (int k = words - 1; k >= 0; --k)
+        if (mask[k][c]) {
+          chunk_end = wy0 + 32 * k + 31 - __clz(mask[k][c]);
+          break;
+        }
+    }
+  }
+  if (nwin > 1 && up && x < W) {  // each slot: the first edge at or after its window
+    int run = -1;
+    for (int w = nwin - 1; w >= 0; --w) {
+      int* slot = slots + (size_t)(y0 + w * EDT_WINDOW) * W + x;
+      if (*slot >= 0) run = *slot;
+      *slot = run;
+    }
+  }
+  // -- the columns' ends over DSMEM
+  cluster_wait();  // every block of the cluster has started: its shared memory exists
+  if (up)  // the chunk's first edges, to the blocks above
+    for (int q = 0; q < rank; ++q) *cluster.map_shared_rank(&ends_first[rank][c], q) = chunk_end;
+  if (down)  // its last, to the blocks below
+    for (int q = rank + 1; q < C; ++q) *cluster.map_shared_rank(&ends_last[rank][c], q) = chunk_end;
+  // -- the columns' cluster barrier
+  cluster.sync();  // every block's ends are in the shared memory of those that read them
+  int near = -1;  // up: the nearest edge above the chunk; down: below it
+  if (up)
+    for (int q = 0; q < rank; ++q) near = ends_last[q][c] >= 0 ? ends_last[q][c] : near;
+  if (down)
+    for (int q = C - 1; q > rank; --q) near = ends_first[q][c] >= 0 ? ends_first[q][c] : near;
+  // -- the columns' walks and stores
+  for (int w = 0; w < nwin; ++w) {
+    const int wy0 = y0 + w * EDT_WINDOW, wy1 = min(wy0 + EDT_WINDOW, y1);
+    const int words = (wy1 - wy0 + 31) / 32;
+    if (nwin > 1) {
+      __syncthreads();  // the last window's words and walks are read
+      edt_load(e, W, x0, wy0, wy1, vec_in, mask);
+      __syncthreads();
+    }
+    if (up) {  // near: the last edge above the word, carried over the windows
+      for (int k = 0; k < words; ++k) {
+        prev_e[k][c] = near;
+        if (mask[k][c]) near = wy0 + 32 * k + 31 - __clz(mask[k][c]);
+      }
+    } else if (down) {  // the first edge below the window, then below each word
+      int run = near;
+      if (w + 1 < nwin && x < W) {
+        const int s = slots[(size_t)(wy0 + EDT_WINDOW) * W + x];
+        run = s >= 0 ? s : near;
+      }
+      for (int k = words - 1; k >= 0; --k) {
+        next_e[k][c] = run;
+        if (mask[k][c]) run = wy0 + 32 * k + __ffs(mask[k][c]) - 1;
+      }
+    }
+    __syncthreads();
+    // A thread a column and a run of EDT_RUN rows (in one word): the edge
+    // above carried down the run, the edge below from the word's bits.
+    const int runs = (wy1 - wy0 + EDT_RUN - 1) / EDT_RUN;
+    for (int i = t; i < runs * EDT_STRIP; i += EDT_THREADS) {
+      const int cc = i % EDT_STRIP, r0 = i / EDT_STRIP * EDT_RUN, k = r0 >> 5;
+      if (x0 + cc >= W) continue;
+      const uint32_t m = mask[k][cc];
+      const uint32_t before = m & ((1u << (r0 & 31)) - 1u);  // the word's rows above the run
+      int above = before ? wy0 + 32 * k + 31 - __clz(before) : prev_e[k][cc];
+      const int below_word = next_e[k][cc];
+      float* out = g2 + (size_t)(wy0 + r0) * W + x0 + cc;
+      for (int r = r0; r < min(r0 + EDT_RUN, wy1 - wy0); ++r, out += W) {
+        const int y = wy0 + r;
+        const uint32_t from = m >> (r & 31);  // the word's rows from y down
+        if (from & 1u) above = y;
+        const int below = from ? y + __ffs(from) - 1 : below_word;
+        int d = above < 0 ? -1 : y - above;
+        if (below >= 0 && (d < 0 || below - y < d)) d = below - y;
+        const float g = (float)d;
+        *out = d < 0 ? BIG : fminf(__fmul_rn(g, g), BIG);
+      }
+    }
+  }  // the windows
 }
 
 // ---------------------------------------------------------------------------
@@ -525,14 +683,6 @@ __device__ __forceinline__ void zero_slot(float* pts, uint8_t* valid, int j) {
   valid[j] = 0;
 }
 
-// The split cluster barrier: arrive (relaxed: it orders no memory) and wait.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(CLOUD_THREADS, 1)
 edge_cloud_kernel(const uint8_t* __restrict__ edges, const float* __restrict__ depth,
                   float* __restrict__ points, uint8_t* __restrict__ valid,
@@ -605,6 +755,7 @@ struct DeviceInfo {
   int ready;
   int smem_optin;
   int cloud_held[5];
+  int edt_resident;  // column-pass blocks the card holds at once
 };
 constexpr int MAX_DEVICES = 64;
 static DeviceInfo g_devices[MAX_DEVICES];
@@ -652,6 +803,11 @@ static DeviceInfo* device_info(cudaError_t* err) {
     cloud_config(1 << i, 1, cloud_smem, 0, &cfg, &attr);
     *err = cudaOccupancyMaxActiveClusters(&info->cloud_held[i], edge_cloud_kernel, &cfg);
   }
+  int per_sm = 0, sms = 0;
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edt_levels_kernel, EDT_THREADS, 0);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  info->edt_resident = per_sm * sms;
   if (*err != cudaSuccess) {
     cudaGetLastError();  // reported here, not by the next launch
     return nullptr;
@@ -670,6 +826,14 @@ static int rows_band(const DeviceInfo* info, int B, int H, int W) {
   return rows_smem_bytes(W, band) <= (size_t)info->smem_optin ? band : 0;
 }
 
+// Blocks a cluster of revo_edt_columns_levels for `strips` strips: the
+// largest of EDT_CHUNKS, ..., 2 whose blocks the card holds at once, else 1.
+static int edt_cluster(const DeviceInfo* info, long long strips) {
+  int C = EDT_CHUNKS;
+  while (C > 1 && strips * C > info->edt_resident) C /= 2;
+  return C;
+}
+
 // Blocks a lane of revo_edge_cloud: the largest power of two up to
 // CLOUD_CLUSTER_MAX that leaves every block CLOUD_MIN_STEPS steps and of
 // which the card holds the B lanes' clusters at once; else 1.
@@ -680,85 +844,274 @@ static int cloud_cluster(const DeviceInfo* info, int B, int steps) {
 }
 
 // ---------------------------------------------------------------------------
-// 4. revo_pyr_level: level l -> level l + 1 of gray and depth in one pass:
-// ops/filters.py pyr_level_ref.  The gray: cv::pyrDown's 5-tap [1 4 6 4 1] /
-// 16 blur with REFLECT_101 borders at even coordinates, the taps summed as
-// the plain version sums them (each source row along x, then the rows along
-// y), rounded half to even (rintf); ((H+1)/2, (W+1)/2).  The depth: the mean
-// of the > 0 pixels of each 2x2 block, (tl + bl) + (tr + br) over the
-// count, 0 where none is; (H/2, W/2), odd sizes drop the last row / column.
-// Gray may be uint8 or float32, depth uint16 (times inv_scale, as the
-// front end converts raw depth) or float32 metres.
+// 4. revo_pyramid: a frame's pyramid, up to two steps a launch (level l ->
+// l + 1 -> l + 2): ops/filters.py pyramid_ref, pyr_level_ref chained.  A
+// step: the gray by cv::pyrDown's 5-tap [1 4 6 4 1] / 16 blur with
+// REFLECT_101 borders at even coordinates, the taps summed as the plain
+// version sums them (each source row along x, then the rows along y),
+// rounded half to even (rintf), ((H+1)/2, (W+1)/2); the depth, the mean of
+// the > 0 pixels of each 2x2 block, (tl + bl) + (tr + br) over the count, 0
+// where none is, (H/2, W/2), odd sizes dropping the last row / column.  Gray
+// may be uint8 or float32, depth uint16 (times inv_scale, as the front end
+// converts raw depth) or float32 metres; from uint8 / uint16 the launch also
+// writes the input level as float32 (gray.to(float32), depth.to(float32) *
+// inv_scale), what the front end's level 0 is.
+//
+// A block takes a tile of PYR_TH x PYR_TW pixels of the second step's level
+// (a one-step launch: the tile that level would have) and stages the input
+// window its tile needs, REFLECT_101 halo included, in shared memory at once
+// (16-byte float / 4-byte uint8 loads where W % 4 == 0).  It sums each
+// staged row's 5 taps along x once for every column of the first step's
+// tile, then the 5 rows along y into that tile, which it keeps with a 2-pixel
+// halo of its own (each halo pixel from its reflected row and column at the
+// first step's borders: the plain version's bits in its order), writes the
+// tile's interior, and computes the second step from the tile; the depth's
+// 2x2 means of the second step read the first's from the tile too.  Bounds:
+// the input read and the levels written once (640x480 from uint8 / uint16,
+// level 0's float32 written: ~4.1 MB, ~1.2 us at 3.35 TB/s; from float32
+// ~3.2 MB); the taps are ~60 operations a first-step pixel.
 constexpr int PYR_THREADS = 256;
+constexpr int PYR_TH = 8, PYR_TW = 16;       // a block's tile of the second step's level
+constexpr int PYR_ROWS0 = 4 * PYR_TH + 11;   // input rows staged: [4 Y - 6, 4 Y + 4 TH + 5)
+constexpr int PYR_COLS0 = 4 * PYR_TW + 16;   // input columns staged: [4 X - 8, 4 X + 4 TW + 8)
+constexpr int PYR_ROWS1 = 2 * PYR_TH + 3;    // the first step's tile with its halo:
+constexpr int PYR_COLS1 = 2 * PYR_TW + 3;    //   rows [2 Y - 2, 2 Y + 2 TH], likewise columns
+constexpr int PYR_CHUNKS = (PYR_ROWS0 * PYR_COLS0 / 4 + PYR_THREADS - 1) / PYR_THREADS;
+constexpr int PYR_GROUPS = PYR_THREADS / PYR_COLS1;  // row groups of the tap sums: 7
+static_assert(PYR_THREADS == 2 * PYR_TH * PYR_TW, "a thread takes 2 depth cells of the tile");
 
 __device__ __forceinline__ int reflect101(int j, int n) {
   return j < 0 ? -j : (j > n - 1 ? 2 * (n - 1) - j : j);
 }
 
-template <typename G>
-__device__ __forceinline__ float gray_at(const G* g, size_t i) { return (float)g[i]; }
-
-template <typename D>
-__device__ __forceinline__ float depth_at(const D* d, size_t i, float inv_scale);
-template <>
-__device__ __forceinline__ float depth_at<float>(const float* d, size_t i, float) { return d[i]; }
-template <>
-__device__ __forceinline__ float depth_at<uint16_t>(const uint16_t* d, size_t i, float inv_scale) {
-  return __fmul_rn((float)d[i], inv_scale);
+// 4 values from column x (a multiple of 4, or any where not `vec`) of row
+// `row` as float32, times `scale` for uint16 depth (0 outside [0, n)), by one
+// load where `vec` (n % 4 == 0, the tensor aligned).
+__device__ __forceinline__ float to_f(float v, float) { return v; }
+__device__ __forceinline__ float to_f(uint8_t v, float) { return (float)v; }
+__device__ __forceinline__ float to_f(uint16_t v, float scale) { return __fmul_rn((float)v, scale); }
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* row, int x, int n, bool vec, float scale) {
+  float o[4];
+  if (vec && x >= 0 && x < n) {
+    T e[4];
+    if (sizeof(T) == 4) *reinterpret_cast<float4*>(e) = __ldg(reinterpret_cast<const float4*>(row + x));
+    else if (sizeof(T) == 2) *reinterpret_cast<uint2*>(e) = __ldg(reinterpret_cast<const uint2*>(row + x));
+    else *reinterpret_cast<uint32_t*>(e) = __ldg(reinterpret_cast<const uint32_t*>(row + x));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = to_f(e[j], scale);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = x + j >= 0 && x + j < n ? to_f(row[x + j], scale) : 0.0f;
+  }
+  return make_float4(o[0], o[1], o[2], o[3]);
 }
+
+// 4 values to columns x .. x + 3 of `row`, those inside [0, n); one store
+// where `vec` (x a multiple of 4, n % 4 == 0, the tensor aligned).
+__device__ __forceinline__ void store4(float* row, int x, int n, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(row + x) = v;
+    return;
+  }
+  const float o[4] = {v.x, v.y, v.z, v.w};
+  for (int j = 0; j < 4; ++j)
+    if (x + j >= 0 && x + j < n) row[x + j] = o[j];
+}
+
+// The hole-aware mean of a 2x2 block, (tl + bl) + (tr + br) over its > 0 count.
+__device__ __forceinline__ float hole_mean(float tl, float tr, float bl, float br) {
+  auto v = [](float x) { return x > 0.0f ? x : 0.0f; };
+  auto c = [](float x) { return x > 0.0f ? 1.0f : 0.0f; };
+  const float total = __fadd_rn(__fadd_rn(v(tl), v(bl)), __fadd_rn(v(tr), v(br)));
+  const float cnt = __fadd_rn(__fadd_rn(c(tl), c(bl)), __fadd_rn(c(tr), c(br)));
+  return cnt > 0.0f ? __fdiv_rn(total, fmaxf(cnt, 1.0f)) : 0.0f;
+}
+
+// One pyrDown tap sum: 5 values at stride `s` from p, in the plain version's order.
+__device__ __forceinline__ float taps5(const float* p, int s) {
+  const float k[5] = {1.0f / 16.0f, 4.0f / 16.0f, 6.0f / 16.0f, 4.0f / 16.0f, 1.0f / 16.0f};
+  float r = __fmul_rn(p[0], k[0]);
+#pragma unroll
+  for (int u = 1; u < 5; ++u) r = __fadd_rn(r, __fmul_rn(p[u * s], k[u]));
+  return r;
+}
+
+struct PyrOut {
+  float *g0, *d0;  // the input level as float32 (null: not written)
+  float *g1, *d1, *g2, *d2;  // the steps' levels (g2, d2 null: one step)
+};
 
 template <typename G, typename D>
 __global__ void __launch_bounds__(PYR_THREADS)
-pyr_level_kernel(const G* __restrict__ gray, const D* __restrict__ depth, float inv_scale,
-                 float* __restrict__ gray_out, float* __restrict__ depth_out, int H, int W) {
+pyramid_kernel(const G* __restrict__ gray, const D* __restrict__ depth, float inv_scale,
+               PyrOut out, int H, int W, int HD, int WD, int tiles_x) {
+  __shared__ __align__(16) float g0s[PYR_ROWS0][PYR_COLS0];  // the input window
+  __shared__ float hs[PYR_ROWS0][PYR_COLS1];   // its rows' tap sums along x
+  __shared__ float g1s[PYR_ROWS1][PYR_COLS1];  // the first step's tile with its halo
+  __shared__ float d1s[2 * PYR_TH][2 * PYR_TW];  // the first step's depth tile
   const float k[5] = {1.0f / 16.0f, 4.0f / 16.0f, 6.0f / 16.0f, 4.0f / 16.0f, 1.0f / 16.0f};
-  const int ho = (H + 1) / 2, wo = (W + 1) / 2, hd = H / 2, wd = W / 2;
+  const bool two = out.g2 != nullptr;
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2, hd1 = HD / 2, wd1 = WD / 2;
+  const int H2 = (H1 + 1) / 2, W2 = (W1 + 1) / 2, hd2 = hd1 / 2, wd2 = wd1 / 2;
   const int b = blockIdx.y;
-  const int i = (blockIdx.x * PYR_THREADS + threadIdx.x) / wo;
-  const int j = (blockIdx.x * PYR_THREADS + threadIdx.x) % wo;
-  if (i >= ho) return;
-  const size_t lane = (size_t)b * H * W;
-  float acc = 0.0f;
-  for (int t = 0; t < 5; ++t) {
-    const size_t row = lane + (size_t)reflect101(2 * i + t - 2, H) * W;
-    float r = __fmul_rn(gray_at(gray, row + reflect101(2 * j - 2, W)), k[0]);
-    for (int u = 1; u < 5; ++u)
-      r = __fadd_rn(r, __fmul_rn(gray_at(gray, row + reflect101(2 * j + u - 2, W)), k[u]));
-    const float term = __fmul_rn(r, k[t]);
-    acc = t == 0 ? term : __fadd_rn(acc, term);
+  const int Y = blockIdx.x / tiles_x * PYR_TH, X = blockIdx.x % tiles_x * PYR_TW;
+  const int ys0 = 4 * Y - 6, xs0 = 4 * X - 8;  // the window's origin in the input
+  const G* g = gray + (size_t)b * H * W;
+  const D* d = depth + (size_t)b * HD * WD;
+  const int t = threadIdx.x;
+  // -- the pyramid's loads
+  // Every load of the thread in flight at once: its chunks of 4 gray values
+  // of the window, and its 2 x 4 depth values, the 2x2 cells (r, c), (r, c +
+  // 1) of the first step: cells [2 Y, 2 Y + 2 TH) x [2 X, 2 X + 2 TW), a
+  // thread 2 of a row.
+  const bool vec_g = W % 4 == 0 && (reinterpret_cast<uintptr_t>(gray) & (sizeof(G) * 4 - 1)) == 0;
+  const bool vec_d = WD % 4 == 0 && (reinterpret_cast<uintptr_t>(depth) & (sizeof(D) * 4 - 1)) == 0;
+  float4 v[PYR_CHUNKS];
+#pragma unroll
+  for (int i = 0; i < PYR_CHUNKS; ++i) {
+    const int q = t + i * PYR_THREADS, r = q / (PYR_COLS0 / 4), x = xs0 + 4 * (q % (PYR_COLS0 / 4));
+    const int y = ys0 + r;
+    v[i] = q < PYR_ROWS0 * PYR_COLS0 / 4 && y >= 0 && y < H
+               ? load4(g + (size_t)y * W, x, W, vec_g, 1.0f) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  gray_out[((size_t)b * ho + i) * wo + j] = rintf(acc);
-  if (i < hd && j < wd) {
-    const size_t top = lane + (size_t)(2 * i) * W + 2 * j, bot = top + W;
-    const float tl = depth_at(depth, top, inv_scale), tr = depth_at(depth, top + 1, inv_scale);
-    const float bl = depth_at(depth, bot, inv_scale), br = depth_at(depth, bot + 1, inv_scale);
-    auto v = [](float x) { return x > 0.0f ? x : 0.0f; };
-    auto c = [](float x) { return x > 0.0f ? 1.0f : 0.0f; };
-    const float total = __fadd_rn(__fadd_rn(v(tl), v(bl)), __fadd_rn(v(tr), v(br)));
-    const float cnt = __fadd_rn(__fadd_rn(c(tl), c(bl)), __fadd_rn(c(tr), c(br)));
-    depth_out[((size_t)b * hd + i) * wd + j] = cnt > 0.0f ? __fdiv_rn(total, fmaxf(cnt, 1.0f)) : 0.0f;
+  const int cr = 2 * Y + t / PYR_TW, cc = 2 * X + 2 * (t % PYR_TW);  // the thread's cells
+  float4 dv[2];
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy)
+    dv[dy] = 2 * cr + dy < HD ? load4(d + (size_t)(2 * cr + dy) * WD, 2 * cc, WD, vec_d, inv_scale)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int i = 0; i < PYR_CHUNKS; ++i) {
+    const int q = t + i * PYR_THREADS;
+    if (q < PYR_ROWS0 * PYR_COLS0 / 4)
+      *reinterpret_cast<float4*>(&g0s[q / (PYR_COLS0 / 4)][4 * (q % (PYR_COLS0 / 4))]) = v[i];
   }
-}
-
-template <typename G, typename D>
-static int launch_pyr(const void* gray, const void* depth, float inv_scale, float* gray_out,
-                      float* depth_out, int B, int H, int W, cudaStream_t stream) {
-  const long long outs = (long long)((H + 1) / 2) * ((W + 1) / 2);
-  const dim3 grid((unsigned)((outs + PYR_THREADS - 1) / PYR_THREADS), B);
-  pyr_level_kernel<G, D><<<grid, PYR_THREADS, 0, stream>>>(
-      static_cast<const G*>(gray), static_cast<const D*>(depth), inv_scale, gray_out, depth_out,
-      H, W);
-  return (int)cudaGetLastError();
+  // The depth: the first step's cells.
+  for (int j = 0; j < 2; ++j) {
+    if (cr >= hd1 || cc + j >= wd1) continue;
+    const float m = j == 0 ? hole_mean(dv[0].x, dv[0].y, dv[1].x, dv[1].y)
+                           : hole_mean(dv[0].z, dv[0].w, dv[1].z, dv[1].w);
+    out.d1[((size_t)b * hd1 + cr) * wd1 + cc + j] = m;
+    d1s[cr - 2 * Y][cc + j - 2 * X] = m;
+  }
+  __syncthreads();
+  // -- the pyramid's first step along x
+  // The first step's rows and columns the block computes: its tile's (one
+  // step), with the 2-pixel halo that the second step's valid pixels read.
+  // A thread takes one column of the tile and every PYR_GROUPS-th row.
+  const int own_r1 = min(2 * Y + 2 * PYR_TH, H1), own_c1 = min(2 * X + 2 * PYR_TW, W1);
+  const int v_lo = two ? 2 * Y - 2 : 2 * Y, u_lo = two ? 2 * X - 2 : 2 * X;  // inclusive
+  const int v_hi = two ? max(2 * min(Y + PYR_TH, H2), own_r1 - 1) : own_r1 - 1;
+  const int u_hi = two ? max(2 * min(X + PYR_TW, W2), own_c1 - 1) : own_c1 - 1;
+  const int cu = t % PYR_COLS1, rg = t / PYR_COLS1, u = 2 * X - 2 + cu;
+  const bool col = rg < PYR_GROUPS && u >= u_lo && u <= u_hi;
+  if (col) {
+    const int c1 = reflect101(u, W1);
+    int at[5];
+#pragma unroll
+    for (int s = 0; s < 5; ++s) at[s] = reflect101(2 * c1 + s - 2, W) - xs0;
+    for (int r = rg; r < PYR_ROWS0; r += PYR_GROUPS) {
+      if (ys0 + r < 0 || ys0 + r >= H) continue;
+      float p[5];
+#pragma unroll
+      for (int s = 0; s < 5; ++s) p[s] = g0s[r][at[s]];
+      hs[r][cu] = taps5(p, 1);
+    }
+  }
+  __syncthreads();
+  // -- the pyramid's first step along y
+  if (col)
+    for (int rv = rg; rv < PYR_ROWS1; rv += PYR_GROUPS) {
+      const int vv = 2 * Y - 2 + rv;
+      if (vv < v_lo || vv > v_hi) continue;
+      const int r1 = reflect101(vv, H1);
+      float p[5];
+#pragma unroll
+      for (int s = 0; s < 5; ++s) p[s] = hs[reflect101(2 * r1 + s - 2, H) - ys0][cu];
+      const float val = rintf(taps5(p, 1));
+      g1s[rv][cu] = val;
+      if (vv >= 2 * Y && vv < own_r1 && u >= 2 * X && u < own_c1)
+        out.g1[((size_t)b * H1 + vv) * W1 + u] = val;
+    }
+  // The input level's float32 where it is converted, the tile's own part:
+  // written once the steps' loads are done, while their arithmetic runs.
+  if (out.g0)
+    for (int i = t; i < 4 * PYR_TH * PYR_TW; i += PYR_THREADS) {
+      const int y = 4 * Y + i / PYR_TW, x = 4 * X + 4 * (i % PYR_TW);
+      if (y < H && x < W)
+        store4(out.g0 + ((size_t)b * H + y) * W, x, W,
+               *reinterpret_cast<const float4*>(&g0s[y - ys0][x - xs0]),
+               W % 4 == 0 && (reinterpret_cast<uintptr_t>(out.g0) & 15) == 0);
+    }
+  if (out.d0)
+    for (int dy = 0; dy < 2; ++dy)
+      if (2 * cr + dy < HD)
+        store4(out.d0 + ((size_t)b * HD + 2 * cr + dy) * WD, 2 * cc, WD, dv[dy],
+               WD % 4 == 0 && (reinterpret_cast<uintptr_t>(out.d0) & 15) == 0);
+  if (!two) return;
+  __syncthreads();
+  // -- the pyramid's second step
+  for (int i = t; i < PYR_TH * PYR_TW; i += PYR_THREADS) {
+    const int gi = Y + i / PYR_TW, gj = X + i % PYR_TW;
+    const int r2 = 2 * (gi - Y), c2 = 2 * (gj - X);  // tap (0, 0) in the tile: row 2 gi - 2
+    if (gi < H2 && gj < W2) {
+      float acc = 0.0f;
+      for (int s = 0; s < 5; ++s) {
+        const float term = __fmul_rn(taps5(&g1s[r2 + s][c2], 1), k[s]);
+        acc = s == 0 ? term : __fadd_rn(acc, term);
+      }
+      out.g2[((size_t)b * H2 + gi) * W2 + gj] = rintf(acc);
+    }
+    if (gi < hd2 && gj < wd2) {
+      const int r = 2 * (gi - Y), c = 2 * (gj - X);
+      out.d2[((size_t)b * hd2 + gi) * wd2 + gj] =
+          hole_mean(d1s[r][c], d1s[r][c + 1], d1s[r + 1][c], d1s[r + 1][c + 1]);
+    }
+  }
 }
 
 }  // namespace fe
 
-extern "C" int revo_edt_columns(const uint8_t* edges, float* g2, int B, int H, int W,
-                                cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + fe::EDT_COLS - 1) / fe::EDT_COLS, B);
-  fe::edt_columns_kernel<<<grid, fe::EDT_COLS * fe::EDT_SEGMENTS, 0, stream>>>(edges, g2, H, W);
-  return (int)cudaGetLastError();
+// n levels of B lanes each, given as n x (edges pointer, g^2 pointer, H, W)
+// in `levels` (host memory) -> g^2 of every level, one launch of clusters of
+// edt_cluster's blocks.  Every shape is taken.
+extern "C" int revo_edt_columns_levels(const long long* levels, int n, int B,
+                                       cudaStream_t stream) {
+  if (n < 1 || n > fe::EDT_MAX_LEVELS || B < 1) return (int)cudaErrorInvalidValue;
+  fe::EdtLevels lv{};
+  long long strips = 0;
+  for (int l = 0; l < n; ++l) {
+    const long long* a = levels + 4 * l;
+    if (a[2] < 1 || a[3] < 1 || a[2] > INT32_MAX || a[3] > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    lv.edges[l] = reinterpret_cast<const uint8_t*>(a[0]);
+    lv.g2[l] = reinterpret_cast<float*>(a[1]);
+    lv.H[l] = (int)a[2];
+    lv.W[l] = (int)a[3];
+    lv.first[l] = (int)strips;
+    strips += (long long)B * ((a[3] + fe::EDT_STRIP - 1) / fe::EDT_STRIP);
+    if (strips * fe::EDT_CHUNKS > INT32_MAX) return (int)cudaErrorInvalidValue;
+  }
+  lv.first[n] = (int)strips;
+  cudaError_t err;
+  const fe::DeviceInfo* info = fe::device_info(&err);
+  if (!info) return (int)err;
+  const int C = fe::edt_cluster(info, strips);
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3((unsigned)(strips * C), 1, 1);
+  cfg.blockDim = dim3(fe::EDT_THREADS, 1, 1);
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fe::edt_levels_kernel, lv);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 // B lanes of (H, W) g^2 -> structure (B, H, W, 3) float32 and the quad table
@@ -822,17 +1175,39 @@ extern "C" int revo_edge_cloud(const uint8_t* edges, const float* depth, float* 
   return (int)(err != cudaSuccess ? err : last);
 }
 
-extern "C" int revo_pyr_level(const void* gray, int gray_u8, const void* depth, int depth_u16,
-                              float inv_scale, float* gray_out, float* depth_out, int B, int H,
-                              int W, cudaStream_t stream) {
-  if (B < 1 || H < 3 || W < 3) return (int)cudaErrorInvalidValue;
-  if (gray_u8)
-    return depth_u16 ? fe::launch_pyr<uint8_t, uint16_t>(gray, depth, inv_scale, gray_out,
-                                                         depth_out, B, H, W, stream)
-                     : fe::launch_pyr<uint8_t, float>(gray, depth, inv_scale, gray_out,
-                                                      depth_out, B, H, W, stream);
-  return depth_u16 ? fe::launch_pyr<float, uint16_t>(gray, depth, inv_scale, gray_out, depth_out,
-                                                     B, H, W, stream)
-                   : fe::launch_pyr<float, float>(gray, depth, inv_scale, gray_out, depth_out,
-                                                  B, H, W, stream);
+// B lanes of (H, W) gray (uint8 / float32) and (HD, WD) depth (uint16 /
+// float32; HD <= H, WD <= W: a level's depth is its input's halved, rounded
+// down, its gray rounded up) -> `steps` (1 or 2) pyramid levels: (B,
+// (H+1)/2, (W+1)/2) gray and (B, HD/2, WD/2) depth, then the same of those;
+// g0 / d0 (null: not written) take the input as float32.  A step's gray
+// input below 3 x 3 is refused.
+extern "C" int revo_pyramid(const void* gray, int gray_u8, const void* depth, int depth_u16,
+                            float inv_scale, float* g0, float* d0, float* g1, float* d1,
+                            float* g2, float* d2, int B, int H, int W, int HD, int WD, int steps,
+                            cudaStream_t stream) {
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  if (B < 1 || B > 65535 || H < 3 || W < 3 || HD < 0 || HD > H || WD < 0 || WD > W ||
+      steps < 1 || steps > 2 || (steps == 2 && (H1 < 3 || W1 < 3 || !g2)))
+    return (int)cudaErrorInvalidValue;
+  const int tiles_x = ((W1 + 1) / 2 + fe::PYR_TW - 1) / fe::PYR_TW;
+  const int tiles_y = ((H1 + 1) / 2 + fe::PYR_TH - 1) / fe::PYR_TH;
+  const dim3 grid((unsigned)tiles_x * tiles_y, B);
+  const fe::PyrOut out{g0, d0, g1, d1, steps == 2 ? g2 : nullptr, steps == 2 ? d2 : nullptr};
+  if (gray_u8 && depth_u16)
+    fe::pyramid_kernel<uint8_t, uint16_t><<<grid, fe::PYR_THREADS, 0, stream>>>(
+        static_cast<const uint8_t*>(gray), static_cast<const uint16_t*>(depth), inv_scale, out, H,
+        W, HD, WD, tiles_x);
+  else if (gray_u8)
+    fe::pyramid_kernel<uint8_t, float><<<grid, fe::PYR_THREADS, 0, stream>>>(
+        static_cast<const uint8_t*>(gray), static_cast<const float*>(depth), inv_scale, out, H, W,
+        HD, WD, tiles_x);
+  else if (depth_u16)
+    fe::pyramid_kernel<float, uint16_t><<<grid, fe::PYR_THREADS, 0, stream>>>(
+        static_cast<const float*>(gray), static_cast<const uint16_t*>(depth), inv_scale, out, H,
+        W, HD, WD, tiles_x);
+  else
+    fe::pyramid_kernel<float, float><<<grid, fe::PYR_THREADS, 0, stream>>>(
+        static_cast<const float*>(gray), static_cast<const float*>(depth), inv_scale, out, H, W,
+        HD, WD, tiles_x);
+  return (int)cudaGetLastError();
 }

@@ -6,11 +6,13 @@ clouds, and keyframes (counterpart of revo_tpu/frontend.py).
 fill-in when patch occupancy is low, and back-projection of edge pixels with
 valid depth into a fixed-capacity cloud (``ops.backproject.backproject_edges``,
 one ``revo_edge_cloud`` call a level on the card); levels > 0 come from
-pyrDown gray and hole-aware depth subsampling (``ops.filters.pyr_level``,
-one ``revo_pyr_level`` launch a step).  ``make_keyframe`` adds the
-per-level DT structures and the quad tables of ``OptimizerConfig.quad_form``
-the solver samples (``ops.edt.keyframe_tables``: on the card two launches a
-level, ``revo_edt_columns`` and ``revo_keyframe_rows``, and no host read).
+pyrDown gray and hole-aware depth subsampling (``ops.filters.pyramid``,
+one ``revo_pyramid`` launch for two steps, which also converts the
+sensor's level 0).  ``make_keyframe`` adds the per-level DT structures and
+the quad tables of ``OptimizerConfig.quad_form`` the solver samples
+(``ops.edt.keyframe_tables``: on the card one ``revo_edt_columns_levels``
+launch for every level, then one ``revo_keyframe_rows`` a level, and no
+host read).
 Outputs live on the device of the inputs; the plain versions run on the
 CPU.
 
@@ -34,7 +36,7 @@ from revo_tpu_torch.ops.backproject import EdgeCloud, backproject_edges
 from revo_tpu_torch.ops.canny import canny_batched
 from revo_tpu_torch.ops.edge_hist import fill_in_edges, patch_histogram
 from revo_tpu_torch.ops.edt import keyframe_tables
-from revo_tpu_torch.ops.filters import gaussian_blur, pyr_level
+from revo_tpu_torch.ops.filters import gaussian_blur, pyramid
 from revo_tpu_torch.ops.undistort import remap_bilinear
 
 
@@ -84,23 +86,25 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
     then rectified first, cv::remap CV_INTER_LINEAR on both like the
     reference (imgpyramidrgbd.cpp:57-65), gray rounded back to uint8 levels."""
     inv_scale = 1.0 / cfg.dataset.depth_scale_factor
-    g = gray.to(torch.float32)
-    if depth.dtype == torch.uint16:
-        d = depth.to(torch.float32) * inv_scale
-    else:
-        d = depth.to(torch.float32)
+    if gray.dtype not in (torch.uint8, torch.float32):
+        gray = gray.to(torch.float32)
+    if depth.dtype not in (torch.uint16, torch.float32):
+        depth = depth.to(torch.float32)
     if undistort_maps is not None:
         map_u, map_v = undistort_maps
-        g = gray = torch.round(remap_bilinear(g, map_u, map_v))
-        d = depth = remap_bilinear(d, map_u, map_v)
-    # The first pyramid step reads the sensor's uint8 gray and uint16 depth
-    # as given (``pyr_level`` converts them as above); the others, and a
-    # rectified frame's, the float32 levels.
-    step_g = gray if gray.dtype == torch.uint8 else g
-    step_d = depth if depth.dtype == torch.uint16 else d
+        g = gray.to(torch.float32)
+        d = depth.to(torch.float32) * inv_scale if depth.dtype == torch.uint16 else depth
+        gray = torch.round(remap_bilinear(g, map_u, map_v))
+        depth = remap_bilinear(d, map_u, map_v)
+    # The whole pyramid first, from the sensor's uint8 gray and uint16 depth
+    # as given (``pyramid`` converts level 0 as above) or a rectified
+    # frame's float32 levels.
     pyr = cfg.pyramid
+    lead, (h, w) = gray.shape[:-2], gray.shape[-2:]
+    levels = pyramid(gray.reshape(-1, h, w), depth.reshape(-1, h, w), inv_scale, pyr.n_levels)
     prev_edges = None
-    for lvl in range(pyr.n_levels):
+    for lvl, (g, d) in enumerate(levels):
+        g, d = g.reshape(*lead, *g.shape[-2:]), d.reshape(*lead, *d.shape[-2:])
         if pyr.gaussian_before_canny:
             canny_in = gaussian_blur(g)
         else:  # a uint8 level 0 goes to Canny as it is, uncast
@@ -120,11 +124,6 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
             edges = torch.where(sparse[..., None, None], filled, edges)
         yield g, d, edges_orig, edges
         prev_edges = edges
-        if lvl + 1 < pyr.n_levels:
-            lead = g.shape[:-2]
-            g, d = pyr_level(step_g.reshape(-1, h, w), step_d.reshape(-1, h, w), inv_scale)
-            g, d = g.reshape(*lead, *g.shape[-2:]), d.reshape(*lead, *d.shape[-2:])
-            step_g, step_d = g, d
 
 
 def build_frame_batched(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
@@ -158,8 +157,8 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
 
 def make_keyframe_batched(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
     """Keyframes of a batched Frame with world poses T_w_k (B, 4, 4)."""
-    tables = [keyframe_tables(lv.edges, cfg.tracker.optimizer.quad_form)
-              for lv in frame.levels]
+    tables = keyframe_tables([lv.edges for lv in frame.levels],
+                             cfg.tracker.optimizer.quad_form)
     return Keyframe(structs=tuple(s for s, _ in tables), quads=tuple(q for _, q in tables),
                     frame=frame, T_w_k=T_w_k)
 

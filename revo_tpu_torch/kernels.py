@@ -10,7 +10,8 @@ back to the CPU.  Nothing is built when this module is imported.
 
 ``launch(name, *args)`` calls one exported function on PyTorch's current
 stream: tensors pass their data pointer (``None`` a null pointer), ints
-and floats pass by value, and the stream is appended.  Each function returns ``cudaGetLastError()``
+and floats pass by value, a sequence of ints as a pointer to a host array
+of int64, and the stream is appended.  Each function returns ``cudaGetLastError()``
 after its launch; a nonzero status raises.  ``call`` is the same call for
 a function that answers a question of the CUDA runtime instead: it returns
 the function's int.
@@ -36,8 +37,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-# Exported C functions: argument kinds ("p" pointer, "i" int, "f" float);
-# every function also takes the stream as its last argument.
+# Exported C functions: argument kinds ("p" pointer, "i" int, "f" float,
+# "a" a host array of int64); every function also takes the stream as its
+# last argument.
 SIGNATURES = {
     "revo_canny_nms": "pippiiiffi",
     "revo_canny_nms_blocks": "iiii",
@@ -62,12 +64,12 @@ SIGNATURES = {
                          + "ffffff" + "pifiifpp" + "i"),
     "revo_solve_level_clusters": "ii",
     "revo_solve_level_attr": "ii",
-    "revo_edt_columns": "ppiii",
+    "revo_edt_columns_levels": "aii",
     "revo_keyframe_rows": "pppiiiii",
     "revo_edge_cloud": "pppppiiiffffffi",
-    "revo_pyr_level": "pipifppiii",
+    "revo_pyramid": "pipif" + "p" * 6 + "iiiiii",
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float, "a": ctypes.c_void_p}
 
 
 class KernelLibrary(NamedTuple):
@@ -181,10 +183,13 @@ def call(name: str, *args, device=None) -> int:
         device = tensors[0].device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{name}: tensor arguments on different devices")
-    cargs = []
+    cargs, arrays = [], []
     for kind, a in zip(kinds, args):
         if kind == "p":
             cargs.append(ctypes.c_void_p(None if a is None else a.data_ptr()))
+        elif kind == "a":
+            arrays.append((ctypes.c_longlong * len(a))(*map(int, a)))
+            cargs.append(ctypes.cast(arrays[-1], ctypes.c_void_p))
         elif kind == "i":
             cargs.append(ctypes.c_int(int(a)))
         else:
@@ -195,9 +200,9 @@ def call(name: str, *args, device=None) -> int:
         return fn(*cargs, ctypes.c_void_p(stream))
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, device=None) -> None:
     """Launch kernel ``name`` through ``call``; raise on a nonzero launch
     status."""
-    status = call(name, *args)
+    status = call(name, *args, device=device)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with status {status}")

@@ -17,10 +17,11 @@ sqrt does not), so the result is bit-equal to any exact EDT.  The plain
 version reads R on the host (one sync a level).
 
 ``keyframe_tables`` is what ``make_keyframe`` calls: the structure and the
-quad table of a level.  A CPU tensor takes ``keyframe_tables_ref`` (the
-code above, then ``build_optimization_structure`` and ``quad_structure``);
-a CUDA tensor two hand kernels (csrc/frontend.cu): ``edt_columns`` (g^2 by
-two sweeps a column) and ``keyframe_rows`` (each row's exact squared EDT by
+quad table of every level.  CPU tensors take ``keyframe_tables_ref`` a
+level (the code above, then ``build_optimization_structure`` and
+``quad_structure``); CUDA tensors two hand kernels (csrc/frontend.cu):
+``edt_columns_levels`` (g^2 of every level in one launch, from bit-packed
+column words) and ``keyframe_rows`` a level (each row's exact squared EDT by
 a search that stops once the offset's square reaches the best so far, the
 root, the structure and the quad table), with no band radius and no host
 read; each has its plain version beside it (``edt_columns_ref``,
@@ -215,21 +216,37 @@ def _check_card(x: torch.Tensor, dtype, name: str) -> bool:
     return True
 
 
-def edt_columns(edges: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) bool edges -> (B, H, W) float32 g^2, bit-equal to
-    ``edt_columns_ref``.  CUDA tensor: ``revo_edt_columns``, one launch for
-    all B lanes (a thread a column segment: first and last edge, then a
-    sweep down and one up with the exact integer distance)."""
-    if not _check_card(edges, torch.bool, "edt_columns"):
-        return edt_columns_ref(edges)
-    b, h, w = edges.shape
-    g2 = torch.empty((b, h, w), dtype=torch.float32, device=edges.device)
-    kernels.launch("revo_edt_columns", edges, g2, b, h, w)
-    edt_columns.launches += 1
-    return g2
+EDT_MAX_LEVELS = 8  # levels a launch of revo_edt_columns_levels (csrc/frontend.cu)
 
 
-edt_columns.launches = 0
+def edt_columns_levels(levels):
+    """A sequence of (B, H, W) bool edges, one a level (B the same, H and W
+    the level's) -> their (B, H, W) float32 g^2, each bit-equal to
+    ``edt_columns_ref``.  CUDA tensors: ``revo_edt_columns_levels``, one
+    launch for every level and lane (EDT_MAX_LEVELS levels a launch): a
+    cluster of 8 blocks a strip of 64 columns, each block a chunk of rows
+    packed into column words, the chunks' first and last edges traded over
+    DSMEM."""
+    levels = list(levels)
+    if not levels:
+        raise ValueError("edt_columns_levels: want at least one level")
+    card = kernels.on_card("edt_columns_levels", *levels)  # raises for a mix of devices
+    if not all([_check_card(e, torch.bool, "edt_columns_levels") for e in levels]) or not card:
+        return [edt_columns_ref(e) for e in levels]
+    b = levels[0].shape[0]
+    if any(e.shape[0] != b for e in levels):
+        raise ValueError(f"edt_columns_levels: want one B, got {[tuple(e.shape) for e in levels]}")
+    g2s = [torch.empty(e.shape, dtype=torch.float32, device=e.device) for e in levels]
+    for k in range(0, len(levels), EDT_MAX_LEVELS):
+        group = range(k, min(k + EDT_MAX_LEVELS, len(levels)))
+        table = [v for i in group for v in (levels[i].data_ptr(), g2s[i].data_ptr(),
+                                            *levels[i].shape[1:])]
+        kernels.launch("revo_edt_columns_levels", table, len(group), b, device=levels[0].device)
+        edt_columns_levels.launches += 1
+    return g2s
+
+
+edt_columns_levels.launches = 0
 
 
 def keyframe_rows(g2: torch.Tensor, form: str):
@@ -257,13 +274,21 @@ def keyframe_rows(g2: torch.Tensor, form: str):
 keyframe_rows.launches = 0
 
 
-def keyframe_tables(edges: torch.Tensor, form: str):
-    """(..., H, W) bool edges (lanes on the leading axes) -> (structure
-    (..., H, W, 3), quad table (..., H*W, C) of ``form``): a keyframe level.
-    CPU tensor: ``keyframe_tables_ref``; CUDA tensor: ``edt_columns`` then
-    ``keyframe_rows``, two launches for all lanes, bit-equal to it."""
-    if not kernels.on_card("keyframe_tables", edges):
-        return keyframe_tables_ref(edges, form)
-    lead, (h, w) = edges.shape[:-2], edges.shape[-2:]
-    struct, quad = keyframe_rows(edt_columns(edges.reshape(-1, h, w).contiguous()), form)
-    return struct.reshape(*lead, h, w, 3), quad.reshape(*lead, h * w, quad.shape[-1])
+def keyframe_tables(levels, form: str):
+    """A sequence of (..., H, W) bool edges, one a level (lanes on the same
+    leading axes) -> a list of (structure (..., H, W, 3), quad table (...,
+    H*W, C) of ``form``), one a level.  CPU tensors: ``keyframe_tables_ref``
+    a level; CUDA tensors: ``edt_columns_levels`` once, then
+    ``keyframe_rows`` a level, 1 + levels launches for all lanes, bit-equal
+    to it."""
+    levels = list(levels)
+    if not kernels.on_card("keyframe_tables", *levels):
+        return [keyframe_tables_ref(e, form) for e in levels]
+    lead = levels[0].shape[:-2]
+    g2s = edt_columns_levels([e.reshape(-1, *e.shape[-2:]).contiguous() for e in levels])
+    out = []
+    for e, g2 in zip(levels, g2s):
+        h, w = e.shape[-2:]
+        struct, quad = keyframe_rows(g2, form)
+        out.append((struct.reshape(*lead, h, w, 3), quad.reshape(*lead, h * w, quad.shape[-1])))
+    return out

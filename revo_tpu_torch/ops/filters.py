@@ -6,11 +6,11 @@ is OpenCV's BORDER_REFLECT_101).  On uint8-valued float32 input ``pyr_down``
 and ``sobel`` are exact in float32 (taps are k/16 and small integers), so
 their results do not depend on the summation order.
 
-``pyr_level`` is one step of the frame's pyramid, gray and depth together:
-a CPU tensor takes ``pyr_level_ref`` (``pyr_down`` and
-``ops.depth.subsample_depth_with_holes``); a CUDA tensor the hand kernel
-``revo_pyr_level`` (csrc/frontend.cu), one launch for all lanes, bit-equal
-to it and counted in ``pyr_level.launches``.
+``pyramid`` is the frame's pyramid, gray and depth together: CPU tensors
+take ``pyramid_ref`` (``pyr_level_ref``, that is ``pyr_down`` and
+``ops.depth.subsample_depth_with_holes``, a step at a time); CUDA tensors
+the hand kernel ``revo_pyramid`` (csrc/frontend.cu), one launch for two
+steps of all lanes, bit-equal to it and counted in ``pyramid.launches``.
 """
 from __future__ import annotations
 
@@ -102,34 +102,74 @@ def pyr_level_ref(gray: torch.Tensor, depth: torch.Tensor, inv_scale: float = 1.
     """(B, H, W) gray (uint8 or uint8-valued float32) and depth (float32
     metres, or uint16 raw times ``inv_scale``) -> the next pyramid level:
     (pyr_down gray (B, (H+1)//2, (W+1)//2), hole-aware depth (B, H//2, W//2)),
-    float32: the plain version of ``pyr_level``."""
+    float32: one step of ``pyramid_ref``."""
     g, d = _as_float(gray, depth, inv_scale)
     return pyr_down(g), subsample_depth_with_holes(d)
 
 
-def pyr_level(gray: torch.Tensor, depth: torch.Tensor, inv_scale: float = 1.0):
-    """``pyr_level_ref``, bit-equal.  CUDA tensors: ``revo_pyr_level``, one
-    launch for all B lanes (uint8 or float32 gray, uint16 or float32 depth,
-    H and W at least 3, as REFLECT_101 needs)."""
-    if gray.dim() != 3 or gray.shape != depth.shape:
-        raise ValueError(f"pyr_level: want (B, H, W) gray and depth of one shape, got "
-                         f"{tuple(gray.shape)}, {tuple(depth.shape)}")
-    if not kernels.on_card("pyr_level", gray, depth):
-        return pyr_level_ref(gray, depth, inv_scale)
+def pyramid_ref(gray: torch.Tensor, depth: torch.Tensor, inv_scale: float = 1.0,
+                n_levels: int = 3):
+    """(B, H, W) gray and depth as ``pyr_level_ref`` takes them -> a list of
+    ``n_levels`` (gray, depth) float32 pairs: the input as float32
+    (``_as_float``), then ``pyr_level_ref`` a step: the plain version of
+    ``pyramid``."""
+    levels = [_as_float(gray, depth, inv_scale)]
+    for _ in range(n_levels - 1):
+        levels.append(pyr_level_ref(*levels[-1]))
+    return levels
+
+
+def pyramid(gray: torch.Tensor, depth: torch.Tensor, inv_scale: float = 1.0, n_levels: int = 3):
+    """``pyramid_ref``, bit-equal: every level a tensor of its own.  CUDA
+    tensors: ``revo_pyramid``, one launch for two steps of all B lanes (a
+    further launch for each two more levels), which from uint8 gray / uint16
+    depth also writes level 0's float32 (a float32 input is level 0 as it
+    is); uint8 or float32 gray, uint16 or float32 depth, each step's input
+    at least 3 x 3, as REFLECT_101 needs."""
+    if gray.dim() != 3 or gray.shape != depth.shape or n_levels < 1:
+        raise ValueError(f"pyramid: want (B, H, W) gray and depth of one shape and n_levels >= 1, "
+                         f"got {tuple(gray.shape)}, {tuple(depth.shape)}, {n_levels}")
     b, h, w = gray.shape
-    if min(h, w) < 3:
-        raise ValueError(f"pyr_level: want H, W >= 3, got {h}x{w}")
+    sizes = [(h, w)]
+    for _ in range(n_levels - 1):
+        if min(sizes[-1]) < 3:
+            raise ValueError(f"pyramid: want every step's input at least 3x3, got levels {sizes}")
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    if not kernels.on_card("pyramid", gray, depth):
+        return pyramid_ref(gray, depth, inv_scale, n_levels)
     if gray.dtype not in (torch.uint8, torch.float32) or depth.dtype not in (
             torch.uint16, torch.float32):
-        raise ValueError(f"pyr_level: want uint8 / float32 gray and uint16 / float32 depth, "
+        raise ValueError(f"pyramid: want uint8 / float32 gray and uint16 / float32 depth, "
                          f"got {gray.dtype}, {depth.dtype}")
+    if n_levels == 1:
+        return [_as_float(gray, depth, inv_scale)]
     gray, depth = gray.contiguous(), depth.contiguous()
-    g_out = torch.empty((b, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=gray.device)
-    d_out = torch.empty((b, h // 2, w // 2), dtype=torch.float32, device=gray.device)
-    kernels.launch("revo_pyr_level", gray, int(gray.dtype == torch.uint8), depth,
-                   int(depth.dtype == torch.uint16), inv_scale, g_out, d_out, b, h, w)
-    pyr_level.launches += 1
-    return g_out, d_out
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=gray.device)
+
+    g0 = gray if gray.dtype == torch.float32 else empty(b, h, w)
+    d0 = depth if depth.dtype == torch.float32 else empty(b, h, w)
+    levels = [(g0, d0)]
+    g_in, d_in = gray, depth
+    while len(levels) < n_levels:  # gray halves rounding up, depth rounding down
+        steps = min(2, n_levels - len(levels))
+        (hh, ww), (hd, wd) = g_in.shape[1:], d_in.shape[1:]
+        outs = []
+        for _ in range(steps):
+            hh, ww, hd, wd = (hh + 1) // 2, (ww + 1) // 2, hd // 2, wd // 2
+            outs.append((empty(b, hh, ww), empty(b, hd, wd)))
+        first = len(levels) == 1
+        g2, d2 = outs[1] if steps == 2 else (None, None)
+        kernels.launch("revo_pyramid", g_in, int(g_in.dtype == torch.uint8), d_in,
+                       int(d_in.dtype == torch.uint16), inv_scale,
+                       g0 if first and g0 is not gray else None,
+                       d0 if first and d0 is not depth else None,
+                       *outs[0], g2, d2, b, *g_in.shape[1:], *d_in.shape[1:], steps)
+        pyramid.launches += 1
+        levels += outs
+        g_in, d_in = outs[-1]
+    return levels
 
 
-pyr_level.launches = 0
+pyramid.launches = 0

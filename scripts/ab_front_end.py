@@ -10,23 +10,25 @@ the hand kernels are left out), the hand launches a call (every wrapper's
 ``launches`` count the tree has), and the host reads a call (the syncs
 ``torch.cuda.set_sync_debug_mode("warn")`` reports).
 
-Each worker also times ``revo_keyframe_rows`` and ``revo_edge_cloud`` alone
-at level 0 of frame 0 (the config's capacity and quad form) at B = 1 and
-8: device ms a call (launches queued behind a spin kernel, CUDA events)
-and ms a call through the wrapper (host-paced).
+Each worker also times the front end's hand kernels alone on frame 0 in
+every lane at B = 1 and 8 (``_front_calls``): ``revo_keyframe_rows`` and
+``revo_edge_cloud`` at level 0 (the config's capacity and quad form), the
+column pass and the pyramid in the form the tree has (a launch a level,
+levels 0-2, and a launch a step, from level 0 and 1; or one launch for
+every level, and one for both steps), the pyramid from uint8
+gray with uint16 depth ("raw") and from float32: device ms a call
+(launches queued behind a spin kernel, CUDA events) and ms a call through
+the wrapper (host-paced).
 
 ``--split`` adds, for OTHER (if given) and then THIS, a worker on a copy
 of the tree whose ``csrc/frontend.cu`` this script rewrites with
-``clock64`` stamps (``%globaltimer`` beside them) at the parts of the two
+``clock64`` stamps (``%globaltimer`` beside them) at the parts of the four
 kernels; the copy exports ``revo_fe_stamps``, which reads them back.  The
-stamps go in at lines this script knows in the two forms of frontend.cu
-it was written for (``two_kernels``, a parent's: the edge cloud's count and
-scatter kernels and the row-by-row keyframe kernel; ``cluster``: one
-cluster a lane for the cloud, bands with DSMEM halos for the rows); another
-form raises.  Parts, per block on its own clock (mean and slowest block,
-us), and each kernel's span on the global timer (first block's start to
-the last block's end; the gap between the cloud's two kernels in the first
-form), at level 0 of frame 0, B = 1 and 8.
+stamps go in at lines this script knows, for each kernel in each form of it
+it knows (``_KERNEL_FORMS``); a kernel in another form raises.  Parts, per
+block on its own clock (mean and slowest block, us; a part a barrier does
+not close is thread 0's), and each launch's span on the global timer (first
+block's start to the last block's end), for every call of ``_front_calls``.
 
 Usage (OTHER is an unpacked tree of another commit, e.g. ``git archive``
 into a directory that ``.gitignore`` lists)::
@@ -35,8 +37,8 @@ into a directory that ``.gitignore`` lists)::
     python3 scripts/ab_front_end.py --split   # this tree alone, split
     python3 scripts/ab_front_end.py --check   # this tree's four kernels only
 
-``--check`` holds this tree's front-end kernels (``edt_columns``,
-``keyframe_rows``, ``backproject_edges``, ``pyr_level``) to their plain
+``--check`` holds this tree's front-end kernels (``edt_columns_levels``,
+``keyframe_rows``, ``backproject_edges``, ``pyramid``) to their plain
 versions, bit for bit, on a few shapes: a first call after editing
 csrc/frontend.cu.  Prints one JSON object per worker and, as its last line,
 the summary with the card's name and power limit.  Needs a CUDA card and
@@ -64,12 +66,12 @@ HOLD_CYCLES = 60_000_000  # chip_smoke.py's spin: ~30 ms while launches queue
 COUNTED = {
     "revo_tpu_torch.ops.canny": ("canny_fused", "canny_cluster", "canny_grid", "canny_nms",
                                  "canny_hysteresis"),
-    "revo_tpu_torch.ops.edt": ("edt_columns", "keyframe_rows"),
+    "revo_tpu_torch.ops.edt": ("edt_columns", "edt_columns_levels", "keyframe_rows"),
     "revo_tpu_torch.ops.backproject": ("backproject_edges",),
-    "revo_tpu_torch.ops.filters": ("pyr_level",),
+    "revo_tpu_torch.ops.filters": ("pyr_level", "pyramid"),
 }
-HAND = ("canny_", "edt_columns_kernel", "keyframe_rows_kernel", "cloud_count_kernel",
-        "cloud_scatter_kernel", "edge_cloud_kernel", "pyr_level_kernel")  # either tree's
+HAND = ("canny_", "edt_columns_kernel", "edt_levels_kernel", "keyframe_rows_kernel",
+        "edge_cloud_kernel", "pyr_level_kernel", "pyramid_kernel")  # either tree's
 
 
 def _smi() -> str:
@@ -212,33 +214,67 @@ def _setup(root: str):
     kernels.library()
 
 
-def _level0_calls(frames_path: str) -> dict:
-    """Per B of KERNEL_LANES: (keyframe_rows call, edge cloud call) on level 0
-    of frame 0 in every lane, as ``make_keyframe`` and ``build_frame`` make
-    them (the config's quad form and level-0 capacity)."""
+def _front_calls(frames_path: str) -> dict:
+    """Name -> (B, kernel, call) of the front end's hand kernels on chain
+    frame 0 in every lane, as ``make_keyframe`` and ``build_frame`` make
+    them, at each B of KERNEL_LANES: ``keyframe_rows`` and the edge cloud
+    at level 0 (the config's quad form and level-0 capacity); the column
+    pass and the pyramid in the form the tree has (a launch a level, or one
+    for every level), the pyramid from uint8 gray with uint16 depth
+    ("raw") and from float32; in the form of a launch a step also the level-0 casts
+    (kernel None: torch ops, not split)."""
     import torch
 
     from revo_tpu_torch import frontend
     from revo_tpu_torch.config import SystemConfig
     from revo_tpu_torch.ops import backproject as BP
     from revo_tpu_torch.ops import edt as EDT
+    from revo_tpu_torch.ops import filters as FL
 
     data = np.load(frames_path)
     dev = torch.device("cuda")
     cfg = SystemConfig()
     pyr, form = cfg.pyramid, cfg.tracker.optimizer.quad_form
     cam = cfg.camera_pyramid()[0]
-    lv = frontend.build_frame(torch.from_numpy(data["grays"][0]).to(dev),
-                              torch.from_numpy(data["depths"][0]).to(dev), cfg).levels[0]
+    inv = 1.0 / cfg.dataset.depth_scale_factor
+    g_raw, d_raw = (torch.from_numpy(data[k][0]).to(dev) for k in ("grays", "depths"))
+    lvs = frontend.build_frame(g_raw, d_raw, cfg).levels
+    levels_form = hasattr(EDT, "edt_columns_levels")
     out = {}
     for b in KERNEL_LANES:
-        edges = lv.edges[None].expand(b, *lv.edges.shape).contiguous()
-        depth = lv.depth[None].expand(b, *lv.depth.shape).contiguous()
-        g2 = EDT.edt_columns(edges)
-        out[b] = (lambda g2=g2: EDT.keyframe_rows(g2, form),
-                  lambda e=edges, d=depth: BP.backproject_edges(
-                      e, d, cam.fx, cam.fy, cam.cx, cam.cy, pyr.depth_min, pyr.depth_max,
-                      pyr.edge_capacity[0]))
+        def rep(x, b=b):
+            return x[None].expand(b, *x.shape).contiguous()
+
+        edges = [rep(lv.edges) for lv in lvs]
+        if levels_form:
+            g2 = EDT.edt_columns_levels(edges)[0]
+            out[f"edt_columns_levels_b{b}"] = (b, "edt_columns",
+                                               lambda e=edges: EDT.edt_columns_levels(e))
+        else:
+            g2 = EDT.edt_columns(edges[0])
+            for lvl, e in enumerate(edges):
+                out[f"edt_columns_level{lvl}_b{b}"] = (b, "edt_columns",
+                                                       lambda e=e: EDT.edt_columns(e))
+        out[f"keyframe_rows_level0_b{b}"] = (b, "keyframe_rows",
+                                             lambda g2=g2: EDT.keyframe_rows(g2, form))
+        out[f"edge_cloud_level0_b{b}"] = (b, "edge_cloud", lambda e=edges[0], d=rep(
+            lvs[0].depth): BP.backproject_edges(e, d, cam.fx, cam.fy, cam.cx, cam.cy,
+                                                pyr.depth_min, pyr.depth_max,
+                                                pyr.edge_capacity[0]))
+        inputs = {"raw": (rep(g_raw), rep(d_raw)), "float32": (rep(lvs[0].gray), rep(lvs[0].depth))}
+        for kind, (g, d) in inputs.items():
+            if hasattr(FL, "pyramid"):
+                out[f"pyramid_{kind}_b{b}"] = (b, "pyramid", lambda g=g, d=d: FL.pyramid(
+                    g, d, inv, pyr.n_levels))
+            else:
+                out[f"pyr_level0_{kind}_b{b}"] = (b, "pyramid",
+                                                  lambda g=g, d=d: FL.pyr_level(g, d, inv))
+        if not hasattr(FL, "pyramid"):
+            out[f"pyr_level1_float32_b{b}"] = (b, "pyramid", lambda g=rep(lvs[1].gray), d=rep(
+                lvs[1].depth): FL.pyr_level(g, d, inv))
+            # the front end's level-0 casts, which the one-launch pyramid does itself
+            out[f"level0_casts_b{b}"] = (b, None, lambda g=inputs["raw"][0], d=inputs["raw"][1]: (
+                g.to(torch.float32), d.to(torch.float32) * inv))
     return out
 
 
@@ -269,32 +305,28 @@ def worker(root: str, frames_path: str) -> dict:
         n_torch, torch_ms = _torch_kernels(fn)
         out[name] = {"ms": _ms(fn), "torch_kernels": n_torch, "torch_device_ms": torch_ms,
                      "hand_launches": _hand_launches(fn), "host_reads": _host_reads(fn)}
-    for b, (rows, cloud) in _level0_calls(frames_path).items():
-        for name, fn in (("keyframe_rows", rows), ("edge_cloud", cloud)):
-            out[f"{name}_level0_b{b}"] = {"device_ms": _queued_ms(fn), "ms": _ms(fn, 50)}
+    for name, (_, _, fn) in _front_calls(frames_path).items():
+        out[name] = {"device_ms": _queued_ms(fn), "ms": _ms(fn, 50)}
     return out
 
 
 # -- the stamped copy of frontend.cu ---------------------------------------------
 
-N_LANES, N_BLOCKS, N_MARKS = 8, 256, 10
+N_KERNELS, N_BLOCKS, N_MARKS = 5, 4096, 10
 _STAMP_HEAD = r"""
 #include <cuda_runtime.h>
-// kernel (0 the cloud's count, 1 the cloud, 2 the rows), lane, block, mark, (clock, ns)
-__device__ long long g_fe_stamps[3][8][256][10][2];
+// kernel (1 the cloud, 2 the rows, 3 the column pass, 4 the pyramid), block
+// (blockIdx.y * gridDim.x + blockIdx.x), mark, (clock, ns)
+__device__ long long g_fe_stamps[5][4096][10][2];
 #define FE_STAMP(kid, k)                                                     \
   do {                                                                       \
-    if (threadIdx.x == 0 && blockIdx.y < 8 && blockIdx.x < 256) {            \
+    const unsigned fe_b_ = blockIdx.y * gridDim.x + blockIdx.x;              \
+    if (threadIdx.x == 0 && fe_b_ < 4096) {                                  \
       long long ns_;                                                         \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns_));                \
-      g_fe_stamps[kid][blockIdx.y][blockIdx.x][k][0] = clock64();            \
-      g_fe_stamps[kid][blockIdx.y][blockIdx.x][k][1] = ns_;                  \
+      g_fe_stamps[kid][fe_b_][k][0] = clock64();                             \
+      g_fe_stamps[kid][fe_b_][k][1] = ns_;                                   \
     }                                                                        \
-  } while (0)
-#define FE_CYCLES(kid, k, v)                                                 \
-  do {                                                                       \
-    if (threadIdx.x == 0 && blockIdx.y < 8 && blockIdx.x < 256)              \
-      g_fe_stamps[kid][blockIdx.y][blockIdx.x][k][0] = (v);                  \
   } while (0)
 """
 
@@ -310,119 +342,138 @@ extern "C" int revo_fe_stamps(void* out, int clear) {
 }
 """
 
-# Per form: (anchor, what replaces it) edits, and per kernel id the marks:
-# (name, mark a, mark b) parts timed on the block's clock, (name, mark) parts
-# the block accumulated itself (cycles), and the mark of the block's end.
-_FORMS = {
-    "two_kernels": {
-        "edits": [
-            ("#include <stdint.h>\n", "#include <stdint.h>\n" + _STAMP_HEAD),
-            # the rows: per row, its load with the barrier, then its search with the barrier
-            ("  const float* lane_g2 = g2 + (size_t)b * H * W;\n",
-             "  const float* lane_g2 = g2 + (size_t)b * H * W;\n  FE_STAMP(2, 0);\n"
-             "  long long fe_load = 0, fe_search = 0, fe_t = 0;\n"),
-            ("  for (int r = lo; r <= hi; ++r) {\n    bool finite = false;\n",
-             "  for (int r = lo; r <= hi; ++r) {\n    bool finite = false;\n    fe_t = clock64();\n"),
-            ("    const int any = __syncthreads_or(finite);\n",
-             "    const int any = __syncthreads_or(finite);\n"
-             "    fe_load += clock64() - fe_t;\n    fe_t = clock64();\n"),
-            ("    __syncthreads();\n  }\n  auto dt = [&](int y, int x) {\n",
-             "    __syncthreads();\n    fe_search += clock64() - fe_t;\n  }\n  FE_STAMP(2, 1);\n"
-             "  auto dt = [&](int y, int x) {\n"),
-            ("\n}\n\n// Shared memory of a band",
-             "\n  __syncthreads();\n  FE_STAMP(2, 2);\n  FE_CYCLES(2, 8, fe_load);\n"
-             "  FE_CYCLES(2, 9, fe_search);\n}\n\n// Shared memory of a band"),
-            # the cloud's count kernel
-            ("  const size_t lane = (size_t)blockIdx.y * n;\n",
-             "  FE_STAMP(0, 0);\n  const size_t lane = (size_t)blockIdx.y * n;\n"),
-            ("  if (threadIdx.x == 0) tile_counts[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = total;\n",
-             "  if (threadIdx.x == 0) tile_counts[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = total;\n"
-             "  FE_STAMP(0, 1);\n"),
-            # the scatter kernel
-            ("  const int* counts = tile_counts + (size_t)b * tiles;\n",
-             "  FE_STAMP(1, 0);\n  const int* counts = tile_counts + (size_t)b * tiles;\n"),
-            ("  const int count = block_sum(all, red);\n",
-             "  const int count = block_sum(all, red);\n  FE_STAMP(1, 1);\n"),
-            ("      zero_slot(pts, val, j);\n  // Exclusive scan of the threads' valid counts within the block.\n",
-             "      zero_slot(pts, val, j);\n  __syncthreads();\n  FE_STAMP(1, 2);\n"
-             "  // Exclusive scan of the threads' valid counts within the block.\n"),
-            ("  for (int w = 0; w < wid; ++w) base += warp_sums[w];\n",
-             "  for (int w = 0; w < wid; ++w) base += warp_sums[w];\n  FE_STAMP(1, 3);\n"),
-            ("    ++pos;\n  }\n}\n", "    ++pos;\n  }\n  __syncthreads();\n  FE_STAMP(1, 4);\n}\n"),
-        ],
-        "parts": {
-            0: [("count_kernel", 0, 1)],
-            1: [("tile_count_sum", 0, 1), ("tail_zeros", 1, 2), ("loads_and_scan", 2, 3),
-                ("winner_writes_and_gap_zeros", 3, 4)],
-            2: [("rows_loop", 0, 1), ("table_stage", 1, 2)],
+# Per kernel: its id in the stamp buffer and, per form of it in frontend.cu,
+# the (anchor, what replaces it) edits, the parts timed on the block's clock
+# (name, mark a, mark b) and the mark of the block's end.  A stamp is thread
+# 0's: a part is its block's where a barrier closes it, else thread 0's own.
+_KERNEL_FORMS = {
+    "edge_cloud": (1, {
+        "cluster": {  # one cluster a lane
+            "edits": [
+                ("    int* ws = sums + 32 * (round & 1);\n",
+                 "    FE_STAMP(1, 7);\n    int* ws = sums + 32 * (round & 1);\n"),
+                ("  // -- the cloud's loads, bits, scan and list\n", "  FE_STAMP(1, 0);\n"),
+                ("  // -- the cloud's cluster barrier\n", "  __syncthreads();\n  FE_STAMP(1, 1);\n"),
+                ("  // -- the cloud's counts\n", "  FE_STAMP(1, 2);\n"),
+                ("  if (k == 0 && threadIdx.x == 0) count_out[b] = count;\n",
+                 "  FE_STAMP(1, 3);\n  if (k == 0 && threadIdx.x == 0) count_out[b] = count;\n"),
+                ("  // -- the cloud's tail\n", "  __syncthreads();\n  FE_STAMP(1, 4);\n"),
+                ("    zero_slot(pts, val, j);\n}\n",
+                 "    zero_slot(pts, val, j);\n  __syncthreads();\n  FE_STAMP(1, 5);\n}\n"),
+            ],
+            "parts": [("loads_bits_warp_scans", 0, 7), ("block_scan_and_list", 7, 1),
+                      ("cluster_barrier", 1, 2), ("counts", 2, 3), ("slot_writes", 3, 4),
+                      ("tail_zeros", 4, 5)],
+            "end": 5,
+        }}),
+    "keyframe_rows": (2, {
+        "cluster": {  # bands in clusters, halo rows over DSMEM
+            "edits": [
+                ("  // -- the rows' loads\n", "  FE_STAMP(2, 0);\n"),
+                ("  // -- the rows' search\n", "  FE_STAMP(2, 1);\n"),
+                ("  cluster.sync();  // every block's dt rows and slices are in its shared memory\n",
+                 "  __syncthreads();\n  FE_STAMP(2, 2);\n  cluster.sync();\n  FE_STAMP(2, 3);\n"),
+                ("  cluster.sync();  // no block reads another's shared memory past here\n",
+                 "  cluster.sync();\n  FE_STAMP(2, 4);\n"),
+                ("      }\n    }\n  }\n}\n\n// Shared memory of a band",
+                 "      }\n    }\n  }\n  __syncthreads();\n  FE_STAMP(2, 5);\n}\n\n"
+                 "// Shared memory of a band"),
+            ],
+            "parts": [("loads_and_barrier", 0, 1), ("search", 1, 2), ("cluster_barrier", 2, 3),
+                      ("halo_over_dsmem_and_barrier", 3, 4), ("table_stage", 4, 5)],
+            "end": 5,
+        }}),
+    "edt_columns": (3, {
+        "segments": {  # a block 32 columns x 8 segments, a launch a level
+            "edits": [
+                ("  const int cx = threadIdx.x % EDT_COLS, seg = threadIdx.x / EDT_COLS;\n",
+                 "  FE_STAMP(3, 0);\n"
+                 "  const int cx = threadIdx.x % EDT_COLS, seg = threadIdx.x / EDT_COLS;\n"),
+                ("  __syncthreads();\n  if (x >= W) return;\n",
+                 "  FE_STAMP(3, 1);\n  __syncthreads();\n  FE_STAMP(3, 2);\n  if (x >= W) return;\n"),
+                ("  // Up: the nearest edge at or below; the smaller of the two, squared.\n",
+                 "  FE_STAMP(3, 3);\n"),
+                ("    out[(size_t)y * W] = v;\n  }\n}\n",
+                 "    out[(size_t)y * W] = v;\n  }\n  FE_STAMP(3, 4);\n}\n"),
+            ],
+            "parts": [("segment_scan", 0, 1), ("barrier", 1, 2), ("down_sweep", 2, 3),
+                      ("up_sweep", 3, 4)],
+            "end": 4,
         },
-        "cycles": {2: [("row_loads_and_barriers", 8), ("searches_and_barriers", 9)]},
-        "end": {0: 1, 1: 4, 2: 2},
-    },
-    "cluster": {
-        "edits": [
-            ("#include <stdint.h>\n", "#include <stdint.h>\n" + _STAMP_HEAD),
-            # the rows: one pass each of loads, search, halo, tables
-            ("  // -- the rows' loads\n", "  FE_STAMP(2, 0);\n"),
-            ("  // -- the rows' search\n", "  FE_STAMP(2, 1);\n"),
-            ("  cluster.sync();  // every block's dt rows and slices are in its shared memory\n",
-             "  __syncthreads();\n  FE_STAMP(2, 2);\n  cluster.sync();\n  FE_STAMP(2, 3);\n"),
-            ("  cluster.sync();  // no block reads another's shared memory past here\n",
-             "  cluster.sync();\n  FE_STAMP(2, 4);\n"),
-            ("      }\n    }\n  }\n}\n\n// Shared memory of a band",
-             "      }\n    }\n  }\n  __syncthreads();\n  FE_STAMP(2, 5);\n}\n\n"
-             "// Shared memory of a band"),
-            # the cloud
-            ("    int* ws = sums + 32 * (round & 1);\n",
-             "    FE_STAMP(1, 7);\n    int* ws = sums + 32 * (round & 1);\n"),
-            ("  // -- the cloud's loads, bits, scan and list\n", "  FE_STAMP(1, 0);\n"),
-            ("  // -- the cloud's cluster barrier\n", "  __syncthreads();\n  FE_STAMP(1, 1);\n"),
-            ("  // -- the cloud's counts\n", "  FE_STAMP(1, 2);\n"),
-            ("  if (k == 0 && threadIdx.x == 0) count_out[b] = count;\n",
-             "  FE_STAMP(1, 3);\n  if (k == 0 && threadIdx.x == 0) count_out[b] = count;\n"),
-            ("  // -- the cloud's tail\n", "  __syncthreads();\n  FE_STAMP(1, 4);\n"),
-            ("    zero_slot(pts, val, j);\n}\n",
-             "    zero_slot(pts, val, j);\n  __syncthreads();\n  FE_STAMP(1, 5);\n}\n"),
-        ],
-        "parts": {
-            1: [("loads_bits_warp_scans", 0, 7), ("block_scan_and_list", 7, 1),
-                ("cluster_barrier", 1, 2),
-                ("counts", 2, 3), ("slot_writes", 3, 4), ("tail_zeros", 4, 5)],
-            2: [("loads_and_barrier", 0, 1), ("search", 1, 2), ("cluster_barrier", 2, 3),
-                ("halo_over_dsmem_and_barrier", 3, 4), ("table_stage", 4, 5)],
+        "levels": {  # every level in one launch, a cluster a strip of 64 columns
+            "edits": [
+                ("  // -- the columns' loads and chunk ends\n", "  FE_STAMP(3, 0);\n"),
+                ("  // -- the columns' ends over DSMEM\n", "  __syncthreads();\n  FE_STAMP(3, 1);\n"),
+                ("  // -- the columns' cluster barrier\n", "  __syncthreads();\n  FE_STAMP(3, 2);\n"),
+                ("  // -- the columns' walks and stores\n", "  FE_STAMP(3, 3);\n"),
+                ("  }  // the windows\n}\n", "  }\n  __syncthreads();\n  FE_STAMP(3, 4);\n}\n"),
+            ],
+            "parts": [("loads_and_chunk_ends", 0, 1), ("ends_over_dsmem", 1, 2),
+                      ("cluster_barrier", 2, 3), ("walks_and_stores", 3, 4)],
+            "end": 4,
+        }}),
+    "pyramid": (4, {
+        "threads": {  # a thread an output pixel, a launch a step
+            "edits": [
+                ("  const int ho = (H + 1) / 2, wo = (W + 1) / 2, hd = H / 2, wd = W / 2;\n",
+                 "  FE_STAMP(4, 0);\n"
+                 "  const int ho = (H + 1) / 2, wo = (W + 1) / 2, hd = H / 2, wd = W / 2;\n"),
+                ("  gray_out[((size_t)b * ho + i) * wo + j] = rintf(acc);\n",
+                 "  gray_out[((size_t)b * ho + i) * wo + j] = rintf(acc);\n  FE_STAMP(4, 1);\n"),
+                ("fmaxf(cnt, 1.0f)) : 0.0f;\n  }\n}\n",
+                 "fmaxf(cnt, 1.0f)) : 0.0f;\n  }\n  FE_STAMP(4, 2);\n}\n"),
+            ],
+            "parts": [("gray_taps", 0, 1), ("depth_mean", 1, 2)],
+            "end": 2,
         },
-        "cycles": {},
-        "end": {1: 5, 2: 5},
-    },
+        "tiles": {  # two steps a launch, a block a tile of the second step's level
+            "edits": [
+                ("  // -- the pyramid's loads\n", "  FE_STAMP(4, 0);\n"),
+                ("  // -- the pyramid's first step along x\n", "  FE_STAMP(4, 1);\n"),
+                ("  // -- the pyramid's first step along y\n", "  FE_STAMP(4, 2);\n"),
+                ("  if (!two) return;\n  __syncthreads();\n",
+                 "  __syncthreads();\n  FE_STAMP(4, 3);\n  if (!two) return;\n"),
+                ("d1s[r + 1][c + 1]);\n    }\n  }\n}\n",
+                 "d1s[r + 1][c + 1]);\n    }\n  }\n  __syncthreads();\n  FE_STAMP(4, 4);\n}\n"),
+            ],
+            "parts": [("loads_and_depth", 0, 1), ("first_step_along_x", 1, 2),
+                      ("first_step_along_y", 2, 3), ("second_step", 3, 4)],
+            "end": 4,
+        }}),
 }
 
 
-def stamped_copy(root: str, dest: str) -> str:
+def stamped_copy(root: str, dest: str) -> dict:
     """A copy of ``root``'s package in ``dest`` with the stamps in its
-    frontend.cu; returns the form found."""
+    frontend.cu; returns each kernel's form found (raises where a kernel's
+    code is in no form this script knows)."""
     shutil.copytree(os.path.join(root, "revo_tpu_torch"), os.path.join(dest, "revo_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     path = os.path.join(dest, "revo_tpu_torch", "csrc", "frontend.cu")
     src = open(path).read()
-    for form, spec in _FORMS.items():
-        if all(src.count(anchor) == 1 for anchor, _ in spec["edits"]):
-            for anchor, repl in spec["edits"]:
-                src = src.replace(anchor, repl)
-            with open(path, "w") as f:
-                f.write(src + _STAMP_TAIL)
-            return form
-    raise RuntimeError(f"{path}: not a form of frontend.cu this script knows")
+    found = {}
+    for kernel, (_, forms) in _KERNEL_FORMS.items():
+        for form, spec in forms.items():
+            if all(src.count(anchor) == 1 for anchor, _ in spec["edits"]):
+                for anchor, repl in spec["edits"]:
+                    src = src.replace(anchor, repl)
+                found[kernel] = form
+                break
+        else:
+            raise RuntimeError(f"{path}: {kernel} is in no form this script knows")
+    src = src.replace("#include <stdint.h>\n", "#include <stdint.h>\n" + _STAMP_HEAD, 1)
+    with open(path, "w") as f:
+        f.write(src + _STAMP_TAIL)
+    return found
 
 
-def _summarise(buf: np.ndarray, kid: int, lanes: int, spec: dict) -> dict:
+def _summarise(buf: np.ndarray, kid: int, spec: dict) -> dict:
     """One launch's stamps of kernel ``kid``: per part the mean and the
     slowest block's us, the kernel's span on the global timer, its first
     start and last end (ns), and the SM clock's ns a cycle."""
-    if kid not in spec["end"]:
-        return {}
-    st = buf[kid, :lanes]  # (lanes, blocks, marks, 2)
-    last = spec["end"][kid]
-    used = (st[:, :, 0, 1] > 0) & (st[:, :, last, 1] > 0)  # blocks with rows or pixels
+    st = buf[kid]  # (blocks, marks, 2)
+    last = spec["end"]
+    used = (st[:, 0, 1] > 0) & (st[:, last, 1] > 0)  # blocks whose thread 0 reached its end
     if not used.any():
         return {}
     blocks = st[used]  # (n, marks, 2)
@@ -432,20 +483,16 @@ def _summarise(buf: np.ndarray, kid: int, lanes: int, spec: dict) -> dict:
     long = span_c > 0
     ns_per_cycle = float(np.median(span_ns[long] / span_c[long])) if long.any() else float("nan")
     out = {"blocks": int(used.sum()), "ns_per_cycle": ns_per_cycle,
-           "start_ns": float(ns[:, 0].min()), "end_ns": float(ns[:, last].max()),
            "span_us": float(ns[:, last].max() - ns[:, 0].min()) / 1e3, "parts_us": {}}
-    for name, a, b in spec["parts"].get(kid, []):
+    for name, a, b in spec["parts"]:
         d = (clk[:, b] - clk[:, a]) * ns_per_cycle / 1e3
-        out["parts_us"][name] = {"mean": float(d.mean()), "max": float(d.max())}
-    for name, m in spec["cycles"].get(kid, []):
-        d = clk[:, m] * ns_per_cycle / 1e3
         out["parts_us"][name] = {"mean": float(d.mean()), "max": float(d.max())}
     return out
 
 
-def split_worker(root: str, frames_path: str, form: str) -> dict:
-    """The stamped copy at ``root``: per kernel and B the parts, mean over
-    ``reps`` launches of each statistic."""
+def split_worker(root: str, frames_path: str, forms_json: str) -> dict:
+    """The stamped copy at ``root``: per call of ``_front_calls`` its
+    kernel's parts, mean over ``reps`` launches of each statistic."""
     import ctypes
 
     import torch
@@ -456,37 +503,35 @@ def split_worker(root: str, frames_path: str, form: str) -> dict:
     fn = kernels.library().lib.revo_fe_stamps
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
-    spec = _FORMS[form]
-    buf = np.zeros((3, N_LANES, N_BLOCKS, N_MARKS, 2), np.int64)
-    out = {"root": root, "form": form, "cases": []}
+    forms = json.loads(forms_json)
+    buf = np.zeros((N_KERNELS, N_BLOCKS, N_MARKS, 2), np.int64)
+    out = {"root": root, "forms": forms, "cases": []}
     reps = 20
-    for b, (rows, cloud) in _level0_calls(frames_path).items():
-        for name, call, kids in (("keyframe_rows", rows, (2,)), ("edge_cloud", cloud, (0, 1))):
-            runs = []
-            for _ in range(reps):
-                if fn(None, 1) != 0:
-                    raise RuntimeError("revo_fe_stamps failed")
-                call()
-                torch.cuda.synchronize()
-                if fn(buf.ctypes.data, 0) != 0:
-                    raise RuntimeError("revo_fe_stamps failed")
-                runs.append({k: _summarise(buf, k, min(b, N_LANES), spec) for k in kids})
-            case = {"kernel": name, "B": b, "launches": reps}
-            for k in kids:
-                got = [r[k] for r in runs if r[k]]
-                if not got:
-                    continue
-                key = f"kernel_{k}"
-                case[key] = {"blocks": got[0]["blocks"],
-                             "span_us": float(np.mean([g["span_us"] for g in got])),
-                             "ns_per_cycle": float(np.median([g["ns_per_cycle"] for g in got])),
-                             "parts_us": {p: {s: float(np.mean([g["parts_us"][p][s] for g in got]))
-                                              for s in ("mean", "max")}
-                                          for p in got[0]["parts_us"]}}
-            if all(r.get(0) and r.get(1) for r in runs):  # the gap between two kernels
-                case["gap_between_kernels_us"] = float(np.mean(
-                    [(r[1]["start_ns"] - r[0]["end_ns"]) / 1e3 for r in runs]))
-            out["cases"].append(case)
+    for name, (b, kernel, call) in _front_calls(frames_path).items():
+        if kernel is None:  # torch ops, no stamps
+            continue
+        kid, by_form = _KERNEL_FORMS[kernel]
+        spec = by_form[forms[kernel]]
+        runs = []
+        for _ in range(reps):
+            if fn(None, 1) != 0:
+                raise RuntimeError("revo_fe_stamps failed")
+            call()
+            torch.cuda.synchronize()
+            if fn(buf.ctypes.data, 0) != 0:
+                raise RuntimeError("revo_fe_stamps failed")
+            runs.append(_summarise(buf, kid, spec))
+        got = [r for r in runs if r]
+        case = {"call": name, "kernel": kernel, "form": forms[kernel], "B": b,
+                "launches": reps}
+        if got:
+            case.update({"blocks": got[0]["blocks"],
+                         "span_us": float(np.mean([g["span_us"] for g in got])),
+                         "ns_per_cycle": float(np.median([g["ns_per_cycle"] for g in got])),
+                         "parts_us": {p: {s: float(np.mean([g["parts_us"][p][s] for g in got]))
+                                          for s in ("mean", "max")}
+                                      for p in got[0]["parts_us"]}})
+        out["cases"].append(case)
     return out
 
 
@@ -509,22 +554,30 @@ def check() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    cases = 0
+    cases, differ = 0, []
 
     def same(a, b, what):
         nonlocal cases
         cases += 1
-        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(_bits(a), _bits(b)):
-            raise RuntimeError(f"check: {what} differs from its plain version")
+        if a.dtype != b.dtype or a.shape != b.shape:
+            differ.append(f"{what}: {a.dtype} {tuple(a.shape)} against {b.dtype} {tuple(b.shape)}")
+        elif not torch.equal(_bits(a), _bits(b)):
+            at = (_bits(a) != _bits(b)).nonzero()
+            differ.append(f"{what}: {len(at)} differ, first at {at[:3].tolist()}: "
+                          f"{[a[tuple(i)].item() for i in at[:3]]} against "
+                          f"{[b[tuple(i)].item() for i in at[:3]]}")
 
-    for b, h, w in ((1, 480, 640), (3, 61, 79), (2, 37, 65), (1, 720, 1280)):
+    shapes = ((1, 480, 640), (3, 61, 79), (2, 37, 65), (1, 720, 1280))
+    all_edges = []
+    for b, h, w in shapes:
         edges = torch.rand((b, h, w), generator=gen) < 0.03
         edges[0] = False  # a lane with no edge
         if b > 1:
             edges[1] = True  # a lane of all edges
         e = edges.to(dev)
-        g2 = EDT.edt_columns(e)
-        same(g2, EDT.edt_columns_ref(e), f"edt_columns {b}x{h}x{w}")
+        all_edges.append(e)
+        g2 = EDT.edt_columns_levels([e])[0]
+        same(g2, EDT.edt_columns_ref(e), f"edt_columns_levels {b}x{h}x{w}")
         for form in EDT.QUAD_FORMS:
             s, q = EDT.keyframe_rows(g2, form)
             s_r, q_r = EDT.keyframe_rows_ref(g2, form)
@@ -543,11 +596,33 @@ def check() -> dict:
                 same(x, y, f"edge cloud {f} cap {cap} {b}x{h}x{w}")
         gray = (torch.rand((b, h, w), generator=gen) * 255).round()
         raw = (depth.nan_to_num(0.0, 0.0, 0.0) * 5000).to(torch.int32).to(torch.uint16)
-        for gi, di in ((gray.to(dev), dd), (gray.to(torch.uint8).to(dev), raw.to(dev))):
-            for x, y, f in zip(FL.pyr_level(gi, di, 1.0 / 5000.0),
-                               FL.pyr_level_ref(gi, di, 1.0 / 5000.0), ("gray", "depth")):
-                same(x, y, f"pyr_level {f} {gi.dtype} {b}x{h}x{w}")
+        for gi, di in ((gray.to(dev), dd), (gray.to(torch.uint8).to(dev), raw.to(dev)),
+                       (gray.to(dev), raw.to(dev))):
+            for n in (2, 3, 4):
+                for k, (x, y, z) in enumerate(zip(
+                        FL.pyramid(gi, di, 1.0 / 5000.0, n),
+                        FL.pyramid_ref(gi, di, 1.0 / 5000.0, n),
+                        FL.pyramid_ref(gi.cpu(), di.cpu(), 1.0 / 5000.0, n))):
+                    what = f"level {k} of {n} {gi.dtype} {di.dtype} {b}x{h}x{w}"
+                    same(x[0], y[0], f"pyramid gray {what}")
+                    same(x[1], y[1], f"pyramid depth {what}")
+                    same(x[0].cpu(), z[0], f"pyramid gray (CPU plain) {what}")
+                    same(x[1].cpu(), z[1], f"pyramid depth (CPU plain) {what}")
+    # The column pass over levels of several shapes in one launch, and tall
+    # lanes: 4320 rows (chunks of 540 rows, one window) and 20,000 rows
+    # (chunks of 2,500 rows, three windows).
+    tall = [torch.rand((1, 4320, 40), generator=gen) < 0.001,
+            torch.rand((1, 20000, 24), generator=gen) < 0.0005]
+    tall[1][0, :, 5] = False  # a column with no edge
+    tall[1][0, 100, 7] = True  # a column with one edge
+    tall[1][0, :, 9] = False
+    tall[1][0, 19999, 9] = True
+    for group in ([e for e in all_edges if e.shape[0] == 1], [e.to(dev) for e in tall]):
+        for e, g2 in zip(group, EDT.edt_columns_levels(group)):
+            same(g2, EDT.edt_columns_ref(e), f"edt_columns_levels {tuple(e.shape)} in a group")
     torch.cuda.synchronize()
+    if differ:
+        raise RuntimeError("check: differs from the plain versions:\n" + "\n".join(differ))
     return {"check_cases": cases}
 
 
@@ -557,7 +632,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true", help="this tree's kernels only")
     ap.add_argument("--split", action="store_true", help="also split the two kernels into parts")
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "FRAMES"), help=argparse.SUPPRESS)
-    ap.add_argument("--split-worker", nargs=3, metavar=("ROOT", "FRAMES", "FORM"),
+    ap.add_argument("--split-worker", nargs=3, metavar=("ROOT", "FRAMES", "FORMS"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -590,7 +665,7 @@ def main() -> int:
             split_roots = [os.path.abspath(args.other), THIS] if args.other else [THIS]
             for k, root in enumerate(split_roots):
                 copy = os.path.join(tmp, f"stamped_{k}")
-                run("--split-worker", copy, frames, stamped_copy(root, copy))
+                run("--split-worker", copy, frames, json.dumps(stamped_copy(root, copy)))
     print(json.dumps({"smi": _smi(), "order": [r["root"] for r in runs]}))
     return 0
 

@@ -3,8 +3,13 @@ CPU: a numpy model of each kernel's algorithm, as its threads and blocks
 run it, held bit for bit to the JAX function it stands for and to the
 port's plain version, and the wrappers' routing.
 
-- ``revo_edt_columns``: segments of rows, each thread's first and last
-  edge, then a sweep down and one up a column;
+- ``revo_edt_columns_levels``: every level of a keyframe in one launch, a
+  cluster of up to EDT_CHUNKS blocks a strip of EDT_STRIP columns (the
+  bits do not depend on the cluster's size: every size is modelled), each
+  block a chunk of rows as column words (bits), the chunks' first and last
+  edges pushed between the cluster's blocks, the nearest edge above and
+  below a pixel from its word, and chunks longer than a window walked in
+  windows whose first edges go through the output;
 - ``revo_keyframe_rows``: each pixel's search over offsets in groups of
   ROWS_GROUP, the stop rule tested once a group, reads past the row's end
   clamped to it (held bit for bit to the one-offset search), by bands of
@@ -19,14 +24,19 @@ port's plain version, and the wrappers' routing.
   position of a slot wins it, a gap of the rounding is zeros), windows of
   the list where a block has more valid pixels than it holds, and the tail
   spread over the blocks (every slot written exactly once);
-- ``revo_pyr_level``: pyrDown's taps in the plain version's order, rounded
-  half to even, and the hole-aware 2x2 mean, from float32 and from uint8
-  gray / uint16 depth.
+- ``revo_pyramid``: two steps a launch, a block a tile of the second step's
+  level with its input window staged (REFLECT_101 halo), each staged row's
+  taps along x once, the first step's tile with a 2-pixel halo reflected at
+  that level's borders, then the second step from the tile; pyrDown's taps
+  in the plain version's order, rounded half to even, and the hole-aware
+  2x2 mean, from float32 and from uint8 gray / uint16 depth, the depth's
+  levels halving on their own chain.
 
-Held to ``revo_tpu.ops.edt.keyframe_structure`` / ``quad_structure``,
+Held to ``revo_tpu.ops.edt._column_distances`` (squared and clamped),
+``keyframe_structure`` / ``quad_structure``,
 ``revo_tpu.ops.backproject.backproject_edges`` (jitted, as the JAX front end
 runs it), ``revo_tpu.ops.filters.pyr_down`` and
-``revo_tpu.ops.depth.subsample_depth_with_holes``, bit for bit.  The kernels
+``revo_tpu.ops.depth.subsample_depth_with_holes`` (chained), bit for bit.  The kernels
 themselves run against their plain versions in ``chip_smoke.py`` phase 4.
 """
 import re
@@ -60,7 +70,14 @@ def _const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
 
 
-EDT_SEGMENTS = _const("EDT_SEGMENTS")
+EDT_STRIP = _const("EDT_STRIP")
+EDT_CHUNKS = _const("EDT_CHUNKS")
+EDT_THREADS = _const("EDT_THREADS")
+EDT_WORDS = _const("EDT_WORDS")
+EDT_WINDOW = 32 * EDT_WORDS
+EDT_MAX_LEVELS = _const("EDT_MAX_LEVELS")
+PYR_TH = int(re.search(r"constexpr int PYR_TH = (\d+), PYR_TW = (\d+);", SRC).group(1))
+PYR_TW = int(re.search(r"constexpr int PYR_TH = (\d+), PYR_TW = (\d+);", SRC).group(2))
 ROWS_GROUP = _const("ROWS_GROUP")
 ROWS_CLUSTER = _const("ROWS_CLUSTER")
 ROWS_BAND_MIN = _const("ROWS_BAND_MIN")
@@ -86,6 +103,20 @@ def test_wrapper_constants_follow_the_source():
     assert CLOUD_LIST * 8 + 2 * 32 * 4 + 4 <= 232448
     assert ROWS_GROUP >= 2 and ROWS_GROUP & (ROWS_GROUP - 1) == 0
     assert ROWS_CLUSTER <= 8 and CLOUD_CLUSTER_MAX <= 16
+    # The column pass: 4 warps of 16 columns a strip, 32 rows a word, a
+    # portable cluster; its wrapper's level count is the kernel's.
+    assert EDT_THREADS == 4 * EDT_STRIP and EDT_STRIP == 4 * 16 and EDT_CHUNKS <= 8
+    assert re.search(r"constexpr int EDT_WINDOW = 32 \* EDT_WORDS;", SRC)
+    assert tedt.EDT_MAX_LEVELS == EDT_MAX_LEVELS
+    # The pyramid's staged window, its first step's tile and its shared
+    # memory (static, under 48 KB).
+    for name, want in (("PYR_ROWS0", "4 \\* PYR_TH \\+ 11"), ("PYR_COLS0", "4 \\* PYR_TW \\+ 16"),
+                       ("PYR_ROWS1", "2 \\* PYR_TH \\+ 3"), ("PYR_COLS1", "2 \\* PYR_TW \\+ 3")):
+        assert re.search(rf"{name} = {want}", SRC), name
+    rows0, cols0 = 4 * PYR_TH + 11, 4 * PYR_TW + 16
+    smem = 4 * (rows0 * cols0 + rows0 * (2 * PYR_TW + 3) + (2 * PYR_TH + 3) * (2 * PYR_TW + 3)
+                + 4 * PYR_TH * PYR_TW)
+    assert smem <= 48 * 1024 and (4 * PYR_TW) % 16 == 0
     assert re.search(r"slices = 3 \* \(size_t\)\(\(W \+ ROWS_CLUSTER - 1\) / ROWS_CLUSTER\);\n"
                      r"  return \(\(size_t\)\(band \+ 3\) \* W \+ std::max\(\(size_t\)band \* W, "
                      r"slices\)\) \* sizeof\(float\);", SRC)
@@ -108,40 +139,139 @@ def lanes_of(shape):
 # -- the EDT pair ------------------------------------------------------------------
 
 
-def model_columns(e: np.ndarray) -> np.ndarray:
-    """revo_edt_columns on one (H, W) lane: EDT_SEGMENTS segments of rows a
-    column; each finds its first and last edge, then sweeps down and up
-    from the nearest edge rows of the other segments."""
+def _high_bit(x: np.ndarray) -> np.ndarray:
+    """Index of the highest set bit of each nonzero uint32 (31 - __clz)."""
+    return np.frexp(x.astype(np.float64))[1] - 1
+
+
+def _low_bit(x: np.ndarray) -> np.ndarray:
+    """Index of the lowest set bit of each nonzero uint32 (__ffs - 1)."""
+    x = x.astype(np.int64)
+    return _high_bit(x & -x)
+
+
+def _words(e: np.ndarray) -> np.ndarray:
+    """(R, C) bool rows -> (ceil(R / 32), C) uint32 column words, bit r % 32
+    of word r // 32 row r (one ballot of 32 threads a column)."""
+    r, c = e.shape
+    pad = np.zeros((-(-r // 32) * 32, c), bool)
+    pad[:r] = e
+    bits = pad.reshape(-1, 32, c).astype(np.uint64) << np.arange(32, dtype=np.uint64)[:, None]
+    return bits.sum(1).astype(np.uint32)
+
+
+def _ends(words: np.ndarray, wy0: int):
+    """Each column's first and last edge row of a window's words (-1: none)."""
+    nz = words != 0
+    k_first = np.where(nz.any(0), nz.argmax(0), -1)
+    k_last = np.where(nz.any(0), len(words) - 1 - nz[::-1].argmax(0), -1)
+    cols = np.arange(words.shape[1])
+    first = np.where(k_first >= 0, wy0 + 32 * k_first
+                     + _low_bit(np.where(k_first >= 0, words[k_first, cols], 1)), -1)
+    last = np.where(k_last >= 0, wy0 + 32 * k_last
+                    + _high_bit(np.where(k_last >= 0, words[k_last, cols], 1)), -1)
+    return first, last
+
+
+def model_columns(e: np.ndarray, window: int = EDT_WINDOW, stats=None,
+                  cluster: int = EDT_CHUNKS) -> np.ndarray:
+    """revo_edt_columns_levels on one (H, W) lane: strips of EDT_STRIP
+    columns, each a cluster of ``cluster`` blocks (edt_cluster's 8, 4, 2 or
+    1), block k the k-th chunk of ceil(H / cluster) rows in windows of
+    ``window`` rows.  A block packs a
+    window's rows into column words and finds each column's first and last
+    edge; with more than one window it writes each window's first edge into
+    the window's first output row (as int bits) and then their suffix (the
+    first edge at or after each window).  It pushes its chunk's first edges
+    to the blocks above it and its last to those below (DSMEM, before the
+    cluster barrier); after the barrier each takes the nearest edge above
+    and below its chunk from what it was given.  Then per window: a walk down
+    the words (the last edge above each word, carried over the windows) and
+    up (the first edge below each word, from the next window's slot or the
+    chunk below), and each pixel's nearest edges from its own word: bits at
+    or above its row by the highest set bit, at or below by the lowest (the
+    kernel walks runs of 16 rows a thread, carrying the edge above; the same
+    values).
+    ``stats`` (a dict) counts the windows walked.  -> g^2 (H, W) float32,
+    every pixel written once."""
     h, w = e.shape
-    rows = -(-h // EDT_SEGMENTS)
-    bounds = [(min(s * rows, h), min(s * rows + rows, h)) for s in range(EDT_SEGMENTS)]
-    first = np.full((EDT_SEGMENTS, w), -1)
-    last = np.full((EDT_SEGMENTS, w), -1)
-    for s, (y0, y1) in enumerate(bounds):
-        seg = e[y0:y1]
-        if y1 > y0:
-            has = seg.any(0)
-            first[s] = np.where(has, y0 + seg.argmax(0), -1)
-            last[s] = np.where(has, y1 - 1 - seg[::-1].argmax(0), -1)
-    out = np.empty((h, w), np.float32)
-    for s, (y0, y1) in enumerate(bounds):
-        above = np.full(w, -1)
-        for t in range(s - 1, -1, -1):
-            above = np.where(above < 0, last[t], above)
-        below = np.full(w, -1)
-        for t in range(s + 1, EDT_SEGMENTS):
-            below = np.where(below < 0, first[t], below)
-        dn = {}
-        for y in range(y0, y1):
-            above = np.where(e[y], y, above)
-            dn[y] = np.where(above < 0, -1, y - above)
-        for y in range(y1 - 1, y0 - 1, -1):
-            below = np.where(e[y], y, below)
-            d = dn[y]
-            d = np.where((below >= 0) & ((d < 0) | (below - y < d)), below - y, d)
-            g = d.astype(np.float32)
-            out[y] = np.where(d >= 0, np.minimum(g * g, BIG), BIG)
-    return out
+    g2 = np.full((h, w), np.nan, np.float32)
+    slots = g2.view(np.int32)
+    rows = -(-h // cluster)
+    for x0 in range(0, w, EDT_STRIP):
+        cols = np.arange(x0, min(x0 + EDT_STRIP, w))
+        chunks = []
+        for rank in range(cluster):  # the loads and the chunk ends
+            y0 = min(rank * rows, h)
+            y1 = min(y0 + rows, h)
+            nwin = -(-(y1 - y0) // window)
+            first, last = np.full(len(cols), -1), np.full(len(cols), -1)
+            for k in range(nwin):
+                wy0 = y0 + k * window
+                f, lst = _ends(_words(e[wy0:min(wy0 + window, y1), cols]), wy0)
+                if nwin > 1:
+                    slots[wy0, cols] = f
+                first = np.where(first < 0, f, first)
+                last = np.where(lst >= 0, lst, last)
+            if nwin > 1:
+                run = np.full(len(cols), -1)
+                for k in range(nwin - 1, -1, -1):
+                    run = np.where(slots[y0 + k * window, cols] >= 0, slots[y0 + k * window, cols],
+                                   run)
+                    slots[y0 + k * window, cols] = run
+            chunks.append((y0, y1, nwin, first, last))
+        for rank, (y0, y1, nwin, _, _) in enumerate(chunks):  # over DSMEM, then the walks
+            near = np.full(len(cols), -1)
+            for q in range(rank):
+                near = np.where(chunks[q][4] >= 0, chunks[q][4], near)
+            below = np.full(len(cols), -1)
+            for q in range(cluster - 1, rank, -1):
+                below = np.where(chunks[q][3] >= 0, chunks[q][3], below)
+            for k in range(nwin):
+                wy0 = y0 + k * window
+                wy1 = min(wy0 + window, y1)
+                if stats is not None:
+                    stats["windows"] = stats.get("windows", 0) + 1
+                words = _words(e[wy0:wy1, cols])
+                prev = np.empty(words.shape, np.int64)
+                for j in range(len(words)):
+                    prev[j] = near
+                    near = np.where(words[j] != 0, wy0 + 32 * j
+                                    + _high_bit(np.where(words[j] != 0, words[j], 1)), near)
+                run = below
+                if k + 1 < nwin:
+                    nxt = slots[wy0 + window, cols]
+                    run = np.where(nxt >= 0, nxt, below)
+                following = np.empty(words.shape, np.int64)
+                for j in range(len(words) - 1, -1, -1):
+                    following[j] = run
+                    run = np.where(words[j] != 0, wy0 + 32 * j
+                                   + _low_bit(np.where(words[j] != 0, words[j], 1)), run)
+                ys = np.arange(wy0, wy1)[:, None]
+                word = words[(ys - wy0) // 32, np.arange(len(cols))].astype(np.uint64)
+                bit = ((ys - wy0) % 32).astype(np.uint64)
+                up_bits = word & (np.uint64(0xFFFFFFFF) >> (np.uint64(31) - bit))
+                down_bits = word & ((np.uint64(0xFFFFFFFF) << bit) & np.uint64(0xFFFFFFFF))
+                base = wy0 + 32 * ((ys - wy0) // 32)
+                above = np.where(up_bits != 0, base + _high_bit(np.where(up_bits != 0, up_bits, 1)),
+                                 prev[(ys - wy0) // 32, np.arange(len(cols))])
+                below_px = np.where(down_bits != 0,
+                                    base + _low_bit(np.where(down_bits != 0, down_bits, 1)),
+                                    following[(ys - wy0) // 32, np.arange(len(cols))])
+                d = np.where(above < 0, -1, ys - above)
+                d = np.where((below_px >= 0) & ((d < 0) | (below_px - ys < d)), below_px - ys, d)
+                g = d.astype(np.float32)
+                assert np.isnan(g2[wy0:wy1, cols]).all() or nwin > 1, "a pixel written twice"
+                g2[wy0:wy1, cols] = np.where(d >= 0, np.minimum(g * g, BIG), BIG)
+    assert not np.isnan(g2).any()
+    return g2
+
+
+def jax_columns(e: np.ndarray) -> np.ndarray:
+    """JAX's ``_column_distances`` of (..., H, W) edges, squared and clamped
+    to 1e9 as ``edt_columns_ref`` does."""
+    g = np.asarray(jax.jit(jedt._column_distances)(jnp.asarray(e)))
+    return np.minimum(g * g, BIG)
 
 
 def model_row_dt_single(g2: np.ndarray) -> np.ndarray:
@@ -332,12 +462,60 @@ def jax_tables():
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_column_sweeps(shape):
-    """The segment sweeps equal the plain version's doubling relaxations
-    (``edt_columns_ref``) on every lane."""
+    """The column words, the chunk ends traded in the cluster and each
+    pixel's own word give the plain version's doubling relaxations
+    (``edt_columns_ref``) and JAX's ``_column_distances`` squared and
+    clamped on every lane (no edge, all edges, a corner edge, sparse, Canny)
+    bit for bit; W % 16 != 0 at 79 and 65 columns."""
     e = lanes_of(shape)
     got = np.stack([model_columns(x) for x in e])
     np.testing.assert_array_equal(got, tedt.edt_columns_ref(torch.from_numpy(e)).numpy())
+    np.testing.assert_array_equal(got, jax_columns(e))
     assert (got[1] == BIG).all() and (got[2] == 0).all()
+    for cluster in (1, 2, 4):  # the smaller clusters of larger B: the same bits
+        np.testing.assert_array_equal(np.stack([model_columns(x, cluster=cluster) for x in e]), got)
+
+
+@pytest.mark.parametrize("case", ["4320 rows", "windows", "small windows"])
+def test_column_windows(case):
+    """Tall lanes: 4320 rows (chunks of 540, one window each), a lane taller
+    than EDT_CHUNKS windows (chunks of several windows, their first edges
+    carried through the output), and the same walk with windows of 32 and
+    64 rows on a short lane (many windows a chunk): columns with no edge,
+    one edge in the first or the last row, and sparse ones, bit-equal to the
+    plain version."""
+    rng = np.random.default_rng(len(case))
+    h, w = {"4320 rows": (4320, 19), "windows": (EDT_CHUNKS * EDT_WINDOW * 2 + 37, 5),
+            "small windows": (700, 70)}[case]
+    e = rng.random((h, w)) < 0.002
+    e[:, 1] = False
+    e[:, 2] = False
+    e[0, 2] = True
+    if w > 3:
+        e[:, 3] = False
+        e[h - 1, 3] = True
+    want = tedt.edt_columns_ref(torch.from_numpy(e)[None])[0].numpy()
+    for window in ((EDT_WINDOW,) if case != "small windows" else (32, 64)):
+        stats = {}
+        np.testing.assert_array_equal(model_columns(e, window, stats), want)
+        chunk = -(-h // EDT_CHUNKS)
+        assert stats["windows"] == EDT_CHUNKS * -(-w // EDT_STRIP) * -(-chunk // window)
+        if case == "windows":  # a cluster of 2: chunks of 4 windows and more
+            np.testing.assert_array_equal(model_columns(e, window, cluster=2), want)
+        assert (window < chunk) == (case != "4320 rows")
+
+
+def test_columns_levels_plain():
+    """``edt_columns_levels`` on CPU tensors: every level's plain version, a
+    list in the levels' order, lanes bit-equal to each alone; an empty list
+    is refused."""
+    levels = [torch.from_numpy(lanes_of(shape)[:3]) for shape in SHAPES]
+    got = tedt.edt_columns_levels(levels)
+    assert len(got) == len(levels) and tedt.edt_columns_levels.launches == 0
+    for e, g2 in zip(levels, got):
+        np.testing.assert_array_equal(g2.numpy(), np.stack([model_columns(x) for x in e.numpy()]))
+    with pytest.raises(ValueError, match="at least one level"):
+        tedt.edt_columns_levels([])
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -786,73 +964,240 @@ def test_cloud_full_and_empty():
 # -- the pyramid step -------------------------------------------------------------
 
 
-def model_pyr(gray: np.ndarray, depth: np.ndarray):
-    """revo_pyr_level on one lane (float32 gray and depth): a thread an
-    output pixel, each source row's 5 taps summed along x, the rows along
-    y, in order, rounded half to even; the depth of the 2x2 block as
-    (tl + bl) + (tr + br) over its count of > 0 pixels."""
+_K5 = [np.float32(k) / np.float32(16) for k in (1, 4, 6, 4, 1)]
+
+
+def _refl(j, n):
+    """REFLECT_101 of index j in [0, n), one reflection."""
+    return np.where(j < 0, -j, np.where(j > n - 1, 2 * (n - 1) - j, j))
+
+
+def _taps(values):
+    """pyrDown's 5 taps summed as the plain version sums them: the product
+    with the first tap, then each further product added in order."""
+    acc = values[0] * _K5[0]
+    for u in range(1, 5):
+        acc = acc + values[u] * _K5[u]
+    return acc
+
+
+def _hole_mean(tl, tr, bl, br):
+    """(tl + bl) + (tr + br) of the > 0 values over their count, 0 for none."""
     f32 = np.float32
-    h, w = gray.shape
-    k = np.array([1, 4, 6, 4, 1], np.float32) / f32(16)
-
-    def refl(j, n):
-        return np.where(j < 0, -j, np.where(j > n - 1, 2 * (n - 1) - j, j))
-
-    ii, jj = np.mgrid[0:(h + 1) // 2, 0:(w + 1) // 2]
-    acc = None
-    for t in range(5):
-        ry = refl(2 * ii + t - 2, h)
-        r = gray[ry, refl(2 * jj - 2, w)] * k[0]
-        for u in range(1, 5):
-            r = r + gray[ry, refl(2 * jj + u - 2, w)] * k[u]
-        acc = r * k[t] if acc is None else acc + r * k[t]
-    hd, wd = h // 2, w // 2
-    tl, tr = depth[0:2 * hd:2, 0:2 * wd:2], depth[0:2 * hd:2, 1:2 * wd:2]
-    bl, br = depth[1:2 * hd:2, 0:2 * wd:2], depth[1:2 * hd:2, 1:2 * wd:2]
 
     def v(x):
         return np.where(x > 0, x, f32(0))
 
     def c(x):
-        return (x > 0).astype(np.float32)
+        return (x > 0).astype(f32)
 
     with np.errstate(invalid="ignore"):
         total = (v(tl) + v(bl)) + (v(tr) + v(br))
         cnt = (c(tl) + c(bl)) + (c(tr) + c(br))
-        d = np.where(cnt > 0, total / np.maximum(cnt, f32(1)), f32(0))
-    return np.rint(acc).astype(np.float32), d.astype(np.float32)
+        return np.where(cnt > 0, total / np.maximum(cnt, f32(1)), f32(0)).astype(f32)
+
+
+def _write_once(out, idx, val):
+    assert np.isnan(out[idx]).all(), "a pixel written twice"
+    out[idx] = val
+
+
+def model_pyr(gray: np.ndarray, depth: np.ndarray, steps: int = 2, stats=None):
+    """revo_pyramid on one lane: (H, W) float32 gray, (HD, WD) float32 depth
+    (HD <= H, WD <= W: the depth's chain halves rounding down) -> the next
+    ``steps`` levels [(gray, depth), ...].  A block a PYR_TH x PYR_TW tile
+    (Y, X) of the second step's gray level (of the level it would be, one
+    step); it stages input rows [4Y - 6, 4Y + 4 PYR_TH + 5) and columns [4X -
+    8, 4X + 4 PYR_TW + 8) (zeros outside the image), takes the first step's
+    depth of its 2x2 cells [2Y, 2Y + 2 PYR_TH) x [2X, 2X + 2 PYR_TW) from the
+    input, sums the taps along x of every staged row for the first step's
+    columns [2X - 2, 2X + 2 PYR_TW] it needs (at their reflected column, the
+    taps at the input's reflected columns), then along y for the first
+    step's rows, each at its reflected row, into a tile with that 2-pixel
+    halo, of which it writes its own rows and columns; the second step reads
+    the tile (gray) and the cells (depth).  Every read lies in what the block
+    staged or computed, every output is written once.  ``stats`` gets the
+    blocks."""
+    f32 = np.float32
+    h, w = gray.shape
+    hd, wd = depth.shape
+    h1, w1, hd1, wd1 = (h + 1) // 2, (w + 1) // 2, hd // 2, wd // 2
+    h2, w2, hd2, wd2 = (h1 + 1) // 2, (w1 + 1) // 2, hd1 // 2, wd1 // 2
+    two = steps == 2
+    rows0, cols0, rows1, cols1 = 4 * PYR_TH + 11, 4 * PYR_TW + 16, 2 * PYR_TH + 3, 2 * PYR_TW + 3
+    g1, d1 = np.full((h1, w1), np.nan, f32), np.full((hd1, wd1), np.nan, f32)
+    g2, d2 = np.full((h2, w2), np.nan, f32), np.full((hd2, wd2), np.nan, f32)
+    for Y in range(0, h2, PYR_TH):
+        for X in range(0, w2, PYR_TW):
+            if stats is not None:
+                stats["blocks"] = stats.get("blocks", 0) + 1
+            ys0, xs0 = 4 * Y - 6, 4 * X - 8
+            yy, xx = ys0 + np.arange(rows0), xs0 + np.arange(cols0)
+            in_y, in_x = (yy >= 0) & (yy < h), (xx >= 0) & (xx < w)
+            g0s = np.zeros((rows0, cols0), f32)
+            g0s[np.ix_(in_y, in_x)] = gray[np.ix_(yy[in_y], xx[in_x])]
+            # the depth's cells
+            r, c = 2 * Y + np.arange(2 * PYR_TH), 2 * X + np.arange(2 * PYR_TW)
+            rr, cc = r[r < hd1], c[c < wd1]
+            d1s = np.full((2 * PYR_TH, 2 * PYR_TW), np.nan, f32)
+            if len(rr) and len(cc):
+                q = [depth[np.ix_(2 * rr + dy, 2 * cc + dx)] for dy in (0, 1) for dx in (0, 1)]
+                m = _hole_mean(*q)
+                _write_once(d1, np.ix_(rr, cc), m)
+                d1s[np.ix_(rr - 2 * Y, cc - 2 * X)] = m
+            own_r1, own_c1 = min(2 * Y + 2 * PYR_TH, h1), min(2 * X + 2 * PYR_TW, w1)
+            v_lo, u_lo = (2 * Y - 2, 2 * X - 2) if two else (2 * Y, 2 * X)
+            v_hi = max(2 * min(Y + PYR_TH, h2), own_r1 - 1) if two else own_r1 - 1
+            u_hi = max(2 * min(X + PYR_TW, w2), own_c1 - 1) if two else own_c1 - 1
+            # the first step along x: every staged row, the columns needed
+            u = 2 * X - 2 + np.arange(cols1)
+            u_ok = (u >= u_lo) & (u <= u_hi)
+            c1 = _refl(u[u_ok], w1)
+            cidx = [_refl(2 * c1 + t - 2, w) - xs0 for t in range(5)]
+            assert all(((i >= 0) & (i < cols0) & in_x[np.clip(i, 0, cols0 - 1)]).all()
+                       for i in cidx), "a tap outside the staged columns"
+            hs = np.full((rows0, cols1), np.nan, f32)
+            hs[np.ix_(in_y, u_ok)] = _taps([g0s[np.ix_(in_y, i)] for i in cidx])
+            # along y, into the tile with its halo
+            v = 2 * Y - 2 + np.arange(rows1)
+            v_ok = (v >= v_lo) & (v <= v_hi)
+            r1 = _refl(v[v_ok], h1)
+            ridx = [_refl(2 * r1 + t - 2, h) - ys0 for t in range(5)]
+            taps = [hs[np.ix_(i, np.flatnonzero(u_ok))] for i in ridx]
+            assert not any(np.isnan(t).any() for t in taps), "a tap outside the staged rows"
+            val = np.rint(_taps(taps)).astype(f32)
+            g1s = np.full((rows1, cols1), np.nan, f32)
+            g1s[np.ix_(v_ok, u_ok)] = val
+            own_v = (v >= 2 * Y) & (v < own_r1)
+            own_u = (u >= 2 * X) & (u < own_c1)
+            _write_once(g1, np.ix_(v[own_v], u[own_u]), g1s[np.ix_(own_v, own_u)])
+            if not two:
+                continue
+            gi, gj = Y + np.arange(PYR_TH), X + np.arange(PYR_TW)
+            gi, gj = gi[gi < h2], gj[gj < w2]
+            rv, cu = 2 * (gi - Y), 2 * (gj - X)
+            rows_sum = [_taps([g1s[np.ix_(rv + t, cu + k)] for k in range(5)]) for t in range(5)]
+            assert not any(np.isnan(x).any() for x in rows_sum), "a tap outside the tile"
+            _write_once(g2, np.ix_(gi, gj), np.rint(_taps(rows_sum)).astype(f32))
+            gi, gj = gi[gi < hd2], gj[gj < wd2]
+            if len(gi) and len(gj):
+                r, c = 2 * (gi - Y), 2 * (gj - X)
+                q = [d1s[np.ix_(r + dy, c + dx)] for dy in (0, 1) for dx in (0, 1)]
+                assert not any(np.isnan(x).any() for x in q), "a cell outside the tile"
+                _write_once(d2, np.ix_(gi, gj), _hole_mean(*q))
+    outs = [(g1, d1), (g2, d2)][:steps]
+    assert not any(np.isnan(x).any() for lv in outs for x in lv), "a pixel never written"
+    return outs
+
+
+def model_pyramid(gray: np.ndarray, depth: np.ndarray, n_levels: int, stats=None):
+    """``pyramid`` on one lane of float32 level 0: launches of two steps
+    (one for the last of an odd count) from the last level made."""
+    levels = [(gray, depth)]
+    while len(levels) < n_levels:
+        levels += model_pyr(*levels[-1], min(2, n_levels - len(levels)), stats)
+    return levels
+
+
+def pyr_lanes(shape):
+    """(gray float32, raw uint16 depth, depth in metres) of 3 lanes: synthetic
+    gray and depth with holes; lanes 1-2 with NaN depth, lane 2 with inf."""
+    h, w = shape
+    inv = np.float32(1.0 / 5000.0)
+    gray = np.stack([synthetic_gray(h, w, seed=s) for s in (1, 2, 5)]).astype(np.float32)
+    raw = np.stack([(synthetic_depth(h, w, seed=s, hole_frac=0.3) * 5000).astype(np.uint16)
+                    for s in (3, 4, 6)])
+    metres = raw.astype(np.float32) * inv
+    metres[1:, ::7, ::5] = np.nan
+    metres[2, 1::9, ::3] = np.inf
+    return gray, raw, metres
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_pyramid_step(shape):
-    """The fused step bit-equal to JAX's ``pyr_down`` and
-    ``subsample_depth_with_holes`` and to ``pyr_level_ref``, from float32
-    and from uint8 gray with uint16 raw depth (scaled as the front end
-    scales it), over depth with holes and NaN.  A third lane adds inf
-    depth, held to the plain version alone: JAX's selector matmuls spread
-    an inf along its row and column (0 * inf), the port keeps it in its
-    block."""
+    """The tiled two-step launch bit-equal to JAX's ``pyr_down`` and
+    ``subsample_depth_with_holes`` applied twice and to ``pyramid_ref``,
+    from float32 and from uint8 gray with uint16 raw depth (scaled as the
+    front end scales it), over depth with holes and NaN (W % 16 != 0 at 79
+    and 65 columns, odd H).  A third lane adds inf depth, held to the plain
+    version alone: JAX's selector matmuls spread an inf along its row and
+    column (0 * inf), the port keeps it in its block."""
     h, w = shape
     inv = 1.0 / 5000.0
-    gray = np.stack([synthetic_gray(h, w, seed=s) for s in (1, 2, 5)])
-    raw = np.stack([(synthetic_depth(h, w, seed=s, hole_frac=0.3) * 5000).astype(np.uint16)
-                    for s in (3, 4, 6)])
-    metres = raw.astype(np.float32) * np.float32(inv)
-    metres[1:, ::7, ::5] = np.nan
-    metres[2, 1::9, ::3] = np.inf
-    for g_in, d_in, d_float in ((gray.astype(np.float32), metres, metres),
-                                (gray, raw, raw.astype(np.float32) * np.float32(inv))):
-        g_ref, d_ref = tfilt.pyr_level_ref(torch.from_numpy(g_in), torch.from_numpy(d_in), inv)
+    gray, raw, metres = pyr_lanes(shape)
+    for g_in, d_in, d_float in ((gray, metres, metres),
+                                (gray.astype(np.uint8), raw, raw.astype(np.float32) * np.float32(inv))):
+        ref = tfilt.pyramid_ref(torch.from_numpy(g_in), torch.from_numpy(d_in), inv, 3)
+        np.testing.assert_array_equal(ref[0][0].numpy(), gray)
+        np.testing.assert_array_equal(ref[0][1].numpy(), d_float)
         for i in range(3):
-            g_m, d_m = model_pyr(gray[i].astype(np.float32), d_float[i])
-            np.testing.assert_array_equal(g_m, g_ref[i].numpy())
-            np.testing.assert_array_equal(d_m, d_ref[i].numpy())
-            if i < 2:
-                np.testing.assert_array_equal(g_m, np.asarray(jfilt.pyr_down(jnp.asarray(
-                    gray[i], jnp.float32))))
-                np.testing.assert_array_equal(d_m, np.asarray(
-                    jdepth.subsample_depth_with_holes(jnp.asarray(d_float[i]))))
-        assert np.isinf(d_ref[2].numpy()).any() or d_in.dtype == np.uint16
+            got = model_pyramid(gray[i], d_float[i], 3)
+            jg, jd = jnp.asarray(gray[i]), jnp.asarray(d_float[i])
+            for lvl in (1, 2):
+                np.testing.assert_array_equal(got[lvl][0], ref[lvl][0][i].numpy())
+                np.testing.assert_array_equal(got[lvl][1], ref[lvl][1][i].numpy())
+                jg, jd = jfilt.pyr_down(jg), jdepth.subsample_depth_with_holes(jd)
+                np.testing.assert_array_equal(got[lvl][0], np.asarray(jg))
+                if i < 2:
+                    np.testing.assert_array_equal(got[lvl][1], np.asarray(jd))
+        assert np.isinf(ref[1][1][2].numpy()).any() or d_in.dtype == np.uint16
+
+
+@pytest.mark.parametrize("n_levels", [2, 4])
+def test_pyramid_levels(n_levels):
+    """2 levels (one launch of one step) and 4 (two steps, then one from
+    level 2): every level bit-equal to ``pyramid_ref`` at 160x120 and 61x79,
+    whose depth levels (30x39, 15x19, 7x9) are smaller than the gray's
+    (31x40, 16x20, 8x10): each launch takes the depth's own size."""
+    for shape in (SHAPES[0], SHAPES[1]):
+        gray, _, metres = pyr_lanes(shape)
+        ref = tfilt.pyramid_ref(torch.from_numpy(gray), torch.from_numpy(metres), 1.0, n_levels)
+        assert len(ref) == n_levels
+        for i in range(2):
+            got = model_pyramid(gray[i], metres[i], n_levels)
+            for lvl in range(1, n_levels):
+                np.testing.assert_array_equal(got[lvl][0], ref[lvl][0][i].numpy())
+                np.testing.assert_array_equal(got[lvl][1], ref[lvl][1][i].numpy())
+        if shape == SHAPES[1] and n_levels == 4:
+            assert [tuple(x.shape[1:]) for lv in ref[1:] for x in lv] == [
+                (31, 40), (30, 39), (16, 20), (15, 19), (8, 10), (7, 9)]
+
+
+@pytest.mark.parametrize("shape", [(5, 5), (6, 9), (11, 7), (33, 130), (20, 300)])
+def test_pyramid_small_and_wide(shape):
+    """Levels below one tile (5x5: a first step of 3x3, a second of 2x2),
+    odd and even sizes, a tile's edge inside the image's halo (33 rows: a
+    second tile of one row) and a wide image of several tiles a row: the
+    model's reads stay in its window and tile, every pixel is written once,
+    and the levels are ``pyramid_ref``'s."""
+    h, w = shape
+    rng = np.random.default_rng(h * w)
+    gray = np.round(rng.random((h, w)) * 255).astype(np.float32)
+    depth = (rng.random((h, w)) * 4).astype(np.float32)
+    depth[rng.random((h, w)) < 0.3] = 0.0
+    ref = tfilt.pyramid_ref(torch.from_numpy(gray)[None], torch.from_numpy(depth)[None], 1.0, 3)
+    stats = {}
+    got = model_pyramid(gray, depth, 3, stats)
+    h2, w2 = ref[2][0].shape[1:]
+    assert stats["blocks"] == -(-h2 // PYR_TH) * -(-w2 // PYR_TW)
+    for lvl in (1, 2):
+        np.testing.assert_array_equal(got[lvl][0], ref[lvl][0][0].numpy())
+        np.testing.assert_array_equal(got[lvl][1], ref[lvl][1][0].numpy())
+
+
+def test_pyramid_refuses_small_steps():
+    """``pyramid`` refuses a step whose input is below 3x3 before it routes
+    (4x4 at 3 levels: level 1 is 2x2), as REFLECT_101 needs, and takes 4x4
+    at 2 levels; one level is level 0 as float32, with no step."""
+    g = torch.zeros((1, 4, 4))
+    with pytest.raises(ValueError, match="at least 3x3"):
+        tfilt.pyramid(g, g, 1.0, 3)
+    assert [tuple(x.shape) for lv in tfilt.pyramid(g, g, 1.0, 2) for x in lv] == [
+        (1, 4, 4), (1, 4, 4), (1, 2, 2), (1, 2, 2)]
+    raw = torch.full((1, 4, 4), 5000, dtype=torch.int32).to(torch.uint16)
+    (g0, d0), = tfilt.pyramid(g.to(torch.uint8), raw, 1.0 / 5000.0, 1)
+    assert g0.dtype == d0.dtype == torch.float32 and (d0 == np.float32(5000) * np.float32(
+        1.0 / 5000.0)).all()
 
 
 # -- routing ----------------------------------------------------------------------
@@ -862,17 +1207,18 @@ def _wrappers(device):
     e = torch.zeros((2, 9, 11), dtype=torch.bool, device=device)
     d = torch.ones((2, 9, 11), device=device)
     return {
-        "edt_columns": (tedt.edt_columns, lambda: tedt.edt_columns(e)),
+        "edt_columns_levels": (tedt.edt_columns_levels,
+                               lambda: tedt.edt_columns_levels([e, e[:, :5, :6]])),
         "keyframe_rows": (tedt.keyframe_rows, lambda: tedt.keyframe_rows(d, "dt4bf")),
-        "keyframe_tables": (tedt.keyframe_rows, lambda: tedt.keyframe_tables(e, "flat")),
+        "keyframe_tables": (tedt.keyframe_rows, lambda: tedt.keyframe_tables([e, e], "flat")),
         "backproject_edges": (tbp.backproject_edges,
                               lambda: tbp.backproject_edges(e, d, capacity=16, **CAM)),
-        "pyr_level": (tfilt.pyr_level, lambda: tfilt.pyr_level(d, d)),
+        "pyramid": (tfilt.pyramid, lambda: tfilt.pyramid(d, d, 1.0, 2)),
     }
 
 
-@pytest.mark.parametrize("name", ["edt_columns", "keyframe_rows", "keyframe_tables",
-                                  "backproject_edges", "pyr_level"])
+@pytest.mark.parametrize("name", ["edt_columns_levels", "keyframe_rows", "keyframe_tables",
+                                  "backproject_edges", "pyramid"])
 def test_routing(name):
     """A CPU tensor takes the plain version and counts no launch; a tensor
     on any other device than the CPU or a CUDA card raises, as do tensors
@@ -881,7 +1227,8 @@ def test_routing(name):
     before = counter.launches
     fn()
     assert counter.launches == before
-    for other in (tedt.edt_columns, tedt.keyframe_rows, tbp.backproject_edges, tfilt.pyr_level):
+    for other in (tedt.edt_columns_levels, tedt.keyframe_rows, tbp.backproject_edges,
+                  tfilt.pyramid):
         assert other.launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         _wrappers("meta")[name][1]()
@@ -889,4 +1236,6 @@ def test_routing(name):
     with pytest.raises(ValueError, match="different devices"):
         tbp.backproject_edges(e, torch.ones((1, 9, 11), device="meta"), capacity=4, **CAM)
     with pytest.raises(ValueError, match="different devices"):
-        tfilt.pyr_level(torch.ones((1, 9, 11)), torch.ones((1, 9, 11), device="meta"))
+        tfilt.pyramid(torch.ones((1, 9, 11)), torch.ones((1, 9, 11), device="meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        tedt.edt_columns_levels([e, e.to("meta")])

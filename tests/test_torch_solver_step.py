@@ -479,7 +479,9 @@ def _c_kinds(params: str) -> str:
     kinds = []
     for param in params.split(","):
         param = param.strip()
-        if "*" in param:
+        if param.startswith("const long long*"):  # a host array of int64
+            kinds.append("a")
+        elif "*" in param:
             kinds.append("p")
         elif param.startswith("cudaStream_t"):
             kinds.append("s")
