@@ -1123,10 +1123,13 @@ def _profile_kernels(fn, reps: int = 1):
     on_card = torch.autograd.DeviceType.CUDA
     spans, seen, moved = {}, [], []
     untrusted = (-1, None, None, None)
+    host_names = _host_event_names(prof, on_card)
     for e in prof.events():
         if e.name in marks:
             if e.device_type != on_card:
                 spans[e.name] = (e.time_range.start, e.time_range.end)
+        elif e.name in host_names:  # a range's copy on the device timeline
+            continue
         elif e.device_type == on_card and any(w in e.name.lower() for w in ("memcpy", "memset")):
             moved.append(e.time_range.start)
         elif e.device_type == on_card:
@@ -1149,6 +1152,14 @@ def _profile_kernels(fn, reps: int = 1):
 
 
 PROFILE_TRIES = 3  # readings a gate takes before it gives up on the profiler
+
+
+def _host_event_names(prof, on_card) -> set:
+    """The names of a trace's host events.  The profiler copies each
+    ``record_function`` range (a caller's mark, the program's spans of
+    ``utils.trace``) onto the device timeline under its own name; a device
+    event of a host event's name is such a copy, not a kernel."""
+    return {e.name for e in prof.events() if e.device_type != on_card}
 
 
 def _profile_trusted(fn, reps: int, what: str):
@@ -1210,11 +1221,12 @@ def _busy(fn):
         return None, None, None
     lo, hi = span[0]
     # Kernels only: copies, fills, the stream syncs CUPTI records on the
-    # device side, and the marked range's own copy on the device timeline
-    # (it spans the whole call) are left out.
+    # device side, and the copies of the marked range and the program's spans
+    # on the device timeline (the mark's spans the whole call) are left out.
+    host_names = _host_event_names(prof, on_card)
     inside = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == on_card and lo <= e.time_range.start <= hi
-              and e.name != "smoke_busy"
+              and e.name not in host_names
               and not any(w in e.name.lower() for w in ("memcpy", "memset", "sync"))]
     return len(inside) - 1, sum(inside) / 1e3, (hi - lo) / 1e3
 
@@ -1461,6 +1473,7 @@ def main() -> int:
     from revo_tpu_torch.ops import filters as FL
     from revo_tpu_torch.ops import lgsx as K3
     from revo_tpu_torch.ops.filters import _reflect_pad
+    from revo_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     # -- 1. device -----------------------------------------------------------
@@ -3369,33 +3382,39 @@ def main() -> int:
     n_chain = N_FRAMES - 1
     level_of = {cams[lvl].height * cams[lvl].width: lvl for lvl in range(pyr.n_levels)}
     real_state = solver.level_state
-    calls = []  # per level solved: (level, level kernel launches, lanes' evaluations)
+    calls = []  # per level solved: (level, level kernel launches)
 
     def counting(quad, *args, **kw):
         before = solver.solve_level_kernel.launches
         state = real_state(quad, *args, **kw)
-        calls.append((level_of[quad.shape[-2]], solver.solve_level_kernel.launches - before,
-                      solver.solve_level_kernel.evaluations.clone()))
+        calls.append((level_of[quad.shape[-2]], solver.solve_level_kernel.launches - before))
         return state
 
     def level_counts(fn):
         """``fn``'s result and, per level, the level kernel's launches, the
-        most evaluations a lane ran (the kernel's own count) and the host's
-        reads of the live-lane count (lm's loop form makes them; the kernel
-        must make none)."""
+        most evaluations a lane ran (the kernel's own count, which the
+        tracer holds a level) and the host's reads of the live-lane count
+        (lm's loop form makes them; the kernel must make none)."""
         calls.clear()
         reads0 = solver.lm_level_batched.host_reads
         solver.level_state = counting
+        trace.enable()
         try:
             out = fn()
         finally:
             solver.level_state = real_state
+            trace.disable()
+        # One traced level a level_state call, the last of the session.
+        traced = trace.snapshot()["levels"]
+        if len(traced) < len(calls):
+            raise RuntimeError(f"batched: {len(calls)} levels solved, {len(traced)} traced")
+        lane_evals = [lv["evaluations"] for lv in traced[len(traced) - len(calls):]]
         launches, slowest, evals = [], [], []
         for lvl in range(pyr.n_levels):
-            mine = [c for c in calls if c[0] == lvl]
-            launches.append(sum(c[1] for c in mine))
-            slowest.append(max((int(c[2].max()) for c in mine), default=0))
-            evals.append([c[2].tolist() for c in mine])
+            mine = [(c, e) for c, e in zip(calls, lane_evals) if c[0] == lvl]
+            launches.append(sum(c[1] for c, _ in mine))
+            slowest.append(max((max(e) for _, e in mine), default=0))
+            evals.append([e for _, e in mine])
         return out, {"launches": launches, "slowest_lane": slowest, "lane_evaluations": evals,
                      "host_reads": solver.lm_level_batched.host_reads - reads0}
 
@@ -4788,7 +4807,7 @@ def main() -> int:
         return {"ms": ms_, "p50_p95_p99": [rep_.latency_ms_p50, rep_.latency_ms_p95,
                                            rep_.latency_ms_p99],
                 "slowest_frames_ms": sorted(vo_.tracking_times)[-3:],
-                "keyframes": vo_.n_keyframes, "make_keyframe_ms": list(vo_.dt_times)}
+                "keyframes": vo_.n_keyframes, "make_keyframe_ms": vo_.keyframe_ms()}
 
     # The pan in turns with every level in the two-launch loop (kernel,
     # loop, loop, kernel): the same frames and keyframes, so what the tail

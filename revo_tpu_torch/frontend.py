@@ -38,6 +38,7 @@ from revo_tpu_torch.ops.edge_hist import fill_in_edges, patch_histogram
 from revo_tpu_torch.ops.edt import keyframe_tables
 from revo_tpu_torch.ops.filters import gaussian_blur, pyramid
 from revo_tpu_torch.ops.undistort import remap_bilinear
+from revo_tpu_torch.utils import trace
 
 
 class FrameLevel(NamedTuple):
@@ -131,22 +132,23 @@ def build_frame_batched(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConf
     """Full pyramids of B frames from (B, H, W) full-resolution gray and
     depth, on their device (input dtypes and ``undistort_maps`` as
     ``edge_levels`` takes them): a Frame with a leading lane axis on every
-    tensor."""
+    tensor.  Traced as ``frontend.build`` (``utils.trace``)."""
     pyr = cfg.pyramid
     cams = cfg.camera_pyramid()
     levels = []
-    for lvl, (g, d, edges_orig, edges) in enumerate(
-            edge_levels(gray, depth, cfg, undistort_maps)):
-        cam = cams[lvl]
-        cloud = backproject_edges(
-            edges, d, cam.fx, cam.fy, cam.cx, cam.cy,
-            pyr.depth_min, pyr.depth_max, pyr.edge_capacity[lvl],
-        )
-        levels.append(
-            FrameLevel(gray=g, depth=d, edges=edges, edges_orig=edges_orig, cloud=cloud)
-        )
-    return Frame(levels=tuple(levels),
-                 timestamp=torch.zeros(gray.shape[:1], device=gray.device))
+    with trace.span("frontend.build"):
+        for lvl, (g, d, edges_orig, edges) in enumerate(
+                edge_levels(gray, depth, cfg, undistort_maps)):
+            cam = cams[lvl]
+            cloud = backproject_edges(
+                edges, d, cam.fx, cam.fy, cam.cx, cam.cy,
+                pyr.depth_min, pyr.depth_max, pyr.edge_capacity[lvl],
+            )
+            levels.append(
+                FrameLevel(gray=g, depth=d, edges=edges, edges_orig=edges_orig, cloud=cloud)
+            )
+        return Frame(levels=tuple(levels),
+                     timestamp=torch.zeros(gray.shape[:1], device=gray.device))
 
 
 def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
@@ -156,9 +158,11 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
 
 
 def make_keyframe_batched(frame: Frame, T_w_k: torch.Tensor, cfg: SystemConfig) -> Keyframe:
-    """Keyframes of a batched Frame with world poses T_w_k (B, 4, 4)."""
-    tables = keyframe_tables([lv.edges for lv in frame.levels],
-                             cfg.tracker.optimizer.quad_form)
+    """Keyframes of a batched Frame with world poses T_w_k (B, 4, 4); traced
+    as ``keyframe.make``."""
+    with trace.span("keyframe.make"):
+        tables = keyframe_tables([lv.edges for lv in frame.levels],
+                                 cfg.tracker.optimizer.quad_form)
     return Keyframe(structs=tuple(s for s, _ in tables), quads=tuple(q for _, q in tables),
                     frame=frame, T_w_k=T_w_k)
 

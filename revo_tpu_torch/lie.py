@@ -25,6 +25,7 @@ import scipy.linalg
 import torch
 
 from revo_tpu_torch.ops.project import sqrt_rn
+from revo_tpu_torch.utils import trace
 
 _EPS = 1e-8
 
@@ -311,8 +312,10 @@ def inv_lu(T: torch.Tensor) -> torch.Tensor:
     """float32 inverse of small square matrices (..., n, n) by LU with
     partial pivoting and two triangular solves (LAPACK getrf + getrs through
     scipy), on the host: the algorithm and rounding of ``jnp.linalg.inv`` on
-    the CPU.  Returns a tensor on ``T``'s device."""
-    a = T.detach().cpu().numpy().astype(np.float32)
+    the CPU.  Returns a tensor on ``T``'s device; the copy to the host is the
+    host read ``lie.inv_lu`` (``utils.trace``)."""
+    with trace.host_read("lie.inv_lu"):
+        a = T.detach().cpu().numpy().astype(np.float32)
     eye = np.eye(a.shape[-1], dtype=np.float32)
     flat = a.reshape(-1, *a.shape[-2:])
     inv = np.stack([

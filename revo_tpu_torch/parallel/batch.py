@@ -41,6 +41,7 @@ from revo_tpu_torch.lanes import add_lane_axis, lane, stack_lanes
 from revo_tpu_torch.parallel.mesh import gather, shard
 from revo_tpu_torch.system import frame_step_batched
 from revo_tpu_torch.tracker import KeyframeRing, PastFrames
+from revo_tpu_torch.utils import trace
 
 
 class ScanVOState(NamedTuple):
@@ -114,31 +115,41 @@ def _vo_scan_step_batched(
     states: List[ScanVOState], gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig
 ) -> Tuple[List[ScanVOState], _StepOut]:
     """One frame of B sequences: ``states`` one per lane, gray and depth
-    (B, H, W)."""
+    (B, H, W).  Traced as ``scan.step`` with its phases ``scan.stack``,
+    the frame step (``frontend.build``, ``tracker.track``,
+    ``keyframe.vote``), ``scan.gate``, ``scan.reloc``, ``scan.promote`` and
+    ``scan.merge`` (``utils.trace``)."""
+    with trace.span("scan.step"):
+        return _scan_step(states, gray, depth, cfg)
+
+
+def _scan_step(states, gray, depth, cfg: SystemConfig):
     trk = cfg.tracker
     b, dev = len(states), gray.device
-    kf_b = stack_lanes([s.kf._replace(frame=None) for s in states])
-    frame, res, _, T_w_curr, new_kf = frame_step_batched(
-        gray, depth, kf_b, tracker.stack_past([s.past_voting for s in states]),
-        stack_lanes([s.R for s in states]), stack_lanes([s.t for s in states]), cfg,
-    )
-    prev_T_w = stack_lanes([s.prev_T_w for s in states])
-    T_nm1_n = stack_lanes([s.T_nm1_n for s in states])
+    with trace.span("scan.stack"):
+        kf_b = stack_lanes([s.kf._replace(frame=None) for s in states])
+        voting_b = tracker.stack_past([s.past_voting for s in states])
+        R0, t0 = stack_lanes([s.R for s in states]), stack_lanes([s.t for s in states])
+        prev_T_w = stack_lanes([s.prev_T_w for s in states])
+        T_nm1_n = stack_lanes([s.T_nm1_n for s in states])
+    frame, res, _, T_w_curr, new_kf = frame_step_batched(gray, depth, kf_b, voting_b, R0, t0, cfg)
 
-    # Pose-jump gate on the initial track (host twin: VOSystem._is_jump).
-    # The trace adds in float64, as torch.trace does on the CPU.
-    inv_prev = lie.inv_lu(prev_T_w)
-    d = lie.matmul_fma(inv_prev, T_w_curr)
-    trace = (d[:, 0, 0].double() + d[:, 1, 1].double() + d[:, 2, 2].double()).float()
-    cos_a = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
-    jump = (torch.linalg.vector_norm(d[:, :3, 3], dim=-1) > trk.max_jump_translation) | (
-        torch.arccos(cos_a) > trk.max_jump_rotation
-    )
-    flags = torch.stack([
-        new_kf, jump, res.error > trk.reloc_error_threshold, res.good < trk.reloc_min_good,
-    ], dim=-1)
-    host = flags.tolist()  # the per-frame host sync: one (B, 4) read
-    T_w_coast = lie.matmul_fma(prev_T_w, T_nm1_n)
+    with trace.span("scan.gate"):
+        # Pose-jump gate on the initial track (host twin: VOSystem._is_jump).
+        # The trace adds in float64, as torch.trace does on the CPU.
+        inv_prev = lie.inv_lu(prev_T_w)
+        d = lie.matmul_fma(inv_prev, T_w_curr)
+        diag = (d[:, 0, 0].double() + d[:, 1, 1].double() + d[:, 2, 2].double()).float()
+        cos_a = torch.clamp((diag - 1.0) / 2.0, -1.0, 1.0)
+        jump = (torch.linalg.vector_norm(d[:, :3, 3], dim=-1) > trk.max_jump_translation) | (
+            torch.arccos(cos_a) > trk.max_jump_rotation
+        )
+        flags = torch.stack([
+            new_kf, jump, res.error > trk.reloc_error_threshold, res.good < trk.reloc_min_good,
+        ], dim=-1)
+        with trace.host_read("scan.flags"):
+            host = flags.tolist()  # the per-frame host sync: one (B, 4) read
+        T_w_coast = lie.matmul_fma(prev_T_w, T_nm1_n)
 
     # Host-loop order: a lost or jumped frame tries the ring before any
     # promotion logic, and a lost frame never promotes.
@@ -149,91 +160,97 @@ def _vo_scan_step_batched(
     reloc = {}  # lane -> (keyframe, TrackResult) of a found candidate
     lost_lanes = [i for i in range(b) if lost[i]] if trk.scan_relocalization else []
     if lost_lanes:
-        rings = [states[i].kf_ring for i in lost_lanes]
-        res_alls = tracker.track_rings(rings, [lane(frame, i) for i in lost_lanes], cfg)
-        picks = [tracker.select_reloc_candidate(r, ring.n, cfg)
-                 for r, ring in zip(res_alls, rings)]
-        picked = torch.stack([torch.stack([f.to(torch.int64), i]) for f, i, _ in picks]).tolist()
-        for i, ring, (found, idx), (_, _, sel) in zip(lost_lanes, rings, picked, picks):
-            if found:
-                reloc[i] = (tracker.ring_keyframe(ring, idx, states[i].kf.frame), sel)
+        with trace.span("scan.reloc"):
+            rings = [states[i].kf_ring for i in lost_lanes]
+            res_alls = tracker.track_rings(rings, [lane(frame, i) for i in lost_lanes], cfg)
+            picks = [tracker.select_reloc_candidate(r, ring.n, cfg)
+                     for r, ring in zip(res_alls, rings)]
+            with trace.host_read("scan.reloc"):
+                picked = torch.stack([torch.stack([f.to(torch.int64), i])
+                                      for f, i, _ in picks]).tolist()
+            for i, ring, (found, idx), (_, _, sel) in zip(lost_lanes, rings, picked, picks):
+                if found:
+                    reloc[i] = (tracker.ring_keyframe(ring, idx, states[i].kf.frame), sel)
 
     promote = [host[i][0] and not states[i].just_added_kf and not lost[i] for i in range(b)]
     promoted = [i for i in range(b) if promote[i]]
-    new_kfs = {}
     if promoted:
-        kf_p = make_keyframe_batched(
-            stack_lanes([states[i].prev for i in promoted]),
-            stack_lanes([states[i].prev_T_w for i in promoted]), cfg,
-        )
-        T_p = stack_lanes([states[i].T_nm1_n for i in promoted])
-        res_p = tracker.track_frames_batched(
-            kf_p._replace(frame=None), stack_lanes([lane(frame, i) for i in promoted]),
-            T_p[:, :3, :3], T_p[:, :3, 3], cfg,
-        )
+        with trace.span("scan.promote"):
+            kf_p = make_keyframe_batched(
+                stack_lanes([states[i].prev for i in promoted]),
+                stack_lanes([states[i].prev_T_w for i in promoted]), cfg,
+            )
+            T_p = stack_lanes([states[i].T_nm1_n for i in promoted])
+            res_p = tracker.track_frames_batched(
+                kf_p._replace(frame=None), stack_lanes([lane(frame, i) for i in promoted]),
+                T_p[:, :3, :3], T_p[:, :3, 3], cfg,
+            )
+
+    with trace.span("scan.merge"):
         new_kfs = {i: (lane(kf_p, j), lane(res_p, j)) for j, i in enumerate(promoted)}
+        # Merge the outcomes lane by lane: relocalized > coasting > tracked.
+        kfs, results, rings_next = [], [], []
+        for i, s in enumerate(states):
+            kf, r, ring = s.kf, lane(res, i), s.kf_ring
+            if i in new_kfs:
+                kf, r = new_kfs[i]
+                if trk.scan_relocalization:
+                    ring = tracker.push_ring(s.kf_ring, kf, s.prev_T_w)
+            if i in reloc:
+                kf, r = reloc[i]
+            kfs.append(kf)
+            results.append(r)
+            rings_next.append(ring)
+        still_lost = [lost[i] and i not in reloc for i in range(b)]
+        T_kf_n = lie.matrix_from_rt(stack_lanes([r.R for r in results]),
+                                    stack_lanes([r.t for r in results]))
+        T_w_curr = lie.matmul_fma(stack_lanes([k.T_w_k for k in kfs]), T_kf_n)
+        if any(still_lost):
+            T_w_curr = stack_lanes([T_w_coast[i] if still_lost[i] else T_w_curr[i]
+                                    for i in range(b)])
+            T_kf_n = stack_lanes([
+                lie.matmul_fma(lie.inv_lu(kfs[i].T_w_k), T_w_coast[i]) if still_lost[i]
+                else T_kf_n[i]
+                for i in range(b)
+            ])
 
-    # Merge the outcomes lane by lane: relocalized > coasting > tracked.
-    kfs, results, rings_next = [], [], []
-    for i, s in enumerate(states):
-        kf, r, ring = s.kf, lane(res, i), s.kf_ring
-        if i in new_kfs:
-            kf, r = new_kfs[i]
-            if trk.scan_relocalization:
-                ring = tracker.push_ring(s.kf_ring, kf, s.prev_T_w)
-        if i in reloc:
-            kf, r = reloc[i]
-        kfs.append(kf)
-        results.append(r)
-        rings_next.append(ring)
-    still_lost = [lost[i] and i not in reloc for i in range(b)]
-    T_kf_n = lie.matrix_from_rt(stack_lanes([r.R for r in results]),
-                                stack_lanes([r.t for r in results]))
-    T_w_curr = lie.matmul_fma(stack_lanes([k.T_w_k for k in kfs]), T_kf_n)
-    if any(still_lost):
-        T_w_curr = stack_lanes([T_w_coast[i] if still_lost[i] else T_w_curr[i] for i in range(b)])
-        T_kf_n = stack_lanes([
-            lie.matmul_fma(lie.inv_lu(kfs[i].T_w_k), T_w_coast[i]) if still_lost[i] else T_kf_n[i]
-            for i in range(b)
-        ])
+        # Motion prior (system.cpp:267-271).  On a coasted frame T_w_curr =
+        # prev_T_w @ T_nm1_n, so the prior stays as it was.
+        T_nm1_n = lie.matmul_fma(inv_prev, T_w_curr)
+        T_init = lie.matmul_fma(T_kf_n, T_nm1_n)
 
-    # Motion prior (system.cpp:267-271).  On a coasted frame T_w_curr =
-    # prev_T_w @ T_nm1_n, so the prior stays as it was.
-    T_nm1_n = lie.matmul_fma(inv_prev, T_w_curr)
-    T_init = lie.matmul_fma(T_kf_n, T_nm1_n)
-
-    new_states = []
-    for i, s in enumerate(states):
-        # Rings: a still-lost frame adds nothing (the host loop returns
-        # before _push_past).  On promotion the voting set freezes to the
-        # rolling ring's pre-current contents (clearUpPastLists,
-        # tracker.cpp:248-257); before the first promotion it fills with
-        # the first K frames.
-        past, voting = s.past, s.past_voting
-        f = lane(frame, i)
-        if not still_lost[i]:
-            cl = f.levels[trk.histogram_level].cloud
-            if promote[i]:
-                voting = s.past
-            elif voting.n < voting.points.shape[0]:
-                voting = tracker.push_past(voting, cl.points, cl.valid, T_w_curr[i])
-            past = tracker.push_past(s.past, cl.points, cl.valid, T_w_curr[i])
-        if not cfg.init_from_last_pose:
-            R_next, t_next = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-        elif still_lost[i]:
-            R_next, t_next = s.R, s.t
-        else:
-            R_next, t_next = T_init[i, :3, :3], T_init[i, :3, 3]
-        new_states.append(ScanVOState(
-            kf=kfs[i], prev=f, prev_T_w=T_w_curr[i], past=past, past_voting=voting,
-            R=R_next, t=t_next, T_nm1_n=T_nm1_n[i], just_added_kf=promote[i],
-            n_keyframes=s.n_keyframes + int(promote[i]), kf_ring=rings_next[i],
-        ))
-    out = _StepOut(
-        T_w=T_w_curr, error=stack_lanes([r.error for r in results]),
-        good=stack_lanes([r.good for r in results]),
-        flags=[(promote[i], i in reloc, still_lost[i]) for i in range(b)],
-    )
+        new_states = []
+        for i, s in enumerate(states):
+            # Rings: a still-lost frame adds nothing (the host loop returns
+            # before _push_past).  On promotion the voting set freezes to the
+            # rolling ring's pre-current contents (clearUpPastLists,
+            # tracker.cpp:248-257); before the first promotion it fills with
+            # the first K frames.
+            past, voting = s.past, s.past_voting
+            f = lane(frame, i)
+            if not still_lost[i]:
+                cl = f.levels[trk.histogram_level].cloud
+                if promote[i]:
+                    voting = s.past
+                elif voting.n < voting.points.shape[0]:
+                    voting = tracker.push_past(voting, cl.points, cl.valid, T_w_curr[i])
+                past = tracker.push_past(s.past, cl.points, cl.valid, T_w_curr[i])
+            if not cfg.init_from_last_pose:
+                R_next, t_next = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+            elif still_lost[i]:
+                R_next, t_next = s.R, s.t
+            else:
+                R_next, t_next = T_init[i, :3, :3], T_init[i, :3, 3]
+            new_states.append(ScanVOState(
+                kf=kfs[i], prev=f, prev_T_w=T_w_curr[i], past=past, past_voting=voting,
+                R=R_next, t=t_next, T_nm1_n=T_nm1_n[i], just_added_kf=promote[i],
+                n_keyframes=s.n_keyframes + int(promote[i]), kf_ring=rings_next[i],
+            ))
+        out = _StepOut(
+            T_w=T_w_curr, error=stack_lanes([r.error for r in results]),
+            good=stack_lanes([r.good for r in results]),
+            flags=[(promote[i], i in reloc, still_lost[i]) for i in range(b)],
+        )
     return new_states, out
 
 

@@ -52,6 +52,7 @@ from revo_tpu_torch.ops.lgsx import (
 )
 from revo_tpu_torch.ops.project import apply_rt_cols, scale_shift
 from revo_tpu_torch.parallel.mesh import psum, replicate, shard
+from revo_tpu_torch.utils import trace
 
 
 class ResidualInfo(NamedTuple):
@@ -276,7 +277,8 @@ def _fail_table(fail: float, n: int, device) -> torch.Tensor:
         base = torch.full((), fail, dtype=torch.float32, device=device)
         table = _FAIL_TABLES[key] = torch.stack([base ** k for k in range(n)])
         if table.is_cuda:  # other streams read it later: its fill must be done
-            torch.cuda.current_stream(table.device).synchronize()
+            with trace.host_read("solver.fail_table"):
+                torch.cuda.current_stream(table.device).synchronize()
     return table
 
 
@@ -502,7 +504,8 @@ class _LiveCounts:
     evaluations the count that the last step wrote is queued to pinned
     memory (two slots, one CUDA event each), and the host reads chunk c -
     1's only once chunk c is queued, so its wait never leaves the device
-    idle.  ``lm_level_batched.host_reads`` counts the reads."""
+    idle.  ``lm_level_batched.host_reads`` counts the reads (the tracer's
+    site ``solver.lm_live``)."""
 
     def __init__(self, n_live: torch.Tensor):
         self.n_live = n_live
@@ -521,8 +524,9 @@ class _LiveCounts:
         self.posted += 1
         if self.posted < 2:
             return None
-        if self.events is not None:
-            self.events[1 - slot].synchronize()
+        with trace.host_read("solver.lm_live", counted=False):
+            if self.events is not None:
+                self.events[1 - slot].synchronize()
         lm_level_batched.host_reads += 1
         return int(self.host[1 - slot])
 
@@ -618,9 +622,9 @@ def solve_level_kernel(ops: LaneOperands, R0, t0, edge_distance, opt: OptimizerC
     follows from the lanes, the solver and the card (``level_cluster``);
     ``_cluster`` (1-8) lets a comparison force one.  A launch the card
     refuses raises; nothing falls back.  ``launches`` counts the launches,
-    ``layout_launches`` the same by table layout, ``check_launches`` those
-    that carried an init check, and ``evaluations`` holds the last
-    launch's counts."""
+    ``layout_launches`` the same by table layout and ``check_launches``
+    those that carried an init check; while tracing is on each launch hands
+    its evaluations to ``utils.trace.level_launch``."""
     dev = ops.quad.device
     if ops.scratch is None or dev.type != "cuda":
         raise ValueError(f"solve_level_kernel: unsupported device {dev}")
@@ -665,7 +669,7 @@ def solve_level_kernel(ops: LaneOperands, R0, t0, edge_distance, opt: OptimizerC
     solve_level_kernel.launches += 1
     solve_level_kernel.layout_launches[layout] += 1
     solve_level_kernel.check_launches += check is not None
-    solve_level_kernel.evaluations = evals
+    trace.level_launch(evals, n_pts)
     return state, evals
 
 
@@ -673,7 +677,6 @@ solve_level_kernel.launches = 0
 solve_level_kernel.check_launches = 0  # launches that ran the init check first
 # Launches by table layout (``ops.lgsx.table_layout``'s code), beside the total.
 solve_level_kernel.layout_launches = [0] * len(residual_lgsx.layout_launches)
-solve_level_kernel.evaluations = None  # the last launch's (B,) counts, for a caller's accounting
 
 
 def solve_level_ref(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bool,
@@ -731,7 +734,9 @@ def level_state(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bo
     the two give the same bits.  ``check``, an ``InitCheckBlock``: the
     tracker's init check before the level's start, inside the kernel's
     launch, else one ``init_check`` call (its plain version on the CPU)
-    first; the level starts from its choice either way."""
+    first; the level starts from its choice either way.  While tracing is
+    on, the loop counts each lane's evaluations as ``solve_level_ref`` does
+    and hands them to ``utils.trace.level_launch``, as the kernel does."""
     edge_dist = opt.edge_distance_lvl[lvl]
     b, dev = R0.shape[0], R0.device
     route = level_route(dev, opt.solve6_impl, _form)
@@ -743,20 +748,32 @@ def level_state(quad, cloud, cam, R0, t0, opt: OptimizerConfig, lvl: int, gn: bo
         R0, t0 = _run_check(init_check, check, cloud, cam, R0, t0)
     start, step = _steppers(p)
     sums = torch.empty((b, 46), dtype=torch.float32, device=dev)
+    # Each lane's evaluations, counted only while tracing is on: the lanes
+    # a step evaluates are those active before it (the step writes the
+    # state in place).
+    evals = torch.zeros(b, dtype=torch.int32, device=dev) if trace.on() else None
     if gn:
         state = start(R0, t0, None, p)
         for _ in range(p.max_iter):
+            if evals is not None:
+                evals += state.active
             state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
                                           sums), p)
-        return state
-    n_live = torch.empty(1, dtype=torch.int32, device=dev)
-    counts = _LiveCounts(n_live)
-    state = start(R0, t0, _evaluate(ops, R0, t0, edge_dist, opt, None, sums), p, n_live)
-    for n in range(1, p.max_iter * max_inner + 1):
-        state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
-                                      sums), p, n_live)
-        if n % LM_CHUNK == 0 and counts.post_and_read_previous() == 0:
-            break
+    else:
+        n_live = torch.empty(1, dtype=torch.int32, device=dev)
+        counts = _LiveCounts(n_live)
+        state = start(R0, t0, _evaluate(ops, R0, t0, edge_dist, opt, None, sums), p, n_live)
+        if evals is not None:
+            evals += 1
+        for n in range(1, p.max_iter * max_inner + 1):
+            if evals is not None:
+                evals += state.active
+            state = step(state, _evaluate(ops, state.Rn, state.tn, edge_dist, opt, state.active,
+                                          sums), p, n_live)
+            if n % LM_CHUNK == 0 and counts.post_and_read_previous() == 0:
+                break
+    if evals is not None:
+        trace.level_launch(evals, cloud.points.shape[-2])
     return state
 
 

@@ -38,6 +38,7 @@ from revo_tpu_torch.io.tum import write_tum_trajectory
 from revo_tpu_torch.kernels import check_device
 from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.undistort import build_undistort_maps
+from revo_tpu_torch.utils import trace
 
 
 class TrackerStatus(enum.Enum):
@@ -80,7 +81,7 @@ class VOReport:
     frames_tracked: int = 0
     keyframes: int = 0
     tracking_lost: int = 0
-    mean_dt_time_ms: float = 0.0
+    mean_dt_time_ms: float = 0.0  # make_keyframe's device ms (host ms on the CPU)
     mean_tracking_time_ms: float = 0.0
     latency_ms_p50: float = 0.0
     latency_ms_p95: float = 0.0
@@ -94,14 +95,16 @@ def frame_step_batched(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: Syst
     coarse-to-fine track of each lane against its keyframe (``kf`` with a
     leading lane axis, poses R0 (B, 3, 3), t0 (B, 3)) and each lane's
     histogram vote (``past_voting`` a batched PastFrames,
-    ``tracker.stack_past``).  Returns (frame, result, T_kf_n, T_w_curr,
+    ``tracker.stack_past``), traced as ``frontend.build``, ``tracker.track``
+    and ``keyframe.vote``.  Returns (frame, result, T_kf_n, T_w_curr,
     new_kf), each with the lane axis."""
     frame = build_frame_batched(gray, depth, cfg, undistort_maps)
     res = tracker.track_frames_batched(kf, frame, R0, t0, cfg)
     T_kf_n = lie.matrix_from_rt(res.R, res.t)
     T_w_curr = lie.matmul_fma(kf.T_w_k, T_kf_n)
     if cfg.tracker.check_tracking_results:
-        new_kf = tracker.assess_tracking_quality_batched(past_voting, T_w_curr, frame, cfg)
+        with trace.span("keyframe.vote"):
+            new_kf = tracker.assess_tracking_quality_batched(past_voting, T_w_curr, frame, cfg)
     else:
         new_kf = torch.zeros(gray.shape[:1], dtype=torch.bool, device=T_w_curr.device)
     return frame, res, T_kf_n, T_w_curr, new_kf
@@ -119,7 +122,8 @@ def frame_step(gray, depth, kf: Keyframe, past_voting, R0, t0, cfg: SystemConfig
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    with trace.host_read("system.read"):
+        return x.detach().cpu().numpy()
 
 
 class VOSystem:
@@ -160,7 +164,9 @@ class VOSystem:
         self.kf_history: List[tuple] = []
         self.reloc_ring: Optional[tracker.KeyframeRing] = None
         self.kf_ordinal_current = 0
-        self.dt_times: List[float] = []
+        # Each make_keyframe's (start, end): CUDA events on the card, the
+        # host clock's seconds on the CPU; ``keyframe_ms`` reads them.
+        self.dt_times: List[tuple] = []
         self.tracking_times: List[float] = []
 
     # -- helpers -------------------------------------------------------------
@@ -168,9 +174,26 @@ class VOSystem:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
 
-    def _sync(self) -> None:
+    def _mark(self):
+        """A point on the device's timeline: a recorded CUDA event on the
+        card (no host wait), the host clock on the CPU."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def keyframe_ms(self) -> List[float]:
+        """Each make_keyframe's ms on the device (the host's on the CPU);
+        waits for the last keyframe's work."""
+        out = []
+        for a, b in self.dt_times:
+            if isinstance(a, float):
+                out.append((b - a) * 1000.0)
+            else:
+                b.synchronize()
+                out.append(a.elapsed_time(b))
+        return out
 
     def _push_past(self, frame: Frame, T_w_curr: np.ndarray) -> None:
         cloud = frame.levels[self.cfg.tracker.histogram_level].cloud
@@ -184,11 +207,10 @@ class VOSystem:
             )
 
     def _make_keyframe(self, frame: Frame, T_w_k: np.ndarray) -> None:
-        t0 = time.perf_counter()
         T_w_k = self._tensor(np.asarray(T_w_k, np.float32))
+        start = self._mark()
         self.kf = make_keyframe(frame, T_w_k, self.cfg)
-        self._sync()
-        self.dt_times.append((time.perf_counter() - t0) * 1000.0)
+        self.dt_times.append((start, self._mark()))
         self.n_keyframes += 1
         self.kf_ordinal_current = self.n_keyframes - 1
         kf_store = self.kf if self.cfg.tracker.store_kf_images else prune_keyframe(self.kf)
@@ -220,10 +242,11 @@ class VOSystem:
         """Residual-based failure detector: mean error above
         reloc_error_threshold or fewer than reloc_min_good inliers."""
         trk = self.cfg.tracker
-        return bool(
-            float(res.error) > trk.reloc_error_threshold
-            or int(res.good) < trk.reloc_min_good
-        )
+        with trace.host_read("system.lost"):
+            return bool(
+                float(res.error) > trk.reloc_error_threshold
+                or int(res.good) < trk.reloc_min_good
+            )
 
     def _relocalize(self, frame: Frame):
         """Track against the recent-keyframe ring from identity; return
@@ -346,7 +369,9 @@ class VOSystem:
         T_w_kf = _np(self.kf.T_w_k)
         T_w_curr = _np(T_w_curr_dev)
 
-        if bool(new_kf_dev) and not self.just_added_kf:
+        with trace.host_read("system.new_kf"):
+            new_kf = bool(new_kf_dev)
+        if new_kf and not self.just_added_kf:
             # Promote the previous frame to keyframe and re-track
             # (system.cpp:203-241).
             last = self.pose_graph[-1]
@@ -428,7 +453,7 @@ class VOSystem:
             frames_tracked=len(self.pose_graph),
             keyframes=self.n_keyframes,
             tracking_lost=self.n_tracking_lost,
-            mean_dt_time_ms=float(np.mean(self.dt_times)) if self.dt_times else 0.0,
+            mean_dt_time_ms=float(np.mean(self.keyframe_ms())) if self.dt_times else 0.0,
             mean_tracking_time_ms=float(np.mean(self.tracking_times))
             if self.tracking_times
             else 0.0,

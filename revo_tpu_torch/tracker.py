@@ -32,6 +32,7 @@ from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.frontend import Frame, FrameLevel, Keyframe
 from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.project import scale_shift
+from revo_tpu_torch.utils import trace
 
 
 class TrackResult(NamedTuple):
@@ -50,38 +51,39 @@ def track_frames_batched(
     keyframe tables from (R0[b], t0[b]).  ``kf`` needs structs and quads
     with a leading lane axis (its ``frame`` is not read), ``frame`` its
     clouds; either may share one lane's tensors by ``expand``.  Returns a
-    TrackResult with the lane axis."""
-    pyr = cfg.pyramid
-    opt = cfg.tracker.optimizer
-    cams = cfg.camera_pyramid()
-    R, t = R0, t0
-    check = None
-    if cfg.tracker.check_init_values:
-        # "DO NOT INIT WITH PREVIOUS TRANSFORM" (tracker.cpp:277-282), only
-        # when identity is clearly better (TrackerConfig.init_check_margin):
-        # the coarsest level runs the check before its start, inside its
-        # launch on the card (``solver.level_state``).
-        lvl = pyr.pyr_min_lvl
-        check = solver.init_check_block(
-            kf.structs[lvl], R.shape[0], opt.edge_distance_lvl[lvl], opt.use_edge_filter,
-            cfg.tracker.normalized_init_cost, cfg.tracker.init_check_margin,
-        )
+    TrackResult with the lane axis.  Traced as ``tracker.track``."""
+    with trace.span("tracker.track"):
+        pyr = cfg.pyramid
+        opt = cfg.tracker.optimizer
+        cams = cfg.camera_pyramid()
+        R, t = R0, t0
+        check = None
+        if cfg.tracker.check_init_values:
+            # "DO NOT INIT WITH PREVIOUS TRANSFORM" (tracker.cpp:277-282), only
+            # when identity is clearly better (TrackerConfig.init_check_margin):
+            # the coarsest level runs the check before its start, inside its
+            # launch on the card (``solver.level_state``).
+            lvl = pyr.pyr_min_lvl
+            check = solver.init_check_block(
+                kf.structs[lvl], R.shape[0], opt.edge_distance_lvl[lvl], opt.use_edge_filter,
+                cfg.tracker.normalized_init_cost, cfg.tracker.init_check_margin,
+            )
 
-    info = None
-    err = None
-    # A "quad*" bilinear_impl samples the quad table, any other the
-    # structure itself as (H*W, 3) rows (revo_tpu/tracker.py:65-74).
-    use_quad = solver.uses_quad_table(opt)
-    for lvl in range(pyr.pyr_min_lvl, pyr.pyr_max_lvl - 1, -1):
-        table = kf.quads[lvl] if use_quad else kf.structs[lvl].flatten(-3, -2)
-        R, t, err, info = solver.solve_level_batched(
-            table, frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl,
-            check=check if lvl == pyr.pyr_min_lvl else None,
-        )
-    good_f = info.good.to(torch.float32)
-    bad_f = torch.clamp(info.bad, min=1).to(torch.float32)
-    new_kf = (good_f / bad_f) < cfg.tracker.good_bad_ratio_new_kf
-    return TrackResult(R=R, t=t, error=err, good=info.good, bad=info.bad, new_kf=new_kf)
+        info = None
+        err = None
+        # A "quad*" bilinear_impl samples the quad table, any other the
+        # structure itself as (H*W, 3) rows (revo_tpu/tracker.py:65-74).
+        use_quad = solver.uses_quad_table(opt)
+        for lvl in range(pyr.pyr_min_lvl, pyr.pyr_max_lvl - 1, -1):
+            table = kf.quads[lvl] if use_quad else kf.structs[lvl].flatten(-3, -2)
+            R, t, err, info = solver.solve_level_batched(
+                table, frame.levels[lvl].cloud, cams[lvl], R, t, opt, lvl,
+                check=check if lvl == pyr.pyr_min_lvl else None,
+            )
+        good_f = info.good.to(torch.float32)
+        bad_f = torch.clamp(info.bad, min=1).to(torch.float32)
+        new_kf = (good_f / bad_f) < cfg.tracker.good_bad_ratio_new_kf
+        return TrackResult(R=R, t=t, error=err, good=info.good, bad=info.bad, new_kf=new_kf)
 
 
 def track_frames(

@@ -1,21 +1,18 @@
-"""Utility layer: logging, timing, metrics, profiling (counterpart of
-revo_tpu/utils).
+"""Utility layer: logging and the tracer (counterpart of revo_tpu/utils).
 
 Replaces the reference's utils/ (Logging.h I3D_LOG macro logger, timer.h
-Timer) with Python equivalents plus structured per-frame metrics instead of
-log-scraping.
+Timer) with a Python logger and ``trace``, the port's spans and counters
+inside the step, which ``trace_to`` writes out with a profiler's trace.
 """
 
+from revo_tpu_torch.utils import trace
 from revo_tpu_torch.utils.logging import get_logger, set_level, LEVELS
-from revo_tpu_torch.utils.timing import Timer, StageTimes, trace_to
-from revo_tpu_torch.utils.metrics import MetricsRecorder
+from revo_tpu_torch.utils.trace import trace_to
 
 __all__ = [
     "get_logger",
     "set_level",
     "LEVELS",
-    "Timer",
-    "StageTimes",
     "trace_to",
-    "MetricsRecorder",
+    "trace",
 ]

@@ -153,9 +153,12 @@ def _torch_kernels(fn):
     if not span:
         return -1, None
     lo, hi = span[0]
+    # A device event of a host event's name is a range's copy on the device
+    # timeline (the mark, the program's spans), not a kernel.
+    host_names = {e.name for e in prof.events() if e.device_type != on_card}
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == on_card and lo <= e.time_range.start <= hi
-          and e.name != "ab_marked" and not any(h in e.name for h in HAND)
+          and e.name not in host_names and not any(h in e.name for h in HAND)
           and not any(w in e.name.lower() for w in ("memcpy", "memset", "sync"))]
     return len(us), sum(us) / 1e3
 

@@ -95,9 +95,12 @@ def _kernels_of(fn) -> int:
     if not span:
         return -1
     lo, hi = span[0]
+    # A device event of a host event's name is a range's copy on the device
+    # timeline (the mark, the program's spans), not a kernel.
+    host_names = {e.name for e in prof.events() if e.device_type != on_card}
     return sum(1 for e in prof.events()
                if e.device_type == on_card and lo <= e.time_range.start <= hi
-               and e.name != "ab_marked"
+               and e.name not in host_names
                and not any(w in e.name.lower() for w in ("memcpy", "memset", "sync")))
 
 

@@ -341,8 +341,8 @@ def test_import_loads_no_jax():
         "import revo_tpu_torch.parallel.windowed, revo_tpu_torch.parallel.segments\n"
         "import revo_tpu_torch.parallel.mesh, revo_tpu_torch.parallel.pipeline\n"
         "import revo_tpu_torch.ops.undistort, revo_tpu_torch.viz.ply\n"
-        "import revo_tpu_torch.lie, revo_tpu_torch.utils, revo_tpu_torch.utils.timing\n"
-        "import revo_tpu_torch.utils.logging, revo_tpu_torch.utils.metrics\n"
+        "import revo_tpu_torch.lie, revo_tpu_torch.utils, revo_tpu_torch.utils.trace\n"
+        "import revo_tpu_torch.utils.logging\n"
         "import revo_tpu_torch.io, revo_tpu_torch.io._native, revo_tpu_torch.io.native_loader\n"
         "import revo_tpu_torch.io.sensors, revo_tpu_torch.io.recorder\n"
         "import revo_tpu_torch.io.native_oracle, revo_tpu_torch.io.associate\n"

@@ -1,24 +1,25 @@
-"""The port's utility layer (revo_tpu_torch/utils) beside the JAX package's
-on the CPU: the logger, ``MetricsRecorder`` and ``StageTimes`` behave alike,
-``Timer`` and ``StageTimes.stage`` take an explicit device and touch CUDA
-only for a CUDA device, ``trace_to`` writes a Chrome trace.
+"""The port's utility layer (revo_tpu_torch/utils) on the CPU: its exports,
+the logger beside the JAX package's, ``trace_to`` writes a Chrome trace
+(the tracer itself: tests/test_torch_trace.py).
 """
 import json
 import logging
-import time
 
 import pytest
 import torch
 
 from revo_tpu import utils as jutils
 from revo_tpu_torch import utils
-from revo_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
 
 def test_exports_match_jax():
-    assert sorted(utils.__all__) == sorted(jutils.__all__)
+    """The port's own exports: the logger (its levels the JAX package's),
+    ``trace_to`` and the tracer."""
+    assert sorted(utils.__all__) == ["LEVELS", "get_logger", "set_level", "trace", "trace_to"]
+    assert all(hasattr(utils, name) for name in utils.__all__)
+    assert utils.trace_to is utils.trace.trace_to and callable(utils.trace.span)
     assert utils.LEVELS == jutils.LEVELS
 
 
@@ -53,75 +54,6 @@ def test_logger_name_levels_and_threshold(capsys):
     assert logging.getLogger("revo_tpu").level != utils.LEVELS["nothing"]
     with pytest.raises(KeyError):
         utils.set_level("loud")
-
-
-def test_metrics_recorder_matches_jax(tmp_path):
-    rows = [dict(frame=0, error=0.5, good=100, status="ok"),
-            dict(frame=1, error=0.25, good=80),
-            dict(frame=2, error=1.0, note=None)]
-    mt, mj = utils.MetricsRecorder(), jutils.MetricsRecorder()
-    assert mt.summary() == mj.summary() == {}
-    for row in rows:
-        mt.record(**row)
-        mj.record(**row)
-    assert mt.summary() == mj.summary()
-    assert mt.summary()["error_max"] == 1.0 and mt.summary()["n_frames"] == 3
-    mt.dump_jsonl(str(tmp_path / "t.jsonl"))
-    mj.dump_jsonl(str(tmp_path / "j.jsonl"))
-    assert (tmp_path / "t.jsonl").read_text() == (tmp_path / "j.jsonl").read_text()
-    assert [json.loads(ln) for ln in (tmp_path / "t.jsonl").read_text().splitlines()] == rows
-
-
-def test_stage_times_matches_jax():
-    st, sj = utils.StageTimes(), jutils.StageTimes()
-    for s in (st, sj):
-        s.add("dt", 2.0)
-        s.add("dt", 4.0)
-        s.add("track", 10.0)
-    assert st.report() == sj.report() == {"dt": 3.0, "track": 10.0}
-    assert st.mean("missing") == sj.mean("missing") == 0.0
-    with st.stage("sleep", device="cpu"):
-        time.sleep(0.01)
-    with st.stage("host"):
-        pass
-    assert 10.0 <= st.mean("sleep") < 1000.0 and 0.0 <= st.mean("host") < 10.0
-
-
-def test_timer_on_the_cpu_never_touches_cuda(monkeypatch):
-    def boom(*a, **k):
-        raise AssertionError("CUDA was touched for a CPU device")
-
-    monkeypatch.setattr(torch.cuda, "synchronize", boom)
-    with utils.Timer(device="cpu") as t:
-        time.sleep(0.005)
-    assert 5.0 <= t.ms < 1000.0
-    with utils.Timer(device="cuda", sync=False) as t:
-        pass
-    assert t.ms >= 0.0
-    with utils.StageTimes().stage("x", device=torch.device("cpu")):
-        pass
-
-
-def test_timer_on_cuda_synchronizes_and_does_not_swallow(monkeypatch):
-    """A CUDA device is synchronized (the named one), and a synchronize
-    that fails raises: no try / except hides a lost device."""
-    seen = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: seen.append(d))
-    with utils.Timer(device="cuda:0"):
-        pass
-    with utils.StageTimes().stage("x", device="cuda:0"):
-        pass
-    assert seen == [torch.device("cuda:0")] * 2
-
-    def lost(d=None):
-        raise RuntimeError("device lost")
-
-    monkeypatch.setattr(torch.cuda, "synchronize", lost)
-    with pytest.raises(RuntimeError, match="device lost"):
-        with utils.Timer():  # the default device is the card
-            pass
-    with pytest.raises(RuntimeError, match="device lost"):
-        timing._synchronize("cuda")
 
 
 def test_trace_to_writes_a_chrome_trace(tmp_path):
