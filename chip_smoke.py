@@ -62,7 +62,10 @@ gates.  Phases, one line each:
              within 1e-5, lanes left out by the mask untouched, a second
              launch bit-identical, no host sync; the front end's and the
              keyframe's kernels (csrc/frontend.cu: revo_edt_columns_levels,
-             revo_keyframe_rows, revo_edge_cloud, revo_pyramid) bit-equal
+             revo_keyframe_rows, revo_edge_cloud, revo_pyramid,
+             revo_fill_levels: every level of the chain frames at B = 8, 32
+             and each lane alone, lanes of no edge and all edges, the odd
+             sizes and 1280x720, against fill_in_levels_ref) bit-equal
              to their plain versions on all levels of the 8 chain frames at
              B=8 and B=1 in all seven quad forms (the column pass of every
              level in one launch, also at B = 4 and 32, and on lanes of 4320
@@ -87,15 +90,16 @@ gates.  Phases, one line each:
              one edge cloud a level and one pyramid launch a frame built,
              one column-pass launch and one row launch a level a keyframe;
              make_keyframe alone 4 hand launches and no host read,
-             build_frame alone 3 canny_fused, 3 edge clouds and 1 pyramid
-             launch and at most BF_TORCH_KERNELS torch kernels at B = 1
-             from uint8 / uint16 (torch.profiler);
+             build_frame alone 3 canny_fused, 3 edge clouds, 1 pyramid
+             and 1 fill-in launch and at most BF_TORCH_KERNELS torch
+             kernels at B = 1 from uint8 / uint16 (torch.profiler);
 6. times     CUDA-event times per stage and per kernel against its plain
              version at the shape its path gives it (a 640x480 frame, one
              lane, for the front end's and keyframe's kernels too: the row
              pass and the cloud at level 0, the column pass over every level
-             and the pyramid from uint8 / uint16, as one launch each;
-             make_keyframe's torch kernels and hand launches; for the
+             and the pyramid from uint8 / uint16, as one launch each; the
+             fill-in at B = 1 and, bit-equal to its plain version first, at
+             the track cells' B = 128; make_keyframe's torch kernels and hand launches; for the
              cluster Canny level 0 of phase 11's 1280x720
              frame; for the grid Canny phase 11's 5120x2880 image; for K1
              and K2 alone phase 11's 12288x8192 image, K1 on its uint8 gray
@@ -1076,16 +1080,20 @@ FRONT_KERNELS = {
     "keyframe_rows": ("keyframe_rows", "revo_tpu/ops/edt.py:99"),
     "edge_cloud": ("backproject_edges", "revo_tpu/ops/backproject.py:238"),
     "pyramid": ("pyramid", "revo_tpu/ops/filters.py:96"),
+    "fill_levels": ("fill_in_levels", "revo_tpu/frontend.py:99"),
 }
 FRONT_RAGGED = ((61, 79), (37, 65))  # odd sizes phase 4 holds the front-end kernels on
 HAND_KERNELS = ("canny_nms_kernel", "canny_hysteresis", "canny_fused_kernel",
                 "canny_fused_dense_kernel", "canny_cluster_kernel", "canny_grid_kernel",
                 "lgsx_reduce_kernel", "residual_lgsx_kernel", "solver_step_kernel",
                 "init_check_kernel", "solve_level_kernel", "edt_levels_kernel",
-                "keyframe_rows_kernel", "edge_cloud_kernel", "pyramid_kernel")
+                "keyframe_rows_kernel", "edge_cloud_kernel", "pyramid_kernel",
+                "fill_levels_kernel")
 # The torch kernels a 640x480 build_frame from uint8 gray / uint16 depth may
-# launch at B = 1 (82 before the pyramid kernel took level 0's three casts).
-BF_TORCH_KERNELS = 79
+# launch at B = 1: the frame's timestamp (82 before the pyramid kernel took
+# level 0's three casts, 79 before revo_fill_levels took the histogram and
+# fill-in).
+BF_TORCH_KERNELS = 1
 HOLD_CYCLES = 60_000_000  # spin that holds the stream ~30 ms while launches queue
 
 
@@ -1469,6 +1477,7 @@ def main() -> int:
     from revo_tpu_torch.io.synthetic import SyntheticScene
     from revo_tpu_torch.ops import backproject as BP
     from revo_tpu_torch.ops import canny as K12
+    from revo_tpu_torch.ops import edge_hist as EH
     from revo_tpu_torch.ops import edt as EDT
     from revo_tpu_torch.ops import filters as FL
     from revo_tpu_torch.ops import lgsx as K3
@@ -1551,7 +1560,7 @@ def main() -> int:
     level_check = _Count(solver.solve_level_kernel, "check_launches", "level_init_check")
     # The front end's and the keyframe's (csrc/frontend.cu).
     front_counters = (EDT.edt_columns_levels, EDT.keyframe_rows, BP.backproject_edges,
-                      FL.pyramid)
+                      FL.pyramid, EH.fill_in_levels)
     counters_ = (K12.canny_fused, K12.canny_cluster, K12.canny_grid, K12.canny_nms,
                  K12.canny_hysteresis, K3.lgsx_reduce) + track_counters + (level_check,) \
         + front_counters
@@ -1611,7 +1620,8 @@ def main() -> int:
     n_lv = cfg.pyramid.n_levels
     pyr_a_frame, cols_a_kf = n_lv // 2, -(-n_lv // EDT.EDT_MAX_LEVELS)  # 1, 1 at 3 levels
     front_want = {"backproject_edges": 2 * N_FRAMES * n_lv, "pyramid": 2 * N_FRAMES * pyr_a_frame,
-                  "edt_columns_levels": 2 * cols_a_kf, "keyframe_rows": 2 * n_lv}
+                  "fill_in_levels": 2 * N_FRAMES, "edt_columns_levels": 2 * cols_a_kf,
+                  "keyframe_rows": 2 * n_lv}
     if any(launches[k] != v for k, v in front_want.items()):
         raise RuntimeError(f"main: the front end's kernels did not launch {front_want}: {launches}")
     launch_total = dict(launches)
@@ -1632,7 +1642,8 @@ def main() -> int:
     if kf_launch != {"edt_columns_levels": cols_a_kf, "keyframe_rows": n_lv} or kf_syncs:
         raise RuntimeError(f"main: make_keyframe is not {cols_a_kf + n_lv} hand launches and no "
                            f"host read: {kf_launch}, {kf_syncs} host reads")
-    if bf_launch != {"canny_fused": n_lv, "backproject_edges": n_lv, "pyramid": pyr_a_frame}:
+    if bf_launch != {"canny_fused": n_lv, "backproject_edges": n_lv, "pyramid": pyr_a_frame,
+                     "fill_in_levels": 1}:
         raise RuntimeError(f"main: build_frame's hand launches are {bf_launch}")
     front_end = {}
     for stage, stage_launches, stage_syncs, stage_fn in (
@@ -1942,6 +1953,20 @@ def main() -> int:
                      lambda: [x for lv in FL.pyramid_ref(gray, depth, inv, n) for x in lv],
                      f"{what}, {n} levels")
 
+    def fe_fill(levels, what):
+        """The fill-in of levels 1 on (one launch), levels and flags,
+        against fill_in_levels_ref on the CPU."""
+        def run():
+            outs, flags = EH.fill_in_levels(levels, pyr.dist_patch_sizes, pyr.n_percentage)
+            return (*outs, flags)
+
+        def ref():
+            outs, flags = EH.fill_in_levels_ref([e.cpu() for e in levels], pyr.dist_patch_sizes,
+                                                pyr.n_percentage)
+            return [x.to(dev) for x in (*outs, flags)]
+
+        fe_check("fill_levels", run, ref, what)
+
     def valid_counts(edges, depth):
         ok = edges & torch.isfinite(depth) & (depth > pyr.depth_min) & (depth < pyr.depth_max)
         return ok.flatten(1).sum(1).tolist()
@@ -1952,6 +1977,14 @@ def main() -> int:
                    for lvl in range(pyr.n_levels)]
     for lanes in (8, 4, 1):
         fe_columns([e[:lanes] for e in chain_edges], f"chain levels, B = {lanes}")
+    chain_orig = [torch.stack([f.levels[lvl].edges_orig for f in frames_lm])
+                  for lvl in range(pyr.n_levels)]
+    fe_fill(chain_orig, "chain levels, B = 8")
+    fe_fill([e.repeat(4, 1, 1) for e in chain_orig], "chain levels, B = 32")
+    fe_fill([torch.cat([e[:1], torch.zeros_like(e[:1]), torch.ones_like(e[:1])])
+             for e in chain_orig], "chain levels, lanes of no edge and all edges")
+    for i in range(N_FRAMES):
+        fe_fill([e[i:i + 1] for e in chain_orig], f"chain levels, lane {i} alone")
     for i in range(N_FRAMES):
         fe_check("edt_columns_levels",
                  lambda: EDT.edt_columns_levels([e[i:i + 1] for e in chain_edges]),
@@ -2026,6 +2059,8 @@ def main() -> int:
         edges_r = K12.canny_batched(gray_r, pyr.canny_threshold1 / 3, pyr.canny_threshold2 / 3)[0]
         depth_r = 0.2 + 5.0 * torch.rand((h, w), generator=gen, device=dev)
         odd_cases(edges_r, depth_r, gray_r[0], 2, f"{h}x{w}")
+        fe_fill([eo for _, _, eo, _ in frontend.edge_levels(gray_r, depth_r[None], cfg)],
+                f"{h}x{w} levels")
     cam_hd4 = dataclasses.replace(cam, fx=2 * cam.fx, fy=2 * cam.fy, cx=2 * cam.cx,
                                   cy=1.5 * cam.cy, width=1280, height=720)
     hd_gray, hd_depth = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in render_frame(
@@ -2033,6 +2068,9 @@ def main() -> int:
     hd_gray = hd_gray.round()
     hd_edges = K12.canny_batched(hd_gray[None], t_lo, t_hi)[0]
     odd_cases(hd_edges, hd_depth.float(), hd_gray.float(), 0, "1280x720")
+    fe_fill([eo for _, _, eo, _ in frontend.edge_levels(hd_gray[None].float(),
+                                                         hd_depth[None].float(), cfg)],
+            "1280x720 levels")
     fe_tables(hd_edges[None], tuple(EDT.QUAD_FORMS), "1280x720, B = 1")
     # The two cluster kernels' shapes, which follow B and the shape (the bits
     # do not depend on them): the chain's level 0 at B = 32 (waves of
@@ -4966,6 +5004,19 @@ def main() -> int:
     pyr_args = (raw_g1, raw_d1, inv_scale, pyr.n_levels)
     pyr_outs = [x for lv in FL.pyramid(*pyr_args) for x in lv]
     pyr_px1 = sum(x.numel() for x in pyr_outs[2::2])  # the gray of levels 1 on
+    fill_lv = [lv.edges_orig[None].contiguous() for lv in f_t.levels]
+
+    def fill_bound(levels):
+        """Levels 1 on read and written once, the flags, and the parent's
+        odd rows of each lane and level that the fill-in fills, the only
+        ones it reads (a few operations a pixel take less)."""
+        outs, flags = EH.fill_in_levels(levels, pyr.dist_patch_sizes, pyr.n_percentage)
+        filled = flags.sum(0).tolist()  # lanes filled, a level
+        odd = sum(n * min(e.shape[1], par.shape[1] // 2) * par.shape[2]
+                  for n, par, e in zip(filled, levels, levels[1:]))
+        return _bound(_nbytes(*levels[1:], *outs, flags) + odd,
+                      10 * sum(e.numel() for e in levels[1:]))
+
     front = [
         ("edt_columns_levels", lambda: EDT.edt_columns_levels(e_all),
          lambda: [EDT.edt_columns_ref(e) for e in e_all],
@@ -4977,6 +5028,9 @@ def main() -> int:
          _bound(_nbytes(e0, dep0, *BP.backproject_edges(*cloud_args)), 10 * n_px0), 50),
         ("pyramid", lambda: FL.pyramid(*pyr_args), lambda: FL.pyramid_ref(*pyr_args),
          _bound(_nbytes(raw_g1, raw_d1, *pyr_outs), 60 * pyr_px1), 50),
+        ("fill_levels", lambda: EH.fill_in_levels(fill_lv, pyr.dist_patch_sizes, pyr.n_percentage),
+         lambda: EH.fill_in_levels_ref(fill_lv, pyr.dist_patch_sizes, pyr.n_percentage),
+         fill_bound(fill_lv), 50),
     ]
     for name, fk, fp, (bound_ms, bound_by), n_reps in front:
         counted, replaces = FRONT_KERNELS[name]
@@ -4993,6 +5047,20 @@ def main() -> int:
     pyr_f32 = (lv0.gray[None], dep0, 1.0, pyr.n_levels)
     next(r for r in rows if r["name"] == "pyramid")["float32_device_ms"] = _queued_ms(
         lambda: FL.pyramid(*pyr_f32))
+    # The fill-in at the track cells' shape: 128 lanes (the chain's 8
+    # frames 16 times), one launch; its plain version is the torch ops the
+    # front end ran before it.
+    fill128 = [e.repeat(16, 1, 1) for e in chain_orig]
+    fe_fill(fill128, "chain levels, B = 128")
+    f128 = lambda: EH.fill_in_levels(fill128, pyr.dist_patch_sizes, pyr.n_percentage)  # noqa: E731
+    p128 = lambda: EH.fill_in_levels_ref(fill128, pyr.dist_patch_sizes,  # noqa: E731
+                                         pyr.n_percentage)
+    b128_bound = fill_bound(fill128)
+    next(r for r in rows if r["name"] == "fill_levels")["b128"] = {
+        "lanes": 128, "ms": min(_time_ms(f128, 50), _time_ms(f128, 50)),
+        "plain_ms": min(_time_ms(p128, 10), _time_ms(p128, 10)), "device_ms": _queued_ms(f128),
+        "bound_ms": b128_bound[0], "bound_by": b128_bound[1],
+        "plain_torch_kernels": _profile_kernels(p128, 5)[0]}
     part_done("front_end_rows")
     # K1's persistent blocks per launch (the occupancy query's count, at
     # most one a tile), its device time from float32 gray, and the cast +

@@ -1,6 +1,7 @@
 // The front end's and the keyframe's hand kernels: the exact EDT with the
 // structure and quad table (revo_edt_columns_levels + revo_keyframe_rows),
-// the edge cloud (revo_edge_cloud) and the pyramid (revo_pyramid).
+// the edge cloud (revo_edge_cloud), the edge histogram and fill-in of every
+// level (revo_fill_levels) and the pyramid (revo_pyramid).
 //
 // None of them replaces a pl.pallas_call: they are the device form of the
 // two other jitted programs of the main path, revo_tpu/frontend.py's
@@ -10,20 +11,23 @@
 // host reads (the band radius) a keyframe, ~306 launches a frame.  Each
 // kernel here takes B lanes in one launch and is bit-equal to its plain
 // version (ops/edt.py edt_columns_ref and keyframe_rows_ref,
-// ops/backproject.py backproject_edges_ref, ops/filters.py pyramid_ref);
+// ops/backproject.py backproject_edges_ref, ops/edge_hist.py
+// fill_in_levels_ref, ops/filters.py pyramid_ref);
 // every product and sum is written with __f*_rn, because NVCC_FLAGS let nvcc
 // contract a * b + c into an FMA.
 //
 // Bounds (bytes over 3.35 TB/s; the integer work is small): the EDT pair
 // reads the edges once and writes the structure and the quad table (640x480,
 // dt4bf: 0.31 + 3.69 + 2.46 MB, ~1.9 us); the cloud reads edges and depth
-// (1.5 MB) and writes the points; the pyramid reads level 0 and writes the
-// others.  All four are latency- and launch-bound at these sizes: the
-// design keeps each a single launch with no host read, so a keyframe of 3
-// levels is 4 launches (the column pass of every level in one) and a frame's
-// pyramid 1.  The column pass, the cloud and the row pass run thread-block
-// clusters: their blocks trade column ends, counts and halo rows over
-// DSMEM, not through global memory or a second launch.
+// (1.5 MB) and writes the points; the fill-in reads levels 1-2 and the
+// parents' odd rows and writes levels 1-2 (~0.4 MB); the pyramid reads level
+// 0 and writes the others.  All five are latency- and launch-bound at these
+// sizes: the design keeps each a single launch with no host read, so a
+// keyframe of 3 levels is 4 launches (the column pass of every level in one)
+// and a frame's pyramid and fill-in 1 each.  The column pass, the cloud,
+// the fill-in and the row pass run thread-block clusters: their blocks trade
+// column ends, counts, bit maps and halo rows over DSMEM, not through global
+// memory or a second launch.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -749,6 +753,247 @@ edge_cloud_kernel(const uint8_t* __restrict__ edges, const float* __restrict__ d
     zero_slot(pts, val, j);
 }
 
+// ---------------------------------------------------------------------------
+// 4. revo_fill_levels: the BMVC17 edge histogram and fill-in of levels 1 ..
+// n-1 of B lanes in one launch: ops/edge_hist.py fill_in_levels_ref
+// (patch_histogram, fill_in_edges and the where on occupancy, level by
+// level).  It replaces no pl.pallas_call: it is the fill-in of JAX's jitted
+// build_frame (revo_tpu/frontend.py:99-110), which XLA fuses into that
+// program; the port ran it as ~75 eager torch kernels a frame, level 0's
+// unused histogram among them.  Level l counts Canny's edges of level l over
+// whole patch[l] x patch[l] patches (the image truncated to whole patches)
+// and takes the float32 share of patches holding an edge, rounded once;
+// where that share is below npct, pixel (y, x) also takes parent pixel
+// (2y+1, 2x+1) where it lies in the parent and count bin
+// (min((2y+1) / patch[l-1], hc-1), min((2x+1) / patch[l-1], wc-1)) is below
+// patch[l]^2 * 0.05 in float32.  Level 1's parent is Canny's level 0 (the
+// table's entry 0), level l's the filled level l-1, so a lane's levels run
+// in order inside the launch.
+//
+// Bound: bytes.  A lane at 640x480 reads levels 1-2's edges and the
+// parents' odd rows and writes levels 1-2 (~0.4 MB; 51 MB at B = 128, ~15 us
+// at 3.35 TB/s); the integer work is a few operations a pixel.  One launch,
+// a thread-block cluster a lane (C blocks from the lanes and level 1's size:
+// fill_cluster, as cloud_cluster picks the cloud's).  A level: block k
+// counts the bins of rows [k hc / C, (k+1) hc / C) of the count grid into
+// shared memory (the rows of its bins in 16-byte loads, a thread's run of
+// one bin added with one shared atomic), in tiles of at most `counts` bins
+// (whole bin rows, or 32-bin-aligned pieces of a row wider than a tile);
+// a warp a word turns 32 counts into the bits "below the threshold" and
+// "nonzero" by ballots, and pushes the word into the bit map of every block
+// of the cluster over DSMEM (or stores it once in global memory, where two
+// levels' maps do not fit FILL_BITS_SHARED).  Each block pushes its count
+// of nonzero bins the same way; after one cluster barrier every block sums
+// the C counts, so all take the same decision, and writes rows [k H / C,
+// (k+1) H / C) of the level: a copy where the level is not filled, else
+// each 16-byte chunk ORed with the parent's odd pixels of its row (two
+// 16-byte loads where they line up, bytes elsewhere), looked up in the bit
+// map only under a parent edge.  The next level's barrier makes the level's
+// bytes visible to the blocks that read them as its parent (through L2:
+// __ldcg).  Two bit maps alternate by level, so a block's pushes for level
+// l+1 never meet a block still reading level l's.  No per-pixel scratch in
+// device memory, no host read; the flags (occupancy < npct) of every lane
+// and level go to `flags`.
+constexpr int FILL_THREADS = 512;
+constexpr int FILL_WARPS = FILL_THREADS / 32;
+constexpr int FILL_MAX_LEVELS = 8;          // levels a launch, the parent (entry 0) included
+constexpr int FILL_CLUSTER_MAX = 16;        // blocks a cluster, at most (non-portable above 8)
+constexpr int FILL_MIN_PIXELS = 4096;       // level-1 pixels a block takes at least where C > 1
+constexpr int FILL_COUNTS_MAX = 16384;      // count slots a block keeps at most (64 KB)
+constexpr int FILL_BITS_SHARED = 163840;    // bytes of the two bit maps a block keeps at most
+constexpr int FILL_UNROLL = 4;              // 16-byte chunks a thread keeps in flight
+
+static_assert(FILL_BITS_SHARED + 4 * FILL_COUNTS_MAX + 4 * (2 * FILL_CLUSTER_MAX + 1) <= 232448,
+              "two bit maps, the count slots and the static counts fit an H100 block");
+static_assert(FILL_COUNTS_MAX % 32 == 0, "count tiles of part of a bin row are whole words");
+
+struct FillLevels {
+  const uint8_t* edges[FILL_MAX_LEVELS];  // Canny's edges of each level; entry 0: the parent
+  uint8_t* out[FILL_MAX_LEVELS];          // level l >= 1 after fill-in
+  int H[FILL_MAX_LEVELS], W[FILL_MAX_LEVELS], patch[FILL_MAX_LEVELS];
+  int hc[FILL_MAX_LEVELS], wc[FILL_MAX_LEVELS];  // whole patches down and across
+  float thresh[FILL_MAX_LEVELS];          // patch^2 * 0.05, rounded to float32
+  int n;                                  // levels, entry 0 included
+  int words;                              // words of a level's bit map, the most over the levels
+  int counts;                             // count slots a block keeps (a multiple of 32)
+  uint8_t* flags;                         // (B, flag_stride): level l at l - 1
+  int flag_stride;
+  uint32_t* gbits;                        // null: bit maps in shared memory; else (B, 2, words)
+  float npct;
+};
+
+// m (< 16) bytes from p, packed as a 16-byte chunk.
+__device__ __forceinline__ uint4 fill_bytes(const uint8_t* p, int m) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  for (int j = 0; j < m; ++j) w[j >> 2] |= (uint32_t)p[j] << (8 * (j & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// f(chunk, i, m) for the lane's bytes [i0, i1) of `base`: 16-byte loads of
+// the aligned body, FILL_UNROLL of a thread's chunks in flight, consecutive
+// threads on consecutive chunks; the unaligned head and tail as one short
+// chunk each (threads 0 and 32).
+template <class F>
+__device__ __forceinline__ void fill_walk(const uint8_t* base, int i0, int i1, F&& f) {
+  if (i1 <= i0) return;
+  const int head =
+      min((int)((16u - ((uint32_t)reinterpret_cast<uintptr_t>(base + i0) & 15u)) & 15u), i1 - i0);
+  const int a0 = i0 + head, a1 = a0 + ((i1 - a0) & ~15);
+  if (threadIdx.x == 0 && head > 0) f(fill_bytes(base + i0, head), i0, head);
+  if (threadIdx.x == 32 && a1 < i1) f(fill_bytes(base + a1, i1 - a1), a1, i1 - a1);
+  constexpr int STRIDE = 16 * FILL_THREADS;
+  for (int c = a0 + 16 * (int)threadIdx.x; c < a1; c += STRIDE * FILL_UNROLL) {
+    uint4 v[FILL_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FILL_UNROLL; ++u) {
+      const int cu = c + STRIDE * u;
+      v[u] = cu < a1 ? __ldg(reinterpret_cast<const uint4*>(base + cu)) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < FILL_UNROLL; ++u)
+      if (c + STRIDE * u < a1) f(v[u], c + STRIDE * u, 16);
+  }
+}
+
+// Byte j of a 16-byte chunk.
+__device__ __forceinline__ uint32_t chunk_byte(const uint4& v, int j) {
+  const uint32_t w = j < 8 ? (j < 4 ? v.x : v.y) : (j < 12 ? v.z : v.w);
+  return (w >> (8 * (j & 3))) & 0xffu;
+}
+
+__global__ void __launch_bounds__(FILL_THREADS)
+fill_levels_kernel(FillLevels f) {
+  extern __shared__ uint32_t fill_smem[];     // two bit maps (unless in global memory), the counts
+  __shared__ int s_nnz[2][FILL_CLUSTER_MAX];  // every block's nonzero bins, pushed over DSMEM
+  __shared__ int s_nz;
+  cluster_arrive_relaxed();  // this block has started
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool gmaps = f.gbits != nullptr;  // the bit maps in global memory
+  uint32_t* maps = gmaps ? f.gbits + (size_t)b * 2 * f.words : fill_smem;
+  int* counts = reinterpret_cast<int*>(fill_smem + (gmaps ? 0 : 2 * f.words));
+  cluster_wait();  // every block of the cluster has started: its shared memory exists
+  for (int l = 1; l < f.n; ++l) {
+    const int parity = l & 1;
+    const int H = f.H[l], W = f.W[l], p = f.patch[l], hc = f.hc[l], wc = f.wc[l];
+    const int wcw = (wc + 31) >> 5;
+    const float thresh = f.thresh[l];
+    const uint8_t* e = f.edges[l] + (size_t)b * H * W;
+    uint32_t* bits = maps + parity * f.words;
+    if (tid == 0) s_nz = 0;
+    // -- the level's counts: block k's bin rows, in tiles
+    const int r0 = (int)((long long)hc * k / C), r1 = (int)((long long)hc * (k + 1) / C);
+    const int tc = min(wc, f.counts);                              // bins across a tile
+    const int tr = tc == wc ? max(f.counts / max(wc, 1), 1) : 1;  // bin rows a tile
+    for (int t0 = r0; t0 < r1; t0 += tr) {
+      const int t1 = min(t0 + tr, r1);
+      for (int c0 = 0; c0 < wc; c0 += tc) {
+        const int c1 = min(c0 + tc, wc), xa = c0 * p, xb = c1 * p;
+        for (int i = tid; i < (t1 - t0) * tc; i += FILL_THREADS) counts[i] = 0;
+        __syncthreads();
+        fill_walk(e, t0 * p * W, t1 * p * W, [&](const uint4& v, int i, int m) {
+          if ((v.x | v.y | v.z | v.w) == 0u) return;
+          int y = i / W, x = i - y * W, slot = -1, run = 0;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            if (j < m && chunk_byte(v, j)) {
+              const int s = x >= xa && x < xb ? (y / p - t0) * tc + x / p - c0 : -1;
+              if (s != slot) {
+                if (run) atomicAdd(&counts[slot], run);
+                slot = s;
+                run = 0;
+              }
+              run += s >= 0;
+            }
+            if (++x == W) {
+              x = 0;
+              ++y;
+            }
+          }
+          if (run) atomicAdd(&counts[slot], run);
+        });
+        __syncthreads();
+        // a warp a word of the bit map: 32 bins of one bin row
+        const int w0 = c0 >> 5, nwr = ((c1 + 31) >> 5) - w0;
+        for (int q = warp; q < (t1 - t0) * nwr; q += FILL_WARPS) {
+          const int rr = q / nwr, bx = 32 * (w0 + q % nwr) + lane;
+          const bool in = bx < c1;
+          const int cnt = in ? counts[rr * tc + bx - c0] : 0;
+          const uint32_t sparse = __ballot_sync(0xffffffffu, in && (float)cnt < thresh);
+          const uint32_t nz = __ballot_sync(0xffffffffu, cnt > 0);
+          const int at = (t0 + rr) * wcw + w0 + q % nwr;
+          if (lane == 0) atomicAdd(&s_nz, __popc(nz));
+          if (gmaps) {
+            if (lane == 0) bits[at] = sparse;
+          } else if (lane < C) {
+            *cluster.map_shared_rank(bits + at, lane) = sparse;
+          }
+        }
+        __syncthreads();  // the counts are the next tile's
+      }
+    }
+    __syncthreads();
+    if (tid < C) *cluster.map_shared_rank(&s_nnz[parity][k], tid) = s_nz;
+    __threadfence();  // the maps in global memory and level l-1's bytes
+    // -- the level's cluster barrier
+    cluster.sync();  // every block's count and map words, and level l-1 whole
+    int nnz = 0;
+    for (int r = 0; r < C; ++r) nnz += s_nnz[parity][r];
+    const bool fill = __fdiv_rn((float)nnz, (float)(hc * wc)) < f.npct;  // NaN: no whole patch
+    if (k == 0 && tid == 0) f.flags[(size_t)b * f.flag_stride + l - 1] = fill;
+    // -- the level's rows
+    uint8_t* o = f.out[l] + (size_t)b * H * W;
+    const int i0 = (int)((long long)H * k / C) * W, i1 = (int)((long long)H * (k + 1) / C) * W;
+    const auto store = [&](const uint4& v, int i, int m) {
+      if (m == 16 && (reinterpret_cast<uintptr_t>(o + i) & 15u) == 0) {
+        *reinterpret_cast<uint4*>(o + i) = v;
+      } else {
+        for (int j = 0; j < m; ++j) o[i + j] = (uint8_t)chunk_byte(v, j);
+      }
+    };
+    if (!fill) {
+      fill_walk(e, i0, i1, store);
+      continue;
+    }
+    const int PH = f.H[l - 1], PW = f.W[l - 1], pp = f.patch[l - 1];
+    const uint8_t* par = (l == 1 ? f.edges[0] : f.out[l - 1]) + (size_t)b * PH * PW;
+    fill_walk(e, i0, i1, [&](const uint4& v, int i, int m) {
+      int y = i / W, x = i - y * W;
+      const uint8_t* prow = par + (size_t)(2 * y + 1) * PW + 2 * x;
+      const bool vec = m == 16 && x + 16 <= W && 2 * y + 1 < PH && 2 * x + 32 <= PW &&
+                       (reinterpret_cast<uintptr_t>(prow) & 15u) == 0;
+      uint4 q0 = make_uint4(0u, 0u, 0u, 0u), q1 = q0;
+      if (vec) {
+        q0 = __ldcg(reinterpret_cast<const uint4*>(prow));
+        q1 = __ldcg(reinterpret_cast<const uint4*>(prow + 16));
+      }
+      uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (j < m) {
+          const int py = 2 * y + 1, px = 2 * x + 1;
+          if (py < PH && px < PW) {
+            const uint32_t pb = vec ? chunk_byte(j < 8 ? q0 : q1, (2 * j + 1) & 15)
+                                    : (uint32_t)__ldcg(par + (size_t)py * PW + px);
+            if (pb) {
+              const int by = min(py / pp, hc - 1), bx = min(px / pp, wc - 1);
+              const uint32_t* word = bits + by * wcw + (bx >> 5);
+              const uint32_t m32 = gmaps ? __ldcg(word) : *word;
+              if ((m32 >> (bx & 31)) & 1u) w[j >> 2] |= 1u << (8 * (j & 3));
+            }
+          }
+          if (++x == W) {
+            x = 0;
+            ++y;
+          }
+        }
+      }
+      store(make_uint4(w[0], w[1], w[2], w[3]), i, m);
+    });
+  }
+}
+
 // Per device, queried once: the opt-in shared memory of a block and the
 // cloud's clusters of 1, 2, 4, 8, 16 blocks the card holds at once.
 struct DeviceInfo {
@@ -756,6 +1001,8 @@ struct DeviceInfo {
   int smem_optin;
   int cloud_held[5];
   int edt_resident;  // column-pass blocks the card holds at once
+  size_t fill_smem;  // the shared memory fill_held was counted at (0: not yet)
+  int fill_held[5];  // fill clusters of 1, 2, 4, 8, 16 blocks the card holds at once
 };
 constexpr int MAX_DEVICES = 64;
 static DeviceInfo g_devices[MAX_DEVICES];
@@ -797,6 +1044,11 @@ static DeviceInfo* device_info(cudaError_t* err) {
                                 (int)cloud_smem);
   if (*err == cudaSuccess)
     *err = cudaFuncSetAttribute(edge_cloud_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (*err == cudaSuccess)  // the most it takes, beside its static shared memory
+    *err = cudaFuncSetAttribute(fill_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FILL_BITS_SHARED + 4 * FILL_COUNTS_MAX);
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(fill_levels_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   for (int i = 0; i < 5 && *err == cudaSuccess; ++i) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
@@ -843,8 +1095,48 @@ static int cloud_cluster(const DeviceInfo* info, int B, int steps) {
   return 1;
 }
 
+static void fill_config(int C, int B, size_t smem, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                        cudaLaunchAttribute* attr) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C, B, 1);
+  cfg->blockDim = dim3(FILL_THREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Blocks a lane of revo_fill_levels: the largest power of two up to
+// FILL_CLUSTER_MAX that leaves every block FILL_MIN_PIXELS of level 1 and of
+// which the card holds the B lanes' clusters at once (counted with `smem`,
+// the most a block takes; recounted when it changes); else 1.
+static int fill_cluster(DeviceInfo* info, int B, long long pixels, size_t smem,
+                        cudaError_t* err) {
+  if (info->fill_smem != smem) {
+    for (int i = 0; i < 5; ++i) {
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      fill_config(1 << i, 1, smem, 0, &cfg, &attr);
+      *err = cudaOccupancyMaxActiveClusters(&info->fill_held[i], fill_levels_kernel, &cfg);
+      if (*err != cudaSuccess) {
+        cudaGetLastError();
+        info->fill_smem = 0;
+        return 0;
+      }
+    }
+    info->fill_smem = smem;
+  }
+  for (int i = 4; i > 0; --i)
+    if (((long long)FILL_MIN_PIXELS << i) <= pixels && info->fill_held[i] >= B) return 1 << i;
+  return 1;
+}
+
 // ---------------------------------------------------------------------------
-// 4. revo_pyramid: a frame's pyramid, up to two steps a launch (level l ->
+// 5. revo_pyramid: a frame's pyramid, up to two steps a launch (level l ->
 // l + 1 -> l + 2): ops/filters.py pyramid_ref, pyr_level_ref chained.  A
 // step: the gray by cv::pyrDown's 5-tap [1 4 6 4 1] / 16 blur with
 // REFLECT_101 borders at even coordinates, the taps summed as the plain
@@ -1210,4 +1502,64 @@ extern "C" int revo_pyramid(const void* gray, int gray_u8, const void* depth, in
         static_cast<const float*>(gray), static_cast<const float*>(depth), inv_scale, out, H, W,
         HD, WD, tiles_x);
   return (int)cudaGetLastError();
+}
+
+// n levels of B lanes, given as n x (edges pointer, output pointer, H, W,
+// patch) in `levels` (host memory; entry 0 the parent of level 1, its output
+// pointer unread) -> levels 1 .. n-1 after the fill-in, and each lane's and
+// level's flag (the occupancy below npct) at flags[b * flag_stride + l - 1];
+// one launch of fill_cluster's blocks a lane.  gbits: null where two levels'
+// bit maps fit FILL_BITS_SHARED (2 * words * 4 bytes, words the most of
+// hc * ceil(wc / 32) over levels 1 ..), else B x 2 x words words of global
+// memory.  Every shape is taken.
+extern "C" int revo_fill_levels(const long long* levels, int n, int B, uint8_t* flags,
+                                int flag_stride, float npct, uint32_t* gbits,
+                                cudaStream_t stream) {
+  if (n < 2 || n > fe::FILL_MAX_LEVELS || B < 1 || B > 65535 || !flags || flag_stride < n - 1)
+    return (int)cudaErrorInvalidValue;
+  fe::FillLevels f{};
+  long long words = 0;
+  for (int l = 0; l < n; ++l) {
+    const long long* a = levels + 5 * l;
+    if (!a[0] || (l > 0 && !a[1]) || a[2] < 1 || a[3] < 1 || a[4] < 1 ||
+        a[2] * a[3] > (1LL << 30) || a[4] > (1 << 20))
+      return (int)cudaErrorInvalidValue;
+    f.edges[l] = reinterpret_cast<const uint8_t*>(a[0]);
+    f.out[l] = reinterpret_cast<uint8_t*>(a[1]);
+    f.H[l] = (int)a[2];
+    f.W[l] = (int)a[3];
+    f.patch[l] = (int)a[4];
+    f.hc[l] = f.H[l] / f.patch[l];
+    f.wc[l] = f.W[l] / f.patch[l];
+    f.thresh[l] = (float)((double)a[4] * (double)a[4] * 0.05);
+    if (l > 0) words = std::max(words, (long long)f.hc[l] * ((f.wc[l] + 31) / 32));
+  }
+  if (!gbits && 8 * words > fe::FILL_BITS_SHARED) return (int)cudaErrorInvalidValue;
+  f.n = n;
+  f.words = (int)words;
+  f.flags = flags;
+  f.flag_stride = flag_stride;
+  f.gbits = gbits;
+  f.npct = npct;
+  cudaError_t err;
+  fe::DeviceInfo* info = fe::device_info(&err);
+  if (!info) return (int)err;
+  // A block's count slots: its bin rows of the widest level, at most FILL_COUNTS_MAX.
+  const auto slots = [&](int C) {
+    long long most = 32;
+    for (int l = 1; l < n; ++l)
+      most = std::max(most, (long long)((f.hc[l] + C - 1) / C) * f.wc[l]);
+    return (int)std::min((long long)fe::FILL_COUNTS_MAX, (most + 31) / 32 * 32);
+  };
+  const size_t bits_smem = gbits ? 0 : (size_t)8 * words;
+  const int C = fe::fill_cluster(info, B, (long long)f.H[1] * f.W[1],
+                                 bits_smem + (size_t)4 * slots(1), &err);
+  if (C == 0) return (int)err;
+  f.counts = slots(C);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fe::fill_config(C, B, bits_smem + (size_t)4 * f.counts, stream, &cfg, &attr);
+  err = cudaLaunchKernelEx(&cfg, fe::fill_levels_kernel, f);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }

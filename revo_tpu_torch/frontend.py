@@ -3,7 +3,8 @@ clouds, and keyframes (counterpart of revo_tpu/frontend.py).
 
 ``build_frame`` mirrors the ImgPyramidRGBD constructor
 (imgpyramidrgbd.cpp:43-96): per level Canny edges (one fused K1 + K2 launch), BMVC17
-fill-in when patch occupancy is low, and back-projection of edge pixels with
+fill-in when patch occupancy is low (``ops.edge_hist.fill_in_levels``, one
+``revo_fill_levels`` launch for levels 1 on), and back-projection of edge pixels with
 valid depth into a fixed-capacity cloud (``ops.backproject.backproject_edges``,
 one ``revo_edge_cloud`` call a level on the card); levels > 0 come from
 pyrDown gray and hole-aware depth subsampling (``ops.filters.pyramid``,
@@ -34,7 +35,7 @@ from revo_tpu_torch.config import SystemConfig
 from revo_tpu_torch.lanes import add_lane_axis, lane
 from revo_tpu_torch.ops.backproject import EdgeCloud, backproject_edges
 from revo_tpu_torch.ops.canny import canny_batched
-from revo_tpu_torch.ops.edge_hist import fill_in_edges, patch_histogram
+from revo_tpu_torch.ops.edge_hist import fill_in_levels
 from revo_tpu_torch.ops.edt import keyframe_tables
 from revo_tpu_torch.ops.filters import gaussian_blur, pyramid
 from revo_tpu_torch.ops.undistort import remap_bilinear
@@ -78,7 +79,9 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
     """The pyramid's edge maps, level by level from full resolution: yields
     (gray, depth, edges_orig, edges) per level, edges after fill-in.  Images
     are (..., H, W), lanes on the leading axes; Canny takes them all in one
-    launch per level.
+    launch per level.  Every level's pyramid, Canny and fill-in is launched
+    before the first yield (the pyramid, Canny a level, then one fill-in
+    launch for levels 1 on, whose flags go to ``trace.fill_in``).
 
     Takes uint8 or float32 gray, and uint16 raw depth (scaled by
     1 / depth_scale_factor, iowrapperRGBD.cpp:326-327) or float32 metres;
@@ -102,9 +105,9 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
     # frame's float32 levels.
     pyr = cfg.pyramid
     lead, (h, w) = gray.shape[:-2], gray.shape[-2:]
-    levels = pyramid(gray.reshape(-1, h, w), depth.reshape(-1, h, w), inv_scale, pyr.n_levels)
-    prev_edges = None
-    for lvl, (g, d) in enumerate(levels):
+    levels = []
+    for lvl, (g, d) in enumerate(pyramid(gray.reshape(-1, h, w), depth.reshape(-1, h, w),
+                                         inv_scale, pyr.n_levels)):
         g, d = g.reshape(*lead, *g.shape[-2:]), d.reshape(*lead, *d.shape[-2:])
         if pyr.gaussian_before_canny:
             canny_in = gaussian_blur(g)
@@ -114,17 +117,17 @@ def edge_levels(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,
         edges = canny_batched(
             canny_in.reshape(-1, h, w), pyr.canny_threshold1, pyr.canny_threshold2
         ).reshape(canny_in.shape)
-        edges_orig = edges
-        patch = pyr.dist_patch_sizes[lvl]
-        counts, occupancy = patch_histogram(edges, patch)
-        if pyr.use_edge_hist and lvl > 0:
-            filled = fill_in_edges(
-                edges, prev_edges, counts, patch, pyr.dist_patch_sizes[lvl - 1]
-            )
-            sparse = occupancy < torch.full_like(occupancy, pyr.n_percentage)
-            edges = torch.where(sparse[..., None, None], filled, edges)
+        levels.append((g, d, edges))
+    # The fill-in of levels 1 on, each from the level above it once filled
+    # (level 0's histogram, which nothing reads, is not computed): one
+    # revo_fill_levels launch on the card.
+    filled = [edges for _, _, edges in levels]
+    if pyr.use_edge_hist and len(levels) > 1:
+        rest, flags = fill_in_levels(filled, pyr.dist_patch_sizes, pyr.n_percentage)
+        trace.fill_in(flags)
+        filled[1:] = rest
+    for (g, d, edges_orig), edges in zip(levels, filled):
         yield g, d, edges_orig, edges
-        prev_edges = edges
 
 
 def build_frame_batched(gray: torch.Tensor, depth: torch.Tensor, cfg: SystemConfig,

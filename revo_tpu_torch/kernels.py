@@ -67,6 +67,7 @@ SIGNATURES = {
     "revo_edt_columns_levels": "aii",
     "revo_keyframe_rows": "pppiiiii",
     "revo_edge_cloud": "pppppiiiffffffi",
+    "revo_fill_levels": "aiipifp",
     "revo_pyramid": "pipif" + "p" * 6 + "iiiiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float, "a": ctypes.c_void_p}

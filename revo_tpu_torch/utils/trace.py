@@ -1,5 +1,6 @@
 """The port's tracer: named spans at the step's layer boundaries, the host's
-blocking reads by site, and the level kernel's evaluations, kept in memory.
+blocking reads by site, the level kernel's evaluations and the front end's
+fill-in flags, kept in memory.
 
 Tracing is on while ``enable()`` holds it on (the operator's switch, until
 ``disable()``) or while a torch profiler records
@@ -26,6 +27,9 @@ Tracing is on while ``enable()`` holds it on (the operator's switch, until
 - ``level_launch(evaluations, points)``: each level of the solver, kernel
   or plain loop, hands over the evaluations each lane ran, a tensor it
   already wrote; ``snapshot()`` sums them when it is read.
+- ``fill_in(flags)``: each frame's fill-in, kernel or plain version, hands
+  over its (..., levels - 1) flags of the lane-levels it filled, a tensor it
+  already wrote; ``snapshot()`` reads them as ``frontend.fill_in_share``.
 
 Spans are recorded from one thread, the one that steps the system.  Names
 are dotted (``scan.*``, ``frontend.*``, ``tracker.*``, ``keyframe.*``,
@@ -83,6 +87,8 @@ class _Session:
         self.reads = Counter()
         self.levels = []  # (evaluations (B,) int32, points a lane) a level
         self.level_lists = []  # each level's evaluations as a list, once read
+        self.fills = []  # each frame's fill-in flags (..., levels - 1) bool
+        self.filled = [0, 0]  # lane-levels filled and in all, of the flags read
         self.gc_open = None
         self.kernel0 = _level_counts()
         self.kernel1 = None
@@ -193,6 +199,14 @@ def level_launch(evaluations: torch.Tensor, points: int) -> None:
         _current().levels.append((evaluations, int(points)))
 
 
+def fill_in(flags: torch.Tensor) -> None:
+    """One frame's fill-in: ``flags`` (..., levels - 1) whether each lane's
+    level was filled (kept by reference while tracing is on, read at
+    ``snapshot()``)."""
+    if _enabled or _profiler._is_profiler_enabled:
+        _current().fills.append(flags)
+
+
 def _gc_hook(phase, info) -> None:
     if not _live:
         return
@@ -228,6 +242,18 @@ def _level_evaluations(s: _Session) -> list:
     return s.level_lists
 
 
+def _fill_in_share(s: _Session):
+    """The share of lane-levels filled over the session's frames: one host
+    read a device for the flags not read yet, made here and not on the
+    step's path; None before any fill-in."""
+    for dev in {f.device for f in s.fills}:
+        flat = torch.cat([f.reshape(-1) for f in s.fills if f.device == dev])
+        s.filled[0] += int(flat.sum())
+        s.filled[1] += flat.numel()
+    s.fills.clear()
+    return s.filled[0] / s.filled[1] if s.filled[1] else None
+
+
 def snapshot() -> dict:
     """The last session's records:
 
@@ -242,7 +268,9 @@ def snapshot() -> dict:
       lane's cloud capacity) and ``evaluations`` (a list, one a lane);
     - ``level_kernel``: the session's ``solve_level_kernel`` launches, those
       with the init check, and the launches by table layout, from the
-      wrapper's own counters.
+      wrapper's own counters;
+    - ``frontend.fill_in_share``: the share of the lane-levels of the
+      session's frames whose fill-in applied, None before any.
 
     Empty (``steps`` 0) before any session."""
     if _live and not on():
@@ -250,7 +278,7 @@ def snapshot() -> dict:
     s = _session
     if s is None:
         return {"steps": 0, "spans": [], "totals": {}, "host_reads": {}, "levels": [],
-                "level_kernel": {}}
+                "level_kernel": {}, "frontend.fill_in_share": None}
     now = time.perf_counter_ns()
     ends = [t1 or now for _, _, _, _, t1 in s.spans]
     covered = [0] * len(s.spans)
@@ -274,7 +302,8 @@ def snapshot() -> dict:
     levels = [{"points": p, "evaluations": ev}
               for (_, p), ev in zip(s.levels, _level_evaluations(s))]
     return {"steps": s.step + 1, "spans": spans, "totals": totals,
-            "host_reads": dict(s.reads), "levels": levels, "level_kernel": kernel}
+            "host_reads": dict(s.reads), "levels": levels, "level_kernel": kernel,
+            "frontend.fill_in_share": _fill_in_share(s)}
 
 
 @contextlib.contextmanager

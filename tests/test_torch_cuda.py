@@ -623,6 +623,120 @@ def test_build_frame_on_card_matches_cpu(cuda):
         torch.testing.assert_close(a.cloud.points.cpu(), b.cloud.points, rtol=1e-6, atol=0)
 
 
+def _fill_gray(b, h, w):
+    """(B, H, W) uint8-valued float32 gray: smooth lanes (sparse edges,
+    their coarse levels filled) and, every other lane, 8x8 blocks of texture
+    (dense edges, left as they are); lanes repeat from the 16th on."""
+    out = []
+    for i in range(min(b, 16)):
+        g = _gray(h, w, 100 + i)
+        if i % 2:
+            rng = np.random.default_rng(i)
+            tex = rng.integers(-60, 61, size=(h // 8 + 1, w // 8 + 1)).repeat(8, 0).repeat(8, 1)
+            g = np.clip(g + tex[:h, :w], 0, 255).astype(np.float32)
+        out.append(g)
+    return np.stack([out[i % len(out)] for i in range(b)])
+
+
+@pytest.mark.parametrize("lanes, h, w", [(1, 480, 640), (8, 480, 640), (128, 480, 640),
+                                         (2, 720, 1280), (3, 481, 643)])
+def test_fill_in_levels_kernel_bit_equal(cuda, lanes, h, w):
+    """The front end's levels on the card: every level's edges_orig is
+    Canny's, level 0's edges are its edges_orig, and levels 1-2 after
+    revo_fill_levels (one launch a frame; from build_frame_batched too where
+    each level's depth has its gray's size) equal fill_in_levels_ref's on the
+    CPU, flags included, bit for bit."""
+    from revo_tpu_torch.ops import edge_hist
+
+    cfg = SystemConfig()
+    pyr = cfg.pyramid
+    gray = torch.from_numpy(_fill_gray(lanes, h, w)).to(cuda)
+    depth = torch.ones_like(gray)
+    before = edge_hist.fill_in_levels.launches
+    out = list(frontend.edge_levels(gray, depth, cfg))
+    assert edge_hist.fill_in_levels.launches == before + 1
+    for g, _, edges_orig, _ in out:
+        assert torch.equal(edges_orig, K12.canny_batched(g, pyr.canny_threshold1,
+                                                         pyr.canny_threshold2))
+    assert out[0][3] is out[0][2]
+    orig = [edges_orig.cpu() for _, _, edges_orig, _ in out]
+    want, want_flags = edge_hist.fill_in_levels_ref(orig, pyr.dist_patch_sizes, pyr.n_percentage)
+    for (_, _, _, edges), wanted in zip(out[1:], want):
+        assert edges.dtype == torch.bool and torch.equal(edges.cpu(), wanted)
+    got, flags = edge_hist.fill_in_levels([e.to(cuda) for e in orig], pyr.dist_patch_sizes,
+                                           pyr.n_percentage)
+    assert torch.equal(flags.cpu(), want_flags)
+    if lanes > 1:
+        assert want_flags.any() and not want_flags.all()
+    if h % 4 or w % 4:  # the clouds want each level's depth of its gray's size
+        return
+    before = edge_hist.fill_in_levels.launches
+    frame = frontend.build_frame_batched(gray, depth, cfg)
+    torch.cuda.synchronize()
+    assert edge_hist.fill_in_levels.launches == before + 1
+    for lv, wanted in zip(frame.levels[1:], want):
+        assert torch.equal(lv.edges.cpu(), wanted)
+
+
+@pytest.mark.parametrize("case", ["ten_levels", "global_maps", "row_tiles", "rows_a_tile"])
+def test_fill_in_levels_kernel_chains_and_tiles(cuda, case):
+    """revo_fill_levels where its layout changes, against the plain version:
+    ten levels (two launches, the second's parent the first's last output),
+    bit maps too large for shared memory (global memory), count tiles of
+    part of a bin row (20,000 bins a row, more than a block's slots) and of
+    several bin rows with the bit maps in shared memory."""
+    from revo_tpu_torch.ops import edge_hist
+
+    rng = np.random.default_rng(len(case))
+    lanes = 2
+    if case == "ten_levels":
+        sizes, patches = [(720, 1280)], (20, 10, 5, 5, 3, 2, 2, 1, 1, 1)
+        density = (0.08, 0.004, 0.004, 0.02, 0.02, 0.05, 0.05, 0.2, 0.2, 0.3)
+    elif case == "global_maps":
+        sizes, patches, density, lanes = [(2048, 4096)], (2, 1), (0.1, 0.2), 1
+    elif case == "row_tiles":  # 20,000 bins a row: tiles of part of it
+        sizes, patches, density = [(4, 40000)], (2, 1), (0.08, 0.1)
+    else:  # 1,000 bins a row, 600 rows: tiles of 16 rows, the maps in shared memory
+        sizes, patches, density = [(1200, 2000)], (2, 1), (0.08, 0.1)
+    while len(sizes) < len(patches):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    levels = [torch.from_numpy(rng.random((lanes, hh, ww)) < d)
+              for (hh, ww), d in zip(sizes, density)]
+    want, want_flags = edge_hist.fill_in_levels_ref(levels, patches, 0.3)
+    before = edge_hist.fill_in_levels.launches
+    got, flags = edge_hist.fill_in_levels([e.to(cuda) for e in levels], patches, 0.3)
+    assert edge_hist.fill_in_levels.launches == before + (2 if case == "ten_levels" else 1)
+    assert torch.equal(flags.cpu(), want_flags) and want_flags.any()
+    for g, wanted in zip(got, want):
+        assert torch.equal(g.cpu(), wanted)
+
+
+def test_fill_in_share_traced_without_host_reads(cuda):
+    """The fill-in's flags reach ``trace.snapshot()`` as
+    ``frontend.fill_in_share``, read off the step's path: building frames
+    while tracing adds no host read."""
+    from revo_tpu_torch.ops import edge_hist
+    from revo_tpu_torch.utils import trace
+
+    cfg = SystemConfig()
+    pyr = cfg.pyramid
+    gray = torch.from_numpy(_fill_gray(4, 480, 640)).to(cuda)
+    reads = dict(trace.host_reads)
+    trace.enable()
+    try:
+        for _ in range(2):
+            frontend.build_frame_batched(gray, torch.ones_like(gray), cfg)
+        assert dict(trace.host_reads) == reads
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+    frame = frontend.build_frame_batched(gray, torch.ones_like(gray), cfg)
+    _, flags = edge_hist.fill_in_levels_ref([lv.edges_orig.cpu() for lv in frame.levels],
+                                            pyr.dist_patch_sizes, pyr.n_percentage)
+    assert snap["frontend.fill_in_share"] == int(flags.sum()) / flags.numel()
+    assert 0.0 < snap["frontend.fill_in_share"] < 1.0
+
+
 def test_vosystem_pan_on_card_matches_cpu(cuda):
     """VOSystem over a 160x120 fast pan (4 cm + ~1 deg per frame, the motion
     of tests/test_system.py) on the card: the same promotion /

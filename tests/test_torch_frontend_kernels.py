@@ -24,6 +24,14 @@ port's plain version, and the wrappers' routing.
   position of a slot wins it, a gap of the rounding is zeros), windows of
   the list where a block has more valid pixels than it holds, and the tail
   spread over the blocks (every slot written exactly once);
+- ``revo_fill_levels``: every level of a lane in one launch, a cluster of
+  blocks a lane, each block the counts of its bin rows in tiles of at most
+  the block's count slots (whole bin rows, or 32-bin pieces of a row), the
+  bit map of sparse patches a 32-bin word at a time, the blocks' counts of
+  occupied patches summed by every block, then each block's rows of the
+  level ORed with the parent's odd pixels under the map, every byte reached
+  once through 16-byte chunks from the lane's first aligned byte (the head
+  and tail as short chunks);
 - ``revo_pyramid``: two steps a launch, a block a tile of the second step's
   level with its input window staged (REFLECT_101 halo), each staged row's
   taps along x once, the first step's tile with a 2-pixel halo reflected at
@@ -36,7 +44,9 @@ Held to ``revo_tpu.ops.edt._column_distances`` (squared and clamped),
 ``keyframe_structure`` / ``quad_structure``,
 ``revo_tpu.ops.backproject.backproject_edges`` (jitted, as the JAX front end
 runs it), ``revo_tpu.ops.filters.pyr_down`` and
-``revo_tpu.ops.depth.subsample_depth_with_holes`` (chained), bit for bit.  The kernels
+``revo_tpu.ops.depth.subsample_depth_with_holes`` (chained),
+``revo_tpu.ops.edge_hist.patch_histogram`` / ``fill_in_edges`` with the
+front end's ``where`` (level by level), bit for bit.  The kernels
 themselves run against their plain versions in ``chip_smoke.py`` phase 4.
 """
 import re
@@ -50,10 +60,12 @@ import torch
 
 from revo_tpu.ops import backproject as jbp
 from revo_tpu.ops import depth as jdepth
+from revo_tpu.ops import edge_hist as jhist
 from revo_tpu.ops import edt as jedt
 from revo_tpu.ops import filters as jfilt
 from revo_tpu_torch import convert, kernels
 from revo_tpu_torch.ops import backproject as tbp
+from revo_tpu_torch.ops import edge_hist as thist
 from revo_tpu_torch.ops import edt as tedt
 from revo_tpu_torch.ops import filters as tfilt
 
@@ -90,6 +102,10 @@ CLOUD_STEPS = _const("CLOUD_STEPS")
 CLOUD_LIST = _const("CLOUD_LIST")
 CLOUD_CLUSTER_MAX = _const("CLOUD_CLUSTER_MAX")
 CLOUD_WARPS = CLOUD_THREADS // 32
+FILL_MAX_LEVELS = _const("FILL_MAX_LEVELS")
+FILL_CLUSTER_MAX = _const("FILL_CLUSTER_MAX")
+FILL_COUNTS_MAX = _const("FILL_COUNTS_MAX")
+FILL_BITS_SHARED = _const("FILL_BITS_SHARED")
 
 
 def test_wrapper_constants_follow_the_source():
@@ -121,6 +137,12 @@ def test_wrapper_constants_follow_the_source():
                      r"  return \(\(size_t\)\(band \+ 3\) \* W \+ std::max\(\(size_t\)band \* W, "
                      r"slices\)\) \* sizeof\(float\);", SRC)
     assert not hasattr(tbp, "CLOUD_TILE")
+    # The fill-in: its wrapper's level count and shared-memory split are the
+    # kernel's; two bit maps and the most count slots fit a block beside its
+    # static counts; the slots are whole 32-bin words.
+    assert (thist.FILL_MAX_LEVELS, thist.FILL_BITS_SHARED) == (FILL_MAX_LEVELS, FILL_BITS_SHARED)
+    assert FILL_BITS_SHARED + 4 * FILL_COUNTS_MAX + 4 * (2 * FILL_CLUSTER_MAX + 1) <= SMEM_OPTIN
+    assert FILL_COUNTS_MAX % 32 == 0 and FILL_CLUSTER_MAX <= 16
 
 
 def lanes_of(shape):
@@ -1200,6 +1222,174 @@ def test_pyramid_refuses_small_steps():
         1.0 / 5000.0)).all()
 
 
+# -- the fill-in --------------------------------------------------------------------
+
+
+def _fill_chunks(base: int, i0: int, i1: int):
+    """fill_walk's chunks (i, m) of bytes [i0, i1) of a lane whose byte 0
+    lies at address ``base``: the short head up to the first 16-byte
+    boundary, whole chunks, the short tail."""
+    if i1 <= i0:
+        return []
+    head = min((16 - (base + i0) % 16) % 16, i1 - i0)
+    a0 = i0 + head
+    a1 = a0 + ((i1 - a0) & ~15)
+    return ([(i0, head)] if head else []) + [(c, 16) for c in range(a0, a1, 16)] + (
+        [(a1, i1 - a1)] if a1 < i1 else [])
+
+
+def _chunk_bytes(chunks) -> np.ndarray:
+    return np.concatenate([np.arange(i, i + m) for i, m in chunks] or [np.zeros(0, int)])
+
+
+def model_fill(levels, patches, n_percentage, cluster, slots, base=0):
+    """revo_fill_levels on one lane's levels (numpy bool, level 0 first) as
+    its blocks run it: (levels 1 on after the fill-in, flags)."""
+    out, flags, parent = [], [], levels[0]
+    for lvl in range(1, len(levels)):
+        e = levels[lvl]
+        h, w = e.shape
+        p, pp = patches[lvl], patches[lvl - 1]
+        hc, wc = h // p, w // p
+        wcw = (wc + 31) // 32
+        thresh = np.float32(p * p * 0.05)
+        flat = e.reshape(-1)
+        bits = np.zeros((hc, wcw), np.int64)
+        seen = np.zeros(h * w, int)
+        nnz = 0
+        for k in range(cluster):
+            r0, r1 = hc * k // cluster, hc * (k + 1) // cluster
+            tc = min(wc, slots)
+            tr = max(slots // max(wc, 1), 1) if tc == wc else 1
+            for t0 in range(r0, r1, tr):
+                t1 = min(t0 + tr, r1)
+                for c0 in range(0, wc, tc):
+                    c1 = min(c0 + tc, wc)
+                    idx = _chunk_bytes(_fill_chunks(base, t0 * p * w, t1 * p * w))
+                    assert np.array_equal(idx, np.arange(t0 * p * w, t1 * p * w))
+                    y, x = np.divmod(idx, w)
+                    hit = flat[idx] & (x >= c0 * p) & (x < c1 * p)
+                    seen[idx[hit]] += 1
+                    counts = np.bincount(((y // p - t0) * tc + x // p - c0)[hit],
+                                         minlength=(t1 - t0) * tc)
+                    assert counts.size == (t1 - t0) * tc  # every slot inside the tile
+                    for rr in range(t1 - t0):
+                        for j in range(c0 // 32, (c1 + 31) // 32):
+                            bx = 32 * j + np.arange(32)
+                            cnt = np.where(bx < c1, counts[rr * tc + np.minimum(bx, c1 - 1) - c0],
+                                           0)
+                            sparse = (bx < c1) & (cnt.astype(np.float32) < thresh)
+                            bits[t0 + rr, j] = int((sparse << np.arange(32)).sum())
+                            nnz += int((cnt > 0).sum())
+        inside = np.zeros((h, w), bool)
+        inside[:hc * p, :wc * p] = True
+        np.testing.assert_array_equal(seen, (e & inside).reshape(-1))  # counted once each
+        with np.errstate(invalid="ignore"):
+            fill = bool(np.float32(nnz) / np.float32(hc * wc) < np.float32(n_percentage))
+        res = np.full(h * w, -1, np.int64)
+        ph, pw = parent.shape
+        for k in range(cluster):
+            idx = _chunk_bytes(_fill_chunks(base, h * k // cluster * w, h * (k + 1) // cluster * w))
+            assert (res[idx] == -1).all()  # written once
+            res[idx] = flat[idx]
+            if fill:
+                y, x = np.divmod(idx, w)
+                py, px = 2 * y + 1, 2 * x + 1
+                inpar = (py < ph) & (px < pw)
+                pb = np.zeros(idx.size, bool)
+                pb[inpar] = parent[py[inpar], px[inpar]]
+                by, bx = np.minimum(py // pp, hc - 1), np.minimum(px // pp, wc - 1)
+                bit = np.zeros(idx.size, bool)
+                bit[pb] = (bits[by[pb], bx[pb] >> 5] >> (bx[pb] & 31)) & 1
+                res[idx] |= pb & bit
+        assert (res >= 0).all()
+        e = res.reshape(h, w).astype(bool)
+        out.append(e)
+        flags.append(fill)
+        parent = e
+    return out, flags
+
+
+def jax_fill(levels, patches, n_percentage):
+    """JAX's build_frame fill-in (revo_tpu/frontend.py:99-110), one lane."""
+    out, flags, parent = [], [], jnp.asarray(levels[0])
+    for lvl in range(1, len(levels)):
+        edges = jnp.asarray(levels[lvl])
+        counts, occupancy = jhist.patch_histogram(edges, patches[lvl])
+        filled = jhist.fill_in_edges(edges, parent, counts, patches[lvl], patches[lvl - 1])
+        edges = jnp.where(occupancy < n_percentage, filled, edges)
+        out.append(np.asarray(edges))
+        flags.append(bool(occupancy < n_percentage))
+        parent = edges
+    return out, flags
+
+
+def fill_lanes(shape):
+    """Lanes of pyramid levels (3): Canny 60/20 and 150/100 of a synthetic
+    image's pyrDown levels, no edge, all edges, sparse random edges."""
+    img = synthetic_gray(*shape, seed=7)
+    sizes, grays = [shape], [img]
+    for _ in range(2):
+        grays.append(cv2.pyrDown(grays[-1]))
+        sizes.append(grays[-1].shape)
+    rng = np.random.default_rng(shape[0])
+    return [[cv2.Canny(g, hi, lo, apertureSize=3, L2gradient=True) > 0 for g in grays]
+            for hi, lo in ((60, 20), (150, 100))] + [
+        [np.zeros(s, bool) for s in sizes], [np.ones(s, bool) for s in sizes],
+        [rng.random(s) < d for s, d in zip(sizes, (0.05, 0.002, 0.004))]]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("cluster, slots, base", [(1, FILL_COUNTS_MAX, 0), (2, 32, 5),
+                                                  (4, 64, 0), (16, FILL_COUNTS_MAX, 11)])
+def test_fill_levels(shape, cluster, slots, base):
+    """The fill-in's blocks, tiles, bit map and chunks against JAX's
+    sequence and the plain version, lane by lane, for clusters of 1-16
+    blocks, count slots of 32 (tiles of part of a bin row), 64 and the most,
+    and lanes whose first byte is not 16-byte aligned.  Slots of 32 and 64
+    stand for FILL_COUNTS_MAX on levels whose bin rows pass it (the card's
+    tests reach those tiles with such levels)."""
+    patches, n_pct = (20, 10, 5), 0.3
+    lanes = fill_lanes(shape)
+    plain, plain_flags = thist.fill_in_levels_ref(
+        [torch.from_numpy(np.stack([lane[k] for lane in lanes])) for k in range(3)], patches,
+        n_pct)
+    filled = 0
+    for i, lane in enumerate(lanes):
+        got, flags = model_fill(lane, patches, n_pct, cluster, slots, base)
+        want, want_flags = jax_fill(lane, patches, n_pct)
+        assert flags == want_flags == plain_flags[i].tolist()
+        for g, w_, pl in zip(got, want, plain):
+            np.testing.assert_array_equal(g, w_)
+            np.testing.assert_array_equal(g, pl[i].numpy())
+        filled += sum(flags)
+    assert filled > 0
+
+
+def test_fill_levels_small_patches_and_long_rows():
+    """Patches of 1-3 pixels (a bin row wider than the count slots; bins of
+    the parent's patch that the child's lookup clamps) and more levels than
+    one launch takes, as the wrapper chains them: the model against JAX."""
+    rng = np.random.default_rng(3)
+    sizes = [(96, 200)]
+    while len(sizes) < FILL_MAX_LEVELS + 2:
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    patches = (3, 2, 1, 3, 2, 1, 1, 1, 1, 1)
+    levels = [rng.random(s) < d for s, d in zip(sizes, np.linspace(0.02, 0.4, len(sizes)))]
+    want, want_flags = jax_fill(levels, patches, 0.3)
+    got, flags = [], []
+    for s in range(0, len(levels) - 1, FILL_MAX_LEVELS - 1):
+        group = list(range(s, min(s + FILL_MAX_LEVELS, len(levels))))
+        first = levels[0] if s == 0 else got[s - 1]
+        g, f = model_fill([first] + [levels[i] for i in group[1:]],
+                          [patches[i] for i in group], 0.3, 4, 64, 3)
+        got += g
+        flags += f
+    assert flags == want_flags and any(flags) and not all(flags)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
+
+
 # -- routing ----------------------------------------------------------------------
 
 
@@ -1214,11 +1404,13 @@ def _wrappers(device):
         "backproject_edges": (tbp.backproject_edges,
                               lambda: tbp.backproject_edges(e, d, capacity=16, **CAM)),
         "pyramid": (tfilt.pyramid, lambda: tfilt.pyramid(d, d, 1.0, 2)),
+        "fill_in_levels": (thist.fill_in_levels,
+                           lambda: thist.fill_in_levels([e, e[:, :5, :6]], (2, 2), 0.3)),
     }
 
 
 @pytest.mark.parametrize("name", ["edt_columns_levels", "keyframe_rows", "keyframe_tables",
-                                  "backproject_edges", "pyramid"])
+                                  "backproject_edges", "pyramid", "fill_in_levels"])
 def test_routing(name):
     """A CPU tensor takes the plain version and counts no launch; a tensor
     on any other device than the CPU or a CUDA card raises, as do tensors
@@ -1228,7 +1420,7 @@ def test_routing(name):
     fn()
     assert counter.launches == before
     for other in (tedt.edt_columns_levels, tedt.keyframe_rows, tbp.backproject_edges,
-                  tfilt.pyramid):
+                  tfilt.pyramid, thist.fill_in_levels):
         assert other.launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         _wrappers("meta")[name][1]()

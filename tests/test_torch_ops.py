@@ -8,6 +8,8 @@ distances and correctly rounded roots), its structure and the dt sampler
 against jitted JAX; rtol 1e-6 / atol 1e-5 where a test also holds the EDT
 to OpenCV's; cloud points rtol 1e-6.
 """
+import dataclasses
+
 import cv2
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from revo_tpu_torch.ops.interp import bilinear_sample_dtquad as t_dtquad
 from revo_tpu_torch.ops.project import sqrt_rn
 
 from test_ops import synthetic_depth, synthetic_gray
+from test_torch_frontend_kernels import jax_fill
 
 torch.set_num_threads(1)
 
@@ -88,6 +91,78 @@ class TestEdgeHist:
             _t(child), _t(parent), _t(np.asarray(counts)), 10, 20).numpy()
         np.testing.assert_array_equal(got, want)
         assert got.sum() > child.sum()
+
+    @staticmethod
+    def _pyramid_edges(shape, seed, t_hi, t_lo):
+        """Canny edges of a synthetic image's pyrDown pyramid, 3 levels."""
+        img = synthetic_gray(*shape, seed=seed)
+        levels = []
+        for _ in range(3):
+            levels.append(cv2.Canny(img, t_hi, t_lo, apertureSize=3, L2gradient=True) > 0)
+            img = cv2.pyrDown(img)
+        return levels
+
+    @staticmethod
+    def _half_occupied():
+        """Level 1 (60x80, 10x10 patches) with an edge in 24 of its 48
+        patches: occupancy exactly 0.5; levels 0 and 2 dense."""
+        rng = np.random.default_rng(13)
+        child = np.zeros((60, 80), bool)
+        for k in rng.permutation(48)[:24]:
+            child[10 * (k // 8) + 4, 10 * (k % 8) + 6] = True
+        return [rng.random((120, 160)) < 0.2, child, rng.random((30, 40)) < 0.5]
+
+    @pytest.mark.parametrize("case", ["astra", "fr1", "ragged", "at_n_percentage",
+                                      "above_n_percentage", "no_edge_hist"])
+    def test_fill_in_levels_bit_equal(self, case):
+        """fill_in_levels' plain version (levels 1 on, each from the filled
+        level above; no level-0 histogram) against JAX's sequence, on lanes of
+        Astra-like (Canny 60/20) and fr1-like (150/100) edges, on a size of
+        no whole number of patches, at occupancy exactly n_percentage and
+        just above it; with use_edge_hist false the front end yields Canny's
+        edges at every level and records no fill-in."""
+        from revo_tpu_torch import frontend
+        from revo_tpu_torch.config import SystemConfig
+        from revo_tpu_torch.utils import trace
+
+        patches, n_pct = (20, 10, 5), 0.3
+        if case == "no_edge_hist":
+            cfg = SystemConfig()
+            cfg = dataclasses.replace(cfg, pyramid=dataclasses.replace(cfg.pyramid,
+                                                                       use_edge_hist=False))
+            gray = torch.from_numpy(np.stack([synthetic_gray(seed=s) for s in (1, 2)]))
+            trace.enable()
+            try:
+                out = list(frontend.edge_levels(gray, torch.ones(gray.shape), cfg))
+                assert trace.snapshot()["frontend.fill_in_share"] is None
+            finally:
+                trace.disable()
+            for _, _, edges_orig, edges in out:
+                assert edges is edges_orig
+            return
+        if case in ("astra", "fr1"):
+            t_hi, t_lo = (60, 20) if case == "astra" else (150, 100)
+            lanes = [self._pyramid_edges((120, 160), seed, t_hi, t_lo) for seed in (3, 6, 9)]
+        elif case == "ragged":
+            lanes = [self._pyramid_edges((123, 157), seed, 150, 100) for seed in (4, 5)]
+        else:
+            lanes = [self._half_occupied()]
+            n_pct = 0.5 if case == "at_n_percentage" else 0.50000006  # float32 just above
+        got, flags = thist.fill_in_levels(
+            [torch.from_numpy(np.stack([lv[k] for lv in lanes])) for k in range(3)], patches,
+            n_pct)
+        assert flags.shape == (len(lanes), 2) and flags.dtype == torch.bool
+        for i, lane_levels in enumerate(lanes):
+            want, want_flags = jax_fill(lane_levels, patches, n_pct)
+            assert flags[i].tolist() == want_flags
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g[i].numpy(), w)
+        if case == "at_n_percentage":
+            assert flags[0].tolist() == [False, False]
+        if case == "above_n_percentage":
+            assert flags[0, 0] and got[0][0].sum() > lanes[0][1].sum()
+        if case == "fr1":
+            assert flags.any()  # sparse levels are filled
 
 
 class TestEDT:
